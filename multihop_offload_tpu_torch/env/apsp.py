@@ -1,0 +1,67 @@
+"""All-pairs shortest paths as dense min-plus linear algebra, batched.
+
+Port of `multihop_offload_tpu/env/apsp.py` (dense layout).  The squarings
+run in `ops.minplus` (K2 on the card, the plain broadcast on the CPU); the
+greedy next-hop table breaks ties at the lowest neighbour index, exactly as
+the reference's forwarding rule and the JAX table do.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from multihop_offload_tpu_torch.ops.minplus import minplus_closure
+
+# elements of one (b, N, N, N) next-hop cost temp: batches are chunked to
+# stay under this (128 MB in float32)
+_NEXT_HOP_CHUNK_ELEMS = 1 << 25
+
+
+def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
+    """Shortest-path distances (B, N, N) from one-hop weights (inf where no
+    edge; the diagonal is forced to 0), with the early stop of the JAX
+    `apsp_minplus` (identical to the full ceil(log2(N-1)) schedule)."""
+    n = weights.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=weights.device)
+    d = torch.where(eye, torch.zeros((), dtype=weights.dtype,
+                                     device=weights.device), weights)
+    iters = max(1, math.ceil(math.log2(max(n - 1, 2))))
+    return minplus_closure(d.contiguous(), iters)
+
+
+def hop_matrix(adj: torch.Tensor) -> torch.Tensor:
+    """Unweighted shortest-path hop counts (B, N, N)."""
+    inf = torch.full((), float("inf"), dtype=adj.dtype, device=adj.device)
+    return apsp_minplus(torch.where(adj > 0, torch.ones_like(adj), inf))
+
+
+def weight_matrix_from_link_delays(
+    adj: torch.Tensor, link_index: torch.Tensor, link_delays: torch.Tensor
+) -> torch.Tensor:
+    """Scatter per-link delays (B, L) into (B, N, N) one-hop weights;
+    non-edges get +inf."""
+    b, n, _ = adj.shape
+    gathered = torch.gather(link_delays, 1,
+                            link_index.reshape(b, n * n).long()).view(b, n, n)
+    inf = torch.full((), float("inf"), dtype=gathered.dtype, device=adj.device)
+    return torch.where(adj > 0, gathered, inf)
+
+
+def next_hop_table(adj: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
+    """next_hop[b, u, d]: neighbour v of u minimizing sp[b, v, d], lowest v
+    on ties (and 0 where every candidate is +inf), as int32 (B, N, N).
+
+    The masked (N, N, N) argmin of the JAX table, chunked over the batch so
+    that the cost temp stays bounded; each chunk computes the same values."""
+    b, n, _ = adj.shape
+    out = torch.empty((b, n, n), dtype=torch.int32, device=adj.device)
+    step = max(1, _NEXT_HOP_CHUNK_ELEMS // max(n ** 3, 1))
+    inf = torch.full((), float("inf"), dtype=sp.dtype, device=sp.device)
+    for lo in range(0, b, step):
+        a, s = adj[lo:lo + step], sp[lo:lo + step]
+        # cost[b, u, v, d] = sp[b, v, d] if (u, v) is an edge else +inf
+        cost = torch.where((a > 0).unsqueeze(-1), s.unsqueeze(1), inf)
+        out[lo:lo + step] = torch.argmin(cost, dim=2).to(torch.int32)
+    return out

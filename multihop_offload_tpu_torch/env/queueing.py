@@ -1,0 +1,152 @@
+"""Contention-coupled M/M/1 queueing model — the empirical evaluator.
+
+Port of `multihop_offload_tpu/env/queueing.py` (dense layout, fp32/fp64
+identity precision): per-link arrival rates from the route incidence, the
+10-iteration interference fixed point (K1, `ops.fixed_point`), per-(link,
+job) delays with the congestion fallback, per-job server delays, and the
+(N, N) empirical unit-delay matrix with last-write-wins job order.
+
+Last write wins: the JAX dense path scans the jobs in order; here the
+winner of each link (node) is the highest job index among its writers, and
+its value is read from the same per-(link, job) table the scan reads —
+the same values from the same floating-point operations, with no loop over
+jobs.
+
+Sums of floats over jobs (`server_load`) scatter-add; on the card that is
+atomic and unordered, so card and CPU agree to rounding only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from multihop_offload_tpu_torch.ops.fixed_point import fixed_point
+
+
+@dataclasses.dataclass
+class EmpiricalDelays:
+    job_total: torch.Tensor    # (B, J) link + server delay per job (0 if padded)
+    job_link: torch.Tensor     # (B, J) transport component
+    job_server: torch.Tensor   # (B, J) compute component
+    congested: torch.Tensor    # (B, J) bool: total > T (real jobs only)
+    link_lambda: torch.Tensor  # (B, L) aggregate link arrival rates
+    link_mu: torch.Tensor      # (B, L) converged service rates
+    server_load: torch.Tensor  # (B, N) aggregate server arrival rates
+    unit_matrix: torch.Tensor  # (B, N, N) empirical unit delays (0 unwritten)
+    unit_mask: torch.Tensor    # (B, N, N) bool: entry written by some flow
+
+
+def interference_fixed_point(inst, link_lambda: torch.Tensor) -> torch.Tensor:
+    """Converged per-link service rates mu (B, L) under conflict coupling:
+    mu_0 = rate/(cf+1); 10x busy = clip(lambda/mu, 0, 1),
+    mu = rate/(1 + A_conflict @ busy)."""
+    dt = torch.promote_types(link_lambda.dtype, inst.link_rates.dtype)
+    return fixed_point(
+        inst.adj_conflict.to(dt).contiguous(), inst.link_rates.to(dt).contiguous(),
+        inst.cf_degs.to(dt).contiguous(), link_lambda.to(dt).contiguous(),
+    )
+
+
+def _highest_writer(written: torch.Tensor) -> torch.Tensor:
+    """Index of the last True along the last axis, -1 where none."""
+    idx = torch.arange(written.shape[-1], device=written.device)
+    return torch.where(written, idx, -1).amax(dim=-1)
+
+
+def run_empirical(inst, jobs, routes) -> EmpiricalDelays:
+    num_links = inst.num_pad_links
+    b, n, _ = inst.adj.shape
+    dev = inst.adj.device
+    dt = torch.promote_types(
+        torch.promote_types(routes.inc_ext.dtype, jobs.rate.dtype),
+        inst.link_rates.dtype)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    jmask = jobs.mask
+    ul = jobs.ul.to(dt)
+    dl = jobs.dl.to(dt)
+    nhop = routes.nhop.to(dt)
+    ul_rate = ul * jobs.rate.to(dt)
+    dl_rate = dl * jobs.rate.to(dt)
+    T = inst.T.to(dt)
+
+    inc = routes.inc_ext[:, :num_links].to(dt)                   # (B, L, J)
+    link_lambda = torch.matmul(inc, (ul_rate + dl_rate).unsqueeze(-1)).squeeze(-1)
+    dst = routes.dst.long()
+    server_load = torch.zeros((b, n), dtype=dt, device=dev).scatter_add_(
+        1, dst, torch.where(jmask, ul_rate, zero))
+
+    link_mu = interference_fixed_point(inst, link_lambda)
+
+    # per-(link, job) unit delay with per-job congestion fallback
+    slack = link_mu - link_lambda
+    congested_l = slack <= 0.0
+    safe_slack = torch.where(congested_l, torch.ones((), dtype=dt, device=dev),
+                             slack)
+    unit_ok = 1.0 / safe_slack
+    unit_cong = T[:, None, None] * link_lambda.unsqueeze(2) / (
+        (ul + dl).unsqueeze(1) * link_mu.unsqueeze(2))
+    unit_lj = torch.where(congested_l.unsqueeze(2), unit_cong,
+                          unit_ok.unsqueeze(2))                  # (B, L, J)
+    d_ul = torch.maximum(ul.unsqueeze(1) * unit_lj, nhop.unsqueeze(1))
+    d_dl = torch.maximum(dl.unsqueeze(1) * unit_lj, nhop.unsqueeze(1))
+    # untraversed (link, job) pairs may hold inf/NaN: mask, don't multiply
+    job_link = torch.where(inc > 0, d_ul + d_dl, zero).sum(dim=1)
+
+    # server component
+    bw = torch.gather(inst.proc_bws, 1, dst).to(dt)
+    sload = torch.gather(server_load, 1, dst)
+    s_slack = bw - sload
+    s_cong = s_slack <= 0.0
+    one = torch.ones((), dtype=dt, device=dev)
+    unit_s = torch.where(
+        s_cong,
+        T[:, None] * sload / (ul * torch.where(bw > 0, bw, one)),
+        1.0 / torch.where(s_cong, one, s_slack),
+    )
+    job_server = torch.clamp(ul * unit_s, min=1.0)
+
+    job_link = torch.where(jmask, job_link, zero)
+    job_server = torch.where(jmask, job_server, zero)
+    total = job_link + job_server
+
+    # ---- empirical unit-delay matrix, last-write-wins over job order -------
+    on_route = inc > 0                                           # (B, L, J)
+    jwin = _highest_writer(on_route)                             # (B, L)
+    link_written = jwin >= 0
+    u_link = torch.gather(unit_lj, 2, jwin.clamp_min(0).unsqueeze(2)).squeeze(2)
+    num_jobs = jmask.shape[1]
+    jidx = torch.arange(num_jobs, device=dev).expand(b, num_jobs)
+    nwin = torch.full((b, n), -1, dtype=torch.long, device=dev).scatter_reduce_(
+        1, dst, torch.where(jmask, jidx, -1), reduce="amax")
+    node_written = nwin >= 0
+    u_node = torch.gather(unit_s, 1, nwin.clamp_min(0))
+
+    u = inst.link_ends[..., 0].long()
+    v = inst.link_ends[..., 1].long()
+    vals = torch.where(link_written, u_link, zero)
+    # real links have u < v, so the (u, v) and (v, u) writes never overlap;
+    # padded links all land on (0, 0) with value 0, which the diagonal
+    # write below replaces
+    unit_matrix = torch.zeros((b, n * n), dtype=dt, device=dev)
+    unit_matrix.scatter_(1, u * n + v, vals)
+    unit_matrix.scatter_(1, v * n + u, torch.maximum(zero, vals))
+    diag = torch.arange(n, device=dev) * (n + 1)
+    unit_matrix[:, diag] = torch.where(node_written, u_node, zero)
+    unit_mask = torch.zeros((b, n * n), dtype=torch.bool, device=dev)
+    unit_mask.scatter_(1, u * n + v, link_written)
+    unit_mask.scatter_(1, v * n + u, link_written)
+    unit_mask[:, diag] = node_written
+
+    return EmpiricalDelays(
+        job_total=total,
+        job_link=job_link,
+        job_server=job_server,
+        congested=(total > T[:, None]) & jmask,
+        link_lambda=link_lambda,
+        link_mu=link_mu,
+        server_load=server_load,
+        unit_matrix=unit_matrix.view(b, n, n),
+        unit_mask=unit_mask.view(b, n, n),
+    )

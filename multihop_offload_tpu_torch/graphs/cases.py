@@ -1,0 +1,117 @@
+"""The committed workload: BA network cases and request batches built on them.
+
+`data/cases.npz` holds the cases that `cli/datagen.generate_dataset` of the
+JAX package writes (`scripts/export_torch_port_data.py` made the file), so no
+step of the port needs networkx or a download:
+
+* group ``paper``: ``size=2, seed0=500`` over n = 20, 30, ..., 110 (20 cases);
+* group ``rung256``: ``graph_sizes=[250], size=4, seed0=500`` (4 cases).
+
+Per case it stores the adjacency (uint8), the mean link rates in canonical
+link order, `nodes_info` (role, proc_bw) and the generator seed, in the
+sorted file-name order the drivers use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch.config import Config
+from multihop_offload_tpu_torch.graphs.instance import (
+    PadSpec,
+    build_instance,
+    build_jobset,
+    stack_instances,
+)
+from multihop_offload_tpu_torch.graphs.topology import (
+    Topology,
+    build_topology,
+    sample_link_rates,
+)
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
+CASES_PATH = os.path.join(DATA_DIR, "cases.npz")
+
+
+@dataclasses.dataclass
+class CaseRecord:
+    """One dataset case: topology + roles/resources, before padding."""
+
+    topo: Topology
+    roles: np.ndarray       # (n,) int32
+    proc_bws: np.ndarray    # (n,) float64
+    link_rates: np.ndarray  # (L,) float64 mean rates, canonical link order
+    seed: int
+    name: str
+
+    @property
+    def mobile_nodes(self) -> np.ndarray:
+        return np.flatnonzero(self.roles == 0)
+
+    @property
+    def sizes(self):
+        """(n, l, s, j_max) for PadSpec; j_max = mobile count."""
+        return (self.topo.n, self.topo.num_links,
+                int((self.roles == 1).sum()), self.mobile_nodes.size)
+
+
+def load_cases(group: str = "paper", path: str = CASES_PATH) -> list:
+    """The committed cases of `group` ('paper' or 'rung256'), in order."""
+    with np.load(path) as z:
+        names = [str(x) for x in z[f"{group}/names"]]
+        recs = []
+        for i, name in enumerate(names):
+            info = z[f"{group}/{i}/nodes_info"]
+            recs.append(CaseRecord(
+                topo=build_topology(z[f"{group}/{i}/adj"]),
+                roles=info[:, 0].astype(np.int32),
+                proc_bws=info[:, 1].astype(np.float64),
+                link_rates=z[f"{group}/{i}/link_rates"].astype(np.float64),
+                seed=int(z[f"{group}/{i}/seed"]),
+                name=name,
+            ))
+    return recs
+
+
+def request_batch(
+    cases,
+    per_network: int = 4,
+    seed: int = 0,
+    cfg: Config | None = None,
+    dtype=torch.float32,
+    device=None,
+):
+    """A batch of offloading requests: `per_network` job sets on each case.
+
+    Mirrors the JAX bench workload (`bench.py:159-173`): one realization of
+    the link rates per network, then per request a random 30-100% subset of
+    the mobile nodes as sources with rates ``cfg.arrival_scale *
+    U(0.1, 0.5)`` and data sizes ``cfg.ul_data`` / ``cfg.dl_data``, all drawn
+    from ``np.random.default_rng(seed)``; congestion scale ``cfg.T``.
+    Returns ``(inst, jobs, pad)`` with inst/jobs stacked to batch
+    ``len(cases) * per_network`` on `device` (default CUDA)."""
+    cfg = cfg or Config()
+    rng = np.random.default_rng(seed)
+    pad = PadSpec.for_cases([r.sizes for r in cases], round_to=8)
+    insts, jobsets = [], []
+    for rec in cases:
+        rates = sample_link_rates(rec.topo, rec.link_rates, rng=rng)
+        inst = build_instance(rec.topo, rec.roles, rec.proc_bws, rates,
+                              float(cfg.T), pad, dtype, device="cpu")
+        for _ in range(per_network):
+            mobile = rng.permutation(rec.mobile_nodes)
+            nj = int(rng.integers(max(int(0.3 * mobile.size), 1), mobile.size))
+            jobsets.append(build_jobset(
+                mobile[:nj], cfg.arrival_scale * rng.uniform(0.1, 0.5, nj),
+                pad_jobs=pad.j, ul=cfg.ul_data, dl=cfg.dl_data, dtype=dtype,
+                device="cpu",
+            ))
+            insts.append(inst)
+    dev = resolve_device(device)
+    return (stack_instances(insts).to(dev), stack_instances(jobsets).to(dev),
+            pad)

@@ -1,0 +1,87 @@
+"""K1: the conflict-interference fixed point, batched.
+
+Replaces `multihop_offload_tpu/ops/fixed_point.py:fixed_point_pallas` (the
+Pallas kernel `_fp_kernel`).  The CUDA kernel is `csrc/fixed_point.cu`; its
+source note says what bounds it on an H100 (bytes: one read of A) and how
+the design keeps A in shared memory as a bitmask for all ten iterations.
+
+`fixed_point` dispatches on the device of its operands: the plain PyTorch
+version for CPU tensors, the CUDA kernel for CUDA tensors, an error for
+anything else.  There is no fall back and no knob.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multihop_offload_tpu_torch.ops import _build
+
+# shared memory a block may use on the card (227 KB)
+_SMEM_BYTES = 232448
+
+
+def _smem_bytes(l: int) -> int:
+    """Shared memory of one block of `csrc/fixed_point.cu` (see
+    `mho_fixed_point_f32`): bitmask and partial sums, busy and mu.  It
+    caps L at 928."""
+    words = (l + 31) // 32
+    return 2 * l * (words | 1) * 4 + 2 * l * 4
+
+
+def fixed_point_plain(adj, rates, cf, lam, num_iters: int = 10):
+    """The update of `env/queueing.py:interference_fixed_point_raw`:
+    mu0 = rate/(cf+1), then `num_iters` x busy = clip(lam/mu, 0, 1),
+    mu = rate/(1 + A @ busy).  Any leading batch axes."""
+    mu = rates / (cf + 1.0)
+    for _ in range(num_iters):
+        busy = torch.clamp(lam / mu, 0.0, 1.0)
+        neighbor = torch.matmul(adj, busy.unsqueeze(-1)).squeeze(-1)
+        mu = rates / (1.0 + neighbor)
+    return mu
+
+
+def fixed_point_cuda(adj, rates, cf, lam, num_iters: int = 10):
+    """Launch `csrc/fixed_point.cu` once for the whole batch.
+
+    adj (B, L, L) with 0/1 entries; rates, cf, lam (B, L); float32,
+    contiguous, on one CUDA device.  Returns mu (B, L)."""
+    tensors = (adj, rates, cf, lam)
+    if adj.dim() != 3 or adj.shape[1] != adj.shape[2]:
+        raise ValueError(f"adj must be (B, L, L), got {tuple(adj.shape)}")
+    b, l, _ = adj.shape
+    for t in tensors:
+        if t.device != adj.device or t.device.type != "cuda":
+            raise ValueError("fixed_point_cuda: operands must share one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fixed_point_cuda takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("fixed_point_cuda takes contiguous tensors")
+    for t in tensors[1:]:
+        if tuple(t.shape) != (b, l):
+            raise ValueError(f"vector operands must be (B, L) = {(b, l)}, "
+                             f"got {tuple(t.shape)}")
+    if _smem_bytes(l) > _SMEM_BYTES:
+        raise ValueError(f"L={l} exceeds the kernel's shared-memory limit")
+    mu = torch.empty_like(rates)
+    if b == 0 or l == 0:
+        return mu
+    fn = _build.kernel("fixed_point")
+    with torch.cuda.device(adj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(adj.data_ptr(), rates.data_ptr(), cf.data_ptr(),
+                 lam.data_ptr(), mu.data_ptr(), b, l, num_iters, stream)
+    fixed_point_cuda.launches += 1
+    _build.check_launch("fixed_point", err)
+    return mu
+
+
+fixed_point_cuda.launches = 0
+
+
+def fixed_point(adj, rates, cf, lam, num_iters: int = 10):
+    """Converged mu (B, L): plain version on the CPU, K1 on CUDA."""
+    if adj.device.type == "cpu":
+        return fixed_point_plain(adj, rates, cf, lam, num_iters)
+    if adj.device.type == "cuda":
+        return fixed_point_cuda(adj, rates, cf, lam, num_iters)
+    raise ValueError(f"fixed_point: unsupported device {adj.device}")

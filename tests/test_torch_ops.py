@@ -1,0 +1,148 @@
+"""PyTorch port, ops/ and env/apsp.py: the plain versions of K1 and K2
+against the JAX package, in float64 on the CPU.
+
+K1 (fixed point) within 1e-12 relative of `fixed_point_pallas` (interpret
+mode) and `interference_fixed_point_raw`; K2 (min-plus APSP) bit-identical
+to `apsp_minplus_pallas` (interpret mode) and `apsp_minplus`; the next-hop
+table and hop counts exact.  The CUDA kernels themselves are held against
+these plain versions on the card (tests/test_torch_gpu.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multihop_offload_tpu.env import apsp as japsp
+from multihop_offload_tpu.env.queueing import interference_fixed_point_raw
+from multihop_offload_tpu.ops.fixed_point import fixed_point_pallas
+from multihop_offload_tpu.ops.minplus import apsp_minplus_pallas
+from multihop_offload_tpu_torch.env import apsp as tapsp
+from multihop_offload_tpu_torch.ops import fixed_point as tfp
+from multihop_offload_tpu_torch.ops import minplus as tmp
+
+
+def _conflict_batch(rng, b, l, p=0.1):
+    a = np.triu((rng.uniform(size=(b, l, l)) < p).astype(np.float64), 1)
+    a = a + np.swapaxes(a, 1, 2)
+    return (a, rng.uniform(30, 70, (b, l)).round(), a.sum(1),
+            rng.uniform(0, 60, (b, l)))
+
+
+def _weights(rng, b, n, p):
+    w = np.full((b, n, n), np.inf)
+    for k in range(b):
+        iu, ju = np.where(np.triu(rng.uniform(size=(n, n)) < p, 1))
+        vals = rng.uniform(0.1, 5.0, iu.size)
+        w[k, iu, ju] = w[k, ju, iu] = vals
+    return w
+
+
+@pytest.mark.parametrize("b,l", [(1, 24), (3, 72), (2, 130)])
+def test_fixed_point_plain_matches_jax(b, l):
+    rng = np.random.default_rng(l)
+    args = _conflict_batch(rng, b, l)
+    got = tfp.fixed_point(*map(torch.from_numpy, args)).numpy()
+    jargs = tuple(map(jnp.asarray, args))
+    pallas = np.asarray(fixed_point_pallas(*jargs, 10, True))
+    raw = np.asarray(interference_fixed_point_raw(*jargs, 10))
+    np.testing.assert_allclose(got, pallas, rtol=1e-12)
+    np.testing.assert_allclose(got, raw, rtol=1e-12)
+    # padded links (rate 1, cf 0, lambda 0, zero rows) stay inert: mu = 1
+    pad = [np.pad(x, ((0, 0), (0, 8)) + ((0, 8),) * (x.ndim - 2),
+                  constant_values=c) for x, c in zip(args, (0, 1, 0, 0))]
+    got_p = tfp.fixed_point(*map(torch.from_numpy, pad)).numpy()
+    np.testing.assert_array_equal(got_p[:, :l], got)
+    np.testing.assert_array_equal(got_p[:, l:], 1.0)
+
+
+@pytest.mark.parametrize("b,n,p", [(2, 30, 0.15), (3, 64, 0.06), (1, 150, 0.03)])
+def test_apsp_plain_bit_identical_to_jax(b, n, p):
+    rng = np.random.default_rng(n)
+    w = _weights(rng, b, n, p)
+    got = tapsp.apsp_minplus(torch.from_numpy(w)).numpy()
+    xla = np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w)))
+    pallas = np.asarray(apsp_minplus_pallas(jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got, pallas)
+    w32 = w.astype(np.float32)
+    got32 = tapsp.apsp_minplus(torch.from_numpy(w32)).numpy()
+    np.testing.assert_array_equal(
+        got32, np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w32))))
+
+
+def test_minplus_closure_early_stop_equals_full_schedule():
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(_weights(rng, 3, 40, 0.08))
+    d.diagonal(dim1=1, dim2=2).zero_()
+    full = d
+    for _ in range(6):
+        full = tmp.minplus_square_plain(full)
+    np.testing.assert_array_equal(tmp.minplus_closure(d, 6).numpy(), full.numpy())
+
+
+@pytest.mark.parametrize("n,seed", [(16, 1), (40, 2)])
+def test_next_hop_and_hops_exact(n, seed):
+    from multihop_offload_tpu.graphs import generators
+
+    rng = np.random.default_rng(seed)
+    adjs = np.stack([generators.barabasi_albert(n, m=2, seed=seed + k)[0]
+                     for k in range(3)]).astype(np.float64)
+    adjs[2, -3:, :] = adjs[2, :, -3:] = 0  # isolated nodes: all-inf rows
+    # integer weights make exact ties common; the lowest neighbour must win
+    w = np.where(adjs > 0, rng.integers(1, 4, adjs.shape).astype(np.float64), np.inf)
+    w = np.minimum(w, np.swapaxes(w, 1, 2))
+    sp = tapsp.apsp_minplus(torch.from_numpy(w))
+    jsp = jax.vmap(japsp.apsp_minplus)(jnp.asarray(w))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(jsp))
+    nh = tapsp.next_hop_table(torch.from_numpy(adjs), sp)
+    jnh = jax.vmap(japsp.next_hop_table)(jnp.asarray(adjs), jsp)
+    assert nh.dtype == torch.int32
+    np.testing.assert_array_equal(nh.numpy(), np.asarray(jnh))
+    np.testing.assert_array_equal(
+        tapsp.hop_matrix(torch.from_numpy(adjs)).numpy(),
+        np.asarray(jax.vmap(japsp.hop_matrix)(jnp.asarray(adjs))))
+
+
+def test_next_hop_chunking_is_invisible(monkeypatch):
+    rng = np.random.default_rng(3)
+    adj = torch.from_numpy((_weights(rng, 5, 20, 0.2) < np.inf).astype(np.float64))
+    sp = tapsp.apsp_minplus(torch.where(adj > 0, 1.0, float("inf")).double())
+    whole = tapsp.next_hop_table(adj, sp)
+    monkeypatch.setattr(tapsp, "_NEXT_HOP_CHUNK_ELEMS", 2 * 20 ** 3)
+    np.testing.assert_array_equal(tapsp.next_hop_table(adj, sp).numpy(),
+                                  whole.numpy())
+
+
+def test_weight_matrix_matches_jax():
+    from multihop_offload_tpu.graphs import generators
+
+    adj = generators.barabasi_albert(20, m=2, seed=4)[0].astype(np.float64)
+    iu, ju = np.nonzero(np.triu(adj, 1))
+    li = np.zeros((20, 20), dtype=np.int32)
+    li[iu, ju] = li[ju, iu] = np.arange(iu.size)
+    delays = np.random.default_rng(0).uniform(0.01, 1.0, (1, iu.size + 4))
+    got = tapsp.weight_matrix_from_link_delays(
+        torch.from_numpy(adj[None]), torch.from_numpy(li[None]),
+        torch.from_numpy(delays))
+    expect = japsp.weight_matrix_from_link_delays(
+        jnp.asarray(adj), jnp.asarray(li), jnp.asarray(delays[0]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(expect))
+
+
+def test_dispatch_refuses_other_devices_and_checks_operands():
+    d = torch.zeros((1, 4, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmp.minplus_closure(d, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfp.fixed_point(d, d[:, 0], d[:, 0], d[:, 0])
+    # the CUDA wrappers refuse CPU tensors before touching any kernel
+    before = (tfp.fixed_point_cuda.launches, tmp.minplus_closure_cuda.launches)
+    x = torch.zeros((1, 4, 4))
+    with pytest.raises(ValueError):
+        tmp.minplus_closure_cuda(x, 2)
+    with pytest.raises(ValueError):
+        tfp.fixed_point_cuda(x, x[:, 0], x[:, 0], x[:, 0])
+    assert (tfp.fixed_point_cuda.launches,
+            tmp.minplus_closure_cuda.launches) == before
