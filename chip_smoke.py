@@ -1,22 +1,42 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's offloading decision path on the card through the entry
-points a user calls (`train.driver.eval_methods`, `agent.policy.forward_env`)
-at the full width of the model of record (5 ChebConv layers, width 32) over
-the paper-scale batch: 16 committed BA networks (n = 20..110) x 4 job sets
-= 64 requests, plus the 4-network 256-node rung.  It
+Drives the port's two paths on the card through the entry points a user
+calls, at full width, over the paper-scale batch: 16 committed BA networks
+(n = 20..110) x 4 job sets = 64 requests or episodes, plus the 4-network
+256-node rung.
+
+- Slice 1, the decision path: `train.driver.eval_methods` and
+  `agent.policy.forward_env` with the model of record (K=1, 5 ChebConv
+  layers, width 32), dense layout: kernels K1 and K2.
+- Slice 2, the training step: `train.driver.train_step` (batched
+  `forward_backward`, gradient replay, Adam) with SPECTRAL_K2 (K=2,
+  5 layers, width 32) on the sparse layout: kernels K1, K4 and K6.
+
+It
 
 1. prints the card, its power limit and the software versions;
 2. builds the CUDA kernels from `multihop_offload_tpu_torch/csrc/` and
    prints the build time and ptxas' register / shared-memory / spill lines;
 3. holds each kernel against its plain PyTorch version on the same card
-   tensors at the main path's shapes (K2 bit-identical, K1 <= 1e-5 relative);
-4. runs the main path with every launch count set to 0 and fails unless
-   both kernels launched; checks card against CPU (float32, plain versions):
-   baseline and local `dst` identical, GNN `dst` agreement >= 0.99,
-   `job_total` within rtol 1e-4 on every request whose decisions all agree;
-5. times each kernel, its plain version and the path with CUDA events;
-6. prints the kernels line, then the `{"ok": true, ...}` line last.
+   tensors at the main paths' shapes: K2 and K6 bit-identical, K1 <= 1e-5
+   relative, K4 forward and backward within the scaled 4.5e-7 bar of the
+   JAX package (max |kernel - plain| / max(1, max |plain|)), at F = 4
+   and 32;
+4. drives each path with every launch count set to 0 just before it and
+   read just after, and fails unless each of its kernels launched:
+   `eval_methods` (K1, K2); three sparse `train_step`s (K1, K4, K6; the
+   parameters must change and the losses be finite); one dense
+   `forward_backward` with the model of record (K1, K2);
+5. checks card against CPU (float32, plain versions): baseline and local
+   `dst` identical, GNN `dst` agreement >= 0.99, `job_total` within rtol
+   1e-4 on every request whose decisions all agree, for the dense
+   decision path and for `eval_methods(layout="sparse")` with SPECTRAL_K2;
+   for the sparse `forward_backward` at explore=0, `dst` agreement >= 0.99
+   and, on episodes whose decisions all agree, `loss_critic` within rtol
+   1e-4 and the per-episode gradient's cosine to the CPU's >= 0.999;
+6. times each kernel, its plain version, its bound and a library call with
+   CUDA events, and the paths on the host clock; peak memory;
+7. prints the kernels line, then the `{"ok": true, ...}` line last.
 
 Any failure raises, so the exit code is not 0 and no result line appears.
 
@@ -44,6 +64,7 @@ PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_FP32_INSTR_PER_S = PEAK_FP32_FLOP_PER_S / 2
 MODEL_K1 = "SCRATCH800_decay0.99"
 MODEL_K2 = "SPECTRAL_K2"
+CHEB_SCALED_TOL = 4.5e-7  # the JAX package's bar for the fused propagate
 
 
 def log(msg: str) -> None:
@@ -150,16 +171,20 @@ def kernel_phase(batches) -> dict:
 
 
 def reset_counts():
+    from multihop_offload_tpu_torch.ops import chebconv as cc
     from multihop_offload_tpu_torch.ops import fixed_point as fp
     from multihop_offload_tpu_torch.ops import minplus as mp
 
     fp.fixed_point_cuda.launches = 0
     mp.minplus_closure_cuda.launches = 0
+    cc.chebconv_propagate_cuda.launches = 0
+    mp.apsp_coo_cuda.launches = 0
     if mp.minplus_closure_cuda.executed is not None:
         mp.minplus_closure_cuda.executed.zero_()
 
 
 def read_counts() -> dict:
+    from multihop_offload_tpu_torch.ops import chebconv as cc
     from multihop_offload_tpu_torch.ops import fixed_point as fp
     from multihop_offload_tpu_torch.ops import minplus as mp
 
@@ -167,18 +192,79 @@ def read_counts() -> dict:
     ex = mp.minplus_closure_cuda.executed
     return {"fixed_point": fp.fixed_point_cuda.launches,
             "minplus": mp.minplus_closure_cuda.launches,
-            "squarings": 0 if ex is None else int(ex)}
+            "squarings": 0 if ex is None else int(ex),
+            "chebconv": cc.chebconv_propagate_cuda.launches,
+            "coo_apsp": mp.apsp_coo_cuda.launches}
 
 
-def outcomes(model, inst, jobs, device):
+def scaled_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|): the JAX package's scaled bar."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+
+
+def sparse_kernel_phase(batches, dev) -> dict:
+    """K4 (forward and backward, F = 4 and 32) and K6 against their plain
+    versions on the same card tensors, at the sparse path's shapes."""
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+    from multihop_offload_tpu_torch.ops import chebconv as cc
+    from multihop_offload_tpu_torch.ops import minplus as mp
+
+    errs = {}
+    for tag, inst in batches.items():
+        support = sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
+                                           csr=inst.sparse.ext_csr)
+        e_ = support.edges
+        b, e = support.diag.shape
+        gen = torch.Generator(device=dev).manual_seed(0)
+        worst = 0.0
+        for f in (4, 32):
+            x = torch.randn((b, e, f), generator=gen, device=dev).mul_(10.0)
+            g = torch.randn((b, e, f), generator=gen, device=dev)
+            xk = x.clone().requires_grad_()
+            out = cc.chebconv_propagate(support, xk)
+            (dx,) = torch.autograd.grad(out, xk, g)
+            xp = x.clone().requires_grad_()
+            ref = cc.chebconv_propagate_plain(e_.rows, e_.cols, e_.vals, support.diag, xp)
+            (dx_ref,) = torch.autograd.grad(ref, xp, g)
+            fwd, bwd = scaled_err(out, ref), scaled_err(dx, dx_ref)
+            log(f"K4 chebconv {tag} B,E,F={(b, e, f)} nnz pad {e_.rows.shape[1]}: "
+                f"forward scaled err {fwd:.3e}, backward {bwd:.3e} vs plain "
+                f"(bar {CHEB_SCALED_TOL})")
+            if not (fwd <= CHEB_SCALED_TOL and bwd <= CHEB_SCALED_TOL):
+                raise AssertionError(f"K4 {tag} F={f}: scaled errors {fwd}, {bwd}")
+            worst = max(worst, (out - ref).abs().max().item(), (dx - dx_ref).abs().max().item())
+        n = inst.num_pad_nodes
+        for which, delays in (("baseline", 1.0 / inst.link_rates),
+                              ("noisy", 1.0 / (inst.link_rates * torch.rand(
+                                  inst.link_rates.shape, generator=gen, device=dev).add_(0.5)))):
+            got = mp.apsp_coo_cuda(inst.link_ends, inst.link_mask, delays.contiguous(), n)
+            ref = mp.apsp_coo_plain(inst.link_ends, inst.link_mask, delays, n)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise AssertionError(f"K6 {tag} {which}: {bad} entries differ")
+        log(f"K6 coo_apsp {tag} B,N={(b, n)}: bit-identical to the plain chain "
+            f"(bar: torch.equal)")
+        errs[tag] = {"chebconv": worst, "coo_apsp": 0.0}
+    return errs
+
+
+def episode_cosines(card: dict, cpu: dict) -> torch.Tensor:
+    """(B,) cosine of each episode's flattened gradient, card vs CPU."""
+    a = torch.cat([g.cpu().flatten(1) for g in card.values()], dim=1).double()
+    b = torch.cat([g.flatten(1) for g in cpu.values()], dim=1).double()
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-300)
+
+
+def outcomes(model, inst, jobs, device, layout=None):
     from multihop_offload_tpu_torch.agent.policy import forward_env
     from multihop_offload_tpu_torch.env.policies import baseline_policy, local_policy
 
     with torch.no_grad():
         inst, jobs = inst.to(device), jobs.to(device)
-        return {"baseline": baseline_policy(inst, jobs),
-                "local": local_policy(inst, jobs),
-                "gnn": forward_env(model, inst, jobs, device=device)[0]}
+        return {"baseline": baseline_policy(inst, jobs, layout=layout),
+                "local": local_policy(inst, jobs, layout=layout),
+                "gnn": forward_env(model, inst, jobs, device=device, layout=layout)[0]}
 
 
 def compare(tag, card: dict, cpu: dict, mask: torch.Tensor) -> None:
@@ -217,7 +303,8 @@ def main() -> int:
     from multihop_offload_tpu_torch.models.chebconv import load_model
     from multihop_offload_tpu_torch.ops import fixed_point as fp
     from multihop_offload_tpu_torch.ops import minplus as mp
-    from multihop_offload_tpu_torch.train.driver import eval_methods
+    from multihop_offload_tpu_torch.agent.train_step import forward_backward
+    from multihop_offload_tpu_torch.train.driver import eval_methods, train_init, train_step
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -239,10 +326,20 @@ def main() -> int:
     log(f"paper batch: B={inst.adj.shape[0]} {pad}; "
         f"rung256 batch: B={rung_inst.adj.shape[0]} {rung_pad}; "
         f"real jobs {int(jobs.mask.sum())} / {int(rung_jobs.mask.sum())}")
+    # the same requests on the sparse layout (nnz pads sized from the data)
+    sp_inst_cpu, sp_jobs_cpu, sp_pad = request_batch(paper, 4, seed=0, cfg=cfg,
+                                                     device="cpu", layout="sparse")
+    sp_rung_cpu, sp_rung_jobs_cpu, sp_rung_pad = request_batch(
+        load_cases("rung256"), 1, seed=0, cfg=cfg, device="cpu", layout="sparse")
+    sp_inst, sp_jobs = sp_inst_cpu.to(dev), sp_jobs_cpu.to(dev)
+    sp_rung, sp_rung_jobs = sp_rung_cpu.to(dev), sp_rung_jobs_cpu.to(dev)
+    sp_model_cpu = load_model(MODEL_K2, device="cpu", layout="sparse")
+    log(f"sparse layout: paper {sp_pad}, rung256 {sp_rung_pad}")
 
     # ---- kernel phase -------------------------------------------------------
     errs = kernel_phase({"paper": (model, inst, jobs),
                          "rung256": (model, rung_inst, rung_jobs)})
+    errs_sp = sparse_kernel_phase({"paper": sp_inst, "rung256": sp_rung}, dev)
 
     # ---- main path: counts at 0 just before, read just after ----------------
     reset_counts()
@@ -270,6 +367,70 @@ def main() -> int:
     compare("rung256", outcomes(model, rung_inst, rung_jobs, dev),
             outcomes(model_cpu, rung_inst_cpu, rung_jobs_cpu, "cpu"),
             rung_jobs_cpu.mask)
+
+    # ---- slice 2 main path: the sparse training step ------------------------
+    tcfg = Config(arrival_scale=0.15, layout="sparse", cheb_k=2)
+    sp_model = load_model(MODEL_K2, device=dev, layout="sparse")
+    state = train_init(sp_model, tcfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = [p.detach().clone() for p in sp_model.parameters()]
+    reset_counts()
+    reports = [train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen)
+               for _ in range(3)]
+    train_counts = read_counts()
+    log(f"main path train_step x3 (sparse, {MODEL_K2}, B={sp_inst.adj.shape[0]}, "
+        f"replay batch {tcfg.batch}): launches {train_counts}; replayed "
+        f"{[r.replayed for r in reports]}; replay loss "
+        f"{[round(float(r.replay_loss), 4) for r in reports]}; skipped "
+        f"{[int(r.skipped) for r in reports]}")
+    for key in ("fixed_point", "chebconv", "coo_apsp"):
+        if train_counts[key] == 0:
+            raise AssertionError(f"kernel {key} did not launch in train_step: {train_counts}")
+    if not all(torch.isfinite(r.loss_critic).all() and torch.isfinite(r.loss_mse).all()
+               for r in reports):
+        raise AssertionError("train_step: non-finite losses")
+    if not any(r.replayed for r in reports) or all(
+            torch.equal(a, b) for a, b in zip(before, sp_model.parameters())):
+        raise AssertionError("train_step: the parameters did not change")
+
+    # ---- dense forward_backward with the model of record --------------------
+    reset_counts()
+    dense_fb = forward_backward(model, inst, jobs)
+    fb_counts = read_counts()
+    log(f"dense forward_backward ({MODEL_K1}, B={inst.adj.shape[0]}): launches {fb_counts}")
+    if fb_counts["fixed_point"] == 0 or fb_counts["minplus"] == 0:
+        raise AssertionError(f"a kernel did not launch in forward_backward: {fb_counts}")
+    if not all(torch.isfinite(g).all() for g in dense_fb.grads.values()):
+        raise AssertionError("dense forward_backward: non-finite gradients")
+
+    # ---- slice 2 checks: card vs CPU (float32, plain versions) ---------------
+    sp_model_k2 = load_model(MODEL_K2, device=dev, layout="sparse")
+    fb_card = forward_backward(sp_model_k2, sp_inst, sp_jobs, layout="sparse")
+    fb_cpu = forward_backward(sp_model_cpu, sp_inst_cpu, sp_jobs_cpu, layout="sparse",
+                              device="cpu")
+    m = sp_jobs_cpu.mask
+    differ = (fb_card.dst.cpu() != fb_cpu.dst) & m
+    agree = 1.0 - int(differ.sum()) / int(m.sum())
+    same = ~differ.any(dim=1)
+    lc_rel = ((fb_card.loss_critic.cpu() - fb_cpu.loss_critic).abs()
+              / fb_cpu.loss_critic.abs())[same]
+    cos = episode_cosines(fb_card.grads, fb_cpu.grads)[same]
+    log(f"sparse forward_backward card vs CPU: dst agreement {agree:.4f} "
+        f"({int(differ.sum())} of {int(m.sum())} jobs differ); over {int(same.sum())} "
+        f"episodes with equal decisions: loss_critic max rel err "
+        f"{lc_rel.max().item():.3e} (bar 1e-4), gradient cosine min "
+        f"{cos.min().item():.7f} (bar 0.999)")
+    if agree < 0.99 or not lc_rel.max().item() <= 1e-4 or not cos.min().item() >= 0.999:
+        raise AssertionError("sparse forward_backward: card disagrees with the CPU")
+    sp_card = outcomes(sp_model_k2, sp_inst, sp_jobs, dev, layout="sparse")
+    sp_cpu = outcomes(sp_model_cpu, sp_inst_cpu, sp_jobs_cpu, "cpu", layout="sparse")
+    compare("paper-sparse-K2", sp_card, sp_cpu, m)
+    sp_eval = eval_methods(sp_model_k2, sp_inst, sp_jobs, layout="sparse")
+    for name, tot in zip(("baseline", "local", "gnn"), sp_eval):
+        ref = sp_cpu[name]
+        same = ~((sp_card[name].decision.dst.cpu() != ref.decision.dst) & m).any(dim=1)
+        torch.testing.assert_close(tot.cpu()[same], ref.job_total[same], rtol=1e-4,
+                                   atol=0, msg=f"sparse eval_methods {name}")
 
     # ---- timing -------------------------------------------------------------
     d, iters, fp_args = kernel_inputs(model, inst, jobs)
@@ -307,8 +468,97 @@ def main() -> int:
         f"rung256 eval_methods {rung_ms:.2f} ms per batch of "
         f"{rung_inst.adj.shape[0]}; peak memory {peak / 2**20:.1f} MiB "
         f"(max_memory_allocated, paper batch)")
+
+    # ---- slice 2 timing ------------------------------------------------------
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+    from multihop_offload_tpu_torch.models.chebconv import chebyshev_support
+    from multihop_offload_tpu_torch.ops import chebconv as cc
+
+    support = sparse_chebyshev_support(sp_inst.sparse.ext, mask=sp_inst.ext_mask,
+                                       csr=sp_inst.sparse.ext_csr)
+    e_, csr = support.edges, support.csr
+    sb, se = support.diag.shape
+    nnz_pad = e_.rows.shape[1]
+    real = int((e_.vals != 0).sum())  # the entries this run's supports hold
+    # the library's yardsticks for the same function: one sparse product on
+    # the block-diagonal batch support (diagonal merged in), and the dense
+    # layout's batched product with the (B, E, E) support
+    off = (torch.arange(sb, device=dev) * se).unsqueeze(1)
+    keep = e_.vals != 0
+    diag_ids = torch.arange(sb * se, device=dev)
+    block = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([(e_.rows.long() + off)[keep], diag_ids]),
+                     torch.cat([(e_.cols.long() + off)[keep], diag_ids])]),
+        torch.cat([e_.vals[keep], support.diag.reshape(-1)]),
+        (sb * se, sb * se)).coalesce().to_sparse_csr()
+    dense_support = chebyshev_support(inst.adj_ext, inst.ext_mask).contiguous()
+    k4 = {}
+    for f in (4, 32):
+        x = torch.randn((sb, se, f), generator=gen, device=dev)
+        k4_ms = cuda_ms(lambda: cc.chebconv_propagate_cuda(
+            csr.row_ptr, None, e_.cols, e_.vals, support.diag, x), 200)
+        # the backward's launch: the transposed walk through col_order
+        k4_bwd = cuda_ms(lambda: cc.chebconv_propagate_cuda(
+            csr.col_ptr, csr.col_order, e_.rows, e_.vals, support.diag, x), 200)
+        k4_plain = cuda_ms(lambda: cc.chebconv_propagate_plain(
+            e_.rows, e_.cols, e_.vals, support.diag, x), 50)
+        k4_lib = cuda_ms(lambda: torch.sparse.mm(block, x.view(sb * se, f)), 50)
+        k4_bmm = cuda_ms(lambda: torch.bmm(dense_support, x), 50)
+        # bytes: each real (row, col, val) entry, diag, x and out once; the
+        # operations (a multiply-add per entry and feature) are far below
+        k4_bytes = (real * 12 + sb * se * 4 + 2 * sb * se * f * 4) / PEAK_BYTES_PER_S * 1e3
+        k4_ops = 2.0 * (real + sb * se) * f / PEAK_FP32_FLOP_PER_S * 1e3
+        k4[f] = {"ms": k4_ms, "backward_ms": k4_bwd, "plain_ms": k4_plain,
+                 "library_ms": k4_lib,
+                 "dense_bmm_ms": k4_bmm, "bound_ms": max(k4_bytes, k4_ops),
+                 "bound_by": "bytes" if k4_bytes >= k4_ops else "operations"}
+    n6 = sp_inst.num_pad_nodes
+    l6 = sp_inst.num_pad_links
+    d6 = (1.0 / sp_inst.link_rates).contiguous()
+    args6 = (sp_inst.link_ends, sp_inst.link_mask, d6, n6)
+    before6 = read_counts()["squarings"]
+    mp.apsp_coo_cuda(*args6)
+    sq6 = read_counts()["squarings"] - before6
+    k6_ms = cuda_ms(lambda: mp.apsp_coo_cuda(*args6), 50)
+    k6_plain = cuda_ms(lambda: mp.apsp_coo_plain(*args6), 5)
+    k6_ops = 2.0 * n6 ** 3 * sq6 / PEAK_FP32_INSTR_PER_S * 1e3
+    k6_bytes = sb * (l6 * 13 + n6 * n6 * 4) / PEAK_BYTES_PER_S * 1e3
+    rung_args6 = (sp_rung.link_ends, sp_rung.link_mask,
+                  (1.0 / sp_rung.link_rates).contiguous(), sp_rung.num_pad_nodes)
+    k6_rung_ms = cuda_ms(lambda: mp.apsp_coo_cuda(*rung_args6), 20)
+    # the paths on the host clock
+    fb_ms = wall_ms(lambda: forward_backward(sp_model_k2, sp_inst, sp_jobs,
+                                             layout="sparse"), 5)
+    ts_ms = wall_ms(lambda: train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen), 5)
+    rung_fb_ms = wall_ms(lambda: forward_backward(sp_model_k2, sp_rung, sp_rung_jobs,
+                                                  layout="sparse"), 3)
+    dense_fb_ms = wall_ms(lambda: forward_backward(model, inst, jobs), 5)
+    torch.cuda.reset_peak_memory_stats()
+    train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen)
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    for f, t in k4.items():
+        log(f"timing on {card['smi']}: K4 chebconv B,E,F={(sb, se, f)} "
+            f"({real} real of {sb * nnz_pad} padded entries) {t['ms']:.4f} ms per "
+            f"launch (transposed, as the backward launches it: "
+            f"{t['backward_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), torch.sparse.mm "
+            f"{t['library_ms']:.4f} ms, dense torch.bmm {t['dense_bmm_ms']:.4f} ms")
+    log(f"timing: K6 coo_apsp (build + K2) B,N={(sb, n6)} {k6_ms:.4f} ms per call "
+        f"({sq6} squarings run), plain {k6_plain:.4f} ms, bound {max(k6_ops, k6_bytes):.4f} "
+        f"ms; rung256 B,N={(sp_rung.adj.shape[0], sp_rung.num_pad_nodes)} "
+        f"{k6_rung_ms:.4f} ms per call")
+    log(f"sparse forward_backward {fb_ms:.2f} ms per batch of {sb} episodes "
+        f"({sb / fb_ms * 1e3:.1f} episodes/s); train_step {ts_ms:.2f} ms "
+        f"({sb / ts_ms * 1e3:.1f} episodes/s, replay of {tcfg.batch} included); "
+        f"rung256 sparse forward_backward {rung_fb_ms:.2f} ms per batch of "
+        f"{sp_rung.adj.shape[0]}; dense forward_backward ({MODEL_K1}) "
+        f"{dense_fb_ms:.2f} ms; peak memory {train_peak / 2**20:.1f} MiB "
+        f"(max_memory_allocated, train_step)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    by_path = {"eval_methods": counts, "train_step": train_counts,
+               "forward_backward_dense": fb_counts}
     kernels = [
         {"name": "fixed_point", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/fixed_point.cu",
@@ -318,7 +568,8 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": max(k1_bytes_ms, k1_ops_ms),
          "bound_by": "bytes" if k1_bytes_ms >= k1_ops_ms else "operations",
-         "library_ms": None, "shape": [b, l]},
+         "library_ms": None, "shape": [b, l],
+         "launches_by_path": {k: v["fixed_point"] for k, v in by_path.items()}},
         {"name": "minplus_squaring", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/minplus.cu",
          "replaces": "multihop_offload_tpu/ops/minplus.py:88",
@@ -329,7 +580,26 @@ def main() -> int:
          "bound_by": "operations" if k2_bound_ms >= k2_bytes_ms else "bytes",
          "library_ms": None, "shape": [b, n],
          "launches_per_call": iters, "ms_per_launch": k2_ms / iters,
-         "squarings_per_call": sq_per_call},
+         "squarings_per_call": sq_per_call,
+         "launches_by_path": {k: v["minplus"] for k, v in by_path.items()}},
+        {"name": "chebconv_propagate", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/chebconv.cu",
+         "replaces": "multihop_offload_tpu/ops/chebconv.py:162",
+         "launches": train_counts["chebconv"],
+         "max_abs_err": errs_sp["paper"]["chebconv"],
+         **k4[32], "shape": [sb, se, 32], "nnz_real": real, "nnz_pad": nnz_pad,
+         "f4": k4[4],
+         "launches_by_path": {k: v["chebconv"] for k, v in by_path.items()}},
+        {"name": "coo_apsp", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/coo_apsp.cu",
+         "replaces": "multihop_offload_tpu/ops/minplus.py:487",
+         "launches": train_counts["coo_apsp"],
+         "max_abs_err": errs_sp["paper"]["coo_apsp"],
+         "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": max(k6_ops, k6_bytes),
+         "bound_by": "operations" if k6_ops >= k6_bytes else "bytes",
+         "library_ms": None, "shape": [sb, n6], "squarings_per_call": sq6,
+         "rung_ms": k6_rung_ms,
+         "launches_by_path": {k: v["coo_apsp"] for k, v in by_path.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

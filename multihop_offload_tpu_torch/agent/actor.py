@@ -1,10 +1,12 @@
 """Actor forward pass: GNN arrival-rate prediction -> unit-delay matrix.
 
-Port of `multihop_offload_tpu/agent/actor.py` (dense layout): extended-line-
-graph features, the ChebNet's per-slot arrival rates, the interference fixed
+Port of `multihop_offload_tpu/agent/actor.py`: extended-line-graph
+features, the ChebNet's per-slot arrival rates, the interference fixed
 point (K1), unit delays with the congestion substitution, and the (N, N)
 delay matrix (link delays off the diagonal, compute delays on it, +inf for
-relays).  Batched over the leading axis B.
+relays).  Batched over the leading axis B, and differentiable: the training
+step pulls its cotangent back through it (`agent.train_step`).  Under the
+sparse layout the support is the edge-list `SparseSupport` (`:57-75`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,11 @@ import dataclasses
 import torch
 
 from multihop_offload_tpu_torch.env.queueing import interference_fixed_point
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.layouts.sparse import (
+    SparseSupport,
+    sparse_chebyshev_support,
+)
 from multihop_offload_tpu_torch.models.chebconv import chebyshev_support
 
 
@@ -25,9 +32,17 @@ class ActorOutput:
     lam: torch.Tensor           # (B, E) masked GNN output
 
 
-def default_support(model, inst) -> torch.Tensor:
+def default_support(model, inst, layout=None):
     """k=1: the raw extended adjacency (unused by a K=1 layer); k>=2: the
-    masked rescaled Laplacian."""
+    masked rescaled Laplacian.  Under the sparse layout (with a sparse-built
+    Instance) both in edge-list form, a `SparseSupport` carrying the
+    list's CSR index for K4."""
+    if resolve_layout(layout).sparse and inst.sparse is not None:
+        ext, csr = inst.sparse.ext, inst.sparse.ext_csr
+        if model.k >= 2:
+            return sparse_chebyshev_support(ext, mask=inst.ext_mask, csr=csr)
+        return SparseSupport(edges=ext, diag=torch.zeros(
+            inst.ext_mask.shape, dtype=ext.vals.dtype, device=ext.vals.device), csr=csr)
     if model.k >= 2:
         return chebyshev_support(inst.adj_ext, inst.ext_mask)
     return inst.adj_ext
@@ -76,12 +91,13 @@ def lambdas_to_delay_matrix(inst, lam: torch.Tensor) -> ActorOutput:
     v = inst.link_ends[..., 1].long()
     masked = torch.where(inst.link_mask, link_delay, zero)
     # padded links all write 0 to (0, 0), which the diagonal write replaces
-    dmtx = torch.zeros((b, n * n), dtype=lam.dtype, device=dev)
-    dmtx.scatter_(1, u * n + v, masked)
-    dmtx.scatter_(1, v * n + u, masked)
+    # (out-of-place scatters: autograd pulls back through each)
     inf = torch.full((), float("inf"), dtype=lam.dtype, device=dev)
-    dmtx[:, torch.arange(n, device=dev) * (n + 1)] = torch.where(
-        inst.comp_mask, node_delay, inf)
+    diag = (torch.arange(n, device=dev) * (n + 1)).expand(b, n)
+    dmtx = torch.zeros((b, n * n), dtype=lam.dtype, device=dev) \
+        .scatter(1, u * n + v, masked) \
+        .scatter(1, v * n + u, masked) \
+        .scatter(1, diag, torch.where(inst.comp_mask, node_delay, inf))
     return ActorOutput(delay_matrix=dmtx.view(b, n, n), link_delay=link_delay,
                        node_delay=node_delay, lam=lam)
 
@@ -98,7 +114,13 @@ def compat_cycled_diagonal(inst, node_delay: torch.Tensor) -> torch.Tensor:
     return torch.gather(node_delay, 1, cyc)
 
 
-def actor_delay_matrix(model, inst, jobs, support: torch.Tensor) -> ActorOutput:
+def actor_delay_matrix(model, inst, jobs, support, params: dict | None = None) -> ActorOutput:
+    """The actor on a batch; `params` (name -> tensor, as
+    `model.named_parameters()` names them) replace the module's own, e.g.
+    per-episode copies with a leading batch axis."""
     feats = build_ext_features(inst, jobs)
-    lam = model(feats, support)[..., 0]
+    if params is None:
+        lam = model(feats, support)[..., 0]
+    else:
+        lam = torch.func.functional_call(model, params, (feats, support))[..., 0]
     return lambdas_to_delay_matrix(inst, lam)

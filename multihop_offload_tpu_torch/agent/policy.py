@@ -2,7 +2,11 @@
 
 Port of `multihop_offload_tpu/agent/policy.py:forward_env`: actor forward ->
 shortest paths over the predicted delays -> greedy offloading -> empirical
-evaluation, for a batch of requests in one pass.
+evaluation, for a batch of requests in one pass.  Under `layout="sparse"`
+the model must carry the sparse `propagate` (`make_model(cfg, layout)`,
+`load_model(..., layout=)`), and the decision path reads the node diagonal
+straight from the node delays (`policy.py:50-53`), bit-identical to the
+dense diagonal read.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch._phases import phase
 from multihop_offload_tpu_torch.agent.actor import (
     ActorOutput,
     actor_delay_matrix,
@@ -20,6 +25,7 @@ from multihop_offload_tpu_torch.env.policies import (
     PolicyOutcome,
     evaluate_spmatrix_policy,
 )
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 
 
 @torch.no_grad()
@@ -32,18 +38,24 @@ def forward_env(
     prob: bool = False,
     compat_diagonal_bug: bool = False,
     device=None,
+    layout=None,
 ) -> tuple[PolicyOutcome, ActorOutput]:
     """Run the GNN policy on a batch on `device` (default CUDA; the model,
     instance and jobs are moved there).  `compat_diagonal_bug=True` feeds
     the decision path the reference's cycled node-delay diagonal."""
     dev = resolve_device(device)
+    lay = resolve_layout(layout)
     model = model.to(dev)
     inst, jobs = inst.to(dev), jobs.to(dev)
-    actor = actor_delay_matrix(model, inst, jobs, default_support(model, inst))
+    with phase("actor"):
+        actor = actor_delay_matrix(model, inst, jobs, default_support(model, inst, lay))
     if compat_diagonal_bug:
         unit_diag = compat_cycled_diagonal(inst, actor.node_delay)
+    elif lay.sparse:
+        inf = torch.full((), float("inf"), dtype=actor.node_delay.dtype, device=dev)
+        unit_diag = torch.where(inst.comp_mask, actor.node_delay, inf)
     else:
         unit_diag = torch.diagonal(actor.delay_matrix, dim1=1, dim2=2)
     outcome = evaluate_spmatrix_policy(inst, jobs, actor.link_delay, unit_diag,
-                                       gen, explore=explore, prob=prob)
+                                       gen, explore=explore, prob=prob, layout=lay)
     return outcome, actor

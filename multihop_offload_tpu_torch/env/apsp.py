@@ -1,18 +1,23 @@
 """All-pairs shortest paths as dense min-plus linear algebra, batched.
 
-Port of `multihop_offload_tpu/env/apsp.py` (dense layout).  The squarings
-run in `ops.minplus` (K2 on the card, the plain broadcast on the CPU); the
-greedy next-hop table breaks ties at the lowest neighbour index, exactly as
-the reference's forwarding rule and the JAX table do.
+Port of `multihop_offload_tpu/env/apsp.py`.  The squarings run in
+`ops.minplus` (K2 on the card, the plain broadcast on the CPU); the greedy
+next-hop table breaks ties at the lowest neighbour index, exactly as the
+reference's forwarding rule and the JAX table do.  `apsp_minplus_blocked`
+(`env/apsp.py:98-132`, defined in `ops.minplus`) is the plain k-blocked
+squaring the sparse layout's chain ends in; on the card that chain is K6
+(`ops.minplus.apsp_minplus_coo`).
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from multihop_offload_tpu_torch.ops.minplus import minplus_closure
+from multihop_offload_tpu_torch.ops.minplus import (  # noqa: F401
+    apsp_minplus_blocked,
+    minplus_closure,
+    squaring_count,
+)
 
 # elements of one (b, N, N, N) next-hop cost temp: batches are chunked to
 # stay under this (128 MB in float32)
@@ -27,8 +32,7 @@ def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(n, dtype=torch.bool, device=weights.device)
     d = torch.where(eye, torch.zeros((), dtype=weights.dtype,
                                      device=weights.device), weights)
-    iters = max(1, math.ceil(math.log2(max(n - 1, 2))))
-    return minplus_closure(d.contiguous(), iters)
+    return minplus_closure(d.contiguous(), squaring_count(n))
 
 
 def hop_matrix(adj: torch.Tensor) -> torch.Tensor:

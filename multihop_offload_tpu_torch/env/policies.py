@@ -1,9 +1,15 @@
 """End-to-end policy evaluations: decision -> routing -> empirical delays.
 
-Port of `multihop_offload_tpu/env/policies.py` (dense layout): the shared
-skeleton of the baseline method and the GNN policy (weight matrix, APSP,
-greedy decision, next-hop table, route tracing, empirical scoring), plus the
-`baseline` and `local` methods.  All functions take a batch (leading B).
+Port of `multihop_offload_tpu/env/policies.py`: the shared skeleton of the
+baseline method and the GNN policy (weight matrix, APSP, greedy decision,
+next-hop table, route tracing, empirical scoring), plus the `baseline` and
+`local` methods.  All functions take a batch (leading B).
+
+Under `layout="sparse"` (`:77-104`) the APSP is fed from the link list
+(K6, `ops.minplus.apsp_minplus_coo`, the JAX `apsp_edges_fn` regime) and
+the next-hop table comes from two segment-mins over the directed links;
+both equal the dense chain bit for bit, so decisions never depend on the
+layout.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ import dataclasses
 
 import torch
 
+from multihop_offload_tpu_torch._phases import phase
 from multihop_offload_tpu_torch.env.apsp import (
     apsp_minplus,
     next_hop_table,
@@ -21,6 +28,9 @@ from multihop_offload_tpu_torch.env.baseline import baseline_unit_delays
 from multihop_offload_tpu_torch.env.offloading import OffloadDecision, offload_decide
 from multihop_offload_tpu_torch.env.queueing import EmpiricalDelays, run_empirical
 from multihop_offload_tpu_torch.env.routing import RouteSet, trace_routes
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.layouts.sparse import next_hop_from_edges
+from multihop_offload_tpu_torch.ops.minplus import apsp_minplus_coo
 
 
 @dataclasses.dataclass
@@ -34,29 +44,55 @@ class PolicyOutcome:
         return self.delays.job_total
 
 
+def shortest_paths(inst, link_delays: torch.Tensor, layout=None) -> torch.Tensor:
+    """(B, N, N) shortest-path delays over per-link delays (B, L): K2 on
+    the dense weight matrix, or K6 on the link list under the sparse
+    layout."""
+    if resolve_layout(layout).sparse:
+        return apsp_minplus_coo(inst.link_ends, inst.link_mask, link_delays,
+                                inst.num_pad_nodes)
+    return apsp_minplus(weight_matrix_from_link_delays(inst.adj, inst.link_index,
+                                                       link_delays))
+
+
+def next_hops(inst, sp: torch.Tensor, layout=None) -> torch.Tensor:
+    """The greedy next-hop table of either layout (equal bit for bit)."""
+    if resolve_layout(layout).sparse:
+        return next_hop_from_edges(inst.link_ends, inst.link_mask, sp)
+    return next_hop_table(inst.adj, sp)
+
+
 def evaluate_spmatrix_policy(
     inst, jobs, link_delays: torch.Tensor, unit_diag: torch.Tensor,
     gen: torch.Generator | None = None, explore: float = 0.0, prob: bool = False,
+    layout=None,
 ) -> PolicyOutcome:
     """Offload + route + run given per-link unit delays (B, L) and a node
     diagonal (B, N)."""
-    w = weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays)
-    sp = apsp_minplus(w)
-    # hop counts are topology-only and precomputed at Instance build time
-    dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
-    routes = trace_routes(inst, next_hop_table(inst.adj, sp), jobs, dec.dst)
-    return PolicyOutcome(decision=dec, routes=routes,
-                         delays=run_empirical(inst, jobs, routes))
+    with phase("apsp"):
+        sp = shortest_paths(inst, link_delays, layout)
+    with phase("offload_decide"):
+        # hop counts are topology-only and precomputed at Instance build time
+        dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
+    with phase("next_hops"):
+        nh = next_hops(inst, sp, layout)
+    with phase("trace_routes"):
+        routes = trace_routes(inst, nh, jobs, dec.dst)
+    with phase("run_empirical"):
+        delays = run_empirical(inst, jobs, routes, layout)
+    return PolicyOutcome(decision=dec, routes=routes, delays=delays)
 
 
 def baseline_policy(inst, jobs, gen: torch.Generator | None = None,
-                    explore: float = 0.0, prob: bool = False) -> PolicyOutcome:
+                    explore: float = 0.0, prob: bool = False,
+                    layout=None) -> PolicyOutcome:
     """Congestion-agnostic greedy offloading."""
     link_d, node_d = baseline_unit_delays(inst)
-    return evaluate_spmatrix_policy(inst, jobs, link_d, node_d, gen, explore, prob)
+    return evaluate_spmatrix_policy(inst, jobs, link_d, node_d, gen, explore, prob,
+                                    layout)
 
 
-def local_policy(inst, jobs) -> PolicyOutcome:
+def local_policy(inst, jobs, layout=None) -> PolicyOutcome:
     """Everything computes at its source."""
     _, node_d = baseline_unit_delays(inst)
     b, num_jobs = jobs.src.shape
@@ -85,4 +121,4 @@ def local_policy(inst, jobs) -> PolicyOutcome:
         inc_ext=inc.view(b, num_links + n, num_jobs),
     )
     return PolicyOutcome(decision=dec, routes=routes,
-                         delays=run_empirical(inst, jobs, routes))
+                         delays=run_empirical(inst, jobs, routes, layout))

@@ -1,10 +1,21 @@
 """Contention-coupled M/M/1 queueing model — the empirical evaluator.
 
-Port of `multihop_offload_tpu/env/queueing.py` (dense layout, fp32/fp64
-identity precision): per-link arrival rates from the route incidence, the
+Port of `multihop_offload_tpu/env/queueing.py` (fp32/fp64 identity
+precision): per-link arrival rates from the realized routes, the
 10-iteration interference fixed point (K1, `ops.fixed_point`), per-(link,
 job) delays with the congestion fallback, per-job server delays, and the
 (N, N) empirical unit-delay matrix with last-write-wins job order.
+
+Under `layout="sparse"` the (L, J) incidence is never read: link arrival
+rates scatter-add over the route steps (`seq_slot`/`seq_active`), the
+per-job link delays gather the per-link quantities at each step
+(`:150-161`, `:178-191`), and the last writer of each link is a segment-max
+of job ids over the steps (`:223-243`).  The fixed point stays K1 on the
+dense conflict matrix in both layouts, as the JAX step runs it with the
+Pallas core (`fp_fn`) given.  The JAX sparse layout's own segment-sum fixed
+point (`:104-120`, used there when no `fp_fn` is given) is not ported: it
+computes the same update with another summation order, and the parity
+tests hold K1's plain version against it.
 
 Last write wins: the JAX dense path scans the jobs in order; here the
 winner of each link (node) is the highest job index among its writers, and
@@ -22,6 +33,7 @@ import dataclasses
 
 import torch
 
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.ops.fixed_point import fixed_point
 
 
@@ -49,31 +61,43 @@ def interference_fixed_point(inst, link_lambda: torch.Tensor) -> torch.Tensor:
     )
 
 
+
 def _highest_writer(written: torch.Tensor) -> torch.Tensor:
     """Index of the last True along the last axis, -1 where none."""
     idx = torch.arange(written.shape[-1], device=written.device)
     return torch.where(written, idx, -1).amax(dim=-1)
 
 
-def run_empirical(inst, jobs, routes) -> EmpiricalDelays:
+def run_empirical(inst, jobs, routes, layout=None) -> EmpiricalDelays:
+    sparse = resolve_layout(layout).sparse
     num_links = inst.num_pad_links
     b, n, _ = inst.adj.shape
     dev = inst.adj.device
-    dt = torch.promote_types(
-        torch.promote_types(routes.inc_ext.dtype, jobs.rate.dtype),
-        inst.link_rates.dtype)
+    inc_dt = routes.inc_ext.dtype if routes.inc_ext is not None else inst.link_rates.dtype
+    dt = torch.promote_types(torch.promote_types(inc_dt, jobs.rate.dtype),
+                             inst.link_rates.dtype)
     zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
     jmask = jobs.mask
+    num_jobs = jmask.shape[1]
     ul = jobs.ul.to(dt)
     dl = jobs.dl.to(dt)
     nhop = routes.nhop.to(dt)
     ul_rate = ul * jobs.rate.to(dt)
     dl_rate = dl * jobs.rate.to(dt)
     T = inst.T.to(dt)
-
-    inc = routes.inc_ext[:, :num_links].to(dt)                   # (B, L, J)
-    link_lambda = torch.matmul(inc, (ul_rate + dl_rate).unsqueeze(-1)).squeeze(-1)
     dst = routes.dst.long()
+
+    if sparse:
+        # route-step form: (B, H, J) link ids and activity, no (L, J) incidence
+        seq = routes.seq_slot.long().reshape(b, -1)                 # (B, H*J)
+        act = routes.seq_active
+        step_rate = torch.where(act, (ul_rate + dl_rate).unsqueeze(1), zero)
+        link_lambda = torch.zeros((b, num_links), dtype=dt, device=dev).scatter_add_(
+            1, seq, step_rate.reshape(b, -1))
+    else:
+        inc = routes.inc_ext[:, :num_links].to(dt)                   # (B, L, J)
+        link_lambda = torch.matmul(inc, (ul_rate + dl_rate).unsqueeze(-1)).squeeze(-1)
     server_load = torch.zeros((b, n), dtype=dt, device=dev).scatter_add_(
         1, dst, torch.where(jmask, ul_rate, zero))
 
@@ -82,24 +106,33 @@ def run_empirical(inst, jobs, routes) -> EmpiricalDelays:
     # per-(link, job) unit delay with per-job congestion fallback
     slack = link_mu - link_lambda
     congested_l = slack <= 0.0
-    safe_slack = torch.where(congested_l, torch.ones((), dtype=dt, device=dev),
-                             slack)
-    unit_ok = 1.0 / safe_slack
-    unit_cong = T[:, None, None] * link_lambda.unsqueeze(2) / (
-        (ul + dl).unsqueeze(1) * link_mu.unsqueeze(2))
-    unit_lj = torch.where(congested_l.unsqueeze(2), unit_cong,
-                          unit_ok.unsqueeze(2))                  # (B, L, J)
-    d_ul = torch.maximum(ul.unsqueeze(1) * unit_lj, nhop.unsqueeze(1))
-    d_dl = torch.maximum(dl.unsqueeze(1) * unit_lj, nhop.unsqueeze(1))
-    # untraversed (link, job) pairs may hold inf/NaN: mask, don't multiply
-    job_link = torch.where(inc > 0, d_ul + d_dl, zero).sum(dim=1)
+    unit_ok = 1.0 / torch.where(congested_l, one, slack)
+    if sparse:
+        shape = act.shape                                           # (B, H, J)
+        lam_h = torch.gather(link_lambda, 1, seq).view(shape)
+        mu_h = torch.gather(link_mu, 1, seq).view(shape)
+        unit_h = torch.where(
+            torch.gather(congested_l, 1, seq).view(shape),
+            T[:, None, None] * lam_h / ((ul + dl).unsqueeze(1) * mu_h),
+            torch.gather(unit_ok, 1, seq).view(shape))
+        d_ul = torch.maximum(ul.unsqueeze(1) * unit_h, nhop.unsqueeze(1))
+        d_dl = torch.maximum(dl.unsqueeze(1) * unit_h, nhop.unsqueeze(1))
+        job_link = torch.where(act, d_ul + d_dl, zero).sum(dim=1)
+    else:
+        unit_cong = T[:, None, None] * link_lambda.unsqueeze(2) / (
+            (ul + dl).unsqueeze(1) * link_mu.unsqueeze(2))
+        unit_lj = torch.where(congested_l.unsqueeze(2), unit_cong,
+                              unit_ok.unsqueeze(2))                  # (B, L, J)
+        d_ul = torch.maximum(ul.unsqueeze(1) * unit_lj, nhop.unsqueeze(1))
+        d_dl = torch.maximum(dl.unsqueeze(1) * unit_lj, nhop.unsqueeze(1))
+        # untraversed (link, job) pairs may hold inf/NaN: mask, don't multiply
+        job_link = torch.where(inc > 0, d_ul + d_dl, zero).sum(dim=1)
 
     # server component
     bw = torch.gather(inst.proc_bws, 1, dst).to(dt)
     sload = torch.gather(server_load, 1, dst)
     s_slack = bw - sload
     s_cong = s_slack <= 0.0
-    one = torch.ones((), dtype=dt, device=dev)
     unit_s = torch.where(
         s_cong,
         T[:, None] * sload / (ul * torch.where(bw > 0, bw, one)),
@@ -112,12 +145,22 @@ def run_empirical(inst, jobs, routes) -> EmpiricalDelays:
     total = job_link + job_server
 
     # ---- empirical unit-delay matrix, last-write-wins over job order -------
-    on_route = inc > 0                                           # (B, L, J)
-    jwin = _highest_writer(on_route)                             # (B, L)
-    link_written = jwin >= 0
-    u_link = torch.gather(unit_lj, 2, jwin.clamp_min(0).unsqueeze(2)).squeeze(2)
-    num_jobs = jmask.shape[1]
     jidx = torch.arange(num_jobs, device=dev).expand(b, num_jobs)
+    if sparse:
+        # the winner's unit delay recomputed from the per-link scalars
+        # (identical to the dense table's entry at that column)
+        writers = torch.where(act, jidx.unsqueeze(1), -1).reshape(b, -1)
+        jwin = torch.full((b, num_links), -1, dtype=torch.long, device=dev).scatter_reduce_(
+            1, seq, writers, reduce="amax")
+        jw = jwin.clamp_min(0)
+        u_link = torch.where(
+            congested_l,
+            T[:, None] * link_lambda / (torch.gather(ul + dl, 1, jw) * link_mu),
+            unit_ok)
+    else:
+        jwin = _highest_writer(inc > 0)                              # (B, L)
+        u_link = torch.gather(unit_lj, 2, jwin.clamp_min(0).unsqueeze(2)).squeeze(2)
+    link_written = jwin >= 0
     nwin = torch.full((b, n), -1, dtype=torch.long, device=dev).scatter_reduce_(
         1, dst, torch.where(jmask, jidx, -1), reduce="amax")
     node_written = nwin >= 0

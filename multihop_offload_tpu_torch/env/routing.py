@@ -6,6 +6,8 @@ steps (a simple route visits < N nodes), recording the extended-line-graph
 slot it crosses at each step; one scatter-add then builds the (E, J) route
 incidence.  The N steps are a Python loop of small tensor ops (the JAX
 `lax.scan`); on the card each step is a handful of kernel launches.
+`with_inc=False` skips the incidence (`inc_ext` is None): the sparse
+layout's training step works from the step sequence alone.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ class RouteSet:
     nhop: torch.Tensor        # (B, J) float hop count of the uplink route
     seq_slot: torch.Tensor    # (B, H, J) int32 ext slot visited at each step
     seq_active: torch.Tensor  # (B, H, J) bool step is a real traversal
-    inc_ext: torch.Tensor     # (B, E, J) 0/1 incidence incl. the final
-    #                           pseudo-link; slots [0, L) are real links
+    inc_ext: torch.Tensor | None  # (B, E, J) 0/1 incidence incl. the final
+    #                           pseudo-link; slots [0, L) are real links;
+    #                           None when traced with `with_inc=False`
 
 
-def trace_routes(inst, next_hop: torch.Tensor, jobs, dst: torch.Tensor) -> RouteSet:
+def trace_routes(inst, next_hop: torch.Tensor, jobs, dst: torch.Tensor,
+                 with_inc: bool = True) -> RouteSet:
     """Walk every job's greedy route src -> dst simultaneously.
 
     `next_hop`: (B, N, N) from `env.apsp.next_hop_table`.  Local jobs
@@ -55,18 +59,21 @@ def trace_routes(inst, next_hop: torch.Tensor, jobs, dst: torch.Tensor) -> Route
     # incidence over extended slots: real links from the step sequence, then
     # the compute pseudo-link at the destination of every real job.  The
     # added values are 0/1, so the sums are exact in any order.
-    e = num_links + n
-    cols = torch.arange(num_jobs, device=next_hop.device)
-    inc = torch.zeros((b, e * num_jobs), dtype=fdt, device=next_hop.device)
-    inc.scatter_add_(1, (seq_slot * num_jobs + cols).reshape(b, -1),
-                     seq_active.reshape(b, -1).to(fdt))
-    inc.scatter_add_(1, (num_links + dstl) * num_jobs + cols,
-                     jobs.mask.to(fdt))
+    inc = None
+    if with_inc:
+        e = num_links + n
+        cols = torch.arange(num_jobs, device=next_hop.device)
+        inc = torch.zeros((b, e * num_jobs), dtype=fdt, device=next_hop.device)
+        inc.scatter_add_(1, (seq_slot * num_jobs + cols).reshape(b, -1),
+                         seq_active.reshape(b, -1).to(fdt))
+        inc.scatter_add_(1, (num_links + dstl) * num_jobs + cols,
+                         jobs.mask.to(fdt))
+        inc = inc.view(b, e, num_jobs)
     return RouteSet(
         dst=dst,
         nhop=torch.where(jobs.mask, hops, torch.zeros((), dtype=fdt,
                                                       device=hops.device)),
         seq_slot=seq_slot.to(torch.int32),
         seq_active=seq_active,
-        inc_ext=inc.view(b, e, num_jobs),
+        inc_ext=inc,
     )

@@ -33,6 +33,8 @@ from multihop_offload_tpu_torch.graphs.topology import (
     build_topology,
     sample_link_rates,
 )
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.layouts.sparse import cf_nnz_count, ext_nnz_count
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
 CASES_PATH = os.path.join(DATA_DIR, "cases.npz")
@@ -78,6 +80,19 @@ def load_cases(group: str = "paper", path: str = CASES_PATH) -> list:
     return recs
 
 
+def pad_for(cases, layout=None) -> PadSpec:
+    """The pads of a batch of cases, rounded up to 8; under the sparse
+    layout the nnz pads are the data's largest counts rounded up to 128, as
+    the JAX `train/data.py:_pad_for` sizes them."""
+    pad = PadSpec.for_cases([r.sizes for r in cases], round_to=8)
+    if not resolve_layout(layout).sparse:
+        return pad
+    enn = max(ext_nnz_count(r.topo, r.roles < 2) for r in cases)
+    cnn = max(cf_nnz_count(r.topo) for r in cases)
+    return dataclasses.replace(pad, enn=PadSpec.round_up(enn, 128),
+                               cnn=PadSpec.round_up(cnn, 128))
+
+
 def request_batch(
     cases,
     per_network: int = 4,
@@ -85,6 +100,7 @@ def request_batch(
     cfg: Config | None = None,
     dtype=torch.float32,
     device=None,
+    layout=None,
 ):
     """A batch of offloading requests: `per_network` job sets on each case.
 
@@ -94,22 +110,24 @@ def request_batch(
     U(0.1, 0.5)`` and data sizes ``cfg.ul_data`` / ``cfg.dl_data``, all drawn
     from ``np.random.default_rng(seed)``; congestion scale ``cfg.T``.
     Returns ``(inst, jobs, pad)`` with inst/jobs stacked to batch
-    ``len(cases) * per_network`` on `device` (default CUDA)."""
+    ``len(cases) * per_network`` on `device` (default CUDA), built for
+    `layout` (default dense; `pad_for` sizes the sparse nnz pads)."""
     cfg = cfg or Config()
+    lay = resolve_layout(layout)
     rng = np.random.default_rng(seed)
-    pad = PadSpec.for_cases([r.sizes for r in cases], round_to=8)
+    pad = pad_for(cases, lay)
     insts, jobsets = [], []
     for rec in cases:
         rates = sample_link_rates(rec.topo, rec.link_rates, rng=rng)
         inst = build_instance(rec.topo, rec.roles, rec.proc_bws, rates,
-                              float(cfg.T), pad, dtype, device="cpu")
+                              float(cfg.T), pad, dtype, device="cpu", layout=lay)
         for _ in range(per_network):
             mobile = rng.permutation(rec.mobile_nodes)
             nj = int(rng.integers(max(int(0.3 * mobile.size), 1), mobile.size))
             jobsets.append(build_jobset(
                 mobile[:nj], cfg.arrival_scale * rng.uniform(0.1, 0.5, nj),
                 pad_jobs=pad.j, ul=cfg.ul_data, dl=cfg.dl_data, dtype=dtype,
-                device="cpu",
+                device="cpu", index_dtype=lay.index_dtype,
             ))
             insts.append(inst)
     dev = resolve_device(device)

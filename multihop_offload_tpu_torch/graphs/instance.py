@@ -1,9 +1,12 @@
 """Padded, fixed-shape tensor representation of a network instance.
 
-Port of `multihop_offload_tpu/graphs/instance.py` (dense layout).  Every
-field equals the JAX builder's output exactly.  `Instance` and `JobSet` are
-dataclasses of tensors; `stack_instances` gives them the leading batch axis
-B that every function of the port takes.
+Port of `multihop_offload_tpu/graphs/instance.py`.  Every field equals the
+JAX builder's output exactly.  `Instance` and `JobSet` are dataclasses of
+tensors; `stack_instances` gives them the leading batch axis B that every
+function of the port takes.  Under the sparse layout the Instance also
+carries the edge lists of its extended and conflict adjacencies
+(`inst.sparse`, `layouts.sparse.SparseInstance`) and packs `link_index`
+and the jobs' `src` at int16; the dense fields stay, as in the JAX package.
 
 Extended-line-graph layout: slot ``e in [0, L)`` is real link ``e``; slot
 ``L + i`` is node ``i``'s pseudo-link ("compute here").
@@ -18,7 +21,13 @@ import numpy as np
 import torch
 
 from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch._records import TensorRecord, stack_records
 from multihop_offload_tpu_torch.graphs.topology import Topology
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.layouts.sparse import (
+    SparseInstance,
+    build_sparse_instance,
+)
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -39,16 +48,33 @@ def numpy_dtype(dtype) -> np.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class PadSpec:
-    """Static pad sizes. E (extended slots) is always L + N."""
+    """Static pad sizes. E (extended slots) is always L + N.
 
-    n: int  # nodes
-    l: int  # links
-    s: int  # servers
-    j: int  # jobs
+    `enn` / `cnn` bound the sparse layout's edge-list pads (nonzeros of the
+    extended / conflict adjacency); 0 means the heuristic 16 E / 16 L,
+    rounded up to 128.  `graphs.cases.request_batch` sizes them from the
+    data instead, as the JAX `train/data.py:_pad_for` does: the heuristic
+    is too small for the committed 256-node rung.  Builders raise when a
+    graph exceeds the bound."""
+
+    n: int        # nodes
+    l: int        # links
+    s: int        # servers
+    j: int        # jobs
+    enn: int = 0  # extended-adjacency nnz pad (0 = heuristic)
+    cnn: int = 0  # conflict-adjacency nnz pad (0 = heuristic)
 
     @property
     def e(self) -> int:
         return self.l + self.n
+
+    @property
+    def ext_nnz(self) -> int:
+        return self.enn if self.enn > 0 else self.round_up(16 * self.e, 128)
+
+    @property
+    def cf_nnz(self) -> int:
+        return self.cnn if self.cnn > 0 else self.round_up(16 * self.l, 128)
 
     @staticmethod
     def round_up(x: int, to: int) -> int:
@@ -63,18 +89,8 @@ class PadSpec:
         return cls(n=r(n), l=r(l), s=r(s), j=r(j))
 
 
-class _TensorFields:
-    """`.to(device)` for a dataclass whose fields are all tensors."""
-
-    def to(self, device):
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-        })
-
-
 @dataclasses.dataclass
-class Instance(_TensorFields):
+class Instance(TensorRecord):
     """One padded network, or a batch of them (leading axis B)."""
 
     # nodes
@@ -101,6 +117,8 @@ class Instance(_TensorFields):
     server_mask: torch.Tensor    # (S,) bool
     hop: torch.Tensor            # (N, N) float hop counts (inf unreachable)
     T: torch.Tensor              # () float congestion-penalty scale
+    # edge-list twin (layouts.sparse.SparseInstance); None under dense
+    sparse: Optional[SparseInstance] = None
 
     @property
     def num_pad_nodes(self) -> int:
@@ -112,10 +130,10 @@ class Instance(_TensorFields):
 
 
 @dataclasses.dataclass
-class JobSet(_TensorFields):
+class JobSet(TensorRecord):
     """Padded workload: one compute task stream per slot."""
 
-    src: torch.Tensor   # (J,) int32 source node (pad = 0)
+    src: torch.Tensor   # (J,) int32 (int16 under sparse) source node (pad = 0)
     rate: torch.Tensor  # (J,) float arrival rate (pad = 0)
     ul: torch.Tensor    # (J,) float uplink data size
     dl: torch.Tensor    # (J,) float downlink data size
@@ -138,9 +156,13 @@ def build_instance(
     dtype=torch.float32,
     hop: Optional[np.ndarray] = None,
     device=None,
+    layout=None,
 ) -> Instance:
-    """Freeze a topology + resource assignment into a padded Instance
-    (dense layout) on `device` (default CUDA)."""
+    """Freeze a topology + resource assignment into a padded Instance on
+    `device` (default CUDA).  Under `layout="sparse"` it also carries
+    `inst.sparse`, padded to `pad.ext_nnz` / `pad.cf_nnz`, and packs
+    `link_index` at int16."""
+    lay = resolve_layout(layout)
     dtype = numpy_dtype(dtype)
     n, l = topo.n, topo.num_links
     N, L, S = pad.n, pad.l, pad.s
@@ -167,7 +189,9 @@ def build_instance(
     rates_p[:l] = link_rates
     link_mask = np.zeros((L,), dtype=bool)
     link_mask[:l] = True
-    link_index = np.zeros((N, N), dtype=np.int32)
+    if L - 1 > np.iinfo(lay.index_dtype).max:
+        raise ValueError(f"link pad {L} overflows {np.dtype(lay.index_dtype).name}")
+    link_index = np.zeros((N, N), dtype=lay.index_dtype)
     link_index[:n, :n] = np.maximum(topo.link_index, 0)
     adj_cf = np.zeros((L, L), dtype=dtype)
     adj_cf[:l, :l] = topo.adj_conflict
@@ -203,7 +227,7 @@ def build_instance(
     server_mask = np.zeros((S,), dtype=bool)
     server_mask[: server_ids.size] = True
 
-    return _tensors(Instance, dict(
+    inst = _tensors(Instance, dict(
         adj=adj, node_mask=node_mask, roles=roles_p, proc_bws=bws_p,
         comp_mask=comp_mask, link_ends=ends_p, link_rates=rates_p,
         link_mask=link_mask, link_index=link_index, adj_conflict=adj_cf,
@@ -212,6 +236,11 @@ def build_instance(
         ext_mask=ext_mask, servers=servers, server_mask=server_mask,
         hop=hop, T=np.asarray(t_max, dtype=dtype),
     ), device)
+    if lay.sparse:
+        sparse = build_sparse_instance(adj_ext, adj_cf, pad.ext_nnz,
+                                       pad.cf_nnz, dtype=dtype)
+        inst = dataclasses.replace(inst, sparse=sparse.to(inst.adj.device))
+    return inst
 
 
 def compute_hop_matrix(topo: Topology, pad_n: int) -> np.ndarray:
@@ -236,8 +265,11 @@ def build_jobset(
     dl: float = 1.0,
     dtype=torch.float32,
     device=None,
+    index_dtype=np.int32,
 ) -> JobSet:
-    """Pad a concrete workload onto `device` (default CUDA)."""
+    """Pad a concrete workload onto `device` (default CUDA).  `index_dtype`
+    is the storage dtype of `src` (`LayoutPolicy.index_dtype`: int16 under
+    the sparse layout), checked against the node ids."""
     dtype = numpy_dtype(dtype)
     src = np.asarray(src, dtype=np.int64)
     rate = np.asarray(rate, dtype=dtype)
@@ -245,7 +277,9 @@ def build_jobset(
     J = pad_jobs
     if j > J:
         raise ValueError(f"{j} jobs exceed pad {J}")
-    src_p = np.zeros((J,), dtype=np.int32)
+    if j and int(src.max()) > np.iinfo(index_dtype).max:
+        raise ValueError(f"job source ids overflow {np.dtype(index_dtype).name}")
+    src_p = np.zeros((J,), dtype=index_dtype)
     src_p[:j] = src
     rate_p = np.zeros((J,), dtype=dtype)
     rate_p[:j] = rate
@@ -261,8 +295,4 @@ def build_jobset(
 def stack_instances(items: Sequence):
     """Stack same-shape Instances (or JobSets) along a new leading batch
     axis, on the device of the first item."""
-    first = items[0]
-    return dataclasses.replace(first, **{
-        f.name: torch.stack([getattr(it, f.name) for it in items])
-        for f in dataclasses.fields(first)
-    })
+    return stack_records(items)

@@ -1,11 +1,22 @@
 """Chebyshev-polynomial spectral graph convolutions as `nn.Module`s.
 
-Port of `multihop_offload_tpu/models/chebconv.py` (dense support, fp32/fp64
-identity precision, no dropout).  The kernel keeps the flax layout
-(k, in, out), so `params_from_jax` copies a flax parameter tree as it is.
-The dense products stay `torch.matmul` (cuBLAS on the card), as the JAX
-package leaves them to XLA: the feature product ``x @ W_k`` and, for k >= 2,
-the (E, E) @ (E, F) support propagation.
+Port of `multihop_offload_tpu/models/chebconv.py` (fp32/fp64 identity
+precision, no dropout).  The kernel keeps the flax layout (k, in, out), so
+`params_from_jax` copies a flax parameter tree as it is.  The feature
+product ``x @ W_k`` stays `torch.matmul` (cuBLAS on the card), as the JAX
+package leaves it to XLA.
+
+The support propagation is a hook (`propagate`, `:54`, `:72-81`): the
+dense layout's (E, E) @ (E, F) `torch.matmul`, or under the sparse layout
+`ops.chebconv.chebconv_propagate` over a `layouts.sparse.SparseSupport`
+(K4 on the card, its plain version on the CPU).  `make_model(cfg, layout)`
+picks it (`:257-294`).  At K = 1 a layer never propagates.
+
+Parameters may carry a leading batch axis, one copy per episode (kernel
+(B, k, in, out), bias (B, out)): `torch.matmul` broadcasts
+(B, E, F) @ (B, F, C), so one backward over a batch of independent
+episodes gives each episode's own gradient (`agent.train_step` swaps them
+in with `torch.func.functional_call`).
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ from torch import nn
 
 from multihop_offload_tpu_torch._device import resolve_device
 from multihop_offload_tpu_torch.config import Config
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.ops.chebconv import chebconv_propagate
 
 
 class ChebConv(nn.Module):
@@ -27,9 +40,10 @@ class ChebConv(nn.Module):
 
     def __init__(self, in_features: int, channels: int, k: int = 1,
                  bias_init: float = 0.0, dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, propagate=None):
         super().__init__()
         self.k = k
+        self.propagate = propagate  # (support, x) -> support @ x; None: matmul
         kernel = torch.empty((k, in_features, channels), dtype=dtype)
         # glorot uniform over (in, out) per order, as flax's variance_scaling
         # (1.0, fan_avg, uniform, in_axis=-2, out_axis=-1) draws it
@@ -39,17 +53,20 @@ class ChebConv(nn.Module):
         self.kernel = nn.Parameter(kernel)
         self.bias = nn.Parameter(torch.full((channels,), bias_init, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, support) -> torch.Tensor:
+        prop = self.propagate or torch.matmul
+        # kernel (k, in, out) or per episode (B, k, in, out)
+        w = [self.kernel.select(-3, i) for i in range(self.k)]
         t_prev2 = x
-        out = torch.matmul(t_prev2, self.kernel[0])
+        out = torch.matmul(t_prev2, w[0])
         if self.k > 1:
-            t_prev = torch.matmul(support, x)
-            out = out + torch.matmul(t_prev, self.kernel[1])
+            t_prev = prop(support, x)
+            out = out + torch.matmul(t_prev, w[1])
             for i in range(2, self.k):
-                t_cur = 2.0 * torch.matmul(support, t_prev) - t_prev2
-                out = out + torch.matmul(t_cur, self.kernel[i])
+                t_cur = 2.0 * prop(support, t_prev) - t_prev2
+                out = out + torch.matmul(t_cur, w[i])
                 t_prev2, t_prev = t_prev, t_cur
-        return out + self.bias
+        return out + self.bias.unsqueeze(-2)
 
 
 class ChebNet(nn.Module):
@@ -60,20 +77,21 @@ class ChebNet(nn.Module):
 
     def __init__(self, num_layer: int = 5, hidden: int = 32, k: int = 1,
                  leaky_alpha: float = 0.2, dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, propagate=None):
         super().__init__()
         self.k = k
         self.num_layer = num_layer
         self.leaky_alpha = leaky_alpha
+        self.propagate = propagate
         widths = [4] + [hidden] * (num_layer - 1) + [1]
         self.layers = nn.ModuleList(
             ChebConv(widths[i], widths[i + 1], k,
                      bias_init=0.1 if i == num_layer - 1 else 0.0,
-                     dtype=dtype, generator=generator)
+                     dtype=dtype, generator=generator, propagate=propagate)
             for i in range(num_layer)
         )
 
-    def forward(self, x: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, support) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
             x = layer(x, support)
             x = (F.relu(x) if i == self.num_layer - 1
@@ -96,12 +114,21 @@ def chebyshev_support(adj: torch.Tensor, mask: torch.Tensor | None = None) -> to
     return lap - eye  # (2 / lmax) * lap is lap itself at lmax = 2
 
 
+def layout_propagate(layout=None):
+    """The `propagate` hook of a layout: None (dense matmul) or the edge-list
+    propagate of the sparse layout."""
+    return chebconv_propagate if resolve_layout(layout).sparse else None
+
+
 def make_model(cfg: Config, dtype=torch.float32,
-               generator: torch.Generator | None = None) -> ChebNet:
-    """The actor stack for `cfg`, with glorot weights from `generator`."""
+               generator: torch.Generator | None = None, layout=None) -> ChebNet:
+    """The actor stack for `cfg`, with glorot weights from `generator`, for
+    `layout` (default `cfg.layout`).  Parameters do not depend on the
+    layout: the same weights load either way."""
     return ChebNet(num_layer=cfg.num_layer, hidden=cfg.hidden, k=cfg.cheb_k,
                    leaky_alpha=cfg.leaky_relu_alpha, dtype=dtype,
-                   generator=generator)
+                   generator=generator,
+                   propagate=layout_propagate(layout or cfg.layout))
 
 
 def params_from_jax(tree) -> dict:
@@ -139,13 +166,13 @@ def load_weights(name: str, path: str = WEIGHTS_PATH) -> dict:
     return {"params": params}
 
 
-def load_model(name: str, dtype=torch.float32, device=None) -> ChebNet:
+def load_model(name: str, dtype=torch.float32, device=None, layout=None) -> ChebNet:
     """A `ChebNet` shaped like the committed model `name`, with its weights,
-    on `device` (default CUDA)."""
+    on `device` (default CUDA), for `layout` (default dense)."""
     params = load_weights(name)["params"]
     k, _, hidden = params["cheb_0"]["kernel"].shape
     model = ChebNet(num_layer=len(params), hidden=int(hidden), k=int(k),
-                    dtype=dtype)
+                    dtype=dtype, propagate=layout_propagate(layout))
     model.load_state_dict({key: val.to(dtype) for key, val
                            in params_from_jax(params).items()})
     return model.to(resolve_device(device))

@@ -35,6 +35,10 @@ SIGNATURES = {
                     [_c_void_p] * 5 + [_c_int] * 3 + [_c_void_p]),
     "minplus": ("mho_minplus_square_f32",
                 [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
+    "chebconv": ("mho_chebconv_propagate_f32",
+                 [_c_void_p] * 7 + [_c_int] * 4 + [_c_void_p]),
+    "coo_apsp": ("mho_coo_weights_f32",
+                 [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
 }
 
 _loaded: dict = {}   # name -> bound ctypes function, one load per process

@@ -7,7 +7,12 @@ the design keeps A in shared memory as a bitmask for all ten iterations.
 
 `fixed_point` dispatches on the device of its operands: the plain PyTorch
 version for CPU tensors, the CUDA kernel for CUDA tensors, an error for
-anything else.  There is no fall back and no knob.
+anything else.  There is no fall back and no knob.  It is differentiable:
+a `torch.autograd.Function` whose backward recomputes through the plain
+scan under `torch.enable_grad()` and pulls the cotangent back through it,
+as the JAX `custom_vjp` (`_fp_bwd`, `ops/fixed_point.py:182-198`)
+recomputes through `_xla_reference`.  The kernel has no backward of its
+own; the TPU kernel has none either.
 """
 
 from __future__ import annotations
@@ -78,10 +83,36 @@ def fixed_point_cuda(adj, rates, cf, lam, num_iters: int = 10):
 fixed_point_cuda.launches = 0
 
 
-def fixed_point(adj, rates, cf, lam, num_iters: int = 10):
-    """Converged mu (B, L): plain version on the CPU, K1 on CUDA."""
+def _forward(adj, rates, cf, lam, num_iters):
     if adj.device.type == "cpu":
         return fixed_point_plain(adj, rates, cf, lam, num_iters)
     if adj.device.type == "cuda":
         return fixed_point_cuda(adj, rates, cf, lam, num_iters)
     raise ValueError(f"fixed_point: unsupported device {adj.device}")
+
+
+class _FixedPoint(torch.autograd.Function):
+    """Forward: plain version or K1.  Backward: recompute through the plain
+    scan and pull the cotangent back through it."""
+
+    @staticmethod
+    def forward(ctx, adj, rates, cf, lam, num_iters):
+        ctx.save_for_backward(adj, rates, cf, lam)
+        ctx.num_iters = num_iters
+        return _forward(adj, rates, cf, lam, num_iters)
+
+    @staticmethod
+    def backward(ctx, grad_mu):
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            mu = fixed_point_plain(*ins, ctx.num_iters)
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(mu, wrt, grad_mu))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def fixed_point(adj, rates, cf, lam, num_iters: int = 10):
+    """Converged mu (B, L): plain version on the CPU, K1 on CUDA;
+    differentiable in every operand."""
+    return _FixedPoint.apply(adj, rates, cf, lam, num_iters)

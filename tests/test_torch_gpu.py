@@ -114,3 +114,135 @@ def test_eval_methods_card_matches_cpu(cuda):
     for c, g in zip(cpu, card):
         assert torch.isfinite(g.cpu()[m]).all()
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=0)
+
+
+# ---- K4 (sparse ChebConv propagate) and K6 (COO-fed APSP) -------------------
+
+SCALED_TOL = 4.5e-7  # the JAX package's bar for the fused propagate
+
+
+def _scaled_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+
+
+def _sparse_batch(group, per_network, cases=slice(None)):
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+
+    return request_batch(load_cases(group)[cases], per_network, seed=0,
+                         device="cpu", layout="sparse")
+
+
+def _random_coo(rng, b, e, nnz_pad, p):
+    """Non-symmetric random supports as the sparse Instance builder lists
+    them (real entries sorted by row, pads after them), with their CSR
+    index: the transposed walk of the backward reads a list that is not
+    sorted by column."""
+    from multihop_offload_tpu_torch._records import stack_records
+    from multihop_offload_tpu_torch.layouts.sparse import (
+        SparseSupport,
+        _coo_from_dense_np,
+        csr_index,
+    )
+
+    coos = []
+    for _ in range(b):
+        mat = np.where(rng.uniform(size=(e, e)) < p, rng.normal(size=(e, e)), 0.0)
+        coos.append(_coo_from_dense_np(mat, nnz_pad, np.float32))
+    return SparseSupport(edges=stack_records(coos),
+                         diag=torch.from_numpy(rng.normal(size=(b, e)).astype(np.float32)),
+                         csr=stack_records([csr_index(c) for c in coos]))
+
+
+def _check_propagate(cuda, support, f, seed):
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    rng = np.random.default_rng(seed)
+    b, e = support.diag.shape
+    x = torch.from_numpy((10 * rng.normal(size=(b, e, f))).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(b, e, f)).astype(np.float32))
+    sup = support.to(cuda)
+    xc = x.to(cuda).requires_grad_()
+    before = tcc.chebconv_propagate_cuda.launches
+    out = tcc.chebconv_propagate(sup, xc)
+    (dx,) = torch.autograd.grad(out, xc, g.to(cuda))
+    torch.cuda.synchronize()
+    assert tcc.chebconv_propagate_cuda.launches == before + 2  # forward + backward
+    xp = x.to(cuda).requires_grad_()
+    e_ = sup.edges
+    ref = tcc.chebconv_propagate_plain(e_.rows, e_.cols, e_.vals, sup.diag, xp)
+    (dx_ref,) = torch.autograd.grad(ref, xp, g.to(cuda))
+    assert _scaled_err(out, ref) <= SCALED_TOL
+    assert _scaled_err(dx, dx_ref) <= SCALED_TOL
+    # against the CPU's sequential sum the forward is bit-identical
+    cpu = tcc.chebconv_propagate_plain(support.edges.rows, support.edges.cols,
+                                       support.edges.vals, support.diag, x)
+    assert torch.equal(out.detach().cpu(), cpu)
+
+
+@pytest.mark.parametrize("f", [4, 32])
+@pytest.mark.parametrize("group,per_network", [("paper", 4), ("rung256", 1)])
+def test_chebconv_kernel_matches_plain(cuda, group, per_network, f):
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+
+    inst, _, _ = _sparse_batch(group, per_network, slice(0, 16))
+    support = sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
+                                       csr=inst.sparse.ext_csr)
+    _check_propagate(cuda, support, f, seed=f)
+
+
+def test_chebconv_kernel_nonsymmetric_unsorted(cuda):
+    support = _random_coo(np.random.default_rng(3), 5, 70, 600, 0.08)
+    _check_propagate(cuda, support, 7, seed=3)
+
+
+def _check_coo_apsp(cuda, inst, delays):
+    from multihop_offload_tpu_torch.ops import minplus as tmp
+
+    n = inst.num_pad_nodes
+    ends, mask = inst.link_ends.to(cuda), inst.link_mask.to(cuda)
+    d = delays.to(cuda)
+    before = (tmp.apsp_coo_cuda.launches, tmp.minplus_closure_cuda.launches)
+    got = tmp.apsp_minplus_coo(ends, mask, d, n)
+    plain_card = tmp.apsp_coo_plain(ends, mask, d, n)
+    torch.cuda.synchronize()
+    # one build, then K2's schedule of squarings
+    assert (tmp.apsp_coo_cuda.launches - before[0],
+            tmp.minplus_closure_cuda.launches - before[1]) == (1, tmp.squaring_count(n))
+    assert torch.equal(got, plain_card)
+    assert torch.equal(got.cpu(), tmp.apsp_coo_plain(inst.link_ends, inst.link_mask,
+                                                      delays, n))
+
+
+@pytest.mark.parametrize("group,per_network", [("paper", 4), ("rung256", 1)])
+def test_coo_apsp_kernel_bit_identical(cuda, group, per_network):
+    inst, _, _ = _sparse_batch(group, per_network, slice(0, 16))
+    _check_coo_apsp(cuda, inst, 1.0 / inst.link_rates)
+    rng = np.random.default_rng(7)
+    noisy = inst.link_rates * torch.from_numpy(
+        rng.uniform(0.5, 2.0, tuple(inst.link_rates.shape)).astype(np.float32))
+    _check_coo_apsp(cuda, inst, 1.0 / noisy)
+
+
+def test_sparse_train_step_launches_k1_k4_k6(cuda):
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+    from multihop_offload_tpu_torch.ops import minplus as tmp
+    from multihop_offload_tpu_torch.train.driver import train_init, train_step
+
+    inst, jobs, _ = _sparse_batch("paper", 2, slice(2, 6))
+    cfg = Config(layout="sparse", batch=8, memory_size=16)
+    model = load_model("SPECTRAL_K2", device=cuda, layout="sparse")
+    state = train_init(model, cfg, device=cuda)
+    before = [p.detach().clone() for p in model.parameters()]
+    counts = (tfp.fixed_point_cuda.launches, tcc.chebconv_propagate_cuda.launches,
+              tmp.apsp_coo_cuda.launches)
+    rep = train_step(model, state, inst, jobs, cfg,
+                     gen=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    torch.cuda.synchronize()
+    after = (tfp.fixed_point_cuda.launches, tcc.chebconv_propagate_cuda.launches,
+             tmp.apsp_coo_cuda.launches)
+    # K1: actor, empirical evaluator, critic; K4: 5 forward + 4 backward; K6: 1
+    assert [a - b for a, b in zip(after, counts)] == [3, 9, 1]
+    assert rep.replayed and torch.isfinite(rep.loss_critic).all()
+    assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))

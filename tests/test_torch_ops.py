@@ -146,3 +146,97 @@ def test_dispatch_refuses_other_devices_and_checks_operands():
         tfp.fixed_point_cuda(x, x[:, 0], x[:, 0], x[:, 0])
     assert (tfp.fixed_point_cuda.launches,
             tmp.minplus_closure_cuda.launches) == before
+
+
+# ---- K4, K6 plain versions and K1's gradient ---------------------------------
+
+
+def _coo_case(rng, b, e, f, p, pad_extra=9):
+    """Non-symmetric (B, E, E) matrices as COO in `np.nonzero` order with
+    trailing (0, 0, 0) pads, as the sparse layout builds them; a diagonal
+    and features."""
+    nnz_pad = int(max((rng.uniform(size=(e, e)) < p).sum() for _ in range(4))) * 2
+    rows = np.zeros((b, nnz_pad), np.int32)
+    cols = np.zeros((b, nnz_pad), np.int32)
+    vals = np.zeros((b, nnz_pad))
+    for k in range(b):
+        r, c = np.nonzero(rng.uniform(size=(e, e)) < p)
+        r, c = r[: nnz_pad - pad_extra], c[: nnz_pad - pad_extra]
+        rows[k, : r.size], cols[k, : r.size] = r, c
+        vals[k, : r.size] = rng.normal(size=r.size)
+    return rows, cols, vals, rng.normal(size=(b, e)), 10 * rng.normal(size=(b, e, f))
+
+
+@pytest.mark.parametrize("b,e,f", [(2, 40, 4), (3, 70, 8)])
+def test_chebconv_plain_matches_jax(b, e, f):
+    from multihop_offload_tpu.ops.chebconv import _xla_propagate, chebconv_propagate_pallas
+    from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+    from multihop_offload_tpu_torch.ops.sparse import COO
+
+    rng = np.random.default_rng(e)
+    rows, cols, vals, diag, x = _coo_case(rng, b, e, f, 0.08)
+    g = rng.normal(size=x.shape)
+    t = torch.from_numpy
+    support = SparseSupport(edges=COO(rows=t(rows), cols=t(cols), vals=t(vals),
+                                      shape=(e, e)), diag=t(diag))
+    xt = t(x).requires_grad_()
+    out = tcc.chebconv_propagate(support, xt)
+    (dx,) = torch.autograd.grad(out, xt, t(g))
+
+    def pallas(r, c, v, d, xx):
+        return chebconv_propagate_pallas(r, c, v, d, xx, "float64", True)
+
+    def xla(r, c, v, d, xx):
+        return _xla_propagate(r, c, v, d, xx, jnp.float64)
+
+    for fn in (pallas, xla):
+        want, vjp = jax.vjp(lambda xx: jax.vmap(fn)(rows, cols, vals, diag, xx), jnp.asarray(x))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(dx.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("b,n,p", [(2, 24, 0.15), (3, 40, 0.08)])
+def test_coo_apsp_plain_chain_equals_jax_kernel(b, n, p):
+    """K6's plain chain (`weight_matrix_from_edges` -> blocked squarings)
+    bit-identical to `apsp_minplus_coo` in interpret mode."""
+    from multihop_offload_tpu.ops.minplus import apsp_minplus_coo
+
+    rng = np.random.default_rng(n)
+    l_pad = 0
+    lists = []
+    for _ in range(b):
+        iu, ju = np.where(np.triu(rng.uniform(size=(n - 3, n - 3)) < p, 1))
+        lists.append(np.stack([iu, ju], 1))
+        l_pad = max(l_pad, iu.size + 5)
+    ends = np.zeros((b, l_pad, 2), np.int32)
+    mask = np.zeros((b, l_pad), bool)
+    for k, lk in enumerate(lists):
+        ends[k, : len(lk)], mask[k, : len(lk)] = lk, True
+    delays = rng.uniform(0.1, 5.0, (b, l_pad))
+    got = tmp.apsp_minplus_coo(torch.from_numpy(ends), torch.from_numpy(mask),
+                               torch.from_numpy(delays), n)
+    want = jax.vmap(lambda e_, m, d: apsp_minplus_coo(e_, m, d, n, interpret=True))(
+        ends, mask, delays)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.isinf(got).any()  # three isolated nodes stay unreachable
+
+
+@pytest.mark.parametrize("b,l", [(2, 24), (3, 72)])
+def test_fixed_point_grad_matches_jax_custom_vjp(b, l):
+    """K1's autograd Function (backward: recompute through the plain scan)
+    against the JAX custom_vjp (recompute through `_xla_reference`)."""
+    rng = np.random.default_rng(l + 1)
+    args = _conflict_batch(rng, b, l)
+    g = rng.normal(size=(b, l))
+    ins = [torch.from_numpy(a).requires_grad_() for a in args]
+    mu = tfp.fixed_point(*ins)
+    got = torch.autograd.grad(mu, ins, torch.from_numpy(g))
+    for interpret in (False, True):
+        _, vjp = jax.vjp(lambda *a: fixed_point_pallas(*a, 10, interpret),
+                         *map(jnp.asarray, args))
+        for t, j in zip(got, vjp(jnp.asarray(g))):
+            j = np.asarray(j)
+            np.testing.assert_allclose(t.numpy(), j, rtol=1e-10,
+                                       atol=1e-10 * np.abs(j).max())
