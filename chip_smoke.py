@@ -11,6 +11,12 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
 - Slice 2, the training step: `train.driver.train_step` (batched
   `forward_backward`, gradient replay, Adam) with SPECTRAL_K2 (K=2,
   5 layers, width 32) on the sparse layout: kernels K1, K4 and K6.
+- Slice 3, the large-graph path (`large_scale.py`'s functions): the
+  committed 1,024-node ER network of `scripts/large_scale_demo.py` (7,694
+  links, 451 jobs; pads N=1,024, L=7,696, E=8,720) with its random K=3
+  initial parameters, dense layout, through `eval_methods`, `forward_env`
+  and `forward_backward`: kernel K3 (blocked Floyd-Warshall APSP) and the
+  fixed point's scan (L > 928), with K1 launched no time.
 
 It
 
@@ -18,22 +24,27 @@ It
 2. builds the CUDA kernels from `multihop_offload_tpu_torch/csrc/` and
    prints the build time and ptxas' register / shared-memory / spill lines;
 3. holds each kernel against its plain PyTorch version on the same card
-   tensors at the main paths' shapes: K2 and K6 bit-identical, K1 <= 1e-5
-   relative, K4 forward and backward within the scaled 4.5e-7 bar of the
-   JAX package (max |kernel - plain| / max(1, max |plain|)), at F = 4
-   and 32;
+   tensors at the main paths' shapes: K2, K3 and K6 bit-identical (K3 on
+   the large path's own predicted-delay matrix, against its plain version
+   on the card and on the CPU), K1 <= 1e-5 relative, K4 forward and
+   backward within the scaled 4.5e-7 bar of the JAX package
+   (max |kernel - plain| / max(1, max |plain|)), at F = 4 and 32;
 4. drives each path with every launch count set to 0 just before it and
    read just after, and fails unless each of its kernels launched:
    `eval_methods` (K1, K2); three sparse `train_step`s (K1, K4, K6; the
    parameters must change and the losses be finite); one dense
-   `forward_backward` with the model of record (K1, K2);
+   `forward_backward` with the model of record (K1, K2); the large path's
+   `eval_methods`, `forward_env` and `forward_backward` (K3 launched, K1
+   not, the fixed-point scan run; finite gradients);
 5. checks card against CPU (float32, plain versions): baseline and local
    `dst` identical, GNN `dst` agreement >= 0.99, `job_total` within rtol
    1e-4 on every request whose decisions all agree, for the dense
    decision path and for `eval_methods(layout="sparse")` with SPECTRAL_K2;
    for the sparse `forward_backward` at explore=0, `dst` agreement >= 0.99
    and, on episodes whose decisions all agree, `loss_critic` within rtol
-   1e-4 and the per-episode gradient's cosine to the CPU's >= 0.999;
+   1e-4 and the per-episode gradient's cosine to the CPU's >= 0.999; and
+   the large path's baseline, local and GNN methods with the bars of the
+   dense decision path;
 6. times each kernel, its plain version, its bound and a library call with
    CUDA events, and the paths on the host clock; peak memory;
 7. prints the kernels line, then the `{"ok": true, ...}` line last.
@@ -171,30 +182,23 @@ def kernel_phase(batches) -> dict:
 
 
 def reset_counts():
-    from multihop_offload_tpu_torch.ops import chebconv as cc
-    from multihop_offload_tpu_torch.ops import fixed_point as fp
+    from multihop_offload_tpu_torch.large_scale import reset_kernel_counts
     from multihop_offload_tpu_torch.ops import minplus as mp
 
-    fp.fixed_point_cuda.launches = 0
-    mp.minplus_closure_cuda.launches = 0
-    cc.chebconv_propagate_cuda.launches = 0
-    mp.apsp_coo_cuda.launches = 0
+    reset_kernel_counts()
     if mp.minplus_closure_cuda.executed is not None:
         mp.minplus_closure_cuda.executed.zero_()
 
 
 def read_counts() -> dict:
-    from multihop_offload_tpu_torch.ops import chebconv as cc
-    from multihop_offload_tpu_torch.ops import fixed_point as fp
+    """Every kernel's launches (and the fixed-point scan's runs) since the
+    last `reset_counts`, with K2's executed squarings."""
+    from multihop_offload_tpu_torch.large_scale import kernel_counts
     from multihop_offload_tpu_torch.ops import minplus as mp
 
     torch.cuda.synchronize()
     ex = mp.minplus_closure_cuda.executed
-    return {"fixed_point": fp.fixed_point_cuda.launches,
-            "minplus": mp.minplus_closure_cuda.launches,
-            "squarings": 0 if ex is None else int(ex),
-            "chebconv": cc.chebconv_propagate_cuda.launches,
-            "coo_apsp": mp.apsp_coo_cuda.launches}
+    return {**kernel_counts(), "squarings": 0 if ex is None else int(ex)}
 
 
 def scaled_err(got, want) -> float:
@@ -290,6 +294,113 @@ def compare(tag, card: dict, cpu: dict, mask: torch.Tensor) -> None:
             f"{int(same.sum())} requests with equal decisions")
         if not worst <= 1e-4:
             raise AssertionError(f"{tag}/{method}: job_total rel err {worst} > 1e-4")
+
+
+def large_phase(dev, card) -> dict:
+    """Slice 3: the large-graph path at N=1,024.  K3 against its plain
+    version on the path's own predicted-delay matrix; the three calls of
+    the path with counts set to 0 just before and read just after each;
+    card against CPU; then K3's and the paths' times."""
+    from multihop_offload_tpu_torch.agent.actor import actor_delay_matrix, default_support
+    from multihop_offload_tpu_torch.agent.policy import forward_env
+    from multihop_offload_tpu_torch.agent.train_step import forward_backward
+    from multihop_offload_tpu_torch.env.apsp import weight_matrix_from_link_delays
+    from multihop_offload_tpu_torch.graphs.cases import large_request, load_large_case
+    from multihop_offload_tpu_torch.large_scale import MODEL
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.ops import fixed_point as fp
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.train.driver import eval_methods
+
+    t0 = time.perf_counter()
+    case = load_large_case()
+    inst_cpu, jobs_cpu, pad = large_request(case, device="cpu")
+    inst, jobs = inst_cpu.to(dev), jobs_cpu.to(dev)
+    model_cpu = load_model(MODEL, device="cpu")
+    model = load_model(MODEL, device=dev)
+    paths = {"apsp": mp.apsp_path(pad.n), "fixed_point": fp.fixed_point_path(pad.l)}
+    log(f"large case: n={case.rec.topo.n}, {case.rec.topo.num_links} links, "
+        f"{int(jobs_cpu.mask.sum())} jobs; {pad}, E={pad.e}; paths {paths}; "
+        f"built on the host in {time.perf_counter() - t0:.2f} s")
+    if paths != {"apsp": "blocked-fw", "fixed_point": "scan"}:
+        raise AssertionError(f"large path: unexpected paths {paths}")
+
+    # ---- K3 on the path's own predicted-delay matrix ------------------------
+    with torch.no_grad():
+        actor = actor_delay_matrix(model, inst, jobs, default_support(model, inst))
+        w = weight_matrix_from_link_delays(inst.adj, inst.link_index, actor.link_delay)
+        eye = torch.eye(pad.n, dtype=torch.bool, device=dev)
+        d = torch.where(eye, 0.0, w).contiguous()
+    got = mp.blocked_fw_cuda(d)
+    ref = mp.blocked_fw_plain(d)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K3 {tuple(d.shape)}: {int((got != ref).sum())} entries "
+                             "differ from the plain version on the card")
+    ref_cpu = mp.blocked_fw_plain(d.cpu())
+    if not torch.equal(got.cpu(), ref_cpu):
+        raise AssertionError(f"K3 {tuple(d.shape)}: {int((got.cpu() != ref_cpu).sum())} "
+                             "entries differ from the plain version on the CPU")
+    log(f"K3 blocked_fw large B,N={tuple(d.shape[:2])} on the GNN's predicted delays: "
+        f"bit-identical to plain on the card and on the CPU (bar: torch.equal); "
+        f"{int(torch.isinf(got).sum())} entries +inf")
+
+    # ---- main path: counts at 0 just before each call, read just after ------
+    calls = {"eval_methods": lambda: eval_methods(model, inst, jobs),
+             "forward_env": lambda: forward_env(model, inst, jobs),
+             "forward_backward": lambda: forward_backward(model, inst, jobs)}
+    counts, results = {}, {}
+    for name, call in calls.items():
+        reset_counts()
+        results[name] = call()
+        counts[name] = read_counts()
+        log(f"large path {name} (B=1, N={pad.n}): launches {counts[name]}")
+        c = counts[name]
+        if c["blocked_fw"] == 0 or c["fixed_point"] != 0 or c["fixed_point_scan"] == 0:
+            raise AssertionError(f"large {name}: K3 must launch, K1 not, the scan run: {c}")
+    fb = results["forward_backward"]
+    if not (torch.isfinite(fb.loss_critic).all()
+            and all(torch.isfinite(g).all() for g in fb.grads.values())):
+        raise AssertionError("large forward_backward: non-finite loss or gradients")
+
+    # ---- card against CPU (float32, plain versions) --------------------------
+    t1 = time.perf_counter()
+    compare("large", outcomes(model, inst, jobs, dev),
+            outcomes(model_cpu, inst_cpu, jobs_cpu, "cpu"), jobs_cpu.mask)
+    log(f"large card-vs-CPU check took {time.perf_counter() - t1:.2f} s")
+
+    # ---- timing --------------------------------------------------------------
+    n, b = pad.n, 1
+    iters = mp.squaring_count(n)
+    k3_ms = cuda_ms(lambda: mp.blocked_fw_cuda(d), 50)
+    k3_plain_ms = cuda_ms(lambda: mp.blocked_fw_plain(d), 3, warmup=1)
+    k2_ms = cuda_ms(lambda: mp.minplus_closure_cuda(d, iters), 5, warmup=1)
+    # one sweep makes N^3 candidates per matrix, 2 instructions each (add,
+    # then min; no tensor-core path); bytes: d read once, the result written
+    k3_ops_ms = 2.0 * b * n ** 3 / PEAK_FP32_INSTR_PER_S * 1e3
+    k3_bytes_ms = 2 * b * n * n * 4 / PEAK_BYTES_PER_S * 1e3
+    env_ms = wall_ms(lambda: forward_env(model, inst, jobs), 5)
+    eval_ms = wall_ms(lambda: eval_methods(model, inst, jobs), 5)
+    fb_ms = wall_ms(lambda: forward_backward(model, inst, jobs), 3)
+    torch.cuda.reset_peak_memory_stats()
+    eval_methods(model, inst, jobs)
+    forward_backward(model, inst, jobs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    nb = n // mp.FW_TILE
+    log(f"timing on {card['smi']}: K3 blocked_fw B,N={(b, n)} {k3_ms * 1e3:.1f} us per "
+        f"APSP call ({3 * nb} launches), plain {k3_plain_ms:.3f} ms, bound "
+        f"{max(k3_ops_ms, k3_bytes_ms) * 1e3:.1f} us (operations); K2 squaring on the "
+        f"same matrix ({iters} launches) {k2_ms * 1e3:.1f} us")
+    log(f"large path: forward_env {env_ms:.2f} ms, eval_methods {eval_ms:.2f} ms per "
+        f"request, forward_backward {fb_ms:.2f} ms per episode; peak memory "
+        f"{peak / 2**20:.1f} MiB (max_memory_allocated, eval_methods + forward_backward)")
+    return {"counts": counts, "shape": [b, n], "launches_per_call": 3 * nb,
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "squaring_ms": k2_ms,
+            "bound_ms": max(k3_ops_ms, k3_bytes_ms),
+            "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
+            "forward_env_ms": env_ms, "eval_methods_ms": eval_ms,
+            "forward_backward_ms": fb_ms, "peak_mib": peak / 2**20}
 
 
 def main() -> int:
@@ -555,10 +666,14 @@ def main() -> int:
         f"{sp_rung.adj.shape[0]}; dense forward_backward ({MODEL_K1}) "
         f"{dense_fb_ms:.2f} ms; peak memory {train_peak / 2**20:.1f} MiB "
         f"(max_memory_allocated, train_step)")
+
+    # ---- slice 3: the large-graph path ---------------------------------------
+    large = large_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
-               "forward_backward_dense": fb_counts}
+               "forward_backward_dense": fb_counts,
+               **{f"large_{k}": v for k, v in large["counts"].items()}}
     kernels = [
         {"name": "fixed_point", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/fixed_point.cu",
@@ -600,6 +715,18 @@ def main() -> int:
          "library_ms": None, "shape": [sb, n6], "squarings_per_call": sq6,
          "rung_ms": k6_rung_ms,
          "launches_by_path": {k: v["coo_apsp"] for k, v in by_path.items()}},
+        {"name": "blocked_fw", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/blocked_fw.cu",
+         "replaces": "multihop_offload_tpu/ops/minplus.py:195",
+         "launches": large["counts"]["eval_methods"]["blocked_fw"],
+         "max_abs_err": 0.0,
+         "ms": large["ms"], "plain_ms": large["plain_ms"], "bound_ms": large["bound_ms"],
+         "bound_by": large["bound_by"], "library_ms": None, "shape": large["shape"],
+         "launches_per_call": large["launches_per_call"],
+         "squaring_ms": large["squaring_ms"],
+         "large_path": {k: large[k] for k in ("forward_env_ms", "eval_methods_ms",
+                                              "forward_backward_ms", "peak_mib")},
+         "launches_by_path": {k: v["blocked_fw"] for k, v in by_path.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """All-pairs shortest paths as dense min-plus linear algebra, batched.
 
-Port of `multihop_offload_tpu/env/apsp.py`.  The squarings run in
-`ops.minplus` (K2 on the card, the plain broadcast on the CPU); the greedy
-next-hop table breaks ties at the lowest neighbour index, exactly as the
-reference's forwarding rule and the JAX table do.  `apsp_minplus_blocked`
-(`env/apsp.py:98-132`, defined in `ops.minplus`) is the plain k-blocked
-squaring the sparse layout's chain ends in; on the card that chain is K6
+Port of `multihop_offload_tpu/env/apsp.py`, run on the kernel path of
+`apsp_minplus_pallas` (`apsp_impl='pallas'`): `ops.minplus.apsp_path`
+picks the squarings (K2 on the card, the plain broadcast on the CPU) up to
+a 128-rounded N of 256 and the blocked Floyd-Warshall (K3 on the card, its
+plain version on the CPU) above it.  The greedy next-hop table breaks ties
+at the lowest neighbour index, exactly as the reference's forwarding rule
+and the JAX table do.  `apsp_minplus_blocked` (`env/apsp.py:98-132`,
+defined in `ops.minplus`) is the plain k-blocked squaring the sparse
+layout's chain ends in; on the card that chain is K6
 (`ops.minplus.apsp_minplus_coo`).
 """
 
@@ -14,24 +17,29 @@ from __future__ import annotations
 import torch
 
 from multihop_offload_tpu_torch.ops.minplus import (  # noqa: F401
+    apsp_blocked_fw,
     apsp_minplus_blocked,
+    apsp_path,
     minplus_closure,
     squaring_count,
 )
 
-# elements of one (b, N, N, N) next-hop cost temp: batches are chunked to
-# stay under this (128 MB in float32)
+# elements of one (b, u, N, N) next-hop cost temp: batches, and at large N
+# source rows, are chunked to stay under this (128 MB in float32)
 _NEXT_HOP_CHUNK_ELEMS = 1 << 25
 
 
 def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
     """Shortest-path distances (B, N, N) from one-hop weights (inf where no
-    edge; the diagonal is forced to 0), with the early stop of the JAX
-    `apsp_minplus` (identical to the full ceil(log2(N-1)) schedule)."""
+    edge; the diagonal is forced to 0) on the path `apsp_path(N)` names:
+    the squarings with the early stop of the JAX `apsp_minplus` (identical
+    to the full ceil(log2(N-1)) schedule), or the blocked FW."""
     n = weights.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=weights.device)
     d = torch.where(eye, torch.zeros((), dtype=weights.dtype,
                                      device=weights.device), weights)
+    if apsp_path(n) == "blocked-fw":
+        return apsp_blocked_fw(d)
     return minplus_closure(d.contiguous(), squaring_count(n))
 
 
@@ -57,15 +65,19 @@ def next_hop_table(adj: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
     """next_hop[b, u, d]: neighbour v of u minimizing sp[b, v, d], lowest v
     on ties (and 0 where every candidate is +inf), as int32 (B, N, N).
 
-    The masked (N, N, N) argmin of the JAX table, chunked over the batch so
-    that the cost temp stays bounded; each chunk computes the same values."""
+    The masked (N, N, N) argmin of the JAX table, chunked over the batch
+    and, where one (N, N, N) temp alone is too large, over source rows u,
+    so that the cost temp stays bounded; each chunk computes the same
+    values."""
     b, n, _ = adj.shape
     out = torch.empty((b, n, n), dtype=torch.int32, device=adj.device)
     step = max(1, _NEXT_HOP_CHUNK_ELEMS // max(n ** 3, 1))
+    rows = min(n, max(1, _NEXT_HOP_CHUNK_ELEMS // max(step * n * n, 1)))
     inf = torch.full((), float("inf"), dtype=sp.dtype, device=sp.device)
     for lo in range(0, b, step):
         a, s = adj[lo:lo + step], sp[lo:lo + step]
-        # cost[b, u, v, d] = sp[b, v, d] if (u, v) is an edge else +inf
-        cost = torch.where((a > 0).unsqueeze(-1), s.unsqueeze(1), inf)
-        out[lo:lo + step] = torch.argmin(cost, dim=2).to(torch.int32)
+        for u0 in range(0, n, rows):
+            # cost[b, u, v, d] = sp[b, v, d] if (u, v) is an edge else +inf
+            cost = torch.where((a[:, u0:u0 + rows] > 0).unsqueeze(-1), s.unsqueeze(1), inf)
+            out[lo:lo + step, u0:u0 + rows] = torch.argmin(cost, dim=2).to(torch.int32)
     return out

@@ -10,9 +10,12 @@ Under `layout="sparse"` the (L, J) incidence is never read: link arrival
 rates scatter-add over the route steps (`seq_slot`/`seq_active`), the
 per-job link delays gather the per-link quantities at each step
 (`:150-161`, `:178-191`), and the last writer of each link is a segment-max
-of job ids over the steps (`:223-243`).  The fixed point stays K1 on the
+of job ids over the steps (`:223-243`).  The fixed point stays on the
 dense conflict matrix in both layouts, as the JAX step runs it with the
-Pallas core (`fp_fn`) given.  The JAX sparse layout's own segment-sum fixed
+Pallas core (`fp_fn`) given: K1, or above L=928, where K1's shared memory
+ends, the plain scan (`ops.fixed_point.fixed_point_path`), as the JAX
+package runs its XLA scan (`:51-73`) above padded L=256.  The JAX sparse
+layout's own segment-sum fixed
 point (`:104-120`, used there when no `fp_fn` is given) is not ported: it
 computes the same update with another summation order, and the parity
 tests hold K1's plain version against it.

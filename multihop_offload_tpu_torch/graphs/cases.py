@@ -10,6 +10,12 @@ step of the port needs networkx or a download:
 Per case it stores the adjacency (uint8), the mean link rates in canonical
 link order, `nodes_info` (role, proc_bw) and the generator seed, in the
 sorted file-name order the drivers use.
+
+Group ``large`` (`load_large_case`) is the one 1,024-node Erdős–Rényi
+network of `scripts/large_scale_demo.py --n 1024 --gtype er --seed 42`
+with its one job set: the link list, the realized link rates, roles,
+proc_bws, job sources and rates; `large_request` builds it with the
+demo's pads.
 """
 
 from __future__ import annotations
@@ -78,6 +84,52 @@ def load_cases(group: str = "paper", path: str = CASES_PATH) -> list:
                 name=name,
             ))
     return recs
+
+
+@dataclasses.dataclass
+class LargeCase:
+    """One network with one job set drawn on it, as the large-scale demo
+    draws them (`scripts/large_scale_demo.py:97-109`); `rec.link_rates`
+    holds the realized rates, not their means."""
+
+    rec: CaseRecord
+    job_src: np.ndarray   # (J,) int64 source nodes
+    job_rate: np.ndarray  # (J,) float64 arrival rates
+    T: float              # congestion-penalty scale
+    gtype: str = "er"     # the generator family
+
+
+def load_large_case(path: str = CASES_PATH) -> LargeCase:
+    """The committed group ``large``, its topology rebuilt from the link
+    list (cf_radius 0: the conflict graph is the line graph)."""
+    with np.load(path) as z:
+        n = int(z["large/n"])
+        ends = z["large/link_ends"]
+        adj = np.zeros((n, n), dtype=np.uint8)
+        adj[ends[:, 0], ends[:, 1]] = adj[ends[:, 1], ends[:, 0]] = 1
+        seed = int(z["large/seed"])
+        rec = CaseRecord(topo=build_topology(adj), roles=z["large/roles"].astype(np.int32),
+                         proc_bws=z["large/proc_bws"].astype(np.float64),
+                         link_rates=z["large/link_rates"].astype(np.float64), seed=seed,
+                         name=f"large_{z['large/gtype']}_n{n}_seed{seed}")
+        return LargeCase(rec=rec, job_src=z["large/job_src"].astype(np.int64),
+                         job_rate=z["large/job_rate"].astype(np.float64),
+                         T=float(z["large/T"]), gtype=str(z["large/gtype"]))
+
+
+def large_request(case: LargeCase | None = None, dtype=torch.float32, device=None):
+    """The large case as a batch of one request, with the demo's pads
+    (every count rounded up to 8, `:100-104`), dense layout, on `device`
+    (default CUDA).  Returns ``(inst, jobs, pad)``."""
+    case = case or load_large_case()
+    rec = case.rec
+    pad = pad_for([rec])
+    inst = build_instance(rec.topo, rec.roles, rec.proc_bws, rec.link_rates, case.T,
+                          pad, dtype, device="cpu")
+    jobs = build_jobset(case.job_src, case.job_rate, pad_jobs=pad.j, dtype=dtype,
+                        device="cpu")
+    dev = resolve_device(device)
+    return stack_instances([inst]).to(dev), stack_instances([jobs]).to(dev), pad
 
 
 def pad_for(cases, layout=None) -> PadSpec:

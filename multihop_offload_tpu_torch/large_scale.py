@@ -1,0 +1,186 @@
+"""The large-graph path on one card: the port's counterpart of
+
+    python scripts/large_scale_demo.py --n 1024 --gtype er --seed 42 --k 3 \\
+        --apsp auto --backward
+
+It loads the committed 1,024-node Erdős–Rényi network and its job set
+(`graphs.cases.load_large_case`: 7,694 links, 451 jobs; the demo's pads
+N=1,024, L=7,696, E=8,720; dense layout) and the demo's random K=3 initial
+parameters (`LARGE_K3_init` in `data/weights.npz`), then runs, as the demo
+does, `agent.policy.forward_env` and, under `--backward`,
+`agent.train_step.forward_backward`; besides them it runs
+`train.driver.eval_methods` (baseline, local, GNN) on the same request.  At
+this size the APSP takes the blocked-FW path (K3) and the fixed point the
+scan (L > 928, where K1's shared memory ends); the report names the paths
+and counts each kernel's launches per call.
+
+    python -m multihop_offload_tpu_torch.large_scale [--device cpu] [--steps 3]
+        [--backward] [--out FILE]
+
+It runs on CUDA unless `--device cpu` is given, and prints one JSON line
+with the demo's keys, unrounded: `compile_s` is the first `forward_env`
+call (on the card it builds the kernels), `step_s` the mean of `--steps`
+more; `apsp_pallas_ms` times the APSP of the demo's unit-weight matrix on
+the path taken (K3 on the card) and `apsp_xla_ms` the squarings on the
+same matrix (K2 on the card), as the demo times its kernel path against
+the XLA squaring.  Added keys: the fixed-point path, `eval_methods` time
+and per-method tau, launches per call, peak device memory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch.agent.policy import forward_env
+from multihop_offload_tpu_torch.agent.train_step import forward_backward
+from multihop_offload_tpu_torch.env.apsp import apsp_minplus
+from multihop_offload_tpu_torch.graphs.cases import LargeCase, large_request, load_large_case
+from multihop_offload_tpu_torch.models.chebconv import load_model
+from multihop_offload_tpu_torch.ops import chebconv as cc
+from multihop_offload_tpu_torch.ops import fixed_point as fp
+from multihop_offload_tpu_torch.ops import minplus as mp
+from multihop_offload_tpu_torch.train.driver import eval_methods
+
+MODEL = "LARGE_K3_init"
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, and the fixed-point scan's runs."""
+    return {"fixed_point": fp.fixed_point_cuda.launches,
+            "fixed_point_scan": fp.fixed_point_scan.runs,
+            "minplus": mp.minplus_closure_cuda.launches,
+            "blocked_fw": mp.blocked_fw_cuda.launches,
+            "coo_apsp": mp.apsp_coo_cuda.launches,
+            "chebconv": cc.chebconv_propagate_cuda.launches}
+
+
+def reset_kernel_counts() -> None:
+    fp.fixed_point_cuda.launches = 0
+    fp.fixed_point_scan.runs = 0
+    mp.minplus_closure_cuda.launches = 0
+    mp.blocked_fw_cuda.launches = 0
+    mp.apsp_coo_cuda.launches = 0
+    cc.chebconv_propagate_cuda.launches = 0
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(dev, fn, counts: dict | None = None, name: str = ""):
+    """(result, seconds) of one call ending in a sync; with `counts`, the
+    kernel counts are set to 0 before it and read after it into
+    counts[name]."""
+    if counts is not None:
+        reset_kernel_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    if counts is not None:
+        counts[name] = kernel_counts()
+    return out, dt
+
+
+def _mean_s(dev, fn, steps: int) -> float:
+    return sum(_timed(dev, fn)[1] for _ in range(steps)) / steps
+
+
+def run(device=None, steps: int = 3, backward: bool = False,
+        case: LargeCase | None = None) -> dict:
+    """Drive the large-graph path once cold and `steps` times warm on
+    `device` (default CUDA); returns the report."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    case = case or load_large_case()
+    inst, jobs, pad = large_request(case, device=dev)
+    model = load_model(MODEL, device=dev)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    counts: dict = {}
+
+    (outcome, _), compile_s = _timed(dev, lambda: forward_env(model, inst, jobs, device=dev),
+                                     counts, "forward_env")
+    step_s = _mean_s(dev, lambda: forward_env(model, inst, jobs, device=dev), steps)
+    (bl, loc, gnn), eval_s = _timed(dev, lambda: eval_methods(model, inst, jobs, device=dev),
+                                    counts, "eval_methods")
+
+    m = jobs.mask[0]
+    nj = int(m.sum())
+    totals = outcome.job_total[0][m]
+    offloaded = outcome.decision.dst[0][m] != jobs.src[0][m].to(torch.int32)
+    report = {
+        "metric": "large_scale_forward_env",
+        "n": case.rec.topo.n, "links": case.rec.topo.num_links, "ext_slots": pad.e,
+        "jobs": nj, "gtype": case.gtype, "cheb_k": model.k, "apsp": mp.apsp_path(pad.n),
+        "fixed_point": fp.fixed_point_path(pad.l),
+        "pad": [pad.n, pad.l, pad.s, pad.j],
+        "build_s": build_s, "compile_s": compile_s, "step_s": step_s,
+        "tau": totals.mean().item(),
+        "congested_ratio": (totals > inst.T[0]).double().mean().item(),
+        "offloaded_ratio": offloaded.double().mean().item(),
+        "eval_methods_s": eval_s,
+        "tau_methods": {k: v[0][m].mean().item()
+                        for k, v in (("baseline", bl), ("local", loc), ("gnn", gnn))},
+    }
+
+    # the demo's standalone APSP: unit weights on the graph's edges
+    inf = torch.full((), float("inf"), dtype=inst.adj.dtype, device=dev)
+    wmat = torch.where(inst.adj > 0, 1.0 / inst.adj.clamp_min(1e-9), inf)
+    eye = torch.eye(pad.n, dtype=torch.bool, device=dev)
+    d0 = torch.where(eye, torch.zeros_like(inf), wmat).contiguous()
+    reps = max(steps, 3)
+    iters = mp.squaring_count(pad.n)
+    # one call each first: the squarings are off the path, so their first
+    # call here loads K2
+    apsp_minplus(wmat)
+    mp.minplus_closure(d0, iters)
+    report["apsp_pallas_ms"] = 1e3 * _mean_s(dev, lambda: apsp_minplus(wmat), reps)
+    report["apsp_xla_ms"] = 1e3 * _mean_s(dev, lambda: mp.minplus_closure(d0, iters), reps)
+
+    if backward:
+        outs, report["bwd_compile_s"] = _timed(
+            dev, lambda: forward_backward(model, inst, jobs, device=dev),
+            counts, "forward_backward")
+        report["bwd_step_s"] = _mean_s(
+            dev, lambda: forward_backward(model, inst, jobs, device=dev), steps)
+        report["loss_critic"] = outs.loss_critic[0].item()
+        report["grads_finite"] = all(bool(torch.isfinite(g).all())
+                                     for g in outs.grads.values())
+    report["launches"] = counts
+    report["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if dev.type == "cuda":
+        report["peak_mem_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    return report
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--backward", action="store_true",
+                   help="also run the actor/critic training step")
+    p.add_argument("--out", default=None, help="also write the report here")
+    args = p.parse_args(argv)
+    report = run(args.device, args.steps, args.backward)
+    line = json.dumps(report)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -154,7 +154,8 @@ def load_weights(name: str, path: str = WEIGHTS_PATH) -> dict:
     `data/weights.npz` holds the ``params`` of two checkpoints of the JAX
     package (`scripts/export_torch_port_data.py` made it): the model of
     record ``SCRATCH800_decay0.99`` (K=1, 5 layers, width 32) and
-    ``SPECTRAL_K2`` (K=2)."""
+    ``SPECTRAL_K2`` (K=2); and ``LARGE_K3_init``, the random K=3 initial
+    parameters of `scripts/large_scale_demo.py`."""
     params: dict = {}
     with np.load(path) as z:
         for key in z.files:

@@ -13,6 +13,16 @@ scan under `torch.enable_grad()` and pulls the cotangent back through it,
 as the JAX `custom_vjp` (`_fp_bwd`, `ops/fixed_point.py:182-198`)
 recomputes through `_xla_reference`.  The kernel has no backward of its
 own; the TPU kernel has none either.
+
+Large L: K1 keeps A in one block's shared memory, which caps L at 928.
+`fixed_point_path(l)`, the port's counterpart of `auto_fp_path`, names the
+path from the shape before anything launches: 'k1' where K1's shared
+memory fits, 'scan' above that.  The scan is the plain update itself,
+`torch.matmul(A, busy)` per iteration (cuBLAS on the card), the
+counterpart of the XLA scan `env/queueing.py:interference_fixed_point_raw`
+that the JAX package runs above padded L=256 outside any Pallas kernel;
+native autograd differentiates it.  `fixed_point_scan.runs` counts its
+calls.  `fixed_point_cuda` itself keeps raising above its cap.
 """
 
 from __future__ import annotations
@@ -112,7 +122,27 @@ class _FixedPoint(torch.autograd.Function):
         return (*(next(got) if n else None for n in need), None)
 
 
+def fixed_point_path(l: int) -> str:
+    """The fixed point the port runs for L links: 'k1' where K1's shared
+    memory holds A, 'scan' above that (L > 928)."""
+    return "k1" if _smem_bytes(l) <= _SMEM_BYTES else "scan"
+
+
+def fixed_point_scan(adj, rates, cf, lam, num_iters: int = 10):
+    """The 'scan' path: `fixed_point_plain` on a CPU or CUDA device, under
+    native autograd; counts its calls in `fixed_point_scan.runs`."""
+    if adj.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fixed_point: unsupported device {adj.device}")
+    fixed_point_scan.runs += 1
+    return fixed_point_plain(adj, rates, cf, lam, num_iters)
+
+
+fixed_point_scan.runs = 0
+
+
 def fixed_point(adj, rates, cf, lam, num_iters: int = 10):
-    """Converged mu (B, L): plain version on the CPU, K1 on CUDA;
-    differentiable in every operand."""
+    """Converged mu (B, L) on `fixed_point_path(L)`: K1 (plain version on
+    the CPU) or the scan; differentiable in every operand."""
+    if fixed_point_path(adj.shape[-1]) == "scan":
+        return fixed_point_scan(adj, rates, cf, lam, num_iters)
     return _FixedPoint.apply(adj, rates, cf, lam, num_iters)

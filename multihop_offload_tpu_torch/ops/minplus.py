@@ -19,6 +19,18 @@ squarings that actually ran.
 `minplus_closure` dispatches on the device: plain PyTorch for CPU tensors,
 the CUDA kernel for CUDA tensors, an error for anything else.
 
+K3 replaces `multihop_offload_tpu/ops/minplus.py:blocked_fw_call` (the
+Pallas kernels `_pivot_kernel`, `_panel_kernel`, `_outer_kernel`): exact
+three-phase blocked Floyd-Warshall on 128 x 128 pivot blocks.  Its plain
+version `blocked_fw_plain` follows the same schedule, so the two are
+bit-identical to each other and to the interpret-mode TPU kernel; the CUDA
+source is `csrc/blocked_fw.cu`.  `apsp_path(n)` is the port's counterpart
+of `pallas_apsp_path` (`apsp_impl='pallas'`): K2's squaring up to a
+128-rounded N of 256, K3 above it up to 2,048, the squaring again beyond
+(what the JAX XLA delegation computes there).  On the `blocked-fw` path the
+matrix is padded with +inf to a multiple of 128 and sliced back, as
+`apsp_minplus_pallas` pads it.
+
 K6 replaces `multihop_offload_tpu/ops/minplus.py:apsp_minplus_coo` (the
 Pallas kernel `_coo_apsp_kernel`): the weight matrix is built on the card
 from the (B, L, 2) link list, its mask and the per-link delays (exact min,
@@ -28,9 +40,11 @@ with early stop, N the padded node count (`inst.num_pad_nodes`, as
 version is the sparse layout's chain `weight_matrix_from_edges` ->
 `apsp_minplus_blocked`, and the kernel is bit-identical to it.  The CUDA
 source is `csrc/coo_apsp.cu`: one launch builds W in device memory, and K2
-squares it, at every N, as the TPU kernel squares with `_chunked_squaring`,
-the code it shares with K2.  `apsp_minplus_coo` dispatches on the device
-of the delays as `minplus_closure` does.
+squares it, as the TPU kernel squares with `_chunked_squaring`, the code
+it shares with K2.  On the `blocked-fw` path K3 takes the place of K2
+after the build, as `ops/minplus.py:507-515` hands the scatter-built W to
+the blocked FW.  `apsp_minplus_coo` dispatches on the device of the delays
+as `minplus_closure` does.
 """
 
 from __future__ import annotations
@@ -139,6 +153,134 @@ def squaring_count(num_nodes: int) -> int:
     return max(1, math.ceil(math.log2(max(num_nodes - 1, 2))))
 
 
+# ---- K3: blocked Floyd-Warshall ---------------------------------------------
+
+FW_TILE = 128           # the TPU kernel's pivot block (`_LANE`)
+_MAX_SQUARING_N = 256   # `ops/minplus.py:_MAX_SQUARING_N`
+_MAX_BLOCKED_N = 2048   # `ops/minplus.py:_MAX_BLOCKED_N`
+# elements of one (b, m, tile, N) candidate temp of `blocked_fw_plain`:
+# rows are chunked to stay under this (128 MB in float32)
+_FW_CHUNK_ELEMS = 1 << 25
+
+
+def padded_n(n: int) -> int:
+    """N rounded up to the 128-wide pivot block, as `apsp_minplus_pallas`
+    pads it."""
+    return max(FW_TILE, math.ceil(n / FW_TILE) * FW_TILE)
+
+
+def apsp_path(n: int) -> str:
+    """The APSP the port runs for N nodes: 'squaring' (K2) or 'blocked-fw'
+    (K3), keyed on the 128-rounded N as `pallas_apsp_path` is."""
+    n_pad = padded_n(n)
+    if _MAX_SQUARING_N < n_pad <= _MAX_BLOCKED_N:
+        return "blocked-fw"
+    return "squaring"
+
+
+def _minplus_into(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """min(c, a (x) b) for c (B, M, N), a (B, M, K), b (B, K, N), with the
+    rows of a taken in chunks so that the (B, m, K, N) temp stays bounded.
+    Each candidate is one add and min is exact, so the chunking and the
+    order of k leave the result as it is."""
+    bsz, m, k = a.shape
+    n = b.shape[-1]
+    step = max(1, _FW_CHUNK_ELEMS // max(bsz * k * n, 1))
+    out = torch.empty_like(c)
+    for lo in range(0, m, step):
+        cand = (a[:, lo:lo + step].unsqueeze(-1) + b.unsqueeze(1)).amin(dim=2)
+        out[:, lo:lo + step] = torch.minimum(c[:, lo:lo + step], cand)
+    return out
+
+
+def blocked_fw_plain(d: torch.Tensor, tile: int = FW_TILE) -> torch.Tensor:
+    """Exact APSP of (B, N, N) `d` (zero diagonal, +inf for non-edges, N a
+    multiple of `tile`) on the schedule of `blocked_fw_call`: for each pivot
+    block, (1) close it by sequential FW over its `tile` steps
+    (`_fw_close`); (2) update its row panel to min(blk, P (x) blk) and its
+    column panel to min(blk, blk (x) P) from the old blocks, the pivot
+    passed through (`_panel_kernel`); (3) update every block off the pivot
+    row and column to min(c, A (x) B) from the finished panels
+    (`_outer_kernel`).  Any dtype and device; returns a new tensor."""
+    b, n, _ = d.shape
+    if n % tile:
+        raise ValueError(f"N={n} is not a multiple of the tile {tile}")
+    d = d.clone()
+    for k0 in range(0, n, tile):
+        ks = slice(k0, k0 + tile)
+        p = d[:, ks, ks]
+        for k in range(tile):
+            p = torch.minimum(p, p[:, :, k:k + 1] + p[:, k:k + 1, :])
+        row = _minplus_into(d[:, ks, :], p, d[:, ks, :])
+        col = _minplus_into(d[:, :, ks], d[:, :, ks], p)
+        d[:, ks, :] = row
+        d[:, :, ks] = col
+        d[:, ks, ks] = p
+        outer = _minplus_into(d, d[:, :, ks], d[:, ks, :])
+        outer[:, ks, :] = d[:, ks, :]
+        outer[:, :, ks] = d[:, :, ks]
+        d = outer
+    return d
+
+
+def blocked_fw_cuda(d: torch.Tensor) -> torch.Tensor:
+    """K3 on (B, N, N) float32 contiguous CUDA `d` (zero diagonal, +inf for
+    non-edges, N a multiple of 128): 3 launches per pivot block (pivot, the
+    row and column panels, outer), 3 N / 128 per call, no host sync.  The
+    input is copied; the copy is updated in place and returned."""
+    if d.dim() != 3 or d.shape[1] != d.shape[2]:
+        raise ValueError(f"d must be (B, N, N), got {tuple(d.shape)}")
+    if d.device.type != "cuda":
+        raise ValueError("blocked_fw_cuda takes a CUDA tensor")
+    if d.dtype != torch.float32:
+        raise TypeError(f"blocked_fw_cuda takes float32, got {d.dtype}")
+    if not d.is_contiguous():
+        raise ValueError("blocked_fw_cuda takes a contiguous tensor")
+    b, n, _ = d.shape
+    if n % FW_TILE:
+        raise ValueError(f"N={n} is not a multiple of {FW_TILE}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel grid's y limit 65535")
+    out = d.clone()
+    if b == 0 or n == 0:
+        return out
+    fn = _build.kernel("blocked_fw")
+    nb = n // FW_TILE
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(out.data_ptr(), b, n, stream)
+    # the panel and outer phases have no blocks when N is one pivot block
+    blocked_fw_cuda.launches += nb * (3 if nb > 1 else 1)
+    _build.check_launch("blocked_fw", err)
+    return out
+
+
+blocked_fw_cuda.launches = 0
+
+
+def blocked_fw(d: torch.Tensor) -> torch.Tensor:
+    """Blocked FW of (B, N, N) `d`, N a multiple of 128: plain version on
+    the CPU, K3 on CUDA."""
+    if d.device.type == "cpu":
+        return blocked_fw_plain(d)
+    if d.device.type == "cuda":
+        return blocked_fw_cuda(d)
+    raise ValueError(f"blocked_fw: unsupported device {d.device}")
+
+
+def apsp_blocked_fw(d: torch.Tensor) -> torch.Tensor:
+    """APSP of (B, n, n) `d` (zero diagonal) on the `blocked-fw` path: pad
+    with +inf to the 128-rounded N, `blocked_fw`, slice back
+    (`apsp_minplus_pallas`, `:387-399`).  Padded nodes are isolated, so
+    they add no path."""
+    n = d.shape[-1]
+    n_pad = padded_n(n)
+    if n_pad != n:
+        d = torch.nn.functional.pad(d, (0, n_pad - n, 0, n_pad - n), value=float("inf"))
+    out = blocked_fw(d.contiguous())
+    return out if n_pad == n else out[:, :n, :n].contiguous()
+
+
 def apsp_minplus_blocked(weights: torch.Tensor, block: int = 8,
                          num_iters: int | None = None) -> torch.Tensor:
     """Shortest-path distances (B, N, N) from one-hop weights (inf where no
@@ -155,16 +297,22 @@ def apsp_minplus_blocked(weights: torch.Tensor, block: int = 8,
 
 def apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
     """The plain version of K6: `weight_matrix_from_edges`, then
-    `apsp_minplus_blocked`."""
-    return apsp_minplus_blocked(
-        weight_matrix_from_edges(link_ends, link_mask, link_delays, num_nodes))
+    `apsp_minplus_blocked`, or on the `blocked-fw` path `apsp_blocked_fw`
+    of W with its diagonal zeroed."""
+    w = weight_matrix_from_edges(link_ends, link_mask, link_delays, num_nodes)
+    if apsp_path(num_nodes) == "blocked-fw":
+        eye = torch.eye(num_nodes, dtype=torch.bool, device=w.device)
+        return apsp_blocked_fw(torch.where(eye, torch.zeros((), dtype=w.dtype,
+                                                            device=w.device), w))
+    return apsp_minplus_blocked(w)
 
 
 def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
-    """Launch `csrc/coo_apsp.cu` for the whole batch, then square its W
-    with K2: link_ends (B, L, 2) int32, link_mask (B, L) bool, link_delays
-    (B, L) float32, contiguous, on one CUDA device.  Returns (B, N, N)
-    distances."""
+    """Launch `csrc/coo_apsp.cu` for the whole batch, then close its W with
+    K2 (squaring) or K3 (blocked FW, W built at the 128-rounded N; the
+    extra nodes are isolated): link_ends (B, L, 2) int32, link_mask (B, L)
+    bool, link_delays (B, L) float32, contiguous, on one CUDA device.
+    Returns (B, N, N) distances."""
     if link_ends.dim() != 3 or link_ends.shape[2] != 2:
         raise ValueError(f"link_ends must be (B, L, 2), got {tuple(link_ends.shape)}")
     b, l, _ = link_ends.shape
@@ -179,16 +327,21 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"apsp_coo_cuda: want a contiguous {shape}, got "
                              f"{tuple(t.shape)}")
-    w = torch.empty((b, n, n), dtype=torch.float32, device=link_delays.device)
+    blocked = apsp_path(n) == "blocked-fw"
+    n_w = padded_n(n) if blocked else n
+    w = torch.empty((b, n_w, n_w), dtype=torch.float32, device=link_delays.device)
     if b == 0 or n == 0:
-        return w
+        return w[:, :n, :n]
     with torch.cuda.device(link_delays.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _build.kernel("coo_apsp")(link_ends.data_ptr(), link_mask.data_ptr(),
-                                        link_delays.data_ptr(), w.data_ptr(), b, l, n,
+                                        link_delays.data_ptr(), w.data_ptr(), b, l, n_w,
                                         stream)
     apsp_coo_cuda.launches += 1
     _build.check_launch("coo_apsp", err)
+    if blocked:
+        out = blocked_fw_cuda(w)
+        return out if n_w == n else out[:, :n, :n].contiguous()
     return minplus_closure_cuda(w, squaring_count(n))
 
 

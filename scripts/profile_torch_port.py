@@ -5,7 +5,10 @@ over the paper batch (16 committed networks x 4 job sets = 64 requests, the
 model of record, dense layout); `--path train` runs `train_step` over the
 same batch as 64 episodes (SPECTRAL_K2, sparse layout; the step replays
 `Config.batch` stored gradients once that many are stored, which the
-warm-up calls ensure).  It reports:
+warm-up calls ensure); `--path large` runs the large-graph path of
+`large_scale.py` on its one 1,024-node request (`LARGE_K3_init`, dense
+layout): `eval_methods`, then `forward_backward`, as one call.  It
+reports:
 
 * the wall time of each named phase of the path (`_phases.phase` marks
   them in the package's own functions; under `_phases.timing()` each phase
@@ -18,7 +21,7 @@ warm-up calls ensure).  It reports:
   time.  The card's busy share is that device time over the unprofiled
   wall time (tracing itself stretches the window's wall time).
 
-    python3 scripts/profile_torch_port.py [--path eval|train] [--reps 10] [--out FILE]
+    python3 scripts/profile_torch_port.py [--path eval|train|large] [--reps 10] [--out FILE]
 
 Needs a CUDA card; prints one JSON object as its last line.
 """
@@ -38,8 +41,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from multihop_offload_tpu_torch import _phases  # noqa: E402
+from multihop_offload_tpu_torch.agent.train_step import forward_backward  # noqa: E402
 from multihop_offload_tpu_torch.config import Config  # noqa: E402
-from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch  # noqa: E402
+from multihop_offload_tpu_torch.graphs.cases import (  # noqa: E402
+    large_request,
+    load_cases,
+    request_batch,
+)
+from multihop_offload_tpu_torch.large_scale import MODEL as LARGE_MODEL  # noqa: E402
 from multihop_offload_tpu_torch.models.chebconv import load_model  # noqa: E402
 from multihop_offload_tpu_torch.train.driver import (  # noqa: E402
     eval_methods,
@@ -57,7 +66,7 @@ def timed_phases(call) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--path", choices=("eval", "train"), default="eval")
+    p.add_argument("--path", choices=("eval", "train", "large"), default="eval")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--out", default=os.path.join(ROOT, "build", "profile_torch_port.json"))
     args = p.parse_args()
@@ -77,6 +86,13 @@ def main() -> int:
 
         def call():
             eval_methods(model, inst, jobs)
+    elif args.path == "large":
+        inst, jobs, pad = large_request(device=dev)
+        model = load_model(LARGE_MODEL, device=dev)
+
+        def call():
+            eval_methods(model, inst, jobs)
+            forward_backward(model, inst, jobs)
     else:
         cfg = Config(arrival_scale=0.15, layout="sparse", cheb_k=2)
         inst, jobs, pad = request_batch(load_cases("paper")[:16], 4, seed=0, cfg=cfg,

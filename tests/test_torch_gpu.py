@@ -40,17 +40,20 @@ def _weights(rng, b, n, p):
 @pytest.mark.parametrize("b,n", [(3, 7), (5, 37), (4, 112), (2, 256), (1, 300)])
 def test_minplus_kernel_bit_identical(cuda, b, n):
     w = _weights(np.random.default_rng(n), b, n, 3.0 / n).to(cuda)
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w)
+    # the squaring schedule of apsp_minplus: ceil(log2(N-1)) squarings at
+    # most (more can still lower an entry by an ulp: fp addition is not
+    # associative, so the closure is not a fixed point bit for bit); K2
+    # squares at any N, though apsp_minplus takes K3 above a padded 256
+    iters = max(1, math.ceil(math.log2(max(n - 1, 2))))
     before = tmp.minplus_closure_cuda.launches
-    got = apsp_minplus(w)
-    expect = apsp_minplus(w.cpu())
+    got = tmp.minplus_closure(d, iters)
+    expect = tmp.minplus_closure(d.cpu(), iters)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), expect)
-    # the same schedule as apsp_minplus: ceil(log2(N-1)) squarings at most
-    # (more squarings can still lower an entry by an ulp: fp addition is
-    # not associative, so the closure is not a fixed point bit for bit)
-    iters = max(1, math.ceil(math.log2(max(n - 1, 2))))
-    plain = tmp.minplus_closure_plain(
-        torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w), iters)
+    if tmp.apsp_path(n) == "squaring":
+        assert torch.equal(apsp_minplus(w), got)
+    plain = tmp.minplus_closure_plain(d, iters)
     assert torch.equal(got, plain)
     assert tmp.minplus_closure_cuda.launches > before
 
@@ -221,6 +224,68 @@ def test_coo_apsp_kernel_bit_identical(cuda, group, per_network):
     noisy = inst.link_rates * torch.from_numpy(
         rng.uniform(0.5, 2.0, tuple(inst.link_rates.shape)).astype(np.float32))
     _check_coo_apsp(cuda, inst, 1.0 / noisy)
+
+
+@pytest.mark.parametrize("b,n,symmetric", [(2, 384, False), (1, 1024, True)])
+def test_blocked_fw_kernel_bit_identical(cuda, b, n, symmetric):
+    rng = np.random.default_rng(n)
+    w = np.where(rng.uniform(size=(b, n, n)) < 6.0 / n,
+                 rng.uniform(0.1, 5.0, (b, n, n)), np.inf).astype(np.float32)
+    if symmetric:
+        w = np.minimum(w, np.swapaxes(w, 1, 2))
+    d = torch.from_numpy(w)
+    d.diagonal(dim1=1, dim2=2).zero_()
+    dc = d.to(cuda)
+    before = tmp.blocked_fw_cuda.launches
+    got = tmp.blocked_fw_cuda(dc)
+    plain = tmp.blocked_fw_plain(dc)
+    torch.cuda.synchronize()
+    assert tmp.blocked_fw_cuda.launches - before == 3 * (n // 128)
+    assert torch.equal(dc.cpu(), d)  # the input is not written
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), tmp.blocked_fw_plain(d))
+
+
+def test_apsp_takes_blocked_fw_above_256(cuda):
+    """apsp_minplus at N=300 pads to 384 and runs K3, not K2; the COO-fed
+    APSP there is K6's build, then K3."""
+    w = _weights(np.random.default_rng(4), 2, 300, 4.0 / 300)
+    before = (tmp.blocked_fw_cuda.launches, tmp.minplus_closure_cuda.launches)
+    got = apsp_minplus(w.to(cuda))
+    torch.cuda.synchronize()
+    assert (tmp.blocked_fw_cuda.launches - before[0],
+            tmp.minplus_closure_cuda.launches - before[1]) == (9, 0)
+    assert torch.equal(got.cpu(), apsp_minplus(w))
+    iu, ju = np.nonzero(np.triu(np.isfinite(w[0].numpy()), 1))
+    ends = torch.from_numpy(np.stack([iu, ju], 1).astype(np.int32))[None]
+    mask = torch.ones((1, iu.size), dtype=torch.bool)
+    delays = w[0][iu, ju][None].contiguous()
+    k6 = tmp.apsp_coo_cuda.launches
+    coo = tmp.apsp_minplus_coo(ends.to(cuda), mask.to(cuda), delays.to(cuda), 300)
+    torch.cuda.synchronize()
+    assert tmp.apsp_coo_cuda.launches - k6 == 1
+    assert torch.equal(coo.cpu(), tmp.apsp_coo_plain(ends, mask, delays, 300))
+    assert torch.equal(coo.cpu(), got[:1].cpu())
+
+
+def test_large_l_fixed_point_takes_the_scan(cuda):
+    l = 1000
+    rng = np.random.default_rng(l)
+    a = np.triu((rng.uniform(size=(1, l, l)) < 8.0 / l).astype(np.float32), 1)
+    a = a + np.swapaxes(a, 1, 2)
+    rates = rng.uniform(30, 70, (1, l)).round().astype(np.float32)
+    lam = rng.uniform(0, 60, (1, l)).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (a, rates, a.sum(1), lam)]
+    assert tfp.fixed_point_path(l) == "scan"
+    before = (tfp.fixed_point_cuda.launches, tfp.fixed_point_scan.runs)
+    lam_g = args[3].clone().requires_grad_()
+    mu = tfp.fixed_point(*args[:3], lam_g)
+    (g,) = torch.autograd.grad(mu.sum(), lam_g)
+    torch.cuda.synchronize()
+    assert (tfp.fixed_point_cuda.launches - before[0],
+            tfp.fixed_point_scan.runs - before[1]) == (0, 1)
+    assert torch.equal(mu.detach(), tfp.fixed_point_plain(*args))
+    assert torch.isfinite(g).all()
 
 
 def test_sparse_train_step_launches_k1_k4_k6(cuda):

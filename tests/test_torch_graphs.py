@@ -136,7 +136,7 @@ def test_committed_cases_equal_fresh_datagen():
     spec.loader.exec_module(mod)
     with np.load(tcases.CASES_PATH) as z:
         committed = {k: z[k] for k in z.files}
-    fresh = {}
+    fresh = mod.large_arrays()
     for group in mod.CASE_GROUPS:
         fresh.update(mod.case_arrays(group))
     assert sorted(fresh) == sorted(committed)
@@ -191,7 +191,7 @@ def test_port_imports_no_jax_side():
     rel = {os.path.relpath(f, PORT) for f in files}
     for module in ("ops/sparse.py", "ops/chebconv.py", "layouts/policy.py",
                    "layouts/compact.py", "layouts/sparse.py", "agent/train_step.py",
-                   "agent/replay.py", "_records.py"):
+                   "agent/replay.py", "_records.py", "large_scale.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):

@@ -223,6 +223,115 @@ def test_coo_apsp_plain_chain_equals_jax_kernel(b, n, p):
     assert torch.isinf(got).any()  # three isolated nodes stay unreachable
 
 
+def test_blocked_fw_plain_bit_identical_to_jax_tile8():
+    """K3's plain version against `blocked_fw_call` in interpret mode on a
+    batched, asymmetric input, as `tests/test_ops.py` builds it."""
+    from multihop_offload_tpu.ops.minplus import blocked_fw_call
+
+    rng = np.random.default_rng(3)
+    t = 8
+    n = 4 * t
+    d = rng.uniform(0.1, 5.0, (2, n, n))
+    d = np.where(rng.uniform(size=(2, n, n)) < 0.4, d, np.inf)
+    for b in range(2):
+        np.fill_diagonal(d[b], 0.0)
+    got = tmp.blocked_fw_plain(torch.from_numpy(d), tile=t)
+    want = blocked_fw_call(jnp.asarray(d), tile=t, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_blocked_fw_apsp_bit_identical_to_jax_tile128():
+    """`apsp_minplus` at N=300 takes the blocked-FW path, pads to 384 and
+    equals `apsp_minplus_pallas(interpret=True)` bit for bit; it is not the
+    squarings' result (the two closures differ by ulps)."""
+    rng = np.random.default_rng(7)
+    w = _weights(rng, 1, 300, 4.0 / 300)
+    assert tmp.apsp_path(300) == "blocked-fw" and tmp.padded_n(300) == 384
+    got = tapsp.apsp_minplus(torch.from_numpy(w)).numpy()
+    pallas = np.asarray(apsp_minplus_pallas(jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    squared = np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w)))
+    assert (got != squared).any()
+    finite = np.isfinite(squared)
+    np.testing.assert_allclose(got[finite], squared[finite], rtol=1e-12)
+
+
+@pytest.mark.parametrize("n", [150, 256, 300, 1000, 2048, 2049, 3000])
+def test_apsp_path_follows_jax_dispatch(n):
+    from multihop_offload_tpu.ops.minplus import pallas_apsp_path
+
+    want = pallas_apsp_path(n, interpret=True)
+    # above 2,048 the JAX package delegates to its XLA squaring
+    assert tmp.apsp_path(n) == ("squaring" if want == "xla-fallback" else want)
+
+
+def test_fixed_point_path_switches_at_the_shared_memory_cap():
+    cap = max(l for l in range(1, 2000) if tfp._smem_bytes(l) <= tfp._SMEM_BYTES)
+    assert cap == 928
+    assert tfp.fixed_point_path(cap) == "k1"
+    assert tfp.fixed_point_path(cap + 1) == "scan"
+    assert tfp.fixed_point_path(7696) == "scan"
+
+
+def test_fixed_point_scan_path_equals_k1_path_with_grads():
+    """Above the cap the fixed point is the plain scan under native
+    autograd: the same values and gradients as the K1 path's autograd
+    Function, and `fixed_point_scan.runs` counts it."""
+    rng = np.random.default_rng(9)
+    args = _conflict_batch(rng, 1, 930, p=0.01)
+    ins = [torch.from_numpy(a).requires_grad_() for a in args]
+    before = tfp.fixed_point_scan.runs
+    mu = tfp.fixed_point(*ins)
+    assert tfp.fixed_point_scan.runs == before + 1
+    g = torch.from_numpy(rng.normal(size=mu.shape))
+    got = torch.autograd.grad(mu, ins, g)
+    ref_ins = [torch.from_numpy(a).requires_grad_() for a in args]
+    ref = tfp._FixedPoint.apply(*ref_ins, 10)
+    want = torch.autograd.grad(ref, ref_ins, g)
+    np.testing.assert_array_equal(mu.detach().numpy(), ref.detach().numpy())
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-15)
+    jmu = np.asarray(interference_fixed_point_raw(*map(jnp.asarray, args), 10))
+    np.testing.assert_allclose(mu.detach().numpy(), jmu, rtol=1e-12)
+
+
+def test_next_hop_row_chunking_is_invisible(monkeypatch):
+    """At large N one (N, N, N) temp is too big: the table is built in
+    chunks of source rows, with the same values and lowest-index ties."""
+    rng = np.random.default_rng(4)
+    adj = torch.from_numpy((_weights(rng, 2, 30, 0.15) < np.inf).astype(np.float64))
+    w = torch.where(adj > 0, torch.from_numpy(rng.integers(1, 3, (2, 30, 30)).astype(
+        np.float64)), float("inf"))
+    sp = tapsp.apsp_minplus(torch.minimum(w, w.transpose(1, 2)))
+    whole = tapsp.next_hop_table(adj, sp)
+    monkeypatch.setattr(tapsp, "_NEXT_HOP_CHUNK_ELEMS", 7 * 30 * 30)
+    np.testing.assert_array_equal(tapsp.next_hop_table(adj, sp).numpy(), whole.numpy())
+    jnh = jax.vmap(japsp.next_hop_table)(jnp.asarray(adj.numpy()), jnp.asarray(sp.numpy()))
+    np.testing.assert_array_equal(whole.numpy(), np.asarray(jnh))
+
+
+def test_coo_apsp_blocked_fw_path_equals_jax_kernel():
+    """At N=300 the COO-fed APSP is the edge-list build, then the blocked
+    FW (`ops/minplus.py:507-515`): bit-identical to `apsp_minplus_coo` in
+    interpret mode."""
+    from multihop_offload_tpu.ops.minplus import apsp_minplus_coo, coo_apsp_path
+
+    n = 300
+    assert coo_apsp_path(n, interpret=True) == "blocked-fw"
+    rng = np.random.default_rng(n)
+    iu, ju = np.where(np.triu(rng.uniform(size=(n - 2, n - 2)) < 4.0 / n, 1))
+    l_pad = iu.size + 6
+    ends = np.zeros((1, l_pad, 2), np.int32)
+    ends[0, : iu.size] = np.stack([iu, ju], 1)
+    mask = np.zeros((1, l_pad), bool)
+    mask[0, : iu.size] = True
+    delays = rng.uniform(0.1, 5.0, (1, l_pad))
+    got = tmp.apsp_minplus_coo(torch.from_numpy(ends), torch.from_numpy(mask),
+                               torch.from_numpy(delays), n)
+    want = apsp_minplus_coo(ends[0], mask[0], delays[0], n, interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("b,l", [(2, 24), (3, 72)])
 def test_fixed_point_grad_matches_jax_custom_vjp(b, l):
     """K1's autograd Function (backward: recompute through the plain scan)
