@@ -17,6 +17,16 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   initial parameters, dense layout, through `eval_methods`, `forward_env`
   and `forward_backward`: kernel K3 (blocked Floyd-Warshall APSP) and the
   fixed point's scan (L > 928), with K1 launched no time.
+- Slice 4, the offloading-decision service (`cli/serve.py:build_service`,
+  `serve/`): 256 requests of `request_stream(case_pool([20, 50, 80, 110],
+  per_size=2, seed=0), 256, seed=1)` (BA m=2; 2 buckets, pads N 56/112, L
+  96/216) driven closed-loop at 16 slots, queue 64, deadline 60 s, after
+  one warm-up pass: plain ticks with the model of record (K1, K2), then
+  `ragged=True, overlap=True`, one tick past the deadline on an injected
+  clock, and the sparse layout with SPECTRAL_K2 on the first 64 requests
+  (K1, K4, K6).  K5 (`chebconv_propagate_ragged`) is on no path, in the
+  JAX package as here: it is held on the sparse bucket 1's packed extended
+  support (16 slots, E = 328) and on the JAX test's case.
 
 It
 
@@ -28,14 +38,20 @@ It
    the large path's own predicted-delay matrix, against its plain version
    on the card and on the CPU), K1 <= 1e-5 relative, K4 forward and
    backward within the scaled 4.5e-7 bar of the JAX package
-   (max |kernel - plain| / max(1, max |plain|)), at F = 4 and 32;
+   (max |kernel - plain| / max(1, max |plain|)), at F = 4 and 32; K5
+   forward and d x within the same bar, at live counts bit-identical to
+   itself at the capacity, exactly diag * x at live 0, on the sorted lists,
+   with each slot's live prefix permuted (rows unsorted), and on the JAX
+   test's case (n=12, f=6, 17 live of 300);
 4. drives each path with every launch count set to 0 just before it and
    read just after, and fails unless each of its kernels launched:
    `eval_methods` (K1, K2); three sparse `train_step`s (K1, K4, K6; the
    parameters must change and the losses be finite); one dense
    `forward_backward` with the model of record (K1, K2); the large path's
    `eval_methods`, `forward_env` and `forward_backward` (K3 launched, K1
-   not, the fixed-point scan run; finite gradients);
+   not, the fixed-point scan run; finite gradients); the service's plain
+   run (K1, K2) and its sparse run (K1, K4, K6), each answering every
+   admitted request exactly once;
 5. checks card against CPU (float32, plain versions): baseline and local
    `dst` identical, GNN `dst` agreement >= 0.99, `job_total` within rtol
    1e-4 on every request whose decisions all agree, for the dense
@@ -44,10 +60,20 @@ It
    and, on episodes whose decisions all agree, `loss_critic` within rtol
    1e-4 and the per-episode gradient's cosine to the CPU's >= 0.999; and
    the large path's baseline, local and GNN methods with the bars of the
-   dense decision path;
+   dense decision path; the service's ragged + overlap run against its
+   plain run (`dst` and `is_local` agreement >= 0.99, mismatches printed;
+   `delay_est`, `job_total` within rtol 1e-5 where a request's decisions
+   agree), the late tick served by the baseline with `baseline_policy`'s
+   `dst`, and its first 64 requests re-served on the CPU (agreement >=
+   0.99, rtol 1e-4);
 6. times each kernel, its plain version, its bound and a library call with
-   CUDA events, and the paths on the host clock; peak memory;
-7. prints the kernels line, then the `{"ok": true, ...}` line last.
+   CUDA events (K5 at live and at capacity, beside K4 on the same sorted
+   lists and `torch.sparse.mm`), and the paths on the host clock; the
+   service's requests/s, p50/p99 latency, dispatches per request, mean
+   tick, launches per tick, host ms in `dispatch` against `fetch`; peak
+   memory;
+7. prints the serving line, the kernels line, then the `{"ok": true, ...}`
+   line last.
 
 Any failure raises, so the exit code is not 0 and no result line appears.
 
@@ -63,6 +89,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -403,6 +430,320 @@ def large_phase(dev, card) -> dict:
             "forward_backward_ms": fb_ms, "peak_mib": peak / 2**20}
 
 
+def closed_loop(svc, reqs) -> list:
+    """`cli/serve.py:main`'s closed loop over `reqs`, then `drain()`:
+    keep the queue full, tick, refill; returns every response."""
+    pending = list(reversed(reqs))
+    responses = []
+    while pending or svc.queue_depth:
+        while pending:
+            req = pending.pop()
+            if not svc.submit(req):
+                if svc.last_submit_outcome == "backpressure":
+                    pending.append(req)
+                break
+        responses += svc.tick()
+    return responses + svc.drain()
+
+
+def check_conservation(tag, svc, responses) -> dict:
+    """Every admitted request answered exactly once; returns them by id."""
+    ids = [r.request_id for r in responses]
+    if len(ids) != len(set(ids)) or len(ids) != svc.stats.admitted:
+        raise AssertionError(f"{tag}: {len(ids)} responses ({len(set(ids))} distinct) "
+                             f"for {svc.stats.admitted} admitted requests")
+    for r in responses:
+        if r.dst.shape != r.job_total.shape or not np.isfinite(r.job_total).all():
+            raise AssertionError(f"{tag}: request {r.request_id} bad outputs")
+    return {r.request_id: r for r in responses}
+
+
+def compare_responses(tag, got: dict, want: dict, rtol: float) -> dict:
+    """Decisions of the same requests from two runs: dst and is_local
+    agreement over all jobs (bar 0.99, mismatches printed); on requests
+    whose decisions all agree, delay_est and job_total within `rtol`."""
+    n_jobs = n_diff = 0
+    worst = 0.0
+    for rid, w in want.items():
+        g = got[rid]
+        if g.served_by != w.served_by or g.bucket != w.bucket:
+            raise AssertionError(f"{tag}: request {rid} served by {g.served_by}/"
+                                 f"{g.bucket}, not {w.served_by}/{w.bucket}")
+        diff = (g.dst != w.dst) | (g.is_local != w.is_local)
+        n_jobs += diff.size
+        n_diff += int(diff.sum())
+        if diff.any():
+            log(f"{tag}: request {rid} jobs {np.flatnonzero(diff).tolist()} differ: "
+                f"dst {g.dst[diff].tolist()} vs {w.dst[diff].tolist()} (near-tie)")
+            continue
+        for a, b in ((g.delay_est, w.delay_est), (g.job_total, w.job_total)):
+            rel = np.abs(a.astype(np.float64) - b) / np.abs(b.astype(np.float64))
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    agree = 1.0 - n_diff / max(n_jobs, 1)
+    log(f"{tag}: {n_diff} of {n_jobs} jobs differ in dst/is_local (agreement "
+        f"{agree:.4f}, bar 0.99); delay_est/job_total max rel err {worst:.3e} "
+        f"(bar {rtol}) on requests whose decisions all agree")
+    if agree < 0.99 or not worst <= rtol:
+        raise AssertionError(f"{tag}: agreement {agree}, rel err {worst}")
+    return {"jobs": n_jobs, "differ": n_diff, "max_rel_err": worst}
+
+
+def serving_phase(dev, card) -> dict:
+    """Slice 4: the offloading-decision service through `cli/serve.py:
+    build_service`, closed loop over 256 requests of the BA pool n = 20, 50,
+    80, 110 at 16 slots: plain ticks (K1, K2), ragged + overlap, a tick past
+    the deadline, the sparse layout with SPECTRAL_K2 (K1, K4, K6), and the
+    first 64 requests again on the CPU."""
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.env.policies import baseline_policy
+    from multihop_offload_tpu_torch.obs.spans import phase_stats, reset_phases
+    from multihop_offload_tpu_torch.serve.bucketing import pack_bucket
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+
+    pool = case_pool([20, 50, 80, 110], per_size=2, seed=0)
+    reqs = list(request_stream(pool, 256, seed=1, arrival_scale=0.15))
+    base = dict(serve_slots=16, serve_queue_cap=64, serve_deadline_s=60.0,
+                serve_model=MODEL_K1)
+    cfg = Config(**base)
+    warm, _ = build_service(cfg, pool=pool, device=dev)
+    log(f"serving pool: {[p for p in warm.buckets.pads]}")
+    closed_loop(warm, reqs)  # the warm-up pass
+    torch.cuda.synchronize()
+
+    # ---- run 1: plain ticks, counts at 0 just before, read just after --------
+    svc, _ = build_service(cfg, pool=pool, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_phases()
+    reset_counts()
+    t0 = time.monotonic()
+    plain = closed_loop(svc, reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plain_by_id = check_conservation("serve plain", svc, plain)
+    summary = svc.stats.summary(wall_s=wall)
+    log(f"serve plain (dense, {MODEL_K1}, 16 slots): launches {counts}")
+    if counts["fixed_point"] == 0 or counts["minplus"] == 0:
+        raise AssertionError(f"serve plain: K1 and K2 must launch: {counts}")
+    ticks = summary["ticks"]
+    host = dict(svc.executor.host_s)
+    spans = phase_stats()
+    stats = {"requests_per_s": summary["requests_per_sec"],
+             "p50_ms": summary["latency"]["p50_ms"], "p99_ms": summary["latency"]["p99_ms"],
+             "dispatches_per_request": summary["dispatches_per_request"],
+             "ticks": ticks, "mean_tick_ms": wall / ticks * 1e3,
+             "launches_per_tick": {k: v / ticks for k, v in counts.items()
+                                   if k != "squarings"},
+             "dispatch_host_ms": host["dispatch"] * 1e3,
+             "fetch_host_ms": host["fetch"] * 1e3,
+             "tick_host_ms": spans["serve/tick"]["total_s"] * 1e3,
+             "pack_host_ms": spans["serve/pack"]["total_s"] * 1e3,
+             "peak_mib": peak / 2**20, "served": summary["served"],
+             "degraded": summary["degraded"]}
+    log(f"serving on {card['smi']}: {stats['requests_per_s']} requests/s over "
+        f"{summary['served']} requests; latency p50 {stats['p50_ms']:.2f} ms, p99 "
+        f"{stats['p99_ms']:.2f} ms; {stats['dispatches_per_request']} dispatches per "
+        f"request; {ticks} ticks, mean tick {stats['mean_tick_ms']:.2f} ms")
+    log(f"serving on {card['smi']}: launches per tick "
+        f"{ {k: round(v, 2) for k, v in stats['launches_per_tick'].items()} }; host ms "
+        f"in ticks {stats['tick_host_ms']:.1f}: pack {stats['pack_host_ms']:.1f}, "
+        f"dispatch {stats['dispatch_host_ms']:.1f}, fetch {stats['fetch_host_ms']:.1f}; "
+        f"peak memory {stats['peak_mib']:.1f} MiB (max_memory_allocated)")
+
+    # ---- run 2: ragged + overlap on the same stream --------------------------
+    rcfg = Config(**base, serve_ragged=True, serve_overlap=True)
+    rsvc, _ = build_service(rcfg, pool=pool, device=dev)
+    reset_counts()
+    t0 = time.monotonic()
+    ragged = check_conservation("serve ragged+overlap", rsvc, closed_loop(rsvc, reqs))
+    torch.cuda.synchronize()
+    rwall = time.monotonic() - t0
+    rcounts = read_counts()
+    rsum = rsvc.stats.summary(wall_s=rwall)
+    stats["ragged"] = {
+        "requests_per_s": rsum["requests_per_sec"], "p50_ms": rsum["latency"]["p50_ms"],
+        "p99_ms": rsum["latency"]["p99_ms"], "ticks": rsum["ticks"],
+        "mean_tick_ms": rwall / rsum["ticks"] * 1e3,
+        "transitions": len(rsvc.ladder.transitions),
+        "widths": sorted({w for _, w in rsvc.executor.dispatches_by_width}),
+        "dispatch_host_ms": rsvc.executor.host_s["dispatch"] * 1e3,
+        "fetch_host_ms": rsvc.executor.host_s["fetch"] * 1e3,
+        "vs_plain": compare_responses("serve ragged+overlap vs plain", ragged,
+                                      plain_by_id, 1e-5)}
+    log(f"serving ragged+overlap on {card['smi']}: {rsum['requests_per_sec']} requests/s,"
+        f" p50 {stats['ragged']['p50_ms']:.2f} ms, p99 {stats['ragged']['p99_ms']:.2f} ms,"
+        f" {rsum['ticks']} ticks, widths {stats['ragged']['widths']}, "
+        f"{stats['ragged']['transitions']} ladder transitions; launches {rcounts}")
+
+    # ---- run 3: one tick past the deadline on an injected clock --------------
+    t = [100.0]
+    dsvc, _ = build_service(Config(**{**base, "serve_deadline_s": 0.5}), pool=pool,
+                            clock=lambda: t[0], device=dev)
+    req = reqs[0]
+    if not dsvc.submit(req):
+        raise AssertionError("deadline run: the request was refused")
+    t[0] += 10.0
+    (resp,) = dsvc.tick()
+    b = dsvc.buckets.bucket_for(*req.sizes)
+    binst, bjobs = pack_bucket([req], dsvc.buckets[b], 1, device=dev)
+    with torch.no_grad():
+        want = baseline_policy(binst, bjobs).decision.dst[0, :req.num_jobs].cpu().numpy()
+    if resp.served_by != "baseline" or not np.array_equal(resp.dst, want):
+        raise AssertionError(f"deadline run: served by {resp.served_by}, dst "
+                             f"{resp.dst.tolist()} vs baseline {want.tolist()}")
+    log("serve deadline: the late tick was served by the baseline, dst equal to "
+        "baseline_policy on that request")
+
+    # ---- run 4: the sparse layout with SPECTRAL_K2 on the first 64 -----------
+    scfg = Config(**{**base, "serve_model": MODEL_K2}, layout="sparse", cheb_k=2)
+    ssvc, _ = build_service(scfg, pool=pool, device=dev)
+    closed_loop(ssvc, reqs[:16])  # warm-up
+    ssvc, _ = build_service(scfg, pool=pool, device=dev)
+    reset_counts()
+    t0 = time.monotonic()
+    sparse_by_id = check_conservation("serve sparse", ssvc, closed_loop(ssvc, reqs[:64]))
+    torch.cuda.synchronize()
+    swall = time.monotonic() - t0
+    scounts = read_counts()
+    log(f"serve sparse ({MODEL_K2}, 64 requests): launches {scounts}; "
+        f"{len(sparse_by_id) / swall:.1f} requests/s on {card['smi']}")
+    for key in ("fixed_point", "chebconv", "coo_apsp"):
+        if scounts[key] == 0:
+            raise AssertionError(f"serve sparse: {key} did not launch: {scounts}")
+    stats["sparse"] = {"requests_per_s": len(sparse_by_id) / swall,
+                       "ticks": ssvc.stats.ticks}
+
+    # ---- run 5: the first 64 requests re-served on the CPU -------------------
+    t1 = time.perf_counter()
+    csvc, _ = build_service(cfg, pool=pool, device="cpu")
+    cpu_by_id = check_conservation("serve cpu", csvc, closed_loop(csvc, reqs[:64]))
+    stats["card_vs_cpu"] = compare_responses(
+        "serve card vs CPU (first 64)", {k: plain_by_id[k] for k in cpu_by_id},
+        cpu_by_id, 1e-4)
+    log(f"serve card-vs-CPU check took {time.perf_counter() - t1:.2f} s")
+    stats["counts"] = {"serve_plain": counts, "serve_ragged_overlap": rcounts,
+                       "serve_sparse": scounts}
+    stats["sparse_bucket1"] = [r for r in reqs if ssvc.buckets.bucket_for(*r.sizes) == 1][:16]
+    return stats
+
+
+def ragged_kernel_phase(dev, card, reqs) -> dict:
+    """K5 against its plain version on the sparse serving bucket 1's packed
+    extended support (16 slots, E = 328; live = each slot's real entries),
+    sorted and with each live prefix permuted, at F = 4 and 32, and on the
+    JAX test's case; then its times beside K4, torch.sparse.mm and the
+    bound."""
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+    from multihop_offload_tpu_torch.ops import chebconv as cc
+    from multihop_offload_tpu_torch.serve.bucketing import pack_bucket
+    from multihop_offload_tpu_torch.serve.workload import buckets_for_pool, case_pool
+
+    pad = buckets_for_pool(case_pool([20, 50, 80, 110], per_size=2, seed=0)).pads[1]
+    inst, _ = pack_bucket(reqs, pad, 16, layout="sparse", device=dev)
+    support = sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
+                                       csr=inst.sparse.ext_csr)
+    e_, csr = support.edges, support.csr
+    b, e = support.diag.shape
+    cap = e_.rows.shape[1]
+    live = (inst.sparse.ext.vals != 0).sum(1).to(torch.int32)
+    full = torch.full_like(live, cap)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    perm_rows, perm_cols, perm_vals = e_.rows.clone(), e_.cols.clone(), e_.vals.clone()
+    for k in range(b):
+        n = int(live[k])
+        p = torch.randperm(n, generator=gen, device=dev)
+        perm_rows[k, :n], perm_cols[k, :n] = e_.rows[k, :n][p], e_.cols[k, :n][p]
+        perm_vals[k, :n] = e_.vals[k, :n][p]
+    rng = np.random.default_rng(37)  # tests/test_ops.py's ragged case
+    j_rows = np.zeros((1, 300), np.int32)
+    j_cols = np.zeros((1, 300), np.int32)
+    j_vals = np.zeros((1, 300), np.float32)
+    j_rows[0, :17] = rng.integers(0, 12, 17)
+    j_cols[0, :17] = rng.integers(0, 12, 17)
+    j_vals[0, :17] = rng.normal(size=17).astype(np.float32)
+    j_diag = rng.normal(size=(1, 12)).astype(np.float32)
+    j_x = rng.normal(size=(1, 12, 6)).astype(np.float32)
+    cases = {"sorted": (e_.rows, e_.cols, e_.vals, support.diag, live, (4, 32)),
+             "permuted": (perm_rows, perm_cols, perm_vals, support.diag, live, (4, 32)),
+             "jax-test": tuple(torch.from_numpy(a).to(dev) for a in
+                               (j_rows, j_cols, j_vals, j_diag))
+             + (torch.tensor([17], dtype=torch.int32, device=dev), (6,))}
+    launches0 = cc.chebconv_propagate_ragged_cuda.launches
+    worst = {}
+    for tag, (rows, cols, vals, diag, lv, widths) in cases.items():
+        for f in widths:
+            x = (torch.from_numpy(j_x).to(dev) if tag == "jax-test" else
+                 torch.randn((b, e, f), generator=gen, device=dev).mul_(10.0))
+            g = torch.randn(x.shape, generator=gen, device=dev)
+            xk = x.clone().requires_grad_()
+            out = cc.chebconv_propagate_ragged(rows, cols, vals, diag, xk, lv)
+            (dx,) = torch.autograd.grad(out, xk, g)
+            xp = x.clone().requires_grad_()
+            ref = cc.chebconv_propagate_ragged_plain(rows, cols, vals, diag, xp, lv)
+            (dx_ref,) = torch.autograd.grad(ref, xp, g)
+            at_cap = cc.chebconv_propagate_ragged_cuda(
+                rows, cols, vals, diag, x, torch.full_like(lv, rows.shape[1]))
+            zero = cc.chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x,
+                                                     torch.zeros_like(lv))
+            cpu = cc.chebconv_propagate_ragged_plain(rows.cpu(), cols.cpu(), vals.cpu(),
+                                                     diag.cpu(), x.cpu(), lv.cpu())
+            torch.cuda.synchronize()
+            fwd, bwd = scaled_err(out, ref), scaled_err(dx, dx_ref)
+            same_cap = torch.equal(at_cap, out.detach())
+            diag_only = torch.equal(zero, diag[..., None] * x)
+            log(f"K5 chebconv_ragged {tag} B,E,F={tuple(x.shape)} cap {rows.shape[1]}: "
+                f"forward scaled err {fwd:.3e}, d x {bwd:.3e} vs plain on the card (bar "
+                f"{CHEB_SCALED_TOL}); bit-identical to plain on the card "
+                f"{torch.equal(out.detach(), ref.detach())}, on the CPU "
+                f"{torch.equal(out.detach().cpu(), cpu)}; at live == at capacity "
+                f"{same_cap}; live 0 == diag * x {diag_only}")
+            if not (fwd <= CHEB_SCALED_TOL and bwd <= CHEB_SCALED_TOL and same_cap
+                    and diag_only):
+                raise AssertionError(f"K5 {tag} F={f}: scaled errors {fwd}, {bwd}, "
+                                     f"live==cap {same_cap}, live 0 {diag_only}")
+            worst[(tag, f)] = (out - ref).abs().max().item()
+    launches = cc.chebconv_propagate_ragged_cuda.launches - launches0
+
+    # ---- timing on the sorted lists ------------------------------------------
+    n_live = int(live.sum())
+    off = (torch.arange(b, device=dev) * e).unsqueeze(1)
+    keep = torch.arange(cap, device=dev) < live.unsqueeze(1)
+    diag_ids = torch.arange(b * e, device=dev)
+    block = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([(e_.rows.long() + off)[keep], diag_ids]),
+                     torch.cat([(e_.cols.long() + off)[keep], diag_ids])]),
+        torch.cat([e_.vals[keep], support.diag.reshape(-1)]),
+        (b * e, b * e)).coalesce().to_sparse_csr()
+    timing = {}
+    for f in (4, 32):
+        x = torch.randn((b, e, f), generator=gen, device=dev)
+        args = (e_.rows, e_.cols, e_.vals, support.diag, x)
+        t_live = cuda_ms(lambda: cc.chebconv_propagate_ragged_cuda(*args, live), 200)
+        t_cap = cuda_ms(lambda: cc.chebconv_propagate_ragged_cuda(*args, full), 100)
+        t_k4 = cuda_ms(lambda: cc.chebconv_propagate_cuda(
+            csr.row_ptr, None, e_.cols, e_.vals, support.diag, x), 200)
+        t_lib = cuda_ms(lambda: torch.sparse.mm(block, x.view(b * e, f)), 100)
+        t_plain = cuda_ms(lambda: cc.chebconv_propagate_ragged_plain(*args, live), 50)
+        # bytes: each live (row, col, val) entry, diag, x and out once
+        k5_bytes = (n_live * 12 + b * e * 4 + 2 * b * e * f * 4) / PEAK_BYTES_PER_S * 1e3
+        k5_ops = 2.0 * (n_live + b * e) * f / PEAK_FP32_FLOP_PER_S * 1e3
+        timing[f] = {"ms": t_live, "capacity_ms": t_cap, "k4_ms": t_k4,
+                     "library_ms": t_lib, "plain_ms": t_plain,
+                     "bound_ms": max(k5_bytes, k5_ops),
+                     "bound_by": "bytes" if k5_bytes >= k5_ops else "operations"}
+        log(f"timing on {card['smi']}: K5 chebconv_ragged B,E,F={(b, e, f)} "
+            f"({n_live} live of {b * cap} entries) {t_live * 1e3:.2f} us at live, "
+            f"{t_cap * 1e3:.2f} us at capacity; K4 on the same sorted lists "
+            f"{t_k4 * 1e3:.2f} us; torch.sparse.mm {t_lib * 1e3:.2f} us; plain "
+            f"{t_plain * 1e3:.2f} us; bound {timing[f]['bound_ms'] * 1e3:.3f} us "
+            f"({timing[f]['bound_by']})")
+    return {"launches": launches, "max_abs_err": worst[("sorted", 32)],
+            "max_abs_err_all": max(worst.values()), "shape": [b, e, 32],
+            "cap": cap, "nnz_live": n_live, "timing": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -669,11 +1010,17 @@ def main() -> int:
 
     # ---- slice 3: the large-graph path ---------------------------------------
     large = large_phase(dev, card)
+
+    # ---- slice 4: the service, and K5 on its sparse bucket's lists ----------
+    serving = serving_phase(dev, card)
+    k5 = ragged_kernel_phase(dev, card, serving.pop("sparse_bucket1"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
                "forward_backward_dense": fb_counts,
-               **{f"large_{k}": v for k, v in large["counts"].items()}}
+               **{f"large_{k}": v for k, v in large["counts"].items()},
+               **serving.pop("counts")}
+    print(json.dumps({"serving": serving}), flush=True)
     kernels = [
         {"name": "fixed_point", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/fixed_point.cu",
@@ -727,6 +1074,14 @@ def main() -> int:
          "large_path": {k: large[k] for k in ("forward_env_ms", "eval_methods_ms",
                                               "forward_backward_ms", "peak_mib")},
          "launches_by_path": {k: v["blocked_fw"] for k, v in by_path.items()}},
+        {"name": "chebconv_ragged", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/chebconv_ragged.cu",
+         "replaces": "multihop_offload_tpu/ops/chebconv.py:339",
+         "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
+         **k5["timing"][32], "shape": k5["shape"], "nnz_cap": k5["cap"],
+         "nnz_live": k5["nnz_live"], "max_abs_err_all_cases": k5["max_abs_err_all"],
+         "f4": k5["timing"][4],
+         "launches_by_path": {k: v["chebconv_ragged"] for k, v in by_path.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

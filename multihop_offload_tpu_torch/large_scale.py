@@ -57,7 +57,8 @@ def kernel_counts() -> dict:
             "minplus": mp.minplus_closure_cuda.launches,
             "blocked_fw": mp.blocked_fw_cuda.launches,
             "coo_apsp": mp.apsp_coo_cuda.launches,
-            "chebconv": cc.chebconv_propagate_cuda.launches}
+            "chebconv": cc.chebconv_propagate_cuda.launches,
+            "chebconv_ragged": cc.chebconv_propagate_ragged_cuda.launches}
 
 
 def reset_kernel_counts() -> None:
@@ -67,6 +68,7 @@ def reset_kernel_counts() -> None:
     mp.blocked_fw_cuda.launches = 0
     mp.apsp_coo_cuda.launches = 0
     cc.chebconv_propagate_cuda.launches = 0
+    cc.chebconv_propagate_ragged_cuda.launches = 0
 
 
 def _sync(dev: torch.device) -> None:

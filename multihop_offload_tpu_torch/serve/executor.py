@@ -1,0 +1,193 @@
+"""Device-resident bucket executor: one batched decision pass per bucket.
+
+Port of `multihop_offload_tpu/serve/executor.py` (single device).  A
+bucket's batch of requests, packed to its pad shape and `width` slots, goes
+through the same batched `agent.policy.forward_env` (or, degraded,
+`env.policies.baseline_policy`) that the evaluation path runs: on the card
+that is K1 and K2 under the dense layout, K1, K4 and K6 under the sparse
+one.
+
+The JAX executor jits one program per (bucket, width), donates the tick's
+input buffers and compiles on the first dispatch.  Eager torch has none of
+that: a width is the batch size packed.  The (bucket, width) bookkeeping
+stays (`dispatches_by_width`), so ladder widths read as in JAX.
+
+`dispatch` enqueues the pass and returns without waiting for the card: it
+packs the four decision outputs and the decision counters into one buffer
+and starts its copy to pinned host memory behind a CUDA event.  `fetch` is
+the one device-to-host copy: it waits for that event.  The decision
+counters and the non-finite sentinel of `observe_decisions` are torch
+reductions on the card that ride the same copy.
+
+Weights: `load_params` swaps a state dict in memory after the structural
+signature check (`param_signature`) and refuses non-finite leaves.  Reading
+a checkpoint from disk (`hot_reload`) waits for `train/checkpoints.py`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch.agent.policy import forward_env
+from multihop_offload_tpu_torch.env.policies import baseline_policy
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.obs import events as obs_events
+from multihop_offload_tpu_torch.obs import trace as obs_trace
+from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
+
+DM_SERVE_LOCAL = "mho_dev_serve_decisions_total{decision=local}"
+DM_SERVE_OFFLOAD = "mho_dev_serve_decisions_total{decision=offload}"
+DM_SERVE_NONFINITE = "mho_dev_serve_nonfinite_total"
+_DM_KEYS = (DM_SERVE_LOCAL, DM_SERVE_OFFLOAD, DM_SERVE_NONFINITE)
+
+
+def observe_decisions(out, mask: torch.Tensor) -> torch.Tensor:
+    """One dispatch's decision counters as a (3,) tensor on the outputs'
+    device: local and offloaded live jobs, and live jobs whose delay
+    estimate or empirical score is NaN/Inf (the non-finite sentinel; pad
+    slots never count)."""
+    _, is_local, delay_est, job_total = out
+    nonfinite = ~torch.isfinite(delay_est) | ~torch.isfinite(job_total)
+    return torch.stack([(is_local & mask).sum(), (~is_local & mask).sum(),
+                        (nonfinite & mask).sum()])
+
+
+def param_signature(state: dict) -> list:
+    """Structural signature of a state dict: (name, shape, dtype) per leaf.
+    Two state dicts with equal signatures can be swapped in place."""
+    return [(name, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for name, t in state.items()]
+
+
+@dataclasses.dataclass
+class DispatchHandle:
+    """One in-flight dispatch: outputs packed into `host` (float64), whose
+    copy from the card completes when `event` does (None on the CPU)."""
+
+    bucket: int
+    width: int
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
+    device_buf: torch.Tensor  # kept alive until the copy completes
+    out_dtype: torch.dtype
+
+
+class BucketExecutor:
+    """Batched decision passes of one model, plus its weight state."""
+
+    def __init__(self, model, layout=None, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.layout = resolve_layout(layout)
+        self.dispatch_count = 0
+        self.dispatches_by_width: Dict[Tuple[int, int], int] = {}
+        self.loaded_step: Optional[int] = None
+        self.last_devmetrics: Optional[dict] = None
+        # host seconds spent inside dispatch (enqueue) and fetch (wait)
+        self.host_s = {"dispatch": 0.0, "fetch": 0.0}
+
+    def gnn_step(self, binst, bjobs):
+        outcome, _ = forward_env(self.model, binst, bjobs, device=self.device,
+                                 layout=self.layout)
+        d = outcome.decision
+        return d.dst, d.is_local, d.delay_est, outcome.job_total
+
+    def baseline_step(self, binst, bjobs):
+        o = baseline_policy(binst, bjobs, layout=self.layout)
+        d = o.decision
+        return d.dst, d.is_local, d.delay_est, o.job_total
+
+    @torch.no_grad()
+    def dispatch(self, bucket: int, binst, bjobs, degraded: bool = False,
+                 request_ids=None, width: Optional[int] = None) -> DispatchHandle:
+        """Enqueue one batched decision pass (the packed batch already on
+        the executor's device) and return without waiting for the card."""
+        t0 = time.perf_counter()
+        w = int(bjobs.mask.shape[0]) if width is None else int(width)
+        out = (self.baseline_step if degraded else self.gnn_step)(binst, bjobs)
+        counts = observe_decisions(out, bjobs.mask)
+        dst, is_local, delay_est, job_total = out
+        buf = torch.cat([dst.reshape(-1).double(), is_local.reshape(-1).double(),
+                         delay_est.reshape(-1).double(), job_total.reshape(-1).double(),
+                         counts.double()])
+        if buf.device.type == "cuda":
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = buf, None
+        self.dispatch_count += 1
+        key = (bucket, w)
+        self.dispatches_by_width[key] = self.dispatches_by_width.get(key, 0) + 1
+        if request_ids:
+            obs_trace.hop(
+                "dispatch", request_ids, bucket=bucket,
+                dispatch=self.dispatch_count,
+                program="baseline" if degraded else "gnn",
+                step=self.loaded_step,
+            )
+        self.host_s["dispatch"] += time.perf_counter() - t0
+        return DispatchHandle(bucket=bucket, width=w, host=host, event=event,
+                              device_buf=buf, out_dtype=delay_est.dtype)
+
+    def fetch(self, handle: DispatchHandle):
+        """Resolve one dispatch: host numpy (dst, is_local, delay_est,
+        job_total), each (width, pad.j)."""
+        t0 = time.perf_counter()
+        if handle.event is not None:
+            handle.event.synchronize()
+        flat = handle.host.numpy()
+        w = handle.width
+        j = (flat.shape[0] - len(_DM_KEYS)) // (4 * w)
+        parts = flat[:-len(_DM_KEYS)].reshape(4, w, j)
+        ftype = np.float32 if handle.out_dtype == torch.float32 else np.float64
+        out = (parts[0].astype(np.int32), parts[1].astype(bool),
+               parts[2].astype(ftype), parts[3].astype(ftype))
+        counts = [int(c) for c in flat[-len(_DM_KEYS):]]
+        self.last_devmetrics = dict(zip(_DM_KEYS, counts))
+        reg = obs_registry()
+        for decision, c in (("local", counts[0]), ("offload", counts[1])):
+            reg.counter("mho_dev_serve_decisions_total",
+                        "offloading decisions, counted on the device per dispatch"
+                        ).inc(c, decision=decision, bucket=str(handle.bucket))
+        reg.counter(DM_SERVE_NONFINITE,
+                    "live decision outputs that were NaN/Inf, counted on the device"
+                    ).inc(counts[2], bucket=str(handle.bucket))
+        self.host_s["fetch"] += time.perf_counter() - t0
+        return out
+
+    @torch.no_grad()
+    def load_params(self, state: dict, step: Optional[int] = None) -> Optional[int]:
+        """Swap in the weights of `state` (a state dict of the serving
+        model's architecture) without rebuilding anything.  Raises when the
+        signature differs; refuses (returns None, counted and logged) a
+        state with a non-finite leaf, and the current weights keep serving.
+        Returns `step` when the swap happened."""
+        live = self.model.state_dict()
+        if param_signature(state) != param_signature(live):
+            raise ValueError("params do not match the serving model architecture "
+                             "(name/shape/dtype signature)")
+        if not all(bool(torch.isfinite(t).all()) for t in state.values()):
+            obs_registry().counter(
+                "mho_canary_rejections_total",
+                "candidate weight sets refused by the semantic canary",
+            ).inc(stage="load_params", reason="nonfinite_weights")
+            obs_events.emit("canary_reject", step=step, stage="load_params",
+                            reason="nonfinite_weights")
+            return None
+        for name, t in live.items():
+            t.copy_(state[name])
+        self.loaded_step = step
+        return step
+
+    def hot_reload(self, model_dir: str, which: str = "orbax") -> Optional[int]:
+        raise NotImplementedError(
+            "hot_reload from disk needs train/checkpoints.py, which the port has "
+            "not yet; swap weights in memory with load_params")

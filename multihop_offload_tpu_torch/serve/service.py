@@ -1,0 +1,398 @@
+"""The offloading-decision service: admission -> batch -> dispatch -> demux.
+
+Port of `multihop_offload_tpu/serve/service.py` (single device).  Requests
+land in per-bucket FIFO queues under one global bound (`submit` refuses
+instead of growing without limit); every `tick` takes up to `slots`
+requests per non-empty bucket, packs them into the bucket's static layout,
+runs ONE batched decision pass per bucket and demultiplexes per-request
+responses.  When a tick finds a bucket's oldest pending request older than
+the deadline, that batch degrades to the analytic greedy baseline
+(`baseline_policy`); degradation is per batch, never per slot.
+
+`ragged=True` turns on the occupancy ladder (`bucketing.OccupancyLadder`):
+a cold bucket ticks at a narrower width.  `overlap=True` settles each
+tick's dispatches on the NEXT tick, after that tick's packs: the host packs
+tick t+1 while the card may still run tick t.  `drain` settles the last
+in-flight batches, so every admitted request is answered exactly once.
+
+Greedy decisions (`prob=False`) read no random key, so batching never
+changes an answer.  Not ported, each refused with an error where asked
+for: the sharded executor and its placement planner (`mesh_devices`),
+experience capture (`capture_sample > 0`), precision policies other than
+fp32, `prob=True` (the JAX keys are threefry `fold_in(PRNGKey(seed),
+request_id)` bits) and `hot_reload` from disk.  The health wiring
+(`attach_health`: the SLO engine and a per-tick flight-recorder row) waits
+for `obs/slo.py`; the watchdog's flight recorder is wired.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Callable, Deque, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.layouts.sparse import cf_nnz_count, ext_nnz_count
+from multihop_offload_tpu_torch.obs import events as obs_events
+from multihop_offload_tpu_torch.obs import trace as obs_trace
+from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
+from multihop_offload_tpu_torch.obs.spans import span
+from multihop_offload_tpu_torch.serve.bucketing import (
+    OccupancyLadder,
+    ShapeBuckets,
+    pack_bucket,
+    padding_waste,
+)
+from multihop_offload_tpu_torch.serve.executor import (
+    DM_SERVE_NONFINITE,
+    BucketExecutor,
+    DispatchHandle,
+)
+from multihop_offload_tpu_torch.serve.guards import validate_request
+from multihop_offload_tpu_torch.serve.metrics import ServingStats
+from multihop_offload_tpu_torch.serve.request import OffloadRequest, OffloadResponse
+
+
+@dataclasses.dataclass
+class _TickBatch:
+    """One bucket's dispatched-but-not-yet-settled batch (phase A builds
+    it, phase B settles it)."""
+
+    bucket: int
+    taken: List[Tuple[OffloadRequest, float]]
+    reqs: List[OffloadRequest]
+    ids: Optional[List[int]]
+    degraded: bool
+    pad: object
+    width: int
+    t_start: float
+    handle: DispatchHandle
+
+
+class OffloadService:
+    """Single-device serving loop over a `BucketExecutor`.
+
+    `clock` is injectable (tests drive deterministic time); `device` is
+    where the decision passes run (default CUDA)."""
+
+    def __init__(
+        self,
+        model,
+        buckets: ShapeBuckets,
+        slots: int = 8,
+        queue_cap: int = 64,
+        deadline_s: float = 0.5,
+        prob: bool = False,
+        dtype=torch.float32,
+        precision: Optional[str] = "fp32",
+        layout=None,
+        clock: Callable[[], float] = time.monotonic,
+        capture_sample: float = 0.0,
+        trace: bool = True,
+        mesh_devices: Optional[List] = None,
+        ragged: bool = False,
+        overlap: bool = False,
+        ladder_alpha: float = 0.5,
+        ladder_hysteresis: float = 0.25,
+        device=None,
+    ):
+        if slots < 1 or queue_cap < 1:
+            raise ValueError("slots and queue_cap must be >= 1")
+        if mesh_devices:
+            raise NotImplementedError(
+                "sharded serving (mesh_devices: serve/placement.py, serve/sharded.py) "
+                "is not ported yet; the port serves on one device")
+        if prob:
+            raise NotImplementedError(
+                "prob=True needs per-request draws independent of batching (the JAX "
+                "service folds each request id into a threefry key); not ported yet")
+        if precision not in (None, "fp32"):
+            raise NotImplementedError(
+                f"precision '{precision}' is not ported yet (precision.py); use fp32")
+        if capture_sample > 0.0:
+            raise NotImplementedError(
+                "experience capture (capture_sample > 0, loop/) is not ported yet")
+        self.layout = resolve_layout(layout)
+        self.device = resolve_device(device)
+        self.executor = BucketExecutor(model, layout=self.layout, device=self.device)
+        self.buckets = buckets
+        self.slots = slots
+        self.queue_cap = queue_cap
+        self.deadline_s = deadline_s
+        self.dtype = dtype
+        self.clock = clock
+        # request-scoped tracing (obs.trace): batched hop events through the
+        # active run log; with no log installed it costs one check
+        self.trace = bool(trace)
+        # tick watchdog (attach_watchdog): a "stuck" verdict forces the bucket
+        # onto the greedy baseline until `_degraded_until` passes
+        self.watchdog = None
+        self._degraded_until: dict = {}
+        self.stats = ServingStats()
+        self._queues: List[Deque[Tuple[OffloadRequest, float]]] = [
+            deque() for _ in buckets.pads
+        ]
+        self._hop_cache: dict = {}
+        self.overlap = bool(overlap)
+        self.ladder: Optional[OccupancyLadder] = None
+        if ragged:
+            self.ladder = OccupancyLadder(
+                len(buckets.pads), slots,
+                alpha=ladder_alpha, hysteresis=ladder_hysteresis,
+            )
+        self._ladder_seen = 0         # transitions already mirrored to stats
+        self._pending: List[_TickBatch] = []
+        # the last submit()'s verdict: "admitted" | "backpressure" |
+        # "too_large" | "rejected_invalid"; only backpressure is retryable
+        self.last_submit_outcome: Optional[str] = None
+        # first-detection latch for the non-finite sentinel
+        self._nonfinite_seen = False
+
+    # ---- admission ---------------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        return sum(len(q) for q in self._queues)
+
+    def submit(self, req: OffloadRequest, now: Optional[float] = None) -> bool:
+        """Admit a request, or refuse it (False) when semantically invalid
+        (`serve.guards`), under backpressure, or when no bucket fits.
+        `last_submit_outcome` says which."""
+        rej = validate_request(req)
+        if rej is not None:
+            self.stats.record_submit("rejected_invalid")
+            self.last_submit_outcome = "rejected_invalid"
+            obs_registry().counter(
+                "mho_serve_rejected_total",
+                "requests refused by the admission guards, by reason",
+            ).inc(reason=rej.reason)
+            obs_events.emit(
+                "request_rejected", request_id=req.request_id,
+                reason=rej.reason, detail=rej.detail,
+            )
+            if self._tracing():
+                obs_trace.hop("reject", [req.request_id], reason=rej.reason)
+            return False
+        b = self.buckets.bucket_for(*req.sizes)
+        if b is not None and self.layout.sparse:
+            b = self._sparse_fit(req, b)
+        if b is None:
+            self.stats.record_submit("too_large")
+            self.last_submit_outcome = "too_large"
+            return False
+        if self.queue_depth >= self.queue_cap:
+            self.stats.record_submit("backpressure", bucket=b)
+            self.last_submit_outcome = "backpressure"
+            return False
+        self._queues[b].append((req, self.clock() if now is None else now))
+        self.stats.record_submit("admitted", bucket=b)
+        self.last_submit_outcome = "admitted"
+        obs_registry().gauge(
+            "mho_serve_queue_depth", "pending admitted requests"
+        ).set(self.queue_depth)
+        if self._tracing():
+            obs_trace.hop("submit", [req.request_id], bucket=b,
+                          queue_depth=self.queue_depth)
+        return True
+
+    def _tracing(self) -> bool:
+        return self.trace and obs_events.get_run_log() is not None
+
+    def attach_watchdog(self, watchdog) -> None:
+        """Wire a `serve.watchdog.TickWatchdog`: each bucket dispatch is
+        timed on the service clock; a stuck verdict degrades that bucket to
+        the baseline until the watchdog's recovery window passes."""
+        self.watchdog = watchdog
+
+    def _sparse_fit(self, req: OffloadRequest, b: int) -> Optional[int]:
+        """The first bucket from `b` up whose static nnz pads also hold this
+        request's edge lists (an oversized edge count would raise inside
+        `build_instance` mid-tick)."""
+        comp_mask = np.asarray(req.roles) < 2
+        enn = ext_nnz_count(req.topo, comp_mask)
+        cnn = cf_nnz_count(req.topo)
+        n, l, s, j = req.sizes
+        for bb in range(b, len(self.buckets)):
+            pad = self.buckets[bb]
+            if (enn <= pad.ext_nnz and cnn <= pad.cf_nnz and n <= pad.n
+                    and l <= pad.l and s <= pad.s and j <= pad.j):
+                return bb
+        return None
+
+    # ---- the serving tick --------------------------------------------------
+
+    def _dispatch_bucket(self, b: int, q, now: Optional[float],
+                         overlapping: bool) -> _TickBatch:
+        """Phase A for one non-empty bucket: degraded verdict, ladder width,
+        pack, and the dispatch (which does not wait for the card)."""
+        t_now = self.clock() if now is None else now
+        held = self._degraded_until.get(b)
+        if held is not None and t_now >= held:
+            # watchdog recovery window over: retry the GNN
+            del self._degraded_until[b]
+            held = None
+            obs_registry().counter(
+                "mho_watchdog_recoveries_total",
+                "buckets restored to the GNN program",
+            ).inc(bucket=b)
+            obs_events.emit("watchdog_recovered", bucket=b)
+        degraded = (t_now - q[0][1]) > self.deadline_s or held is not None
+        width = self.slots
+        if self.ladder is not None:
+            width = self.ladder.select(b, len(q))
+            for bb, old, new in self.ladder.transitions[self._ladder_seen:]:
+                self.stats.record_ladder_transition(bb, old, new)
+                obs_events.emit("ladder_transition", bucket=bb,
+                                old_width=old, new_width=new)
+            self._ladder_seen = len(self.ladder.transitions)
+        # the ladder never selects below min(pending, slots)
+        taken = [q.popleft() for _ in range(min(width, len(q)))]
+        reqs = [r for r, _ in taken]
+        pad = self.buckets[b]
+        tracing = self._tracing()
+        ids = [r.request_id for r in reqs] if tracing else None
+        # an overlapped pack runs while the card computes the previous tick
+        with span("serve/pack/overlapped" if overlapping else "serve/pack"):
+            binst, bjobs = pack_bucket(
+                reqs, pad, width, dtype=self.dtype, hop_cache=self._hop_cache,
+                layout=self.layout, device=self.device,
+            )
+        if tracing:
+            obs_trace.hop("pack", ids, bucket=b, degraded=bool(degraded),
+                          width=width)
+        if self.ladder is not None:
+            self.ladder.observe(b, len(reqs))
+        handle = self.executor.dispatch(
+            b, binst, bjobs, degraded=degraded, request_ids=ids, width=width,
+        )
+        return _TickBatch(b, taken, reqs, ids, degraded, pad, width, t_now, handle)
+
+    def _settle_batch(self, batch: _TickBatch,
+                      now: Optional[float]) -> List[OffloadResponse]:
+        """Phase B for one dispatched batch: the device-to-host fetch,
+        watchdog verdict, demux, and accounting."""
+        b = batch.bucket
+        out = self.executor.fetch(batch.handle)
+        t_done = self.clock() if now is None else now
+        if self.watchdog is not None:
+            # clamp at zero: backward clock skew must not trip it
+            verdict = self.watchdog.observe(b, max(t_done - batch.t_start, 0.0))
+            if verdict == "stuck" and self.watchdog.recovery_s > 0:
+                self._degraded_until[b] = t_done + self.watchdog.recovery_s
+        batch_responses = demux_responses(
+            batch.taken, out, "baseline" if batch.degraded else "gnn", b, t_done,
+        )
+        if batch.ids is not None:
+            obs_trace.hop(
+                "decision", batch.ids, bucket=b,
+                served_by="baseline" if batch.degraded else "gnn",
+                latency_s=[round(r.latency_s, 6) for r in batch_responses],
+            )
+        waste = padding_waste(batch.reqs, batch.pad, batch.width)
+        self.stats.record_dispatch(
+            b, len(batch.reqs), self.slots, waste, batch.degraded,
+            width=batch.width,
+        )
+        self.stats.record_batch(
+            len(batch.reqs), sum(r.num_jobs for r in batch.reqs),
+            batch.degraded,
+            [max(t_done - t_enq, 0.0) for _, t_enq in batch.taken],
+        )
+        self._check_nonfinite(b, batch.ids or [r.request_id for r in batch.reqs])
+        return batch_responses
+
+    def tick(self, now: Optional[float] = None) -> List[OffloadResponse]:
+        """Serve one batch per non-empty bucket; returns demuxed responses.
+
+        Phase A dispatches every non-empty bucket before phase B waits for
+        any.  With `overlap=True` this tick settles the PREVIOUS tick's
+        dispatches after issuing its own, and returns their responses."""
+        self.stats.ticks += 1
+        responses: List[OffloadResponse] = []
+        degraded_batches = 0
+        with span("serve/tick"):
+            inflight, self._pending = self._pending, []
+            batches: List[_TickBatch] = []
+            for b, q in enumerate(self._queues):
+                if not q:
+                    continue
+                batch = self._dispatch_bucket(b, q, now, overlapping=bool(inflight))
+                degraded_batches += int(batch.degraded)
+                batches.append(batch)
+            if self.overlap:
+                self._pending = batches
+                settle = inflight
+            else:
+                settle = inflight + batches
+            for batch in settle:
+                responses.extend(self._settle_batch(batch, now))
+        depth = self.queue_depth
+        obs_registry().gauge(
+            "mho_serve_queue_depth", "pending admitted requests"
+        ).set(depth)
+        if responses:
+            obs_events.emit(
+                "tick", n=self.stats.ticks, served=len(responses),
+                degraded_batches=degraded_batches, queue_depth=depth,
+            )
+        return responses
+
+    def _check_nonfinite(self, bucket: int, request_ids: List[int]) -> None:
+        """On the first dispatch whose live outputs held a NaN/Inf (the
+        sentinel counted on the device), emit a typed event; once per
+        service life."""
+        if self._nonfinite_seen:
+            return
+        dm = self.executor.last_devmetrics or {}
+        hits = sum(v for k, v in dm.items() if k.startswith(DM_SERVE_NONFINITE))
+        if not hits:
+            return
+        self._nonfinite_seen = True
+        obs_events.emit(
+            "nonfinite_detected", surface="serve", bucket=bucket,
+            count=int(hits), request_ids=request_ids,
+        )
+
+    def drain(self, max_ticks: int = 1000) -> List[OffloadResponse]:
+        """Tick until every admitted request is answered (bounded), the
+        last in-flight batches of overlap mode included."""
+        responses: List[OffloadResponse] = []
+        for _ in range(max_ticks):
+            if self.queue_depth == 0 and not self._pending:
+                break
+            responses.extend(self.tick())
+        return responses
+
+    def hot_reload(self, model_dir: str, which: str = "orbax") -> Optional[int]:
+        return self.executor.hot_reload(model_dir, which=which)
+
+
+def demux_responses(
+    taken: List[Tuple[OffloadRequest, float]],
+    out: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+    served_by: str,
+    bucket: int,
+    t_done: float,
+) -> List[OffloadResponse]:
+    """Slice each real slot's padded decision arrays down to the request's
+    true job count; pad slots and pad jobs never reach a client."""
+    dst, is_local, delay_est, job_total = out
+    responses = []
+    for i, (req, t_enq) in enumerate(taken):
+        nj = req.num_jobs
+        responses.append(OffloadResponse(
+            request_id=req.request_id,
+            dst=dst[i, :nj].copy(),
+            is_local=is_local[i, :nj].copy(),
+            delay_est=delay_est[i, :nj].copy(),
+            job_total=job_total[i, :nj].copy(),
+            served_by=served_by,
+            bucket=bucket,
+            latency_s=max(t_done - t_enq, 0.0),
+        ))
+    return responses

@@ -311,3 +311,101 @@ def test_sparse_train_step_launches_k1_k4_k6(cuda):
     assert [a - b for a, b in zip(after, counts)] == [3, 9, 1]
     assert rep.replayed and torch.isfinite(rep.loss_critic).all()
     assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+
+
+# ---- K5 (ragged ChebConv propagate) and the service on the card ------------
+
+
+def _ragged_lists(rng, b, e, cap, shuffle):
+    """(B, cap) lists of a random non-symmetric support per slot: a live
+    prefix of each slot's own length (rows sorted, or shuffled), the
+    inert (0, 0, 0) tail after it; diag and the live counts."""
+    rows = np.zeros((b, cap), np.int32)
+    cols = np.zeros((b, cap), np.int32)
+    vals = np.zeros((b, cap), np.float32)
+    live = np.zeros((b,), np.int32)
+    for k in range(b):
+        r, c = np.nonzero(rng.uniform(size=(e, e)) < rng.uniform(0.005, 0.03))
+        n = min(r.size, cap)
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        rows[k, :n], cols[k, :n] = r[:n][order], c[:n][order]
+        vals[k, :n] = rng.normal(size=n)
+        live[k] = n
+    diag = rng.normal(size=(b, e)).astype(np.float32)
+    return tuple(map(torch.from_numpy, (rows, cols, vals, diag, live)))
+
+
+@pytest.mark.parametrize("f", [4, 6, 32, 40])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_chebconv_ragged_kernel_matches_plain(cuda, f, shuffle):
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    rng = np.random.default_rng(f)
+    rows, cols, vals, diag, live = _ragged_lists(rng, 16, 328, 4096, shuffle)
+    x = torch.from_numpy((10 * rng.normal(size=(16, 328, f))).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(16, 328, f)).astype(np.float32))
+    dev = [t.to(cuda) for t in (rows, cols, vals, diag, x, live)]
+    before = tcc.chebconv_propagate_ragged_cuda.launches
+    xk = dev[4].clone().requires_grad_()
+    out = tcc.chebconv_propagate_ragged(*dev[:4], xk, dev[5])
+    (dx,) = torch.autograd.grad(out, xk, g.to(cuda))
+    torch.cuda.synchronize()
+    assert tcc.chebconv_propagate_ragged_cuda.launches == before + 2
+    xp = dev[4].clone().requires_grad_()
+    ref = tcc.chebconv_propagate_ragged_plain(*dev[:4], xp, dev[5])
+    (dx_ref,) = torch.autograd.grad(ref, xp, g.to(cuda))
+    assert _scaled_err(out, ref) <= SCALED_TOL
+    assert _scaled_err(dx, dx_ref) <= SCALED_TOL
+    # the CPU's sequential sum in list order, bit for bit
+    cpu = tcc.chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, live)
+    assert torch.equal(out.detach().cpu(), cpu)
+    # the inert tail: live equals capacity bit for bit; live 0 is diag * x
+    cap = torch.full_like(dev[5], 4096)
+    full = tcc.chebconv_propagate_ragged_cuda(*dev[:5], cap)
+    assert torch.equal(full, out.detach())
+    zero = tcc.chebconv_propagate_ragged_cuda(*dev[:5], torch.zeros_like(dev[5]))
+    assert torch.equal(zero, dev[3][..., None] * dev[4])
+
+
+def test_chebconv_ragged_kernel_checks_operands(cuda):
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    rows, cols, vals, diag, live = (t.to(cuda) for t in _ragged_lists(
+        np.random.default_rng(0), 2, 40, 128, True))
+    x = torch.zeros((2, 40, 3), device=cuda)
+    with pytest.raises(TypeError, match="nnz_live"):
+        tcc.chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x, live.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tcc.chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x, live.cpu())
+
+
+def test_service_card_matches_cpu(cuda):
+    """The dense service on the card: K1 and K2 launch, every admitted
+    request is answered once, and decisions equal the CPU service's."""
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+
+    cfg = Config(serve_slots=4, serve_queue_cap=64, serve_deadline_s=60.0,
+                 serve_model="SCRATCH800_decay0.99", serve_ragged=True,
+                 serve_overlap=True)
+    pool = case_pool([20, 50], per_size=2, seed=0)
+    reqs = list(request_stream(pool, 12, seed=1))
+    out = {}
+    for dev in ("cpu", cuda):
+        svc, _ = build_service(cfg, pool=pool, device=dev)
+        reset_kernel_counts()
+        for r in reqs:
+            assert svc.submit(r)
+        res = svc.drain()
+        torch.cuda.synchronize()
+        out[str(dev)] = {r.request_id: r for r in res}
+        assert sorted(out[str(dev)]) == list(range(12))
+        counts = kernel_counts()
+        if dev == cuda:
+            assert counts["fixed_point"] > 0 and counts["minplus"] > 0
+    for rid, c in out["cuda"].items():
+        p = out["cpu"][rid]
+        assert np.array_equal(c.dst, p.dst) and np.array_equal(c.is_local, p.is_local)
+        np.testing.assert_allclose(c.job_total, p.job_total, rtol=1e-4)

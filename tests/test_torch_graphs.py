@@ -171,7 +171,7 @@ def test_request_batch_follows_bench_workload():
     assert (inst.T == 1000.0).all() and (jobs.ul == 100.0).all()
 
 
-_BANNED = ("jax", "flax", "networkx", "orbax", "multihop_offload_tpu")
+_BANNED = ("jax", "flax", "optax", "networkx", "orbax", "multihop_offload_tpu")
 
 
 def _imports(path):
@@ -191,7 +191,12 @@ def test_port_imports_no_jax_side():
     rel = {os.path.relpath(f, PORT) for f in files}
     for module in ("ops/sparse.py", "ops/chebconv.py", "layouts/policy.py",
                    "layouts/compact.py", "layouts/sparse.py", "agent/train_step.py",
-                   "agent/replay.py", "_records.py", "large_scale.py"):
+                   "agent/replay.py", "_records.py", "large_scale.py",
+                   "graphs/generators.py", "obs/registry.py", "obs/events.py",
+                   "obs/spans.py", "obs/trace.py", "obs/flightrec.py", "train/metrics.py",
+                   "serve/request.py", "serve/guards.py", "serve/bucketing.py",
+                   "serve/workload.py", "serve/metrics.py", "serve/executor.py",
+                   "serve/watchdog.py", "serve/service.py", "cli/serve.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):

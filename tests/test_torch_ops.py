@@ -349,3 +349,86 @@ def test_fixed_point_grad_matches_jax_custom_vjp(b, l):
             j = np.asarray(j)
             np.testing.assert_allclose(t.numpy(), j, rtol=1e-10,
                                        atol=1e-10 * np.abs(j).max())
+
+
+# ---- K5: the ragged propagate's plain version and gradient -------------------
+
+_CHEB_SCALED_TOL = 4.5e-7  # the JAX package's bar for the fused propagates
+
+
+def _ragged_case(dtype):
+    """The JAX ragged test's case (`tests/test_ops.py`: n=12, f=6, 17 live
+    entries in random row order, capacity 300, seed 37) as slot 0, and a
+    second slot with 5 live entries."""
+    rng = np.random.default_rng(37)
+    n, f, cap = 12, 6, 300
+    rows = np.zeros((2, cap), np.int32)
+    cols = np.zeros((2, cap), np.int32)
+    vals = np.zeros((2, cap), dtype)
+    live = np.array([17, 5], np.int32)
+    rows[0, :17] = rng.integers(0, n, 17)
+    cols[0, :17] = rng.integers(0, n, 17)
+    vals[0, :17] = rng.normal(size=17).astype(dtype)
+    diag = rng.normal(size=(2, n)).astype(dtype)
+    x = rng.normal(size=(2, n, f)).astype(dtype)
+    rows[1, :5] = rng.integers(0, n, 5)
+    cols[1, :5] = rng.integers(0, n, 5)
+    vals[1, :5] = rng.normal(size=5).astype(dtype)
+    return rows, cols, vals, diag, x, live
+
+
+def test_ragged_plain_matches_jax_kernel():
+    """float32: the plain version at the live counts equals itself at the
+    capacity bit for bit, gives exactly diag * x at live = 0, and is within
+    the scaled 4.5e-7 of the interpret-mode TPU kernel at edge_block 128."""
+    from multihop_offload_tpu.ops.chebconv import chebconv_propagate_ragged as jrag
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    rows, cols, vals, diag, x, live = _ragged_case(np.float32)
+    t = torch.from_numpy
+    args = tuple(map(t, (rows, cols, vals, diag, x)))
+    at_live = tcc.chebconv_propagate_ragged(*args, t(live))
+    at_cap = tcc.chebconv_propagate_ragged(*args, torch.full((2,), 300, dtype=torch.int32))
+    assert torch.equal(at_live, at_cap)
+    zero = tcc.chebconv_propagate_ragged(*args, torch.zeros(2, dtype=torch.int32))
+    assert torch.equal(zero, t(diag)[..., None] * t(x))
+    for k in range(2):
+        want = np.asarray(jrag(*(jnp.asarray(a[k]) for a in (rows, cols, vals, diag, x)),
+                               jnp.int32(live[k]), "float32", True, 128))
+        err = np.abs(at_live[k].numpy() - want).max() / max(1.0, np.abs(want).max())
+        assert err <= _CHEB_SCALED_TOL, err
+
+
+@pytest.mark.parametrize("live0", [0, 17, 300])
+def test_ragged_float64_and_grads_match_jax(live0):
+    """float64: the port's K5 (plain version on the CPU) within 1e-12 of
+    `_xla_propagate`, and its autograd in vals, diag and x within 1e-12 of
+    `jax.vjp` of `_xla_propagate` over the full capacity, which is what the
+    JAX `_cheb_ragged_bwd` pulls back through."""
+    from multihop_offload_tpu.ops.chebconv import _xla_propagate
+    from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+    from multihop_offload_tpu_torch.ops.sparse import COO
+
+    rows, cols, vals, diag, x, live = _ragged_case(np.float64)
+    live[0] = live0
+    rows[0, live0:], cols[0, live0:], vals[0, live0:] = 0, 0, 0.0  # the inert tail
+    g = np.random.default_rng(5).normal(size=x.shape)
+    t = torch.from_numpy
+    v, d, xx = (t(a).requires_grad_() for a in (vals, diag, x))
+    out = tcc.chebconv_propagate_ragged(t(rows), t(cols), v, d, xx, t(live))
+    grads = torch.autograd.grad(out, (v, d, xx), t(g))
+
+    def xla(vv, dd, x_):
+        return jax.vmap(lambda r, c, a, b_, e: _xla_propagate(r, c, a, b_, e, jnp.float64))(
+            rows, cols, vv, dd, x_)
+
+    want, vjp = jax.vjp(xla, jnp.asarray(vals), jnp.asarray(diag), jnp.asarray(x))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+    for got, ref in zip(grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12, atol=1e-12)
+    # the factory reads the same lists from a support
+    support = SparseSupport(edges=COO(rows=t(rows), cols=t(cols), vals=t(vals),
+                                      shape=(12, 12)), diag=t(diag))
+    prop = tcc.make_fused_propagate_ragged()
+    assert torch.equal(prop(support, t(x), t(live)), out.detach())
