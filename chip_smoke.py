@@ -24,9 +24,11 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   one warm-up pass: plain ticks with the model of record (K1, K2), then
   `ragged=True, overlap=True`, one tick past the deadline on an injected
   clock, and the sparse layout with SPECTRAL_K2 on the first 64 requests
-  (K1, K4, K6).  K5 (`chebconv_propagate_ragged`) is on no path, in the
-  JAX package as here: it is held on the sparse bucket 1's packed extended
-  support (16 slots, E = 328) and on the JAX test's case.
+  (K1, K4, K6).  K5 (`chebconv_propagate_ragged`: `ragged_index`, the
+  stable counting sort of each slot's live prefix on the card, then K4's
+  row walk) is on no path, in the JAX package as here: it is held on the
+  sparse bucket 1's packed extended support (16 slots, E = 328) and on the
+  JAX test's case.
 
 It
 
@@ -38,11 +40,12 @@ It
    the large path's own predicted-delay matrix, against its plain version
    on the card and on the CPU), K1 <= 1e-5 relative, K4 forward and
    backward within the scaled 4.5e-7 bar of the JAX package
-   (max |kernel - plain| / max(1, max |plain|)), at F = 4 and 32; K5
-   forward and d x within the same bar, at live counts bit-identical to
-   itself at the capacity, exactly diag * x at live 0, on the sorted lists,
-   with each slot's live prefix permuted (rows unsorted), and on the JAX
-   test's case (n=12, f=6, 17 live of 300);
+   (max |kernel - plain| / max(1, max |plain|)), at F = 4 and 32; the
+   sort equal to `ragged_index_plain` at live, capacity and 0; K5 forward
+   and d x within the same bar, at live counts bit-identical to itself at
+   the capacity, exactly diag * x at live 0, on the sorted lists, with each
+   slot's live prefix permuted (rows unsorted), and on the JAX test's case
+   (n=12, f=6, 17 live of 300);
 4. drives each path with every launch count set to 0 just before it and
    read just after, and fails unless each of its kernels launched:
    `eval_methods` (K1, K2); three sparse `train_step`s (K1, K4, K6; the
@@ -66,9 +69,13 @@ It
    agree), the late tick served by the baseline with `baseline_policy`'s
    `dst`, and its first 64 requests re-served on the CPU (agreement >=
    0.99, rtol 1e-4);
-6. times each kernel, its plain version, its bound and a library call with
-   CUDA events (K5 at live and at capacity, beside K4 on the same sorted
-   lists and `torch.sparse.mm`), and the paths on the host clock; the
+6. times each kernel on the card's own clock (`device_us`: the kernels'
+   durations in `torch.profiler`'s CUDA trace), as a call (CUDA events
+   around a loop of calls, host enqueue included) and on the host
+   (enqueue only), beside its plain version, its bound and a library call
+   (K5 at live and at capacity, the sort alone, K4 on the same sorted
+   lists and `torch.sparse.mm`; K4 beside `torch.sparse.mm` and
+   `torch.bmm`), and the paths on the host clock; the
    service's requests/s, p50/p99 latency, dispatches per request, mean
    tick, launches per tick, host ms in `dispatch` against `fetch`; peak
    memory;
@@ -110,7 +117,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call of `fn` on the card (CUDA events)."""
+    """Mean milliseconds per call of `fn` (CUDA events around a loop of
+    calls): the "call" time.  Where a call's kernels run for less time
+    than its host code takes to enqueue them, this is the host's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -122,6 +131,57 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device microseconds per call of `fn`, on the card's own clock:
+    the summed durations of every kernel, copy and memset the `reps` calls
+    launched (`torch.profiler`'s CUDA trace, `self_device_time_total`),
+    over `reps`.  For a library call that is every kernel it launches.
+    Raises if the trace holds no device time.  `device_us.last` keeps the
+    kernels per call and their names, for the log."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", "")) and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    if not total > 0:
+        raise AssertionError("device_us: the profiler traced no device time")
+    device_us.last = {"kernels_per_call": sum(e.count for e in events) / reps,
+                      "names": sorted({e.key[:60] for e in events})}
+    return total / reps
+
+
+device_us.last = {}
+
+
+def host_us(fn, reps: int, warmup: int = 3) -> float:
+    """Mean host microseconds per call of `fn` with no synchronize inside
+    the loop: what the wrapper's Python and the launch cost the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def clocks(fn, reps: int, warmup: int = 3) -> dict:
+    """A call's three times: "ms" (events over the loop, host enqueue
+    included), "device_ms" (profiler) and "host_us" (enqueue only)."""
+    return {"ms": cuda_ms(fn, reps, warmup), "device_ms": device_us(fn, reps, 1) / 1e3,
+            "host_us": host_us(fn, reps, 1), "kernels_per_call": device_us.last[
+                "kernels_per_call"]}
 
 
 def wall_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -399,7 +459,8 @@ def large_phase(dev, card) -> dict:
     # ---- timing --------------------------------------------------------------
     n, b = pad.n, 1
     iters = mp.squaring_count(n)
-    k3_ms = cuda_ms(lambda: mp.blocked_fw_cuda(d), 50)
+    k3 = clocks(lambda: mp.blocked_fw_cuda(d), 50)
+    k3_ms = k3["ms"]
     k3_plain_ms = cuda_ms(lambda: mp.blocked_fw_plain(d), 3, warmup=1)
     k2_ms = cuda_ms(lambda: mp.minplus_closure_cuda(d, iters), 5, warmup=1)
     # one sweep makes N^3 candidates per matrix, 2 instructions each (add,
@@ -415,15 +476,18 @@ def large_phase(dev, card) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     nb = n // mp.FW_TILE
-    log(f"timing on {card['smi']}: K3 blocked_fw B,N={(b, n)} {k3_ms * 1e3:.1f} us per "
-        f"APSP call ({3 * nb} launches), plain {k3_plain_ms:.3f} ms, bound "
+    log(f"timing on {card['smi']}: K3 blocked_fw B,N={(b, n)} per APSP call ({3 * nb} "
+        f"launches): device {k3['device_ms'] * 1e3:.1f} us ({k3['kernels_per_call']:.0f} "
+        f"kernels), call {k3_ms * 1e3:.1f} us, host {k3['host_us']:.1f} us; plain "
+        f"{k3_plain_ms:.3f} ms, bound "
         f"{max(k3_ops_ms, k3_bytes_ms) * 1e3:.1f} us (operations); K2 squaring on the "
         f"same matrix ({iters} launches) {k2_ms * 1e3:.1f} us")
     log(f"large path: forward_env {env_ms:.2f} ms, eval_methods {eval_ms:.2f} ms per "
         f"request, forward_backward {fb_ms:.2f} ms per episode; peak memory "
         f"{peak / 2**20:.1f} MiB (max_memory_allocated, eval_methods + forward_backward)")
     return {"counts": counts, "shape": [b, n], "launches_per_call": 3 * nb,
-            "ms": k3_ms, "plain_ms": k3_plain_ms, "squaring_ms": k2_ms,
+            "ms": k3_ms, "device_ms": k3["device_ms"], "plain_ms": k3_plain_ms,
+            "squaring_ms": k2_ms,
             "bound_ms": max(k3_ops_ms, k3_bytes_ms),
             "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
             "forward_env_ms": env_ms, "eval_methods_ms": eval_ms,
@@ -670,7 +734,21 @@ def ragged_kernel_phase(dev, card, reqs) -> dict:
              "jax-test": tuple(torch.from_numpy(a).to(dev) for a in
                                (j_rows, j_cols, j_vals, j_diag))
              + (torch.tensor([17], dtype=torch.int32, device=dev), (6,))}
-    launches0 = cc.chebconv_propagate_ragged_cuda.launches
+    # the sort against its plain version, exactly, at live, capacity and 0
+    for tag, (rows, cols, vals, diag, lv, widths) in cases.items():
+        e_tag = diag.shape[1]
+        for which, counts in (("live", lv), ("capacity", torch.full_like(lv, rows.shape[1])),
+                              ("zero", torch.zeros_like(lv))):
+            got = cc.ragged_index_cuda(rows, cols, counts, e_tag)
+            want = cc.ragged_index_plain(rows.cpu(), cols.cpu(), counts.cpu(), e_tag)
+            torch.cuda.synchronize()
+            for field in ("row_ptr", "row_order", "col_ptr", "col_order"):
+                if not torch.equal(getattr(got, field).cpu(), getattr(want, field)):
+                    raise AssertionError(f"ragged_index {tag} at {which}: {field} differs "
+                                         "from ragged_index_plain")
+        log(f"ragged_index {tag} B,E,cap={(rows.shape[0], e_tag, rows.shape[1])}: equal to "
+            f"ragged_index_plain at live, capacity and 0 (bar: torch.equal)")
+    launches0 = (cc.ragged_index_cuda.launches, cc.chebconv_propagate_cuda.launches)
     worst = {}
     for tag, (rows, cols, vals, diag, lv, widths) in cases.items():
         for f in widths:
@@ -704,7 +782,8 @@ def ragged_kernel_phase(dev, card, reqs) -> dict:
                 raise AssertionError(f"K5 {tag} F={f}: scaled errors {fwd}, {bwd}, "
                                      f"live==cap {same_cap}, live 0 {diag_only}")
             worst[(tag, f)] = (out - ref).abs().max().item()
-    launches = cc.chebconv_propagate_ragged_cuda.launches - launches0
+    launches = {"ragged_index": cc.ragged_index_cuda.launches - launches0[0],
+                "walk": cc.chebconv_propagate_cuda.launches - launches0[1]}
 
     # ---- timing on the sorted lists ------------------------------------------
     n_live = int(live.sum())
@@ -720,28 +799,52 @@ def ragged_kernel_phase(dev, card, reqs) -> dict:
     for f in (4, 32):
         x = torch.randn((b, e, f), generator=gen, device=dev)
         args = (e_.rows, e_.cols, e_.vals, support.diag, x)
-        t_live = cuda_ms(lambda: cc.chebconv_propagate_ragged_cuda(*args, live), 200)
-        t_cap = cuda_ms(lambda: cc.chebconv_propagate_ragged_cuda(*args, full), 100)
-        t_k4 = cuda_ms(lambda: cc.chebconv_propagate_cuda(
+        t_live = clocks(lambda: cc.chebconv_propagate_ragged_cuda(*args, live), 200)
+        t_cap = clocks(lambda: cc.chebconv_propagate_ragged_cuda(*args, full), 100)
+        t_k4 = clocks(lambda: cc.chebconv_propagate_cuda(
             csr.row_ptr, None, e_.cols, e_.vals, support.diag, x), 200)
-        t_lib = cuda_ms(lambda: torch.sparse.mm(block, x.view(b * e, f)), 100)
+        t_lib = clocks(lambda: torch.sparse.mm(block, x.view(b * e, f)), 100)
         t_plain = cuda_ms(lambda: cc.chebconv_propagate_ragged_plain(*args, live), 50)
         # bytes: each live (row, col, val) entry, diag, x and out once
         k5_bytes = (n_live * 12 + b * e * 4 + 2 * b * e * f * 4) / PEAK_BYTES_PER_S * 1e3
         k5_ops = 2.0 * (n_live + b * e) * f / PEAK_FP32_FLOP_PER_S * 1e3
-        timing[f] = {"ms": t_live, "capacity_ms": t_cap, "k4_ms": t_k4,
-                     "library_ms": t_lib, "plain_ms": t_plain,
-                     "bound_ms": max(k5_bytes, k5_ops),
+        timing[f] = {"ms": t_live["ms"], "device_ms": t_live["device_ms"],
+                     "host_us": t_live["host_us"],
+                     "launches_per_call": t_live["kernels_per_call"],
+                     "capacity_ms": t_cap["ms"], "capacity_device_ms": t_cap["device_ms"],
+                     "k4_ms": t_k4["ms"], "k4_device_ms": t_k4["device_ms"],
+                     "library_ms": t_lib["ms"], "library_device_ms": t_lib["device_ms"],
+                     "plain_ms": t_plain, "bound_ms": max(k5_bytes, k5_ops),
                      "bound_by": "bytes" if k5_bytes >= k5_ops else "operations"}
         log(f"timing on {card['smi']}: K5 chebconv_ragged B,E,F={(b, e, f)} "
-            f"({n_live} live of {b * cap} entries) {t_live * 1e3:.2f} us at live, "
-            f"{t_cap * 1e3:.2f} us at capacity; K4 on the same sorted lists "
-            f"{t_k4 * 1e3:.2f} us; torch.sparse.mm {t_lib * 1e3:.2f} us; plain "
+            f"({n_live} live of {b * cap} entries) at live: device "
+            f"{t_live['device_ms'] * 1e3:.2f} us ({t_live['kernels_per_call']:.0f} kernels; "
+            f"call {t_live['ms'] * 1e3:.2f}, host {t_live['host_us']:.2f}); at capacity: "
+            f"device {t_cap['device_ms'] * 1e3:.2f} us (call {t_cap['ms'] * 1e3:.2f}); K4 on "
+            f"the same sorted lists: device {t_k4['device_ms'] * 1e3:.2f} us (call "
+            f"{t_k4['ms'] * 1e3:.2f}); torch.sparse.mm device "
+            f"{t_lib['device_ms'] * 1e3:.2f} us (call {t_lib['ms'] * 1e3:.2f}); plain "
             f"{t_plain * 1e3:.2f} us; bound {timing[f]['bound_ms'] * 1e3:.3f} us "
             f"({timing[f]['bound_by']})")
+    # the sort alone (it reads no x); its bound: rows and cols of the live
+    # prefix read once, both pointers and both orders written once (it does
+    # no arithmetic to speak of)
+    t_sort = clocks(lambda: cc.ragged_index_cuda(e_.rows, e_.cols, live, e), 200)
+    t_sort_cap = clocks(lambda: cc.ragged_index_cuda(e_.rows, e_.cols, full, e), 200)
+    t_sort_plain = cuda_ms(lambda: cc.ragged_index_plain(e_.rows, e_.cols, live, e), 50)
+    sort_bytes_ms = (n_live * 8 + b * 4 + b * 2 * (e + 1 + cap) * 4) / PEAK_BYTES_PER_S * 1e3
+    sort = {"ms": t_sort["ms"], "device_ms": t_sort["device_ms"],
+            "host_us": t_sort["host_us"], "capacity_ms": t_sort_cap["ms"],
+            "capacity_device_ms": t_sort_cap["device_ms"], "plain_ms": t_sort_plain,
+            "bound_ms": sort_bytes_ms, "bound_by": "bytes", "library_ms": None}
+    log(f"timing on {card['smi']}: ragged_index (the sort) B,E,cap={(b, e, cap)}: device "
+        f"{sort['device_ms'] * 1e3:.2f} us at live (call {sort['ms'] * 1e3:.2f}, host "
+        f"{sort['host_us']:.2f}), device {sort['capacity_device_ms'] * 1e3:.2f} us at "
+        f"capacity; plain {t_sort_plain * 1e3:.2f} us; bound {sort_bytes_ms * 1e3:.3f} us "
+        f"(bytes)")
     return {"launches": launches, "max_abs_err": worst[("sorted", 32)],
             "max_abs_err_all": max(worst.values()), "shape": [b, e, 32],
-            "cap": cap, "nnz_live": n_live, "timing": timing}
+            "cap": cap, "nnz_live": n_live, "timing": timing, "sort": sort}
 
 
 def main() -> int:
@@ -891,9 +994,11 @@ def main() -> int:
     before = read_counts()["squarings"]
     mp.minplus_closure_cuda(d, iters)
     sq_per_call = read_counts()["squarings"] - before
-    k2_ms = cuda_ms(lambda: mp.minplus_closure_cuda(d, iters), 50)
+    k2 = clocks(lambda: mp.minplus_closure_cuda(d, iters), 50)
+    k2_ms = k2["ms"]
     k2_plain_ms = cuda_ms(lambda: mp.minplus_closure_plain(d, iters), 10)
-    k1_ms = cuda_ms(lambda: fp.fixed_point_cuda(*fp_args), 200)
+    k1 = clocks(lambda: fp.fixed_point_cuda(*fp_args), 200)
+    k1_ms = k1["ms"]
     k1_plain_ms = cuda_ms(lambda: fp.fixed_point_plain(*fp_args), 50)
     # bounds for the same work: K2 is 2 N^3 fp32 instructions per executed
     # matrix squaring (add + min; no tensor-core path); K1 must read A and
@@ -910,11 +1015,14 @@ def main() -> int:
     eval_methods(model, inst, jobs)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    log(f"timing on {card['smi']}: K2 minplus {k2_ms:.4f} ms per APSP call "
-        f"({iters} launches, {sq_per_call} matrix squarings run of {b * iters}), "
-        f"plain {k2_plain_ms:.4f} ms, bound {max(k2_bound_ms, k2_bytes_ms):.4f} ms; "
-        f"K1 fixed_point {k1_ms:.4f} ms per launch, plain {k1_plain_ms:.4f} ms, "
-        f"bound {max(k1_bytes_ms, k1_ops_ms):.4f} ms")
+    log(f"timing on {card['smi']}: K2 minplus per APSP call ({iters} launches, "
+        f"{sq_per_call} matrix squarings run of {b * iters}): call {k2_ms * 1e3:.2f} us, "
+        f"device {k2['device_ms'] * 1e3:.2f} us ({k2['kernels_per_call']:.0f} kernels), "
+        f"host {k2['host_us']:.2f} us; plain {k2_plain_ms:.4f} ms, bound "
+        f"{max(k2_bound_ms, k2_bytes_ms) * 1e3:.2f} us; K1 fixed_point per launch: call "
+        f"{k1_ms * 1e3:.2f} us, device {k1['device_ms'] * 1e3:.2f} us, host "
+        f"{k1['host_us']:.2f} us; plain {k1_plain_ms:.4f} ms, bound "
+        f"{max(k1_bytes_ms, k1_ops_ms) * 1e3:.2f} us")
     log(f"eval_methods {eval_ms:.2f} ms per batch of {b} requests "
         f"({b / eval_ms * 1e3:.1f} requests/s); forward_env {fwd_ms:.2f} ms; "
         f"rung256 eval_methods {rung_ms:.2f} ms per batch of "
@@ -947,22 +1055,26 @@ def main() -> int:
     k4 = {}
     for f in (4, 32):
         x = torch.randn((sb, se, f), generator=gen, device=dev)
-        k4_ms = cuda_ms(lambda: cc.chebconv_propagate_cuda(
+        fwd = clocks(lambda: cc.chebconv_propagate_cuda(
             csr.row_ptr, None, e_.cols, e_.vals, support.diag, x), 200)
         # the backward's launch: the transposed walk through col_order
-        k4_bwd = cuda_ms(lambda: cc.chebconv_propagate_cuda(
+        bwd = clocks(lambda: cc.chebconv_propagate_cuda(
             csr.col_ptr, csr.col_order, e_.rows, e_.vals, support.diag, x), 200)
         k4_plain = cuda_ms(lambda: cc.chebconv_propagate_plain(
             e_.rows, e_.cols, e_.vals, support.diag, x), 50)
-        k4_lib = cuda_ms(lambda: torch.sparse.mm(block, x.view(sb * se, f)), 50)
-        k4_bmm = cuda_ms(lambda: torch.bmm(dense_support, x), 50)
+        lib = clocks(lambda: torch.sparse.mm(block, x.view(sb * se, f)), 50)
+        bmm = clocks(lambda: torch.bmm(dense_support, x), 50)
         # bytes: each real (row, col, val) entry, diag, x and out once; the
         # operations (a multiply-add per entry and feature) are far below
         k4_bytes = (real * 12 + sb * se * 4 + 2 * sb * se * f * 4) / PEAK_BYTES_PER_S * 1e3
         k4_ops = 2.0 * (real + sb * se) * f / PEAK_FP32_FLOP_PER_S * 1e3
-        k4[f] = {"ms": k4_ms, "backward_ms": k4_bwd, "plain_ms": k4_plain,
-                 "library_ms": k4_lib,
-                 "dense_bmm_ms": k4_bmm, "bound_ms": max(k4_bytes, k4_ops),
+        k4[f] = {"ms": fwd["ms"], "device_ms": fwd["device_ms"], "host_us": fwd["host_us"],
+                 "backward_ms": bwd["ms"], "backward_device_ms": bwd["device_ms"],
+                 "plain_ms": k4_plain, "library_ms": lib["ms"],
+                 "library_device_ms": lib["device_ms"],
+                 "library_kernels_per_call": lib["kernels_per_call"],
+                 "dense_bmm_ms": bmm["ms"], "dense_bmm_device_ms": bmm["device_ms"],
+                 "bound_ms": max(k4_bytes, k4_ops),
                  "bound_by": "bytes" if k4_bytes >= k4_ops else "operations"}
     n6 = sp_inst.num_pad_nodes
     l6 = sp_inst.num_pad_links
@@ -971,7 +1083,8 @@ def main() -> int:
     before6 = read_counts()["squarings"]
     mp.apsp_coo_cuda(*args6)
     sq6 = read_counts()["squarings"] - before6
-    k6_ms = cuda_ms(lambda: mp.apsp_coo_cuda(*args6), 50)
+    k6 = clocks(lambda: mp.apsp_coo_cuda(*args6), 50)
+    k6_ms = k6["ms"]
     k6_plain = cuda_ms(lambda: mp.apsp_coo_plain(*args6), 5)
     k6_ops = 2.0 * n6 ** 3 * sq6 / PEAK_FP32_INSTR_PER_S * 1e3
     k6_bytes = sb * (l6 * 13 + n6 * n6 * 4) / PEAK_BYTES_PER_S * 1e3
@@ -990,16 +1103,20 @@ def main() -> int:
     torch.cuda.synchronize()
     train_peak = torch.cuda.max_memory_allocated()
     for f, t in k4.items():
-        log(f"timing on {card['smi']}: K4 chebconv B,E,F={(sb, se, f)} "
-            f"({real} real of {sb * nnz_pad} padded entries) {t['ms']:.4f} ms per "
-            f"launch (transposed, as the backward launches it: "
-            f"{t['backward_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), torch.sparse.mm "
-            f"{t['library_ms']:.4f} ms, dense torch.bmm {t['dense_bmm_ms']:.4f} ms")
-    log(f"timing: K6 coo_apsp (build + K2) B,N={(sb, n6)} {k6_ms:.4f} ms per call "
-        f"({sq6} squarings run), plain {k6_plain:.4f} ms, bound {max(k6_ops, k6_bytes):.4f} "
-        f"ms; rung256 B,N={(sp_rung.adj.shape[0], sp_rung.num_pad_nodes)} "
-        f"{k6_rung_ms:.4f} ms per call")
+        log(f"timing on {card['smi']}: K4 chebconv B,E,F={(sb, se, f)} ({real} real of "
+            f"{sb * nnz_pad} padded entries) per launch: device {t['device_ms'] * 1e3:.2f} us "
+            f"(call {t['ms'] * 1e3:.2f}, host {t['host_us']:.2f}); transposed, as the "
+            f"backward launches it: device {t['backward_device_ms'] * 1e3:.2f} us (call "
+            f"{t['backward_ms'] * 1e3:.2f}); plain {t['plain_ms'] * 1e3:.2f} us; bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}); torch.sparse.mm device "
+            f"{t['library_device_ms'] * 1e3:.2f} us ({t['library_kernels_per_call']:.0f} "
+            f"kernels; call {t['library_ms'] * 1e3:.2f}); dense torch.bmm device "
+            f"{t['dense_bmm_device_ms'] * 1e3:.2f} us (call {t['dense_bmm_ms'] * 1e3:.2f})")
+    log(f"timing: K6 coo_apsp (build + K2) B,N={(sb, n6)} per call: device "
+        f"{k6['device_ms'] * 1e3:.2f} us ({k6['kernels_per_call']:.0f} kernels), call "
+        f"{k6_ms * 1e3:.2f} us, host {k6['host_us']:.2f} us ({sq6} squarings run); plain "
+        f"{k6_plain:.4f} ms, bound {max(k6_ops, k6_bytes) * 1e3:.2f} us; rung256 "
+        f"B,N={(sp_rung.adj.shape[0], sp_rung.num_pad_nodes)} call {k6_rung_ms * 1e3:.2f} us")
     log(f"sparse forward_backward {fb_ms:.2f} ms per batch of {sb} episodes "
         f"({sb / fb_ms * 1e3:.1f} episodes/s); train_step {ts_ms:.2f} ms "
         f"({sb / ts_ms * 1e3:.1f} episodes/s, replay of {tcfg.batch} included); "
@@ -1027,7 +1144,7 @@ def main() -> int:
          "replaces": "multihop_offload_tpu/ops/fixed_point.py:144",
          "launches": counts["fixed_point"],
          "max_abs_err": errs["paper"]["fixed_point"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "ms": k1_ms, "device_ms": k1["device_ms"], "plain_ms": k1_plain_ms,
          "bound_ms": max(k1_bytes_ms, k1_ops_ms),
          "bound_by": "bytes" if k1_bytes_ms >= k1_ops_ms else "operations",
          "library_ms": None, "shape": [b, l],
@@ -1037,7 +1154,7 @@ def main() -> int:
          "replaces": "multihop_offload_tpu/ops/minplus.py:88",
          "launches": counts["minplus"], "squarings": counts["squarings"],
          "max_abs_err": errs["paper"]["minplus"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "ms": k2_ms, "device_ms": k2["device_ms"], "plain_ms": k2_plain_ms,
          "bound_ms": max(k2_bound_ms, k2_bytes_ms),
          "bound_by": "operations" if k2_bound_ms >= k2_bytes_ms else "bytes",
          "library_ms": None, "shape": [b, n],
@@ -1057,7 +1174,8 @@ def main() -> int:
          "replaces": "multihop_offload_tpu/ops/minplus.py:487",
          "launches": train_counts["coo_apsp"],
          "max_abs_err": errs_sp["paper"]["coo_apsp"],
-         "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": max(k6_ops, k6_bytes),
+         "ms": k6_ms, "device_ms": k6["device_ms"], "plain_ms": k6_plain,
+         "bound_ms": max(k6_ops, k6_bytes),
          "bound_by": "operations" if k6_ops >= k6_bytes else "bytes",
          "library_ms": None, "shape": [sb, n6], "squarings_per_call": sq6,
          "rung_ms": k6_rung_ms,
@@ -1067,7 +1185,8 @@ def main() -> int:
          "replaces": "multihop_offload_tpu/ops/minplus.py:195",
          "launches": large["counts"]["eval_methods"]["blocked_fw"],
          "max_abs_err": 0.0,
-         "ms": large["ms"], "plain_ms": large["plain_ms"], "bound_ms": large["bound_ms"],
+         "ms": large["ms"], "device_ms": large["device_ms"], "plain_ms": large["plain_ms"],
+         "bound_ms": large["bound_ms"],
          "bound_by": large["bound_by"], "library_ms": None, "shape": large["shape"],
          "launches_per_call": large["launches_per_call"],
          "squaring_ms": large["squaring_ms"],
@@ -1077,11 +1196,18 @@ def main() -> int:
         {"name": "chebconv_ragged", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/chebconv_ragged.cu",
          "replaces": "multihop_offload_tpu/ops/chebconv.py:339",
-         "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
+         "launches": sum(k5["launches"].values()), "launches_split": k5["launches"],
+         "max_abs_err": k5["max_abs_err"],
          **k5["timing"][32], "shape": k5["shape"], "nnz_cap": k5["cap"],
          "nnz_live": k5["nnz_live"], "max_abs_err_all_cases": k5["max_abs_err_all"],
          "f4": k5["timing"][4],
-         "launches_by_path": {k: v["chebconv_ragged"] for k, v in by_path.items()}},
+         "launches_by_path": {k: v["ragged_index"] for k, v in by_path.items()}},
+        {"name": "ragged_index", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/chebconv_ragged.cu",
+         "replaces": "multihop_offload_tpu/ops/chebconv.py:339",
+         "launches": k5["launches"]["ragged_index"], "max_abs_err": 0.0,
+         **k5["sort"], "shape": [k5["shape"][0], k5["shape"][1], k5["cap"]],
+         "launches_by_path": {k: v["ragged_index"] for k, v in by_path.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,7 @@ def kernel_counts() -> dict:
             "blocked_fw": mp.blocked_fw_cuda.launches,
             "coo_apsp": mp.apsp_coo_cuda.launches,
             "chebconv": cc.chebconv_propagate_cuda.launches,
-            "chebconv_ragged": cc.chebconv_propagate_ragged_cuda.launches}
+            "ragged_index": cc.ragged_index_cuda.launches}
 
 
 def reset_kernel_counts() -> None:
@@ -68,7 +68,7 @@ def reset_kernel_counts() -> None:
     mp.blocked_fw_cuda.launches = 0
     mp.apsp_coo_cuda.launches = 0
     cc.chebconv_propagate_cuda.launches = 0
-    cc.chebconv_propagate_ragged_cuda.launches = 0
+    cc.ragged_index_cuda.launches = 0
 
 
 def _sync(dev: torch.device) -> None:

@@ -37,8 +37,8 @@ SIGNATURES = {
                 [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "chebconv": ("mho_chebconv_propagate_f32",
                  [_c_void_p] * 7 + [_c_int] * 4 + [_c_void_p]),
-    "chebconv_ragged": ("mho_chebconv_ragged_f32",
-                        [_c_void_p] * 7 + [_c_int] * 4 + [_c_void_p]),
+    "chebconv_ragged": ("mho_ragged_index",
+                        [_c_void_p] * 7 + [_c_int] * 3 + [_c_void_p]),
     "coo_apsp": ("mho_coo_weights_f32",
                  [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "blocked_fw": ("mho_blocked_fw_f32", [_c_void_p] + [_c_int] * 2 + [_c_void_p]),

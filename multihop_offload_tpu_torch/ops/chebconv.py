@@ -2,9 +2,9 @@
 
 Replaces `multihop_offload_tpu/ops/chebconv.py:chebconv_propagate_pallas`
 (the Pallas kernel `_chebconv_kernel`): ``diag * x + segment_sum(vals *
-x[cols], rows)`` over a padded COO support.  The CUDA kernel is
-`csrc/chebconv.cu`; its source note says what bounds it on an H100 (bytes)
-and how it reads the list.
+x[cols], rows)`` over a padded COO support.  The CUDA kernel is the row
+walk of `csrc/chebconv.cu`; its source note says what bounds it on an
+H100 and how it reads the list.
 
 `chebconv_propagate(support, x)` is differentiable in x through a
 `torch.autograd.Function`.  The support is constant (it is built from the
@@ -17,7 +17,7 @@ backward both dispatch on the device of x: the plain version
 CUDA tensors, an error for anything else.  There is no fall back and no
 knob.
 
-On the card the kernel reads the support's `CsrIndex` (`support.csr`),
+On the card the walk reads the support's `CsrIndex` (`support.csr`),
 which the sparse Instance builder makes on the host with the list, once
 per instance: the forward walks each row's range of the row-sorted list,
 the backward each column's range through `col_order`.  Neither reaches the
@@ -26,20 +26,25 @@ padding entries.
 K5, `chebconv_propagate_ragged`, replaces
 `multihop_offload_tpu/ops/chebconv.py:chebconv_propagate_ragged`
 (`_chebconv_ragged_kernel`): the same function over the entries before a
-per-slot live count `nnz_live` ((B,) int32), which stays on the device: the
-CUDA kernel (`csrc/chebconv_ragged.cu`) reads it there, so one launch
-serves every occupancy.  Its live entries may come in any row order, so it
-scans the list instead of reading K4's CSR index.  Its gradient mirrors the
-JAX `_cheb_ragged_bwd` (`:363-371`): d x is K5 over the swapped list (rows
-and columns exchanged, the same live count); d vals and d diag are the VJP
-terms of `_xla_propagate` over the full capacity, pads included.  No path
-of the JAX package calls it, and none of the port does.
+per-slot live count `nnz_live` ((B,) int32), which stays on the device.
+Its live entries may come in any row order, so on the card K5 is two
+launches: `ragged_index_cuda` (`csrc/chebconv_ragged.cu`), a stable
+counting sort of each slot's live prefix by row and by column that reads
+the live counts itself, then the same row walk as K4 over the row index.
+Its gradient mirrors the JAX `_cheb_ragged_bwd` (`:363-371`): d x is the
+walk over the column index the forward sorted (no second sort); d vals
+and d diag are the VJP terms of `_xla_propagate` over the full capacity,
+pads included.  No path of the JAX package calls it, and none of the
+port does.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from multihop_offload_tpu_torch._records import TensorRecord
 from multihop_offload_tpu_torch.layouts.sparse import (
     SparseSupport,
     gather_rows,
@@ -53,7 +58,7 @@ chebconv_propagate_plain = propagate_edges
 def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
                             index: torch.Tensor, vals: torch.Tensor,
                             diag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Launch `csrc/chebconv.cu` once for the whole batch:
+    """Launch the row walk of `csrc/chebconv.cu` once for the whole batch:
     ``out[b, r] = diag[b, r] x[b, r] + sum_p vals[b, e] x[b, index[b, e]]``
     over p in [ptr[b, r], ptr[b, r + 1]), with e = order[b, p] (e = p when
     `order` is None).
@@ -96,6 +101,22 @@ def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
 chebconv_propagate_cuda.launches = 0
 
 
+def chebconv_walk_plain(ptr, order, index, vals, diag, x) -> torch.Tensor:
+    """The walk's plain version, `chebconv_propagate_cuda`'s arguments:
+    each row's entries p in [ptr[b, r], ptr[b, r + 1]) summed in p order
+    (the sequential `index_add` of `propagate_edges`), then diag * x.
+    Positions outside every row add +-0 to row 0 after its entries."""
+    b, nnz = index.shape
+    pos = torch.arange(nnz, device=index.device).expand(b, nnz)
+    ptr = ptr.long()
+    row = torch.searchsorted(ptr[:, 1:].contiguous(), pos.contiguous(), right=True)
+    inside = (pos >= ptr[:, :1]) & (pos < ptr[:, -1:])
+    ent = pos if order is None else order.long()
+    return propagate_edges(torch.where(inside, row, 0),
+                           torch.where(inside, torch.gather(index, 1, ent), 0),
+                           torch.where(inside, torch.gather(vals, 1, ent), 0), diag, x)
+
+
 def _run(support: SparseSupport, x: torch.Tensor, transpose: bool) -> torch.Tensor:
     e = support.edges
     if x.device.type == "cpu":
@@ -134,6 +155,92 @@ def chebconv_propagate(support: SparseSupport, x: torch.Tensor) -> torch.Tensor:
 # ---- K5: the ragged propagate ------------------------------------------------
 
 
+@dataclasses.dataclass
+class RaggedIndex(TensorRecord):
+    """Row and column access to the live prefix of each slot's list, in
+    list order within a row (a stable sort): row r's entries are
+    row_order[b, row_ptr[b, r] : row_ptr[b, r + 1]], column c's likewise.
+    The entries past the live count, and live entries whose key is out of
+    [0, E), sort last in list order, past ptr[b, E]."""
+
+    row_ptr: torch.Tensor    # (B, E + 1) int32
+    row_order: torch.Tensor  # (B, cap) int32
+    col_ptr: torch.Tensor    # (B, E + 1) int32
+    col_order: torch.Tensor  # (B, cap) int32
+
+
+# the sort's caps: both staged lists and the per-warp histograms fit in one
+# block's shared memory (`csrc/chebconv_ragged.cu`)
+RAGGED_MAX_ROWS = 2048
+RAGGED_MAX_CAP = 16384
+
+
+def _stable_index(keys: torch.Tensor, live: torch.Tensor, num_rows: int):
+    k = torch.where(live & (keys >= 0) & (keys < num_rows), keys.long(), num_rows)
+    order = torch.sort(k, dim=-1, stable=True).indices.to(torch.int32)
+    b = k.shape[0]
+    off = torch.arange(b, device=k.device).unsqueeze(1) * (num_rows + 1)
+    counts = torch.bincount((k + off).reshape(-1), minlength=b * (num_rows + 1))
+    ptr = torch.zeros((b, num_rows + 1), dtype=torch.int64, device=k.device)
+    ptr[:, 1:] = counts.view(b, num_rows + 1)[:, :num_rows].cumsum(1)
+    return ptr.to(torch.int32), order
+
+
+def ragged_index_plain(rows, cols, nnz_live, num_rows: int) -> RaggedIndex:
+    """The sort's plain version: a stable `torch.sort` of each slot's row
+    (and column) keys, every entry at or past nnz_live[b] (or with a key
+    out of [0, num_rows)) keyed num_rows; ptr from `bincount`/`cumsum`."""
+    live = (torch.arange(rows.shape[-1], device=rows.device)
+            < nnz_live.to(rows.device).unsqueeze(-1))
+    row_ptr, row_order = _stable_index(rows, live, num_rows)
+    col_ptr, col_order = _stable_index(cols, live, num_rows)
+    return RaggedIndex(row_ptr=row_ptr, row_order=row_order, col_ptr=col_ptr,
+                       col_order=col_order)
+
+
+def ragged_index_cuda(rows, cols, nnz_live, num_rows: int) -> RaggedIndex:
+    """Launch `csrc/chebconv_ragged.cu` once for the whole batch: the
+    `RaggedIndex` of each slot's first nnz_live[b] entries, which the
+    kernel reads from device memory.  rows, cols (B, cap) int32, nnz_live
+    (B,) int32, contiguous on one CUDA device; raises above the caps
+    (num_rows <= RAGGED_MAX_ROWS, cap <= RAGGED_MAX_CAP)."""
+    if rows.dim() != 2:
+        raise ValueError(f"rows must be (B, cap), got {tuple(rows.shape)}")
+    b, cap = rows.shape
+    if not (1 <= num_rows <= RAGGED_MAX_ROWS and 1 <= cap <= RAGGED_MAX_CAP):
+        raise ValueError(f"ragged_index_cuda: E={num_rows}, cap={cap} above the sort's "
+                         f"caps (E <= {RAGGED_MAX_ROWS}, cap <= {RAGGED_MAX_CAP})")
+    shapes = {"rows": (rows, (b, cap)), "cols": (cols, (b, cap)),
+              "nnz_live": (nnz_live, (b,))}
+    for name, (t, shape) in shapes.items():
+        if t.device != rows.device or t.device.type != "cuda":
+            raise ValueError("ragged_index_cuda: operands must share one CUDA device")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("ragged_index_cuda takes contiguous tensors")
+        if t.dtype != torch.int32:
+            raise TypeError(f"ragged_index_cuda: {name} is {t.dtype}, not torch.int32")
+    # one allocation, carved into the four contiguous outputs
+    sizes = [b * (num_rows + 1), b * cap, b * (num_rows + 1), b * cap]
+    buf = torch.empty((sum(sizes),), dtype=torch.int32, device=rows.device)
+    row_ptr, row_order, col_ptr, col_order = (
+        part.view(b, -1) for part in torch.split(buf, sizes))
+    fn = _build.kernel("chebconv_ragged")
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(rows.data_ptr(), cols.data_ptr(), nnz_live.data_ptr(), row_ptr.data_ptr(),
+                 row_order.data_ptr(), col_ptr.data_ptr(), col_order.data_ptr(), b,
+                 num_rows, cap, stream)
+    ragged_index_cuda.launches += 1
+    _build.check_launch("chebconv_ragged", err)
+    return RaggedIndex(row_ptr=row_ptr, row_order=row_order, col_ptr=col_ptr,
+                       col_order=col_order)
+
+
+ragged_index_cuda.launches = 0
+
+
 def chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, nnz_live):
     """K5's plain version: `propagate_edges` over the first nnz_live[b]
     entries of each slot's list (the entries past them are masked to
@@ -145,66 +252,41 @@ def chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, nnz_live):
 
 
 def chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x, nnz_live) -> torch.Tensor:
-    """Launch `csrc/chebconv_ragged.cu` once for the whole batch.  rows,
-    cols (B, cap) int32; vals (B, cap), diag (B, E), x (B, E, F) float32;
-    nnz_live (B,) int32; all contiguous on one CUDA device.  Returns
-    (B, E, F)."""
+    """K5 on the card: `ragged_index_cuda`, then the row walk over its row
+    index (2 launches).  rows, cols (B, cap) int32; vals (B, cap), diag
+    (B, E), x (B, E, F) float32; nnz_live (B,) int32; all contiguous on
+    one CUDA device.  Returns (B, E, F)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, E, F), got {tuple(x.shape)}")
-    b, e, f = x.shape
-    cap = rows.shape[-1]
-    shapes = {"rows": (rows, (b, cap), torch.int32), "cols": (cols, (b, cap), torch.int32),
-              "vals": (vals, (b, cap), torch.float32), "diag": (diag, (b, e), torch.float32),
-              "x": (x, (b, e, f), torch.float32),
-              "nnz_live": (nnz_live, (b,), torch.int32)}
-    for name, (t, shape, dtype) in shapes.items():
-        if t.device != x.device or t.device.type != "cuda":
-            raise ValueError("chebconv_propagate_ragged_cuda: operands must share one "
-                             "CUDA device")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("chebconv_propagate_ragged_cuda takes contiguous tensors")
-        if t.dtype != dtype:
-            raise TypeError(f"chebconv_propagate_ragged_cuda: {name} is {t.dtype}, "
-                            f"not {dtype}")
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    fn = _build.kernel("chebconv_ragged")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), diag.data_ptr(),
-                 x.data_ptr(), nnz_live.data_ptr(), out.data_ptr(), b, e, f, cap, stream)
-    chebconv_propagate_ragged_cuda.launches += 1
-    _build.check_launch("chebconv_ragged", err)
-    return out
-
-
-chebconv_propagate_ragged_cuda.launches = 0
-
-
-def _run_ragged(rows, cols, vals, diag, x, nnz_live) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, nnz_live)
-    if x.device.type == "cuda":
-        return chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x.contiguous(),
-                                              nnz_live)
-    raise ValueError(f"chebconv_propagate_ragged: unsupported device {x.device}")
+    idx = ragged_index_cuda(rows, cols, nnz_live, x.shape[1])
+    return chebconv_propagate_cuda(idx.row_ptr, idx.row_order, cols, vals, diag, x)
 
 
 class _RaggedPropagate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, cols, vals, diag, x, nnz_live):
         ctx.save_for_backward(rows, cols, vals, diag, x, nnz_live)
-        return _run_ragged(rows, cols, vals, diag, x, nnz_live)
+        ctx.index = None
+        if x.device.type == "cpu":
+            return chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, nnz_live)
+        if x.device.type == "cuda":
+            # one sort serves the forward's row walk and the backward's column walk
+            ctx.index = ragged_index_cuda(rows, cols, nnz_live, x.shape[1])
+            return chebconv_propagate_cuda(ctx.index.row_ptr, ctx.index.row_order, cols,
+                                           vals, diag, x.contiguous())
+        raise ValueError(f"chebconv_propagate_ragged: unsupported device {x.device}")
 
     @staticmethod
     def backward(ctx, g):
         rows, cols, vals, diag, x, nnz_live = ctx.saved_tensors
         need_vals, need_diag, need_x = ctx.needs_input_grad[2:5]
         # d x: the propagate over the swapped list, with the same live count
-        dx = _run_ragged(cols, rows, vals, diag, g.contiguous(), nnz_live) if need_x else None
+        dx = None
+        if need_x and ctx.index is not None:
+            dx = chebconv_propagate_cuda(ctx.index.col_ptr, ctx.index.col_order, rows, vals,
+                                         diag, g.contiguous())
+        elif need_x:
+            dx = chebconv_propagate_ragged_plain(cols, rows, vals, diag, g, nnz_live)
         # d vals, d diag: the VJP of `_xla_propagate` over the full capacity
         dvals = (gather_rows(g, rows) * gather_rows(x, cols)).sum(-1) if need_vals else None
         ddiag = (g * x).sum(-1) if need_diag else None

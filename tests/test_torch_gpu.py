@@ -345,12 +345,14 @@ def test_chebconv_ragged_kernel_matches_plain(cuda, f, shuffle):
     x = torch.from_numpy((10 * rng.normal(size=(16, 328, f))).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(16, 328, f)).astype(np.float32))
     dev = [t.to(cuda) for t in (rows, cols, vals, diag, x, live)]
-    before = tcc.chebconv_propagate_ragged_cuda.launches
+    before = (tcc.ragged_index_cuda.launches, tcc.chebconv_propagate_cuda.launches)
     xk = dev[4].clone().requires_grad_()
     out = tcc.chebconv_propagate_ragged(*dev[:4], xk, dev[5])
     (dx,) = torch.autograd.grad(out, xk, g.to(cuda))
     torch.cuda.synchronize()
-    assert tcc.chebconv_propagate_ragged_cuda.launches == before + 2
+    # one sort, then the walk forward and the walk backward
+    assert (tcc.ragged_index_cuda.launches - before[0],
+            tcc.chebconv_propagate_cuda.launches - before[1]) == (1, 2)
     xp = dev[4].clone().requires_grad_()
     ref = tcc.chebconv_propagate_ragged_plain(*dev[:4], xp, dev[5])
     (dx_ref,) = torch.autograd.grad(ref, xp, g.to(cuda))
@@ -377,6 +379,104 @@ def test_chebconv_ragged_kernel_checks_operands(cuda):
         tcc.chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x, live.long())
     with pytest.raises(ValueError, match="one CUDA device"):
         tcc.chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x, live.cpu())
+
+
+def _sort_cases():
+    """name -> (rows, cols, live, E) CPU tensors for the sort kernel."""
+    rng = np.random.default_rng(9)
+    out = {}
+    rows, cols, _, _, live = _ragged_lists(rng, 16, 328, 5248, False)
+    out["service-sorted"] = (rows, cols, live, 328)
+    rows, cols, _, _, live = _ragged_lists(rng, 16, 328, 5248, True)
+    out["service-permuted"] = (rows, cols, live, 328)
+    out["service-capacity"] = (rows, cols, torch.full_like(live, 5248), 328)
+    out["service-zero"] = (rows, cols, torch.zeros_like(live), 328)
+    rows, cols, _, _, live = _ragged_lists(rng, 64, 328, 4096, True)
+    out["paper-batch"] = (rows, cols, live, 328)
+    rows, cols, _, _, live = _ragged_lists(rng, 4, 752, 9984, True)
+    out["rung256"] = (rows, cols, live, 752)
+    # slots that start off a 16-byte boundary (cap 301: head and tail
+    # entries around the bulk copy), live counts of every residue mod 4,
+    # and live rows out of [0, E)
+    rows, cols, _, _, live = _ragged_lists(rng, 8, 40, 301, True)
+    live = torch.tensor([0, 1, 2, 3, 5, 150, 299, 301], dtype=torch.int32)
+    rows[3, 1], rows[6, 7], cols[6, 8] = -1, 40, 999
+    out["unaligned"] = (rows, cols, live, 40)
+    r = np.random.default_rng(37)  # the JAX ragged test's case
+    rows = torch.zeros((1, 300), dtype=torch.int32)
+    cols = torch.zeros((1, 300), dtype=torch.int32)
+    rows[0, :17] = torch.from_numpy(r.integers(0, 12, 17).astype(np.int32))
+    cols[0, :17] = torch.from_numpy(r.integers(0, 12, 17).astype(np.int32))
+    out["jax-ragged"] = (rows, cols, torch.tensor([17], dtype=torch.int32), 12)
+    return out
+
+
+@pytest.mark.parametrize("name", ["service-sorted", "service-permuted", "service-capacity",
+                                  "service-zero", "paper-batch", "rung256", "unaligned",
+                                  "jax-ragged"])
+def test_ragged_index_kernel_equals_plain(cuda, name):
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    rows, cols, live, e = _sort_cases()[name]
+    before = tcc.ragged_index_cuda.launches
+    got = tcc.ragged_index_cuda(rows.to(cuda), cols.to(cuda), live.to(cuda), e)
+    torch.cuda.synchronize()
+    assert tcc.ragged_index_cuda.launches == before + 1
+    want = tcc.ragged_index_plain(rows, cols, live, e)
+    for field in ("row_ptr", "row_order", "col_ptr", "col_order"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+def test_chebconv_ragged_launches_one_sort_and_the_walks(cuda):
+    """K5's forward is one sort and one walk; its backward one more walk
+    over the column index the forward sorted, and no second sort."""
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    rng = np.random.default_rng(2)
+    rows, cols, vals, diag, live = (t.to(cuda) for t in _ragged_lists(
+        rng, 16, 328, 5248, True))
+    x = torch.randn((16, 328, 32), device=cuda, requires_grad=True)
+
+    def counts():
+        return tcc.ragged_index_cuda.launches, tcc.chebconv_propagate_cuda.launches
+
+    c0 = counts()
+    with torch.no_grad():
+        tcc.chebconv_propagate_ragged(rows, cols, vals, diag, x, live)
+    c1 = counts()
+    out = tcc.chebconv_propagate_ragged(rows, cols, vals, diag, x, live)
+    c2 = counts()
+    out.sum().backward()
+    torch.cuda.synchronize()
+    c3 = counts()
+    assert [b - a for a, b in zip(c0, c1)] == [1, 1]
+    assert [b - a for a, b in zip(c1, c2)] == [1, 1]
+    assert [b - a for a, b in zip(c2, c3)] == [0, 1]
+    assert torch.isfinite(x.grad).all()
+
+
+def test_ragged_index_kernel_raises_above_its_caps(cuda):
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    before = tcc.ragged_index_cuda.launches
+    live = torch.zeros(1, dtype=torch.int32, device=cuda)
+    ok = torch.zeros((1, tcc.RAGGED_MAX_CAP), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="caps"):
+        tcc.ragged_index_cuda(ok, ok, live, tcc.RAGGED_MAX_ROWS + 1)
+    big = torch.zeros((1, tcc.RAGGED_MAX_CAP + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="caps"):
+        tcc.ragged_index_cuda(big, big, live, 8)
+    x = torch.zeros((1, tcc.RAGGED_MAX_ROWS + 1, 4), device=cuda)
+    with pytest.raises(ValueError, match="caps"):
+        tcc.chebconv_propagate_ragged_cuda(ok, ok, ok.float(), x[..., 0], x, live)
+    assert tcc.ragged_index_cuda.launches == before
+    # at the caps it runs, and equals its plain version
+    got = tcc.ragged_index_cuda(ok, ok, torch.full_like(live, 7), tcc.RAGGED_MAX_ROWS)
+    want = tcc.ragged_index_plain(ok.cpu(), ok.cpu(), torch.full((1,), 7, dtype=torch.int32),
+                                  tcc.RAGGED_MAX_ROWS)
+    torch.cuda.synchronize()
+    assert torch.equal(got.row_order.cpu(), want.row_order)
+    assert torch.equal(got.col_ptr.cpu(), want.col_ptr)
 
 
 def test_service_card_matches_cpu(cuda):
