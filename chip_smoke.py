@@ -133,33 +133,78 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device microseconds per call of `fn`, on the card's own clock:
-    the summed durations of every kernel, copy and memset the `reps` calls
-    launched (`torch.profiler`'s CUDA trace, `self_device_time_total`),
-    over `reps`.  For a library call that is every kernel it launches.
-    Raises if the trace holds no device time.  `device_us.last` keeps the
-    kernels per call and their names, for the log."""
+def device_us(fn, reps: int, warmup: int = 3, kernels_per_call: int | None = None) -> float:
+    """Mean device microseconds per call of `fn`, on the card's own clock,
+    from `torch.profiler`'s CUDA trace of `reps` calls: for each kernel,
+    copy or memset, the mean duration of its records times its launches
+    per call, summed.  For a library call that is every kernel it launches.
+    Every call launches the same kernels, but the trace can lose records
+    (from 2 of 1,250 to nearly all of a window, in runs on an H100): a
+    kernel's launches per call are its records over `reps`, rounded, and
+    the window is traced again, up to 4 more times, when it holds no
+    launch, a count is off a whole multiple by more than a tenth of
+    `reps`, or the launches per call are not `kernels_per_call` (where
+    given); then this raises.  `device_us.last` keeps the kernels per call,
+    the records lost, their names and the device us per call of each name
+    (`by_name`), for the log."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if "CUDA" in str(getattr(e, "device_type", "")) and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events)
-    if not total > 0:
-        raise AssertionError("device_us: the profiler traced no device time")
-    device_us.last = {"kernels_per_call": sum(e.count for e in events) / reps,
-                      "names": sorted({e.key[:60] for e in events})}
-    return total / reps
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts, times = {}, {}
+        for e in prof.key_averages():
+            if "CUDA" in str(getattr(e, "device_type", "")) and e.self_device_time_total > 0:
+                counts[e.key] = counts.get(e.key, 0) + e.count
+                times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total
+        per_call = {k: round(c / reps) for k, c in counts.items()}
+        launches = sum(per_call.values())
+        if launches and all(abs(c - per_call[k] * reps) <= reps // 10
+                            for k, c in counts.items()) and (
+                kernels_per_call is None or launches == kernels_per_call):
+            break
+    else:
+        raise AssertionError(f"device_us: 5 traces lost kernel records or held none "
+                             f"({sum(counts.values())} for {reps} calls)")
+    by_name = {k: times[k] / counts[k] * n for k, n in per_call.items() if n}
+    total = sum(by_name.values())
+    device_us.last = {"kernels_per_call": launches,
+                      "lost_records": launches * reps - sum(counts.values()),
+                      "names": sorted({k[:60] for k in by_name}), "by_name": by_name}
+    return total
 
 
 device_us.last = {}
+
+K3_PHASES = ("pivot", "panels", "outer")
+
+
+def k3_phase_us(last: dict) -> dict:
+    """K3's device us per call split by phase from `device_us.last`: the
+    `fw_pivot_kernel`, `fw_panels_kernel` and `fw_outer_kernel` launches,
+    and "clone", the wrapper's copy of its input (every other name)."""
+    out = dict.fromkeys((*K3_PHASES, "clone"), 0.0)
+    for name, us in last["by_name"].items():
+        phase = next((p for p in K3_PHASES if f"fw_{p}_kernel" in name), "clone")
+        out[phase] += us
+    return out
+
+
+def fw_input(b: int, n: int):
+    """K3's test input (`tests/test_torch_gpu.py`): (b, n, n) float32 on
+    the CPU, an edge with probability 6 / n, weights U(0.1, 5), +inf
+    elsewhere, zero diagonal, from `default_rng(n)`."""
+    rng = np.random.default_rng(n)
+    w = np.where(rng.uniform(size=(b, n, n)) < 6.0 / n, rng.uniform(0.1, 5.0, (b, n, n)),
+                 np.inf).astype(np.float32)
+    d = torch.from_numpy(w)
+    d.diagonal(dim1=1, dim2=2).zero_()
+    return d
 
 
 def host_us(fn, reps: int, warmup: int = 3) -> float:
@@ -176,10 +221,11 @@ def host_us(fn, reps: int, warmup: int = 3) -> float:
     return dt / reps * 1e6
 
 
-def clocks(fn, reps: int, warmup: int = 3) -> dict:
+def clocks(fn, reps: int, warmup: int = 3, kernels_per_call: int | None = None) -> dict:
     """A call's three times: "ms" (events over the loop, host enqueue
     included), "device_ms" (profiler) and "host_us" (enqueue only)."""
-    return {"ms": cuda_ms(fn, reps, warmup), "device_ms": device_us(fn, reps, 1) / 1e3,
+    return {"ms": cuda_ms(fn, reps, warmup),
+            "device_ms": device_us(fn, reps, 1, kernels_per_call) / 1e3,
             "host_us": host_us(fn, reps, 1), "kernels_per_call": device_us.last[
                 "kernels_per_call"]}
 
@@ -431,6 +477,23 @@ def large_phase(dev, card) -> dict:
     log(f"K3 blocked_fw large B,N={tuple(d.shape[:2])} on the GNN's predicted delays: "
         f"bit-identical to plain on the card and on the CPU (bar: torch.equal); "
         f"{int(torch.isinf(got).sum())} entries +inf")
+    # the pivot alone (one launch), and three rounds, on the gpu test's input
+    d384 = fw_input(2, 384)
+    small = {"1x128": d384[:1, :128, :128].contiguous(), "2x384": d384,
+             "132x128": fw_input(132, 128)}
+    for tag, x in small.items():
+        x_card = x.to(dev)
+        got_s = mp.blocked_fw_cuda(x_card)
+        ref_s = mp.blocked_fw_plain(x_card)
+        torch.cuda.synchronize()
+        bad = (int((got_s != ref_s).sum()),
+               int((got_s.cpu() != mp.blocked_fw_plain(x)).sum()))
+        if bad != (0, 0):
+            raise AssertionError(f"K3 {tag}: {bad} entries differ from the plain version "
+                                 "on the card, on the CPU")
+        small[tag] = x_card
+    log(f"K3 blocked_fw B,N in {list(small)} (default_rng inputs): bit-identical to plain "
+        f"on the card and on the CPU (bar: torch.equal)")
 
     # ---- main path: counts at 0 just before each call, read just after ------
     calls = {"eval_methods": lambda: eval_methods(model, inst, jobs),
@@ -459,8 +522,21 @@ def large_phase(dev, card) -> dict:
     # ---- timing --------------------------------------------------------------
     n, b = pad.n, 1
     iters = mp.squaring_count(n)
-    k3 = clocks(lambda: mp.blocked_fw_cuda(d), 50)
+    nb = n // mp.FW_TILE
+    # the launches of a call, and the wrapper's copy of its input
+    k3 = clocks(lambda: mp.blocked_fw_cuda(d), 50, kernels_per_call=3 * nb + 1)
     k3_ms = k3["ms"]
+    # device us per phase, and ns per pivot step (n steps a call, for the
+    # whole batch at once), at the path's shape and at one pivot block
+    phases = {"1x1024": k3_phase_us(device_us.last)}
+    lost = {"1x1024": device_us.last["lost_records"]}
+    for tag in ("1x128", "132x128"):
+        x = small[tag]
+        device_us(lambda x=x: mp.blocked_fw_cuda(x), 50, kernels_per_call=2)
+        phases[tag] = k3_phase_us(device_us.last)
+        lost[tag] = device_us.last["lost_records"]
+    ns_per_step = {tag: ph["pivot"] * 1e3 / int(tag.split("x")[1])
+                   for tag, ph in phases.items()}
     k3_plain_ms = cuda_ms(lambda: mp.blocked_fw_plain(d), 3, warmup=1)
     k2_ms = cuda_ms(lambda: mp.minplus_closure_cuda(d, iters), 5, warmup=1)
     # one sweep makes N^3 candidates per matrix, 2 instructions each (add,
@@ -475,19 +551,24 @@ def large_phase(dev, card) -> dict:
     forward_backward(model, inst, jobs)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    nb = n // mp.FW_TILE
     log(f"timing on {card['smi']}: K3 blocked_fw B,N={(b, n)} per APSP call ({3 * nb} "
         f"launches): device {k3['device_ms'] * 1e3:.1f} us ({k3['kernels_per_call']:.0f} "
         f"kernels), call {k3_ms * 1e3:.1f} us, host {k3['host_us']:.1f} us; plain "
         f"{k3_plain_ms:.3f} ms, bound "
         f"{max(k3_ops_ms, k3_bytes_ms) * 1e3:.1f} us (operations); K2 squaring on the "
         f"same matrix ({iters} launches) {k2_ms * 1e3:.1f} us")
+    for tag, ph in phases.items():
+        log(f"timing on {card['smi']}: K3 blocked_fw B,N={tag} device us per call by "
+            f"phase: pivot {ph['pivot']:.2f} ({ns_per_step[tag]:.1f} ns per step), panels "
+            f"{ph['panels']:.2f}, outer {ph['outer']:.2f}, input clone {ph['clone']:.2f} "
+            f"({lost[tag]} trace records lost of 50 calls)")
     log(f"large path: forward_env {env_ms:.2f} ms, eval_methods {eval_ms:.2f} ms per "
         f"request, forward_backward {fb_ms:.2f} ms per episode; peak memory "
         f"{peak / 2**20:.1f} MiB (max_memory_allocated, eval_methods + forward_backward)")
     return {"counts": counts, "shape": [b, n], "launches_per_call": 3 * nb,
             "ms": k3_ms, "device_ms": k3["device_ms"], "plain_ms": k3_plain_ms,
-            "squaring_ms": k2_ms,
+            "squaring_ms": k2_ms, "phase_device_us": phases,
+            "pivot_ns_per_step": ns_per_step,
             "bound_ms": max(k3_ops_ms, k3_bytes_ms),
             "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
             "forward_env_ms": env_ms, "eval_methods_ms": eval_ms,
@@ -1190,6 +1271,8 @@ def main() -> int:
          "bound_by": large["bound_by"], "library_ms": None, "shape": large["shape"],
          "launches_per_call": large["launches_per_call"],
          "squaring_ms": large["squaring_ms"],
+         "phase_device_us": large["phase_device_us"],
+         "pivot_ns_per_step": large["pivot_ns_per_step"],
          "large_path": {k: large[k] for k in ("forward_env_ms", "eval_methods_ms",
                                               "forward_backward_ms", "peak_mib")},
          "launches_by_path": {k: v["blocked_fw"] for k, v in by_path.items()}},

@@ -226,24 +226,52 @@ def test_coo_apsp_kernel_bit_identical(cuda, group, per_network):
     _check_coo_apsp(cuda, inst, 1.0 / noisy)
 
 
-@pytest.mark.parametrize("b,n,symmetric", [(2, 384, False), (1, 1024, True)])
-def test_blocked_fw_kernel_bit_identical(cuda, b, n, symmetric):
+def _fw_input(b, n, symmetric=False, density=None):
+    """(b, n, n) float32: an edge with probability `density` (6 / n by
+    default), weights U(0.1, 5), +inf elsewhere, zero diagonal, from
+    `default_rng(n)`."""
     rng = np.random.default_rng(n)
-    w = np.where(rng.uniform(size=(b, n, n)) < 6.0 / n,
+    p = 6.0 / n if density is None else density
+    w = np.where(rng.uniform(size=(b, n, n)) < p,
                  rng.uniform(0.1, 5.0, (b, n, n)), np.inf).astype(np.float32)
     if symmetric:
         w = np.minimum(w, np.swapaxes(w, 1, 2))
     d = torch.from_numpy(w)
     d.diagonal(dim1=1, dim2=2).zero_()
+    return d
+
+
+@pytest.mark.parametrize("b,n,symmetric,density", [
+    (2, 384, False, None), (1, 1024, True, None),
+    (3, 128, False, None),   # the pivot alone: one launch per call
+    (1, 2048, True, None),   # the cap
+    (2, 384, False, 0.5),    # dense: nearly every step lowers entries
+    (1, 384, False, 0.0),    # all +inf off the diagonal: inf + inf stays inf
+])
+def test_blocked_fw_kernel_bit_identical(cuda, b, n, symmetric, density):
+    d = _fw_input(b, n, symmetric, density)
     dc = d.to(cuda)
     before = tmp.blocked_fw_cuda.launches
     got = tmp.blocked_fw_cuda(dc)
     plain = tmp.blocked_fw_plain(dc)
     torch.cuda.synchronize()
-    assert tmp.blocked_fw_cuda.launches - before == 3 * (n // 128)
+    # pivot, panels and outer per pivot block; the pivot alone at N = 128
+    assert tmp.blocked_fw_cuda.launches - before == (3 * (n // 128) if n > 128 else 1)
     assert torch.equal(dc.cpu(), d)  # the input is not written
     assert torch.equal(got, plain)
     assert torch.equal(got.cpu(), tmp.blocked_fw_plain(d))
+    if density == 0.0:
+        assert torch.equal(got.cpu(), d)
+
+
+def test_blocked_fw_kernel_follows_the_128_schedule(cuda):
+    """On the first case's input the kernel equals the plain version on
+    128 tiles and differs from it on 64 tiles: this input shows a change
+    of schedule."""
+    d = _fw_input(2, 384)
+    got = tmp.blocked_fw_cuda(d.to(cuda)).cpu()
+    assert torch.equal(got, tmp.blocked_fw_plain(d))
+    assert int((got != tmp.blocked_fw_plain(d, 64)).sum()) >= 1000
 
 
 def test_apsp_takes_blocked_fw_above_256(cuda):

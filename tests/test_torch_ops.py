@@ -256,6 +256,28 @@ def test_blocked_fw_apsp_bit_identical_to_jax_tile128():
     np.testing.assert_allclose(got[finite], squared[finite], rtol=1e-12)
 
 
+def test_blocked_fw_schedule_is_observable():
+    """On the K3 gpu test's input (N=384, density 6/N, `default_rng(384)`)
+    the 128-tile schedule of `blocked_fw_plain` differs from the 64-tile
+    one and from plain FW (one tile of N) in >= 1,000 entries each, and
+    equals the TPU kernel `blocked_fw_call` in interpret mode bit for bit:
+    a kernel on another tile would not be bit-identical."""
+    from multihop_offload_tpu.ops.minplus import blocked_fw_call
+
+    b, n = 2, 384
+    rng = np.random.default_rng(n)
+    w = np.where(rng.uniform(size=(b, n, n)) < 6.0 / n,
+                 rng.uniform(0.1, 5.0, (b, n, n)), np.inf).astype(np.float32)
+    for k in range(b):
+        np.fill_diagonal(w[k], 0.0)
+    d = torch.from_numpy(w)
+    got = tmp.blocked_fw_plain(d)
+    assert int((got != tmp.blocked_fw_plain(d, 64)).sum()) >= 1000
+    assert int((got != tmp.blocked_fw_plain(d, n)).sum()) >= 1000
+    want = blocked_fw_call(jnp.asarray(w), interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("n", [150, 256, 300, 1000, 2048, 2049, 3000])
 def test_apsp_path_follows_jax_dispatch(n):
     from multihop_offload_tpu.ops.minplus import pallas_apsp_path
