@@ -38,7 +38,10 @@ It
 3. holds each kernel against its plain PyTorch version on the same card
    tensors at the main paths' shapes: K2, K3 and K6 bit-identical (K3 on
    the large path's own predicted-delay matrix, against its plain version
-   on the card and on the CPU), K1 <= 1e-5 relative, K4 forward and
+   on the card and on the CPU), K1 <= 1e-5 relative on the paper batch,
+   the rung, the service's two buckets, the cap (1, 928) and an odd
+   (3, 215), bit for bit `rates / (cf + 1)` at `num_iters=0` and the same
+   bits on a second call, K4 forward and
    backward within the scaled 4.5e-7 bar of the JAX package
    (max |kernel - plain| / max(1, max |plain|)), at F = 4 and 32; the
    sort equal to `ragged_index_plain` at live, capacity and 0; K5 forward
@@ -73,9 +76,10 @@ It
    durations in `torch.profiler`'s CUDA trace), as a call (CUDA events
    around a loop of calls, host enqueue included) and on the host
    (enqueue only), beside its plain version, its bound and a library call
-   (K5 at live and at capacity, the sort alone, K4 on the same sorted
-   lists and `torch.sparse.mm`; K4 beside `torch.sparse.mm` and
-   `torch.bmm`), and the paths on the host clock; the
+   (K1 at each of its shapes at 10 rounds and at 0, the A pass alone: the
+   ns a round and the A pass's TB/s; K5 at live and at capacity, the sort
+   alone, K4 on the same sorted lists and `torch.sparse.mm`; K4 beside
+   `torch.sparse.mm` and `torch.bmm`), and the paths on the host clock; the
    service's requests/s, p50/p99 latency, dispatches per request, mean
    tick, launches per tick, host ms in `dispatch` against `fetch`; peak
    memory;
@@ -286,32 +290,87 @@ def kernel_inputs(model, inst, jobs):
     return d.contiguous(), max(1, math.ceil(math.log2(max(n - 1, 2)))), fp_args
 
 
-def kernel_phase(batches) -> dict:
-    """Each kernel against its plain version on the same card tensors."""
+def fp_input(b: int, n: int, density: float | None = None):
+    """K1's test operands (adj, rates, cf, lam) on the CPU, as
+    `tests/test_torch_gpu.py` makes them: a symmetric 0/1 matrix with an
+    edge at probability `density` (8 / n by default), rates U(30, 70)
+    rounded, lambdas U(0, 60), cf its row sums, from `default_rng(n)`."""
+    rng = np.random.default_rng(n)
+    p = 8.0 / n if density is None else density
+    a = np.triu((rng.uniform(size=(b, n, n)) < p).astype(np.float32), 1)
+    a = a + np.swapaxes(a, 1, 2)
+    rates = rng.uniform(30, 70, (b, n)).round().astype(np.float32)
+    lam = rng.uniform(0, 60, (b, n)).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in (a, rates, a.sum(1), lam)]
+
+
+# K1's shapes besides the decision path's: the service's two buckets, the
+# kernel's cap and an odd L (rows and instances off 16-byte boundaries)
+K1_GENERATED = ((16, 96), (16, 216), (1, 928), (3, 215))
+
+
+def k1_phase(path_args: dict, dev) -> dict:
+    """K1 against `fixed_point_plain` on the paths' own operands and at
+    `K1_GENERATED`: within 1e-5 relative at 10 rounds, `num_iters=0` bit for
+    bit `rates / (cf + 1)`, two calls bit for bit the same; then its device
+    us at 10 rounds and at 0 (the pass over A and mu0 alone), the ns a round
+    ((t10 - t0) / 10, with the list build) and the A pass's rate."""
     from multihop_offload_tpu_torch.ops import fixed_point as fp
+
+    shapes = dict(path_args)
+    shapes.update({f"{b}x{n}": [t.to(dev) for t in fp_input(b, n)] for b, n in K1_GENERATED})
+    out = {}
+    for tag, args in shapes.items():
+        want = fp.fixed_point_plain(*args)
+        got = fp.fixed_point_cuda(*args)
+        again = fp.fixed_point_cuda(*args)
+        mu0 = fp.fixed_point_cuda(*args, num_iters=0)
+        torch.cuda.synchronize()
+        b, n = args[1].shape
+        rel = ((got - want).abs() / want.abs()).max().item()
+        if not rel <= 1e-5:
+            raise AssertionError(f"K1 {tag} B,L={(b, n)}: max relative error {rel} > 1e-5")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {tag} B,L={(b, n)}: two calls differ")
+        if not torch.equal(mu0, args[1] / (args[2] + 1.0)):
+            raise AssertionError(f"K1 {tag} B,L={(b, n)}: num_iters=0 is not rates / (cf + 1)")
+        t10 = clocks(lambda: fp.fixed_point_cuda(*args), 50, kernels_per_call=1)
+        t0 = clocks(lambda: fp.fixed_point_cuda(*args, num_iters=0), 50, kernels_per_call=1)
+        us10, us0 = t10["device_ms"] * 1e3, t0["device_ms"] * 1e3
+        out[tag] = {"shape": [b, n], "max_rel_err": rel,
+                    "max_abs_err": (got - want).abs().max().item(),
+                    "device_us": us10, "device_us_iters0": us0, "call_us": t10["ms"] * 1e3,
+                    "ns_per_round": (us10 - us0) * 100.0,
+                    "a_pass_tb_per_s": b * n * n * 4 / (us0 * 1e-6) / 1e12,
+                    "bound_us": b * (n * n + 4 * n) * 4 / PEAK_BYTES_PER_S * 1e6}
+        log(f"K1 fixed_point {tag} B,L={(b, n)}: max rel err {rel:.3e} vs plain (bar 1e-5), "
+            f"num_iters=0 and a second call bit-identical; device us {us10:.2f} at 10 "
+            f"rounds, {us0:.2f} at 0: {out[tag]['ns_per_round']:.1f} ns a round, A pass "
+            f"{out[tag]['a_pass_tb_per_s']:.3f} TB/s; bound {out[tag]['bound_us']:.2f} us "
+            f"(bytes)")
+    return out
+
+
+def kernel_phase(batches, dev) -> tuple:
+    """Each kernel against its plain version on the same card tensors: K2
+    here, K1 in `k1_phase`.  Returns the errors and K1's per-shape record."""
     from multihop_offload_tpu_torch.ops import minplus as mp
 
-    errs = {}
+    errs, fp_sets = {}, {}
     for tag, (model, inst, jobs) in batches.items():
-        d, iters, fp_args = kernel_inputs(model, inst, jobs)
+        d, iters, fp_sets[tag] = kernel_inputs(model, inst, jobs)
         got = mp.minplus_closure_cuda(d, iters)
         ref = mp.minplus_closure_plain(d, iters)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             bad = int((got != ref).sum())
             raise AssertionError(f"K2 {tag} {tuple(d.shape)}: {bad} entries differ")
-        mu = fp.fixed_point_cuda(*fp_args)
-        mu_ref = fp.fixed_point_plain(*fp_args)
-        torch.cuda.synchronize()
-        rel = ((mu - mu_ref).abs() / mu_ref.abs()).max().item()
         log(f"K2 minplus {tag} B,N={tuple(d.shape[:2])} iters={iters}: "
-            f"bit-identical to plain (bar: torch.equal); K1 fixed_point "
-            f"B,L={tuple(mu.shape)}: max rel err {rel:.3e} vs plain (bar 1e-5)")
-        if not rel <= 1e-5:
-            raise AssertionError(f"K1 {tag}: max relative error {rel} > 1e-5")
-        errs[tag] = {"minplus": 0.0,
-                     "fixed_point": ((mu - mu_ref).abs().max().item())}
-    return errs
+            f"bit-identical to plain (bar: torch.equal)")
+    k1 = k1_phase(fp_sets, dev)
+    for tag in batches:
+        errs[tag] = {"minplus": 0.0, "fixed_point": k1[tag]["max_abs_err"]}
+    return errs, k1
 
 
 def reset_counts():
@@ -973,8 +1032,8 @@ def main() -> int:
     log(f"sparse layout: paper {sp_pad}, rung256 {sp_rung_pad}")
 
     # ---- kernel phase -------------------------------------------------------
-    errs = kernel_phase({"paper": (model, inst, jobs),
-                         "rung256": (model, rung_inst, rung_jobs)})
+    errs, k1_shapes = kernel_phase({"paper": (model, inst, jobs),
+                                    "rung256": (model, rung_inst, rung_jobs)}, dev)
     errs_sp = sparse_kernel_phase({"paper": sp_inst, "rung256": sp_rung}, dev)
 
     # ---- main path: counts at 0 just before, read just after ----------------
@@ -1228,7 +1287,7 @@ def main() -> int:
          "ms": k1_ms, "device_ms": k1["device_ms"], "plain_ms": k1_plain_ms,
          "bound_ms": max(k1_bytes_ms, k1_ops_ms),
          "bound_by": "bytes" if k1_bytes_ms >= k1_ops_ms else "operations",
-         "library_ms": None, "shape": [b, l],
+         "library_ms": None, "shape": [b, l], "shapes": k1_shapes,
          "launches_by_path": {k: v["fixed_point"] for k, v in by_path.items()}},
         {"name": "minplus_squaring", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/minplus.cu",

@@ -3,7 +3,8 @@
 Replaces `multihop_offload_tpu/ops/fixed_point.py:fixed_point_pallas` (the
 Pallas kernel `_fp_kernel`).  The CUDA kernel is `csrc/fixed_point.cu`; its
 source note says what bounds it on an H100 (bytes: one read of A) and how
-the design keeps A in shared memory as a bitmask for all ten iterations.
+the design reads A once into shared memory, as a bitmask and each row's
+list of conflicts, for all ten rounds.
 
 `fixed_point` dispatches on the device of its operands: the plain PyTorch
 version for CPU tensors, the CUDA kernel for CUDA tensors, an error for
@@ -36,9 +37,10 @@ _SMEM_BYTES = 232448
 
 
 def _smem_bytes(l: int) -> int:
-    """Shared memory of one block of `csrc/fixed_point.cu` (see
-    `mho_fixed_point_f32`): bitmask and partial sums, busy and mu.  It
-    caps L at 928."""
+    """The shared memory one block of `csrc/fixed_point.cu` is sure of:
+    the bitmask (L rows of an odd number of 32-bit words), a list area as
+    large, busy twice.  It caps L at 928, the kernel's `kMaxL`; the launcher
+    (`mho_fixed_point_f32`) gives the lists whatever else a block may use."""
     words = (l + 31) // 32
     return 2 * l * (words | 1) * 4 + 2 * l * 4
 

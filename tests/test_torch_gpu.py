@@ -72,14 +72,29 @@ def test_minplus_kernel_leaves_input_and_stops_early(cuda):
     assert 4 <= ran < 4 * 30  # converged matrices skip the rest of the schedule
 
 
-@pytest.mark.parametrize("b,l", [(2, 24), (64, 216), (4, 504), (1, 928)])
-def test_fixed_point_kernel_matches_plain(cuda, b, l):
+def _fp_operands(b, l, p=None, device="cpu"):
+    """A symmetric 0/1 conflict matrix with an edge at probability p (8 / l
+    by default), rates U(30, 70) rounded, lambdas U(0, 60), cf its row sums."""
     rng = np.random.default_rng(l)
-    a = np.triu((rng.uniform(size=(b, l, l)) < 8.0 / l).astype(np.float32), 1)
+    p = 8.0 / l if p is None else p
+    a = np.triu((rng.uniform(size=(b, l, l)) < p).astype(np.float32), 1)
     a = a + np.swapaxes(a, 1, 2)
     rates = rng.uniform(30, 70, (b, l)).round().astype(np.float32)
     lam = rng.uniform(0, 60, (b, l)).astype(np.float32)
-    args = [torch.from_numpy(x).to(cuda) for x in (a, rates, a.sum(1), lam)]
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (a, rates, a.sum(1), lam)]
+
+
+# (16, 96) and (16, 216): the service's buckets; (3, 215): odd L, so rows
+# and instances start off 16-byte boundaries; (2, 216) at density 0.5:
+# every word crowded; (1, 504) at 0.5: the lists past their room, so the
+# kernel walks the bitmask; (1, 1): the smallest
+@pytest.mark.parametrize("b,l,p", [(2, 24, None), (64, 216, None), (4, 504, None),
+                                   (1, 928, None), (16, 96, None), (16, 216, None),
+                                   (3, 215, None), (2, 216, 0.5), (1, 504, 0.5),
+                                   (1, 1, None)])
+def test_fixed_point_kernel_matches_plain(cuda, b, l, p):
+    args = _fp_operands(b, l, p, cuda)
     before = tfp.fixed_point_cuda.launches
     got = tfp.fixed_point(*args)
     expect = tfp.fixed_point_plain(*args)
@@ -87,6 +102,20 @@ def test_fixed_point_kernel_matches_plain(cuda, b, l):
     assert tfp.fixed_point_cuda.launches == before + 1
     rel = ((got - expect).abs() / expect.abs()).max().item()
     assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("b,l,p", [(64, 216, None), (3, 215, None), (1, 504, 0.5)])
+def test_fixed_point_kernel_zero_rounds_is_mu0(cuda, b, l, p):
+    adj, rates, cf, lam = _fp_operands(b, l, p, cuda)
+    got = tfp.fixed_point_cuda(adj, rates, cf, lam, num_iters=0)
+    assert torch.equal(got, rates / (cf + 1.0))
+
+
+@pytest.mark.parametrize("b,l,p", [(64, 216, None), (1, 928, None), (1, 504, 0.5)])
+def test_fixed_point_kernel_is_deterministic(cuda, b, l, p):
+    args = _fp_operands(b, l, p, cuda)
+    first = tfp.fixed_point_cuda(*args)
+    assert torch.equal(tfp.fixed_point_cuda(*args), first)
 
 
 def test_fixed_point_kernel_checks_operands(cuda):

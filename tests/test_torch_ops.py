@@ -57,6 +57,20 @@ def test_fixed_point_plain_matches_jax(b, l):
     np.testing.assert_array_equal(got_p[:, l:], 1.0)
 
 
+# a service bucket and the 256-node rung: shapes K1 is timed at on the card.
+# (The padding check of the test above is not made here: at L = 496 the
+# float64 matmul sums 504 columns in another order than 496, an ulp apart.)
+@pytest.mark.parametrize("b,l", [(16, 96), (4, 496)])
+def test_fixed_point_plain_matches_jax_at_path_shapes(b, l):
+    args = _conflict_batch(np.random.default_rng(l), b, l, p=0.03)
+    got = tfp.fixed_point(*map(torch.from_numpy, args)).numpy()
+    jargs = tuple(map(jnp.asarray, args))
+    np.testing.assert_allclose(got, np.asarray(fixed_point_pallas(*jargs, 10, True)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(got, np.asarray(interference_fixed_point_raw(*jargs, 10)),
+                               rtol=1e-12)
+
+
 @pytest.mark.parametrize("b,n,p", [(2, 30, 0.15), (3, 64, 0.06), (1, 150, 0.03)])
 def test_apsp_plain_bit_identical_to_jax(b, n, p):
     rng = np.random.default_rng(n)
