@@ -36,7 +36,10 @@ It
 2. builds the CUDA kernels from `multihop_offload_tpu_torch/csrc/` and
    prints the build time and ptxas' register / shared-memory / spill lines;
 3. holds each kernel against its plain PyTorch version on the same card
-   tensors at the main paths' shapes: K2, K3 and K6 bit-identical (K3 on
+   tensors at the main paths' shapes: K2, K3 and K6 bit-identical (K2
+   also at the service's two buckets, the large demo's (1, 1024) against
+   the blocked plain closure and an odd (5, 37), a launch per squaring,
+   its squarings run equal to `squarings_run_plain`; K3 on
    the large path's own predicted-delay matrix, against its plain version
    on the card and on the CPU), K1 <= 1e-5 relative on the paper batch,
    the rung, the service's two buckets, the cap (1, 928) and an odd
@@ -211,6 +214,27 @@ def fw_input(b: int, n: int):
     return d
 
 
+def minplus_input(b: int, n: int):
+    """K2's test input (`tests/test_torch_gpu.py:_weights`): (b, n, n)
+    float32 on the CPU, a symmetric edge with probability 3 / n, weights
+    U(0.1, 5), +inf elsewhere, zero diagonal, from `default_rng(n)`."""
+    rng = np.random.default_rng(n)
+    w = np.full((b, n, n), np.inf, dtype=np.float32)
+    for k in range(b):
+        iu, ju = np.where(np.triu(rng.uniform(size=(n, n)) < 3.0 / n, 1))
+        vals = rng.uniform(0.1, 5.0, iu.size).astype(np.float32)
+        w[k, iu, ju] = w[k, ju, iu] = vals
+    d = torch.from_numpy(w)
+    d.diagonal(dim1=1, dim2=2).zero_()
+    return d
+
+
+# K2's shapes besides the decision path's: the service's two buckets, the
+# large demo's standalone squaring (`large_scale.py`'s `apsp_xla_ms`) and
+# an odd N, with the squarings their paths run
+K2_GENERATED = {(16, 56): 6, (16, 112): 7, (1, 1024): 10, (5, 37): 6}
+
+
 def host_us(fn, reps: int, warmup: int = 3) -> float:
     """Mean host microseconds per call of `fn` with no synchronize inside
     the loop: what the wrapper's Python and the launch cost the host."""
@@ -351,26 +375,68 @@ def k1_phase(path_args: dict, dev) -> dict:
     return out
 
 
-def kernel_phase(batches, dev) -> tuple:
-    """Each kernel against its plain version on the same card tensors: K2
-    here, K1 in `k1_phase`.  Returns the errors and K1's per-shape record."""
+def k2_phase(path_args: dict, dev, card) -> dict:
+    """K2 against its plain closure on the decision path's APSP inputs and
+    at `K2_GENERATED` (against `minplus_closure_blocked` above N = 256,
+    where the plain version's (N, N, N) temp is too large): bit for bit,
+    a launch per squaring, and the squarings run equal to
+    `squarings_run_plain`; then its device us (2 + iters kernels a call:
+    the input clone, the memset of the flags, the squarings) and call
+    us."""
     from multihop_offload_tpu_torch.ops import minplus as mp
 
-    errs, fp_sets = {}, {}
+    shapes = dict(path_args)
+    shapes.update({f"{b}x{n}": (minplus_input(b, n).to(dev), iters)
+                   for (b, n), iters in K2_GENERATED.items()})
+    out = {}
+    for tag, (d, iters) in shapes.items():
+        b, n, _ = d.shape
+        launches = mp.minplus_closure_cuda.launches
+        ex0 = read_counts()["squarings"]
+        got = mp.minplus_closure_cuda(d, iters)
+        ran = read_counts()["squarings"] - ex0
+        ref = (mp.minplus_closure_plain(d, iters) if n <= 256
+               else mp.minplus_closure_blocked(d, iters))
+        want = mp.squarings_run_plain(d, iters)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 {tag} B,N={(b, n)}: {int((got != ref).sum())} "
+                                 "entries differ")
+        if mp.minplus_closure_cuda.launches != launches + iters or ran != want:
+            raise AssertionError(f"K2 {tag} B,N={(b, n)}: "
+                                 f"{mp.minplus_closure_cuda.launches - launches} launches "
+                                 f"(want {iters}), {ran} squarings run "
+                                 f"(squarings_run_plain {want})")
+        t = clocks(lambda: mp.minplus_closure_cuda(d, iters), 20,
+                   kernels_per_call=2 + iters)
+        bound_us = max(2.0 * n ** 3 * ran / PEAK_FP32_INSTR_PER_S,
+                       2 * b * n * n * 4 / PEAK_BYTES_PER_S) * 1e6
+        out[tag] = {"shape": [b, n], "iters": iters, "squarings_run": ran,
+                    "device_us": t["device_ms"] * 1e3, "call_us": t["ms"] * 1e3,
+                    "host_us": t["host_us"], "kernels_per_call": t["kernels_per_call"],
+                    "bound_us": bound_us}
+        log(f"K2 minplus {tag} B,N={(b, n)} iters={iters}: bit-identical to "
+            f"{'plain' if n <= 256 else 'the blocked plain closure'} (bar: torch.equal), "
+            f"{iters} launches, {ran} of {b * iters} squarings run (= "
+            f"squarings_run_plain); on "
+            f"{card['smi']}: device {out[tag]['device_us']:.2f} us "
+            f"({t['kernels_per_call']} kernels), call {out[tag]['call_us']:.2f} us; bound "
+            f"{bound_us:.2f} us (operations)")
+    return out
+
+
+def kernel_phase(batches, dev, card) -> tuple:
+    """Each kernel against its plain version on the same card tensors: K2
+    in `k2_phase`, K1 in `k1_phase`.  Returns the errors and K2's and K1's
+    per-shape records."""
+    errs, apsp_sets, fp_sets = {}, {}, {}
     for tag, (model, inst, jobs) in batches.items():
         d, iters, fp_sets[tag] = kernel_inputs(model, inst, jobs)
-        got = mp.minplus_closure_cuda(d, iters)
-        ref = mp.minplus_closure_plain(d, iters)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            bad = int((got != ref).sum())
-            raise AssertionError(f"K2 {tag} {tuple(d.shape)}: {bad} entries differ")
-        log(f"K2 minplus {tag} B,N={tuple(d.shape[:2])} iters={iters}: "
-            f"bit-identical to plain (bar: torch.equal)")
+        apsp_sets[tag] = (d, iters)
+    k2 = k2_phase(apsp_sets, dev, card)
     k1 = k1_phase(fp_sets, dev)
     for tag in batches:
         errs[tag] = {"minplus": 0.0, "fixed_point": k1[tag]["max_abs_err"]}
-    return errs, k1
+    return errs, k2, k1
 
 
 def reset_counts():
@@ -1032,8 +1098,9 @@ def main() -> int:
     log(f"sparse layout: paper {sp_pad}, rung256 {sp_rung_pad}")
 
     # ---- kernel phase -------------------------------------------------------
-    errs, k1_shapes = kernel_phase({"paper": (model, inst, jobs),
-                                    "rung256": (model, rung_inst, rung_jobs)}, dev)
+    errs, k2_shapes, k1_shapes = kernel_phase({"paper": (model, inst, jobs),
+                                               "rung256": (model, rung_inst, rung_jobs)},
+                                              dev, card)
     errs_sp = sparse_kernel_phase({"paper": sp_inst, "rung256": sp_rung}, dev)
 
     # ---- main path: counts at 0 just before, read just after ----------------
@@ -1134,7 +1201,8 @@ def main() -> int:
     before = read_counts()["squarings"]
     mp.minplus_closure_cuda(d, iters)
     sq_per_call = read_counts()["squarings"] - before
-    k2 = clocks(lambda: mp.minplus_closure_cuda(d, iters), 50)
+    # one call: the input clone, the memset of the flags, the squarings
+    k2 = clocks(lambda: mp.minplus_closure_cuda(d, iters), 50, kernels_per_call=2 + iters)
     k2_ms = k2["ms"]
     k2_plain_ms = cuda_ms(lambda: mp.minplus_closure_plain(d, iters), 10)
     k1 = clocks(lambda: fp.fixed_point_cuda(*fp_args), 200)
@@ -1223,7 +1291,10 @@ def main() -> int:
     before6 = read_counts()["squarings"]
     mp.apsp_coo_cuda(*args6)
     sq6 = read_counts()["squarings"] - before6
-    k6 = clocks(lambda: mp.apsp_coo_cuda(*args6), 50)
+    # one call: the build of W, the memset of K2's flags, K2's squarings
+    # (W is K2's first buffer: no clone)
+    k6 = clocks(lambda: mp.apsp_coo_cuda(*args6), 50,
+                kernels_per_call=2 + mp.squaring_count(n6))
     k6_ms = k6["ms"]
     k6_plain = cuda_ms(lambda: mp.apsp_coo_plain(*args6), 5)
     k6_ops = 2.0 * n6 ** 3 * sq6 / PEAK_FP32_INSTR_PER_S * 1e3
@@ -1299,7 +1370,8 @@ def main() -> int:
          "bound_by": "operations" if k2_bound_ms >= k2_bytes_ms else "bytes",
          "library_ms": None, "shape": [b, n],
          "launches_per_call": iters, "ms_per_launch": k2_ms / iters,
-         "squarings_per_call": sq_per_call,
+         "kernels_per_call": k2["kernels_per_call"],
+         "squarings_per_call": sq_per_call, "shapes": k2_shapes,
          "launches_by_path": {k: v["minplus"] for k, v in by_path.items()}},
         {"name": "chebconv_propagate", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/chebconv.cu",

@@ -14,7 +14,8 @@ note).  The result is identical to the full schedule, as the JAX
 `apsp_minplus` early stop is.  `minplus_closure_cuda.launches` counts
 kernel launches (one per squaring of the schedule);
 `minplus_closure_cuda.executed` is a device counter of the matrix
-squarings that actually ran.
+squarings that actually ran; `squarings_run_plain` counts the same
+squarings with plain PyTorch.
 
 `minplus_closure` dispatches on the device: plain PyTorch for CPU tensors,
 the CUDA kernel for CUDA tensors, an error for anything else.
@@ -99,9 +100,27 @@ def minplus_closure_blocked(d: torch.Tensor, iters: int, block: int = 8) -> torc
     return d
 
 
+def squarings_run_plain(d: torch.Tensor, iters: int) -> int:
+    """The (squaring, matrix) pairs that K2's device early stop runs on
+    (B, N, N) `d` over `iters` squarings: squaring 0 of every matrix, then
+    squaring s of matrix b while squaring s - 1 changed b.  Plain PyTorch
+    (`minplus_square_blocked`), for the tests and the chip smoke."""
+    live = torch.ones(d.shape[0], dtype=torch.bool, device=d.device)
+    count = 0
+    for _ in range(iters):
+        count += int(live.sum())
+        nxt = minplus_square_blocked(d)
+        live &= (nxt != d).flatten(1).any(dim=1)
+        if not live.any():
+            break
+        d = nxt
+    return count
+
+
 def minplus_closure_cuda(d: torch.Tensor, iters: int) -> torch.Tensor:
     """`iters` squarings of (B, N, N) float32 contiguous CUDA `d` (zero
-    diagonal, +inf for non-edges), one kernel launch per squaring."""
+    diagonal, +inf for non-edges), one kernel launch per squaring.  The
+    input is copied, so it is never written."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"d must be (B, N, N), got {tuple(d.shape)}")
     if d.device.type != "cuda":
@@ -111,19 +130,26 @@ def minplus_closure_cuda(d: torch.Tensor, iters: int) -> torch.Tensor:
     if not d.is_contiguous():
         raise ValueError("minplus_closure_cuda takes a contiguous tensor")
     b, n, _ = d.shape
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel grid's z limit 65535")
     if b == 0 or n == 0 or iters <= 0:
         return d.clone()
+    return _minplus_closure_owned(d.clone(), iters)
+
+
+def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
+    """K2's launches on (B, N, N) float32 contiguous CUDA `first` (B, N,
+    iters > 0), which it takes as the first ping-pong buffer and may
+    overwrite.  Returns the buffer that holds the result."""
+    b, n, _ = first.shape
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel grid's z limit 65535")
     fn = _build.kernel("minplus")
     counter = minplus_closure_cuda.executed
-    if counter is None or counter.device != d.device:
-        counter = torch.zeros((), dtype=torch.int64, device=d.device)
+    if counter is None or counter.device != first.device:
+        counter = torch.zeros((), dtype=torch.int64, device=first.device)
         minplus_closure_cuda.executed = counter
-    flags = torch.zeros((iters, b), dtype=torch.int32, device=d.device)
-    # ping-pong pair; the input is copied in so that it is never written
-    bufs = (d.clone(), torch.empty_like(d))
-    with torch.cuda.device(d.device):
+    flags = torch.zeros((iters, b), dtype=torch.int32, device=first.device)
+    bufs = (first, torch.empty_like(first))
+    with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream().cuda_stream
         for step in range(iters):
             src, dst = bufs[step % 2], bufs[(step + 1) % 2]
@@ -342,7 +368,8 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
     if blocked:
         out = blocked_fw_cuda(w)
         return out if n_w == n else out[:, :n, :n].contiguous()
-    return minplus_closure_cuda(w, squaring_count(n))
+    # W is a fresh temporary: K2 takes it as its first buffer, with no copy
+    return _minplus_closure_owned(w, squaring_count(n))
 
 
 apsp_coo_cuda.launches = 0

@@ -1,0 +1,273 @@
+"""Hold builds of K2 (`csrc/minplus.cu`, the min-plus squaring APSP) against
+each other on one card, in one process, shape by shape.
+
+Each `--variant TAG=SOURCE[:NAME=VALUE,...]` is a source (the package's own,
+an older copy unpacked with `git archive`, or a trial build), with each
+`constexpr int NAME` of the source set to VALUE.  All are compiled in
+parallel with the package's nvcc flags into `build/k2_bench/`.  A
+variant's C interface says how to drive it: `mho_minplus_square_f32`, a
+launch per squaring as `ops/minplus.py` drives it (the input cloned into
+the first ping-pong buffer, the flags zeroed, then the launches), or
+`mho_minplus_closure_f32(buf0, buf1, work, executed, B, N, iters,
+stream)`, every squaring of a call in one launch, `work` holding the flags
+(iters x B), a count per (squaring, matrix) of finished tiles and a claim
+counter, zeroed.  A one-launch source whose `kSpinClock` is set to 1 adds
+two uint64 sums after them, at the next even word: the cycles its items
+spent waiting for their matrix's previous squaring, and all their cycles.
+
+The shapes are the paths' own: the paper batch (64, 112) and the 256-node
+rung (4, 256) from the decision path's APSP input
+(`chip_smoke.kernel_inputs`), and, from the gpu test's generator
+(`chip_smoke.minplus_input`), the service's two buckets (16, 56) and
+(16, 112), the large demo's standalone squaring (1, 1024) and an odd
+(5, 37), each at the squarings its path runs.  At each shape every variant
+is first held bit-identical to the plain closure and its squarings run to
+`squarings_run_plain`.  Then each is timed in turns (forward, then
+backward order, `--rounds` times) on the card's own clock
+(`chip_smoke.device_us`) at iters = 1 .. the path's: the device us of the
+K2 kernels alone at iters = k less those at k - 1 is squaring k's share.
+Logged per shape and variant: device us per call (with the clone and the
+memset) and kernels per call, each squaring's us, the matrices live in each
+squaring (from the flags of one run), the squarings run of B iters, and
+the call us (CUDA events around a loop of calls).
+
+    python3 scripts/bench_minplus.py \\
+        --variant old=build/parent/multihop_offload_tpu_torch/csrc/minplus.cu \\
+        --variant new=multihop_offload_tpu_torch/csrc/minplus.cu \\
+        --out build/k2_bench.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import (  # noqa: E402
+    K2_GENERATED, MODEL_K1, cuda_ms, device_lines, device_us, kernel_inputs,
+    minplus_input)
+from scripts.bench_blocked_fw import parse_variant, variant_source  # noqa: E402
+from multihop_offload_tpu_torch.ops import _build  # noqa: E402
+from multihop_offload_tpu_torch.ops import minplus as mp  # noqa: E402
+
+ONE_LAUNCH, PER_SQUARING = "mho_minplus_closure_f32", "mho_minplus_square_f32"
+
+
+def path_inputs(dev) -> dict:
+    """K2's input on the paper batch and the 256-node rung, as the decision
+    path hands it over (`chip_smoke.kernel_inputs`), with its squarings."""
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+
+    cfg = Config(arrival_scale=0.15)
+    model = load_model(MODEL_K1, device=dev)
+    out = {}
+    for cases, per in ((load_cases("paper")[:16], 4), (load_cases("rung256"), 1)):
+        inst, jobs, _ = request_batch(cases, per, seed=0, cfg=cfg, device=dev)
+        d, iters, _ = kernel_inputs(model, inst, jobs)
+        out[tuple(d.shape[:2])] = (d, iters)
+    return out
+
+
+def build(variants: dict, out_dir: str) -> dict:
+    """Compile every variant at once; returns {tag: (library, ptxas log)}."""
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for tag, (src, values) in variants.items():
+        lib = os.path.join(out_dir, f"{tag}.so")
+        src = variant_source(src, values, os.path.join(out_dir, f"{tag}.cu"))
+        procs[tag] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for tag, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        built[tag] = (lib, log)
+    return built
+
+
+def bind(lib: str):
+    """(symbol, bound launcher) of the variant's C interface."""
+    cdll = ctypes.CDLL(lib)
+    for symbol in (ONE_LAUNCH, PER_SQUARING):
+        if hasattr(cdll, symbol):
+            fn = getattr(cdll, symbol)
+            fn.argtypes = _build.SIGNATURES["minplus"][1]
+            fn.restype = ctypes.c_int
+            return symbol, fn
+    raise RuntimeError(f"{lib} exports neither {ONE_LAUNCH} nor {PER_SQUARING}")
+
+
+class Variant:
+    """One build, driven as the package's wrapper drives its interface."""
+
+    def __init__(self, tag: str, lib: str, spin: bool, dev):
+        self.tag = tag
+        self.symbol, self.fn = bind(lib)
+        self.spin = spin
+        self.executed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.work = None
+
+    def kernels_per_call(self, iters: int) -> int:
+        return 3 if self.symbol == ONE_LAUNCH else 2 + iters
+
+    def __call__(self, d: torch.Tensor, iters: int) -> torch.Tensor:
+        b, n, _ = d.shape
+        bufs = (d.clone(), torch.empty_like(d))
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.symbol == ONE_LAUNCH:
+            # flags, done, the claim counter; with kSpinClock two uint64
+            # cycle sums at the next even word
+            self.work = torch.zeros(2 * iters * b + 2 + (4 if self.spin else 0),
+                                    dtype=torch.int32, device=d.device)
+            errs = [self.fn(bufs[0].data_ptr(), bufs[1].data_ptr(), self.work.data_ptr(),
+                            self.executed.data_ptr(), b, n, iters, stream)]
+        else:
+            self.work = torch.zeros((iters, b), dtype=torch.int32, device=d.device)
+            errs = [self.fn(bufs[s % 2].data_ptr(), bufs[(s + 1) % 2].data_ptr(),
+                            self.work.data_ptr(), self.executed.data_ptr(), b, n, s, stream)
+                    for s in range(iters)]
+        if any(errs):
+            raise RuntimeError(f"{self.tag}: {self.symbol} returned cudaError_t {errs}")
+        return bufs[iters % 2]
+
+    def live(self, b: int, iters: int) -> list:
+        """Matrices live in each squaring of the last call, from its flags."""
+        flags = self.work.view(-1)[: iters * b].view(iters, b).cpu()
+        return [b] + [int(x) for x in (flags[:-1] != 0).sum(dim=1)]
+
+    def spin_share(self, b: int, iters: int) -> float | None:
+        """Waited cycles over item cycles of the last call (kSpinClock)."""
+        if not self.spin:
+            return None
+        at = (2 * iters * b + 2) & ~1
+        waited, busy = self.work[at:at + 4].cpu().view(torch.int64).tolist()
+        return waited / max(busy, 1)
+
+
+def check(v: Variant, d: torch.Tensor, iters: int, want: torch.Tensor, run: int) -> list:
+    """Raise unless `v` is bit-identical to the plain closure and runs
+    `run` squarings; returns the live matrices per squaring."""
+    b = d.shape[0]
+    before = int(v.executed)
+    got = v(d, iters)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{v.tag} at {tuple(d.shape[:2])}: {int((got != want).sum())} "
+                             "entries differ from the plain closure")
+    ran, live = int(v.executed) - before, v.live(b, iters)
+    if not ran == sum(live) == run:
+        raise AssertionError(f"{v.tag} at {tuple(d.shape[:2])}: {ran} squarings run, flags "
+                             f"say {sum(live)}, squarings_run_plain {run}")
+    return live
+
+
+def kernel_us(last: dict) -> float:
+    """The K2 kernels' device us per call in `device_us.last` (no clone or
+    memset)."""
+    return sum(us for name, us in last["by_name"].items() if "minplus" in name)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", action="append", required=True, type=parse_variant)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--sass", default=None,
+                    help="directory for each variant's `cuobjdump -sass`")
+    ap.add_argument("--out", default="build/k2_bench.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_minplus: needs a CUDA card", file=sys.stderr)
+        return 1
+    card = device_lines()
+    variants = dict(args.variant)
+    built = build(variants, os.path.join(ROOT, "build", "k2_bench"))
+    dev = torch.device("cuda")
+    runs = {tag: Variant(tag, lib, "kSpinClock=1" in variants[tag][1], dev)
+            for tag, (lib, _) in built.items()}
+    for tag, (lib, log) in built.items():
+        print(f"  {tag}: {runs[tag].symbol}", flush=True)
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry")):
+                print(f"  ptxas[{tag}] {line.strip()}", flush=True)
+        if args.sass:
+            os.makedirs(args.sass, exist_ok=True)
+            with open(os.path.join(args.sass, f"k2_sass_{tag}.txt"), "w") as fh:
+                fh.write(subprocess.run(["cuobjdump", "-sass", lib], capture_output=True,
+                                        text=True).stdout)
+    inputs = path_inputs(dev)
+    inputs.update({shape: (minplus_input(*shape).to(dev), iters)
+                   for shape, iters in K2_GENERATED.items()})
+    result = {"card": card["smi"], "variants": {t: f"{s} {v}" for t, (s, v) in variants.items()},
+              "shapes": {}}
+    for (b, n), (d, iters) in inputs.items():
+        want = (mp.minplus_closure_plain(d, iters) if n <= 256
+                else mp.minplus_closure_blocked(d, iters))
+        run = mp.squarings_run_plain(d, iters)
+        live = {tag: check(v, d, iters, want, run) for tag, v in runs.items()}
+        samples = {tag: {k: [] for k in range(1, iters + 1)} for tag in runs}
+        totals = {tag: [] for tag in runs}
+        for _ in range(args.rounds):
+            for order in (list(runs), list(reversed(runs))):
+                for tag in order:
+                    v = runs[tag]
+                    for k in range(1, iters + 1):
+                        total = device_us(lambda v=v, k=k: v(d, k), args.reps,
+                                          kernels_per_call=v.kernels_per_call(k))
+                        samples[tag][k].append(kernel_us(device_us.last))
+                        if k == iters:
+                            totals[tag].append(total)
+        out = {}
+        for tag, v in runs.items():
+            kern = [statistics.median(samples[tag][k]) for k in range(1, iters + 1)]
+            per_sq = [kern[0]] + [kern[k] - kern[k - 1] for k in range(1, iters)]
+            call = [cuda_ms(lambda v=v: v(d, iters), args.reps) * 1e3
+                    for _ in range(args.rounds)]
+            v(d, iters)
+            torch.cuda.synchronize()
+            out[tag] = {"symbol": v.symbol, "iters": iters,
+                        "device_us": statistics.median(totals[tag]),
+                        "device_us_range": [min(totals[tag]), max(totals[tag])],
+                        "kernel_us": kern[-1], "kernels_per_call": v.kernels_per_call(iters),
+                        "squaring_us": per_sq, "live": live[tag],
+                        "squarings_run": sum(live[tag]), "of": b * iters,
+                        "call_us": statistics.median(call),
+                        "call_us_range": [min(call), max(call)],
+                        "spin_share": v.spin_share(b, iters)}
+            o = out[tag]
+            print(f"K2 bench on {card['smi']}: {tag} B,N={(b, n)} iters={iters}: device us "
+                  f"per call (median of {len(totals[tag])}) {o['device_us']:.2f} "
+                  f"[{min(totals[tag]):.2f}, {max(totals[tag]):.2f}], K2 kernels "
+                  f"{o['kernel_us']:.2f}, {o['kernels_per_call']} kernels a call; call "
+                  f"{o['call_us']:.2f} us; squarings run {o['squarings_run']} of {b * iters}",
+                  flush=True)
+            print(f"  {tag} B,N={(b, n)} per squaring: us "
+                  f"{[round(x, 2) for x in per_sq]}, live {live[tag]}"
+                  + ("" if o["spin_share"] is None
+                     else f"; waited {o['spin_share']:.3f} of item cycles"), flush=True)
+        result["shapes"][f"{b}x{n}"] = out
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(result, fh, indent=1)
+    print(json.dumps({"k2_bench": {s: {t: {k: r[k] for k in ("device_us", "kernel_us",
+                                                              "call_us", "squarings_run")}
+                                       for t, r in o.items()}
+                                   for s, o in result["shapes"].items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,7 +37,14 @@ def _weights(rng, b, n, p):
     return torch.from_numpy(w)
 
 
-@pytest.mark.parametrize("b,n", [(3, 7), (5, 37), (4, 112), (2, 256), (1, 300)])
+def _executed():
+    ex = tmp.minplus_closure_cuda.executed
+    return 0 if ex is None else int(ex)
+
+
+# (16, 56) and (64, 112): the service's small bucket and the paper batch
+@pytest.mark.parametrize("b,n", [(3, 7), (5, 37), (4, 112), (2, 256), (1, 300),
+                                 (16, 56), (64, 112)])
 def test_minplus_kernel_bit_identical(cuda, b, n):
     w = _weights(np.random.default_rng(n), b, n, 3.0 / n).to(cuda)
     d = torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w)
@@ -48,6 +55,7 @@ def test_minplus_kernel_bit_identical(cuda, b, n):
     iters = max(1, math.ceil(math.log2(max(n - 1, 2))))
     before = tmp.minplus_closure_cuda.launches
     got = tmp.minplus_closure(d, iters)
+    assert tmp.minplus_closure_cuda.launches == before + iters  # a launch per squaring
     expect = tmp.minplus_closure(d.cpu(), iters)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), expect)
@@ -55,21 +63,34 @@ def test_minplus_kernel_bit_identical(cuda, b, n):
         assert torch.equal(apsp_minplus(w), got)
     plain = tmp.minplus_closure_plain(d, iters)
     assert torch.equal(got, plain)
-    assert tmp.minplus_closure_cuda.launches > before
 
 
 def test_minplus_kernel_leaves_input_and_stops_early(cuda):
     w = _weights(np.random.default_rng(1), 4, 64, 0.2).to(cuda)
     d = torch.where(torch.eye(64, dtype=torch.bool, device=cuda), 0.0, w)
     keep = d.clone()
-    counter0 = (0 if tmp.minplus_closure_cuda.executed is None
-                else int(tmp.minplus_closure_cuda.executed))
+    counter0 = _executed()
     out = tmp.minplus_closure_cuda(d, 30)
     torch.cuda.synchronize()
     assert torch.equal(d, keep)
     assert torch.equal(out, tmp.minplus_closure_plain(d, 30))
-    ran = int(tmp.minplus_closure_cuda.executed) - counter0
+    ran = _executed() - counter0
     assert 4 <= ran < 4 * 30  # converged matrices skip the rest of the schedule
+    assert ran == tmp.squarings_run_plain(d, 30)
+
+
+def test_minplus_kernel_large_batch_long_schedule(cuda):
+    """2,000 matrices over 30 squarings (8,000 blocks a launch, 240,000 in
+    all): every matrix stops at its own fixed point, long before the last
+    squaring."""
+    w = _weights(np.random.default_rng(40), 2000, 40, 3.0 / 40).to(cuda)
+    d = torch.where(torch.eye(40, dtype=torch.bool, device=cuda), 0.0, w)
+    before, counter0 = tmp.minplus_closure_cuda.launches, _executed()
+    out = tmp.minplus_closure_cuda(d, 30)
+    torch.cuda.synchronize()
+    assert tmp.minplus_closure_cuda.launches == before + 30
+    assert torch.equal(out, tmp.minplus_closure_plain(d, 30))
+    assert _executed() - counter0 == tmp.squarings_run_plain(d, 30)
 
 
 def _fp_operands(b, l, p=None, device="cpu"):

@@ -96,6 +96,55 @@ def test_minplus_closure_early_stop_equals_full_schedule():
     np.testing.assert_array_equal(tmp.minplus_closure(d, 6).numpy(), full.numpy())
 
 
+def _own_closure(x: torch.Tensor, iters: int):
+    """One matrix squared until a squaring changes nothing, at most `iters`
+    times: (the result, the squarings run, the one that changed nothing
+    included)."""
+    for ran in range(1, iters + 1):
+        nxt = tmp.minplus_square_plain(x)
+        if torch.equal(nxt, x):
+            return nxt, ran
+        x = nxt
+    return x, iters
+
+
+def _closure_input(b, n, p, dtype=np.float64):
+    w = _weights(np.random.default_rng(n), b, n, p).astype(dtype)
+    d = torch.from_numpy(w.copy())
+    d.diagonal(dim1=1, dim2=2).zero_()
+    return w, d
+
+
+@pytest.mark.parametrize("b,n,p,iters", [(5, 24, 0.12, 5), (4, 40, 0.08, 6),
+                                         (3, 37, 0.2, 30), (2, 56, 3 / 56, 6)])
+def test_squarings_run_plain_equals_a_direct_count(b, n, p, iters):
+    _, d = _closure_input(b, n, p)
+    want = sum(_own_closure(d[k], iters)[1] for k in range(b))
+    assert tmp.squarings_run_plain(d, iters) == want
+    assert tmp.squarings_run_plain(d.float(), iters) == sum(
+        _own_closure(d[k].float(), iters)[1] for k in range(b))
+
+
+@pytest.mark.parametrize("b,n,p", [(4, 30, 0.1), (3, 61, 0.05), (2, 128, 0.03)])
+def test_per_matrix_early_stop_equals_full_schedule_and_jax(b, n, p):
+    """K2 stops each matrix at its own fixed point: the same bits as the
+    full schedule of ceil(log2(N - 1)) squarings, as `apsp_minplus` under
+    `jax.vmap` and, at N a multiple of 128, as the Pallas kernel."""
+    iters = tmp.squaring_count(n)
+    for dtype in (np.float64, np.float32):
+        w, d = _closure_input(b, n, p, dtype)
+        own = torch.stack([_own_closure(d[k], iters)[0] for k in range(b)]).numpy()
+        full = d
+        for _ in range(iters):
+            full = tmp.minplus_square_plain(full)
+        np.testing.assert_array_equal(own, full.numpy())
+        np.testing.assert_array_equal(
+            own, np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w))))
+        if n % 128 == 0:
+            np.testing.assert_array_equal(
+                own, np.asarray(apsp_minplus_pallas(jnp.asarray(w), interpret=True)))
+
+
 @pytest.mark.parametrize("n,seed", [(16, 1), (40, 2)])
 def test_next_hop_and_hops_exact(n, seed):
     from multihop_offload_tpu.graphs import generators
