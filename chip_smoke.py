@@ -382,7 +382,8 @@ def k2_phase(path_args: dict, dev, card) -> dict:
     a launch per squaring, and the squarings run equal to
     `squarings_run_plain`; then its device us (2 + iters kernels a call:
     the input clone, the memset of the flags, the squarings) and call
-    us."""
+    us, its tile plan (`ops.minplus.tile_plan`), the candidates a squaring
+    computes against B N^3, and the squarings' share of their bound."""
     from multihop_offload_tpu_torch.ops import minplus as mp
 
     shapes = dict(path_args)
@@ -408,19 +409,29 @@ def k2_phase(path_args: dict, dev, card) -> dict:
                                  f"(squarings_run_plain {want})")
         t = clocks(lambda: mp.minplus_closure_cuda(d, iters), 20,
                    kernels_per_call=2 + iters)
+        squarings_us = sum(us for name, us in device_us.last["by_name"].items()
+                           if "minplus" in name)
         bound_us = max(2.0 * n ** 3 * ran / PEAK_FP32_INSTR_PER_S,
                        2 * b * n * n * 4 / PEAK_BYTES_PER_S) * 1e6
+        plan = mp.tile_plan(b, n)
+        cand = plan["blocks"] * plan["tile_rows"] * plan["tile_cols"] * n
         out[tag] = {"shape": [b, n], "iters": iters, "squarings_run": ran,
                     "device_us": t["device_ms"] * 1e3, "call_us": t["ms"] * 1e3,
                     "host_us": t["host_us"], "kernels_per_call": t["kernels_per_call"],
-                    "bound_us": bound_us}
+                    "squarings_us": squarings_us, "bound_us": bound_us,
+                    "share_of_bound": bound_us / squarings_us, "plan": plan,
+                    "candidates_over_bn3": cand / (b * n ** 3)}
         log(f"K2 minplus {tag} B,N={(b, n)} iters={iters}: bit-identical to "
             f"{'plain' if n <= 256 else 'the blocked plain closure'} (bar: torch.equal), "
             f"{iters} launches, {ran} of {b * iters} squarings run (= "
-            f"squarings_run_plain); on "
+            f"squarings_run_plain); tiles {plan['tile_rows']}x{plan['tile_cols']}, "
+            f"{plan['threads']} threads in {plan['k_groups']} k-groups, "
+            f"{plan['blocks']} blocks a squaring, {plan['smem_bytes']} shared bytes a block; "
+            f"candidates a squaring {cand} = {cand / (b * n ** 3):.3f} B N^3; on "
             f"{card['smi']}: device {out[tag]['device_us']:.2f} us "
-            f"({t['kernels_per_call']} kernels), call {out[tag]['call_us']:.2f} us; bound "
-            f"{bound_us:.2f} us (operations)")
+            f"({t['kernels_per_call']} kernels; the squarings {squarings_us:.2f}), call "
+            f"{out[tag]['call_us']:.2f} us; bound {bound_us:.2f} us (operations), "
+            f"{out[tag]['share_of_bound']:.3f} of it")
     return out
 
 

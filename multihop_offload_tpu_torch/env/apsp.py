@@ -33,14 +33,16 @@ def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
     """Shortest-path distances (B, N, N) from one-hop weights (inf where no
     edge; the diagonal is forced to 0) on the path `apsp_path(N)` names:
     the squarings with the early stop of the JAX `apsp_minplus` (identical
-    to the full ceil(log2(N-1)) schedule), or the blocked FW."""
+    to the full ceil(log2(N-1)) schedule), or the blocked FW.  `d` is a
+    fresh temporary, so on the card K2 takes it as its first buffer with
+    no copy."""
     n = weights.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=weights.device)
     d = torch.where(eye, torch.zeros((), dtype=weights.dtype,
                                      device=weights.device), weights)
     if apsp_path(n) == "blocked-fw":
         return apsp_blocked_fw(d)
-    return minplus_closure(d.contiguous(), squaring_count(n))
+    return minplus_closure(d.contiguous(), squaring_count(n), owned=True)
 
 
 def hop_matrix(adj: torch.Tensor) -> torch.Tensor:

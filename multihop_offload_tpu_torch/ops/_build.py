@@ -44,7 +44,7 @@ SIGNATURES = {
     "blocked_fw": ("mho_blocked_fw_f32", [_c_void_p] + [_c_int] * 2 + [_c_void_p]),
 }
 
-_loaded: dict = {}   # name -> bound ctypes function, one load per process
+_loaded: dict = {}   # (name, symbol) -> bound ctypes function, one load per process
 build_log: dict = {}  # name -> {"seconds", "ptxas", "cached"} of this process
 
 
@@ -102,14 +102,18 @@ def build_all() -> dict:
 
 def kernel(name: str):
     """The bound C launcher of `csrc/<name>.cu`, building at first use."""
-    fn = _loaded.get(name)
+    return symbol(name, *SIGNATURES[name])
+
+
+def symbol(name: str, symbol_name: str, argtypes: list):
+    """C function `symbol_name` (returning int) of `csrc/<name>.cu`'s
+    library, building at first use."""
+    fn = _loaded.get((name, symbol_name))
     if fn is None:
-        path = build_all()[name]
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(path), symbol)
+        fn = getattr(ctypes.CDLL(build_all()[name]), symbol_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[(name, symbol_name)] = fn
     return fn
 
 

@@ -4,8 +4,10 @@ link list, batched.
 Replaces `multihop_offload_tpu/ops/minplus.py:minplus_power_kernel_call`
 (the Pallas kernel `_apsp_kernel` -> `_chunked_squaring`).  The CUDA kernel
 is `csrc/minplus.cu`; its source note says what bounds it on an H100
-(operations: 2 * N^3 CUDA-core instructions per squaring per matrix, no
-tensor-core path for (min, +)) and how the tiling works.
+(issue slots: 2 * N^3 CUDA-core instructions per squaring per matrix, no
+tensor-core or DPX path for (min, +) in float32) and how its tiles follow
+N: the launcher picks a tile plan from (B, N) (`tile_plan` names it), and
+the k loop runs to exactly N.
 
 Early stop: the wrapper launches the full schedule of `iters` squarings and
 never syncs with the host; a device-side flag per (squaring, matrix) lets
@@ -18,7 +20,9 @@ squarings that actually ran; `squarings_run_plain` counts the same
 squarings with plain PyTorch.
 
 `minplus_closure` dispatches on the device: plain PyTorch for CPU tensors,
-the CUDA kernel for CUDA tensors, an error for anything else.
+the CUDA kernel for CUDA tensors, an error for anything else.  On CUDA it
+copies its input unless the caller hands it over (`owned=True`, as
+`env/apsp.py:apsp_minplus` does with its fresh `torch.where` result).
 
 K3 replaces `multihop_offload_tpu/ops/minplus.py:blocked_fw_call` (the
 Pallas kernels `_pivot_kernel`, `_panel_kernel`, `_outer_kernel`): exact
@@ -50,6 +54,7 @@ as `minplus_closure` does.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -117,10 +122,11 @@ def squarings_run_plain(d: torch.Tensor, iters: int) -> int:
     return count
 
 
-def minplus_closure_cuda(d: torch.Tensor, iters: int) -> torch.Tensor:
+def minplus_closure_cuda(d: torch.Tensor, iters: int, owned: bool = False) -> torch.Tensor:
     """`iters` squarings of (B, N, N) float32 contiguous CUDA `d` (zero
     diagonal, +inf for non-edges), one kernel launch per squaring.  The
-    input is copied, so it is never written."""
+    input is copied, so it is never written, unless `owned`: then `d` is a
+    temporary the caller gives up, and K2 takes it as its first buffer."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"d must be (B, N, N), got {tuple(d.shape)}")
     if d.device.type != "cuda":
@@ -131,8 +137,8 @@ def minplus_closure_cuda(d: torch.Tensor, iters: int) -> torch.Tensor:
         raise ValueError("minplus_closure_cuda takes a contiguous tensor")
     b, n, _ = d.shape
     if b == 0 or n == 0 or iters <= 0:
-        return d.clone()
-    return _minplus_closure_owned(d.clone(), iters)
+        return d if owned else d.clone()
+    return _minplus_closure_owned(d if owned else d.clone(), iters)
 
 
 def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
@@ -163,14 +169,30 @@ def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
 minplus_closure_cuda.launches = 0
 minplus_closure_cuda.executed = None  # int64 device tensor, made at first use
 
+PLAN_FIELDS = ("tile_rows", "tile_cols", "threads", "k_groups", "slice", "stages",
+               "smem_bytes", "blocks")
 
-def minplus_closure(d: torch.Tensor, iters: int) -> torch.Tensor:
+
+def tile_plan(b: int, n: int) -> dict:
+    """The tile plan K2's launcher picks for (B, N) (`csrc/minplus.cu:
+    mho_minplus_plan`): a tile's rows and columns, threads a block, k-groups
+    a block, k-slice depth, stages, dynamic shared bytes a block and blocks
+    a squaring.  Builds the kernel at first use (needs nvcc and a card)."""
+    fn = _build.symbol("minplus", "mho_minplus_plan",
+                       [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    info = (ctypes.c_int * len(PLAN_FIELDS))()
+    _build.check_launch("minplus plan", fn(b, n, ctypes.addressof(info)))
+    return dict(zip(PLAN_FIELDS, info))
+
+
+def minplus_closure(d: torch.Tensor, iters: int, owned: bool = False) -> torch.Tensor:
     """APSP by squaring: plain version on the CPU, K2 on CUDA.  `d` is
-    (B, N, N) with zero diagonal and +inf for non-edges."""
+    (B, N, N) with zero diagonal and +inf for non-edges; `owned`: the caller
+    gives `d` up, so K2 need not copy it (the CPU path never writes it)."""
     if d.device.type == "cpu":
         return minplus_closure_plain(d, iters)
     if d.device.type == "cuda":
-        return minplus_closure_cuda(d, iters)
+        return minplus_closure_cuda(d, iters, owned)
     raise ValueError(f"minplus_closure: unsupported device {d.device}")
 
 

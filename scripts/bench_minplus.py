@@ -2,38 +2,50 @@
 each other on one card, in one process, shape by shape.
 
 Each `--variant TAG=SOURCE[:NAME=VALUE,...]` is a source (the package's own,
-an older copy unpacked with `git archive`, or a trial build), with each
-`constexpr int NAME` of the source set to VALUE.  All are compiled in
-parallel with the package's nvcc flags into `build/k2_bench/`.  A
-variant's C interface says how to drive it: `mho_minplus_square_f32`, a
-launch per squaring as `ops/minplus.py` drives it (the input cloned into
-the first ping-pong buffer, the flags zeroed, then the launches), or
-`mho_minplus_closure_f32(buf0, buf1, work, executed, B, N, iters,
-stream)`, every squaring of a call in one launch, `work` holding the flags
-(iters x B), a count per (squaring, matrix) of finished tiles and a claim
-counter, zeroed.  A one-launch source whose `kSpinClock` is set to 1 adds
-two uint64 sums after them, at the next even word: the cycles its items
-spent waiting for their matrix's previous squaring, and all their cycles.
+an older copy unpacked with `git archive`, `scripts/minplus_tile32.cu` or a
+trial build), with each `constexpr int NAME` of the source set to VALUE.
+All are compiled in parallel with the package's nvcc flags into
+`build/k2_bench/`.  A variant's C interface says how to drive it:
+`mho_minplus_square_f32`, a launch per squaring as `ops/minplus.py` drives
+it (the input cloned into the first ping-pong buffer, the flags zeroed,
+then the launches), or `mho_minplus_closure_f32(buf0, buf1, work, executed,
+B, N, iters, stream)`, every squaring of a call in one launch, `work`
+holding the flags (iters x B), a count per (squaring, matrix) of finished
+tiles and a claim counter, zeroed.  A one-launch source whose `kSpinClock`
+is set to 1 adds two uint64 sums after them, at the next even word: the
+cycles its items spent waiting for their matrix's previous squaring, and
+all their cycles.  A source whose `kClock` is set to 1 adds thread 0's
+clock64 split of every block to `executed[1..7]` (`scripts/
+minplus_tile32.cu` says which phase is which); it is logged per block at
+the path's squarings.  A source that exports `mho_minplus_plan` names its
+tile plan per shape.
 
 The shapes are the paths' own: the paper batch (64, 112) and the 256-node
 rung (4, 256) from the decision path's APSP input
 (`chip_smoke.kernel_inputs`), and, from the gpu test's generator
 (`chip_smoke.minplus_input`), the service's two buckets (16, 56) and
 (16, 112), the large demo's standalone squaring (1, 1024) and an odd
-(5, 37), each at the squarings its path runs.  At each shape every variant
-is first held bit-identical to the plain closure and its squarings run to
-`squarings_run_plain`.  Then each is timed in turns (forward, then
-backward order, `--rounds` times) on the card's own clock
+(5, 37), each at the squarings its path runs; and (1, 128), where every
+tile of a squaring has an SM to itself (`--shapes` picks some).  At each
+shape every variant is first held bit-identical to the plain closure and
+its squarings run to `squarings_run_plain`; one that fails is logged and
+not timed there, and the script exits 1.  Then each is timed in turns
+(forward, then backward order, `--rounds` times) on the card's own clock
 (`chip_smoke.device_us`) at iters = 1 .. the path's: the device us of the
 K2 kernels alone at iters = k less those at k - 1 is squaring k's share.
 Logged per shape and variant: device us per call (with the clone and the
 memset) and kernels per call, each squaring's us, the matrices live in each
-squaring (from the flags of one run), the squarings run of B iters, and
-the call us (CUDA events around a loop of calls).
+squaring (from the flags of one run), the squarings run of B iters, the
+call us (CUDA events around a loop of calls), the candidates a squaring of
+one matrix computes against N^3, and the K2 kernels' share of their bound
+(2 N^3 fp32 instructions per squaring run at 33.5e12 a second).  With
+`--sass DIR`, each variant's `cuobjdump -sass` goes to DIR and its
+instruction counts per kernel are logged.
 
     python3 scripts/bench_minplus.py \\
         --variant old=build/parent/multihop_offload_tpu_torch/csrc/minplus.cu \\
         --variant new=multihop_offload_tpu_torch/csrc/minplus.cu \\
+        --variant split=scripts/minplus_tile32.cu:kClock=1 \\
         --out build/k2_bench.json
 """
 
@@ -42,7 +54,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,13 +67,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
-    K2_GENERATED, MODEL_K1, cuda_ms, device_lines, device_us, kernel_inputs,
-    minplus_input)
+    K2_GENERATED, MODEL_K1, PEAK_FP32_INSTR_PER_S, cuda_ms, device_lines, device_us,
+    kernel_inputs, minplus_input)
 from scripts.bench_blocked_fw import parse_variant, variant_source  # noqa: E402
 from multihop_offload_tpu_torch.ops import _build  # noqa: E402
 from multihop_offload_tpu_torch.ops import minplus as mp  # noqa: E402
 
 ONE_LAUNCH, PER_SQUARING = "mho_minplus_closure_f32", "mho_minplus_square_f32"
+PLAN = "mho_minplus_plan"
+# every 32 x 32 tile of a squaring on an SM of its own: a lone tile's time
+LONE = {(1, 128): 7}
+CLOCK_PHASES = ("blocks", "load_issue", "wait_store_barrier", "k_loop", "barrier",
+                "epilogue", "total")
+SASS_OPS = ("FADD", "FMNMX", "LDS", "STS", "LDG", "STG", "LDGSTS", "BAR", "IMAD", "IADD3",
+            "ISETP", "LEA", "SHF", "MOV", "BRA")
 
 
 def path_inputs(dev) -> dict:
@@ -99,29 +120,81 @@ def build(variants: dict, out_dir: str) -> dict:
 
 
 def bind(lib: str):
-    """(symbol, bound launcher) of the variant's C interface."""
+    """(symbol, bound launcher, bound plan query or None) of the variant."""
     cdll = ctypes.CDLL(lib)
+    plan = None
+    if hasattr(cdll, PLAN):
+        plan = getattr(cdll, PLAN)
+        plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        plan.restype = ctypes.c_int
     for symbol in (ONE_LAUNCH, PER_SQUARING):
         if hasattr(cdll, symbol):
             fn = getattr(cdll, symbol)
             fn.argtypes = _build.SIGNATURES["minplus"][1]
             fn.restype = ctypes.c_int
-            return symbol, fn
+            return symbol, fn, plan
     raise RuntimeError(f"{lib} exports neither {ONE_LAUNCH} nor {PER_SQUARING}")
+
+
+def sass_counts(text: str) -> dict:
+    """Instruction counts per kernel in `cuobjdump -sass` output: all, and
+    each opcode of `SASS_OPS` (its modifiers dropped)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys(("all", *SASS_OPS), 0)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if name and m:
+            op = m.group(1)
+            out[name]["all"] += 1
+            if op in out[name]:
+                out[name][op] += 1
+    return out
 
 
 class Variant:
     """One build, driven as the package's wrapper drives its interface."""
 
-    def __init__(self, tag: str, lib: str, spin: bool, dev):
+    def __init__(self, tag: str, lib: str, values: list, dev):
         self.tag = tag
-        self.symbol, self.fn = bind(lib)
-        self.spin = spin
-        self.executed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.values = values
+        self.symbol, self.fn, self.plan_fn = bind(lib)
+        self.spin = "kSpinClock=1" in values
+        self.clock = "kClock=1" in values
+        # with kClock the split sits after the squarings counter
+        self.executed = torch.zeros(8 if self.clock else (), dtype=torch.int64, device=dev)
         self.work = None
+
+    def ran(self) -> int:
+        return int(self.executed.view(-1)[0])
 
     def kernels_per_call(self, iters: int) -> int:
         return 3 if self.symbol == ONE_LAUNCH else 2 + iters
+
+    def plan(self, b: int, n: int) -> dict | None:
+        if self.plan_fn is None:
+            return None
+        info = (ctypes.c_int * len(mp.PLAN_FIELDS))()
+        if self.plan_fn(b, n, ctypes.addressof(info)) != 0:
+            raise RuntimeError(f"{self.tag}: {PLAN} failed at {(b, n)}")
+        return dict(zip(mp.PLAN_FIELDS, info))
+
+    def candidates(self, b: int, n: int) -> int | None:
+        """(min, +) candidates one squaring of one matrix computes: output
+        entries of the grid's tiles times the k steps it runs."""
+        plan = self.plan(b, n)
+        if plan is not None:
+            return plan["blocks"] // b * plan["tile_rows"] * plan["tile_cols"] * n
+        if self.symbol != PER_SQUARING:
+            return None
+        if "kCut=1" in self.values:  # `scripts/minplus_tile32.cu`'s cut tiles
+            parts = math.ceil(n / 32)
+            edge = 4 * math.ceil(math.ceil(n / parts) / 4)
+            return (edge * math.ceil(n / edge)) ** 2 * n
+        return (32 * math.ceil(n / 32)) ** 3  # 32 x 32 tiles, k padded to 32
 
     def __call__(self, d: torch.Tensor, iters: int) -> torch.Tensor:
         b, n, _ = d.shape
@@ -156,18 +229,31 @@ class Variant:
         waited, busy = self.work[at:at + 4].cpu().view(torch.int64).tolist()
         return waited / max(busy, 1)
 
+    def clock_split(self, d: torch.Tensor, iters: int) -> dict | None:
+        """Thread 0's clock64 split per block of one call (kClock): mean
+        cycles a block in each phase, and the blocks that ran."""
+        if not self.clock:
+            return None
+        self.executed.zero_()
+        self(d, iters)
+        torch.cuda.synchronize()
+        sums = dict(zip(CLOCK_PHASES, self.executed[1:].cpu().tolist()))
+        blocks = max(sums["blocks"], 1)
+        return {"blocks": sums["blocks"],
+                **{k: v / blocks for k, v in sums.items() if k != "blocks"}}
+
 
 def check(v: Variant, d: torch.Tensor, iters: int, want: torch.Tensor, run: int) -> list:
     """Raise unless `v` is bit-identical to the plain closure and runs
     `run` squarings; returns the live matrices per squaring."""
     b = d.shape[0]
-    before = int(v.executed)
+    before = v.ran()
     got = v(d, iters)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"{v.tag} at {tuple(d.shape[:2])}: {int((got != want).sum())} "
                              "entries differ from the plain closure")
-    ran, live = int(v.executed) - before, v.live(b, iters)
+    ran, live = v.ran() - before, v.live(b, iters)
     if not ran == sum(live) == run:
         raise AssertionError(f"{v.tag} at {tuple(d.shape[:2])}: {ran} squarings run, flags "
                              f"say {sum(live)}, squarings_run_plain {run}")
@@ -185,6 +271,8 @@ def main() -> int:
     ap.add_argument("--variant", action="append", required=True, type=parse_variant)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--shapes", default=None,
+                    help="comma-separated BxN of the shapes to run (default: all)")
     ap.add_argument("--sass", default=None,
                     help="directory for each variant's `cuobjdump -sass`")
     ap.add_argument("--out", default="build/k2_bench.json")
@@ -196,8 +284,9 @@ def main() -> int:
     variants = dict(args.variant)
     built = build(variants, os.path.join(ROOT, "build", "k2_bench"))
     dev = torch.device("cuda")
-    runs = {tag: Variant(tag, lib, "kSpinClock=1" in variants[tag][1], dev)
-            for tag, (lib, _) in built.items()}
+    runs = {tag: Variant(tag, lib, variants[tag][1], dev) for tag, (lib, _) in built.items()}
+    result = {"card": card["smi"], "variants": {t: f"{s} {v}" for t, (s, v) in variants.items()},
+              "sass": {}, "shapes": {}, "failed": []}
     for tag, (lib, log) in built.items():
         print(f"  {tag}: {runs[tag].symbol}", flush=True)
         for line in log.splitlines():
@@ -205,25 +294,38 @@ def main() -> int:
                 print(f"  ptxas[{tag}] {line.strip()}", flush=True)
         if args.sass:
             os.makedirs(args.sass, exist_ok=True)
+            text = subprocess.run(["cuobjdump", "-sass", lib], capture_output=True,
+                                  text=True).stdout
             with open(os.path.join(args.sass, f"k2_sass_{tag}.txt"), "w") as fh:
-                fh.write(subprocess.run(["cuobjdump", "-sass", lib], capture_output=True,
-                                        text=True).stdout)
+                fh.write(text)
+            result["sass"][tag] = sass_counts(text)
+            for name, counts in result["sass"][tag].items():
+                print(f"  sass[{tag}] {name[:90]}: {counts}", flush=True)
     inputs = path_inputs(dev)
     inputs.update({shape: (minplus_input(*shape).to(dev), iters)
-                   for shape, iters in K2_GENERATED.items()})
-    result = {"card": card["smi"], "variants": {t: f"{s} {v}" for t, (s, v) in variants.items()},
-              "shapes": {}}
+                   for shape, iters in {**K2_GENERATED, **LONE}.items()})
+    if args.shapes:
+        keep = {tuple(int(x) for x in s.split("x")) for s in args.shapes.split(",")}
+        inputs = {shape: v for shape, v in inputs.items() if shape in keep}
     for (b, n), (d, iters) in inputs.items():
         want = (mp.minplus_closure_plain(d, iters) if n <= 256
                 else mp.minplus_closure_blocked(d, iters))
         run = mp.squarings_run_plain(d, iters)
-        live = {tag: check(v, d, iters, want, run) for tag, v in runs.items()}
-        samples = {tag: {k: [] for k in range(1, iters + 1)} for tag in runs}
-        totals = {tag: [] for tag in runs}
+        bound_us = 2.0 * n ** 3 * run / PEAK_FP32_INSTR_PER_S * 1e6
+        live, ok = {}, {}
+        for tag, v in runs.items():
+            try:
+                live[tag] = check(v, d, iters, want, run)
+                ok[tag] = v
+            except AssertionError as exc:
+                print(f"K2 bench CHECK FAILED: {exc}", flush=True)
+                result["failed"].append(str(exc))
+        samples = {tag: {k: [] for k in range(1, iters + 1)} for tag in ok}
+        totals = {tag: [] for tag in ok}
         for _ in range(args.rounds):
-            for order in (list(runs), list(reversed(runs))):
+            for order in (list(ok), list(reversed(ok))):
                 for tag in order:
-                    v = runs[tag]
+                    v = ok[tag]
                     for k in range(1, iters + 1):
                         total = device_us(lambda v=v, k=k: v(d, k), args.reps,
                                           kernels_per_call=v.kernels_per_call(k))
@@ -231,13 +333,14 @@ def main() -> int:
                         if k == iters:
                             totals[tag].append(total)
         out = {}
-        for tag, v in runs.items():
+        for tag, v in ok.items():
             kern = [statistics.median(samples[tag][k]) for k in range(1, iters + 1)]
             per_sq = [kern[0]] + [kern[k] - kern[k - 1] for k in range(1, iters)]
             call = [cuda_ms(lambda v=v: v(d, iters), args.reps) * 1e3
                     for _ in range(args.rounds)]
             v(d, iters)
             torch.cuda.synchronize()
+            cand = v.candidates(b, n)
             out[tag] = {"symbol": v.symbol, "iters": iters,
                         "device_us": statistics.median(totals[tag]),
                         "device_us_range": [min(totals[tag]), max(totals[tag])],
@@ -246,27 +349,40 @@ def main() -> int:
                         "squarings_run": sum(live[tag]), "of": b * iters,
                         "call_us": statistics.median(call),
                         "call_us_range": [min(call), max(call)],
-                        "spin_share": v.spin_share(b, iters)}
+                        "spin_share": v.spin_share(b, iters),
+                        "plan": v.plan(b, n), "candidates_per_matrix": cand,
+                        "candidates_over_n3": None if cand is None else cand / n ** 3,
+                        "bound_us": bound_us, "share_of_bound": bound_us / kern[-1],
+                        "clock": v.clock_split(d, iters)}
             o = out[tag]
             print(f"K2 bench on {card['smi']}: {tag} B,N={(b, n)} iters={iters}: device us "
                   f"per call (median of {len(totals[tag])}) {o['device_us']:.2f} "
                   f"[{min(totals[tag]):.2f}, {max(totals[tag]):.2f}], K2 kernels "
-                  f"{o['kernel_us']:.2f}, {o['kernels_per_call']} kernels a call; call "
+                  f"{o['kernel_us']:.2f} ({o['share_of_bound']:.3f} of the bound "
+                  f"{bound_us:.2f}), {o['kernels_per_call']} kernels a call; call "
                   f"{o['call_us']:.2f} us; squarings run {o['squarings_run']} of {b * iters}",
                   flush=True)
             print(f"  {tag} B,N={(b, n)} per squaring: us "
                   f"{[round(x, 2) for x in per_sq]}, live {live[tag]}"
                   + ("" if o["spin_share"] is None
                      else f"; waited {o['spin_share']:.3f} of item cycles"), flush=True)
+            print(f"  {tag} B,N={(b, n)} plan {o['plan']}; candidates a squaring of a "
+                  f"matrix {cand} = "
+                  + ("?" if cand is None else f"{cand / n ** 3:.3f}") + " N^3", flush=True)
+            if o["clock"] is not None:
+                print(f"  {tag} B,N={(b, n)} clock64 split, cycles a block (thread 0): "
+                      + ", ".join(f"{k} {x:.0f}" for k, x in o["clock"].items()), flush=True)
         result["shapes"][f"{b}x{n}"] = out
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(result, fh, indent=1)
     print(json.dumps({"k2_bench": {s: {t: {k: r[k] for k in ("device_us", "kernel_us",
-                                                              "call_us", "squarings_run")}
+                                                              "call_us", "squarings_run",
+                                                              "share_of_bound")}
                                        for t, r in o.items()}
-                                   for s, o in result["shapes"].items()}}), flush=True)
-    return 0
+                                   for s, o in result["shapes"].items()},
+                      "failed": len(result["failed"])}), flush=True)
+    return 1 if result["failed"] else 0
 
 
 if __name__ == "__main__":

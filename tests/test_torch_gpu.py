@@ -42,9 +42,15 @@ def _executed():
     return 0 if ex is None else int(ex)
 
 
-# (16, 56) and (64, 112): the service's small bucket and the paper batch
+# (16, 56) and (64, 112): the service's small bucket and the paper batch;
+# the rest sit at the edges of the tile plans (`csrc/minplus.cu`): N = 1 and
+# 2, one strip of 8 and one above, either side of 56 (the last strip plan
+# and the first 56-row tile), of 112 (the 56- and 64-row tiles) and of 256,
+# at odd N with 4-byte copies
 @pytest.mark.parametrize("b,n", [(3, 7), (5, 37), (4, 112), (2, 256), (1, 300),
-                                 (16, 56), (64, 112)])
+                                 (16, 56), (64, 112), (3, 1), (3, 2), (7, 8), (7, 9),
+                                 (4, 55), (4, 57), (4, 111), (4, 113), (2, 255),
+                                 (2, 257)])
 def test_minplus_kernel_bit_identical(cuda, b, n):
     w = _weights(np.random.default_rng(n), b, n, 3.0 / n).to(cuda)
     d = torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w)
@@ -77,6 +83,80 @@ def test_minplus_kernel_leaves_input_and_stops_early(cuda):
     ran = _executed() - counter0
     assert 4 <= ran < 4 * 30  # converged matrices skip the rest of the schedule
     assert ran == tmp.squarings_run_plain(d, 30)
+
+
+@pytest.mark.parametrize("b,n", [(16, 56), (64, 112)])
+def test_minplus_kernel_executed_equals_plain_count(cuda, b, n):
+    """The service's small bucket and the paper batch: the squarings the
+    device early stop runs are exactly those the plain count finds."""
+    w = _weights(np.random.default_rng(n), b, n, 3.0 / n).to(cuda)
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w)
+    iters = tmp.squaring_count(n)
+    counter0 = _executed()
+    out = tmp.minplus_closure_cuda(d, iters)
+    torch.cuda.synchronize()
+    assert _executed() - counter0 == tmp.squarings_run_plain(d, iters)
+    assert torch.equal(out, tmp.minplus_closure_plain(d, iters))
+
+
+@pytest.mark.parametrize("b,n", [(64, 112), (4, 256), (16, 56), (16, 112), (1, 1024),
+                                 (5, 37)])
+def test_minplus_tile_plan_follows_n(cuda, b, n):
+    """At the paths' shapes the tiles cover N to the granule of 8, and a
+    squaring has at least 112 blocks or one for each 8-row strip."""
+    plan = tmp.tile_plan(b, n)
+    rows, cols = plan["tile_rows"], plan["tile_cols"]
+    assert plan["blocks"] == b * math.ceil(n / rows) * math.ceil(n / cols)
+    assert rows * math.ceil(n / rows) == cols * math.ceil(n / cols) == 8 * math.ceil(n / 8)
+    assert plan["blocks"] >= min(112, b * math.ceil(n / 8))
+
+
+def _device_ops(fn) -> dict:
+    """Device records (kernels, copies, memsets) by name of one call of
+    `fn`, from `torch.profiler`; traced again if the trace lost K2's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.key_averages():
+            if "CUDA" in str(getattr(e, "device_type", "")) and e.self_device_time_total > 0:
+                ops[e.key] = ops.get(e.key, 0) + e.count
+        if any("minplus" in k for k in ops):
+            return ops
+    raise AssertionError("three traces held no K2 launch")
+
+
+def test_apsp_minplus_hands_its_temporary_to_k2(cuda, monkeypatch):
+    """On the card the dense APSP gives K2 its fresh `torch.where` result as
+    the first buffer: its weights stay as they were, and a call runs one
+    device operation fewer than with `minplus_closure`'s copy."""
+    from multihop_offload_tpu_torch.env import apsp as tapsp
+
+    b, n = 8, 112
+    w = _weights(np.random.default_rng(11), b, n, 3.0 / n).to(cuda)
+    keep = w.clone()
+    iters = tmp.squaring_count(n)
+    before = tmp.minplus_closure_cuda.launches
+    got = apsp_minplus(w)
+    torch.cuda.synchronize()
+    assert tmp.minplus_closure_cuda.launches == before + iters
+    assert torch.equal(w, keep)
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w)
+    assert torch.equal(got, tmp.minplus_closure_plain(d, iters))
+    owned = _device_ops(lambda: apsp_minplus(w))
+    monkeypatch.setattr(tapsp, "minplus_closure",
+                        lambda x, k, owned=False: tmp.minplus_closure(x, k))
+    copied = _device_ops(lambda: apsp_minplus(w))
+    assert torch.equal(apsp_minplus(w), got)
+    k2 = [sum(c for k, c in ops.items() if "minplus" in k) for ops in (owned, copied)]
+    assert k2 == [iters, iters]
+    assert sum(owned.values()) == sum(copied.values()) - 1
+    assert torch.equal(w, keep)
 
 
 def test_minplus_kernel_large_batch_long_schedule(cuda):

@@ -86,6 +86,17 @@ def test_apsp_plain_bit_identical_to_jax(b, n, p):
         got32, np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w32))))
 
 
+# N at the edges of K2's tile plans (`csrc/minplus.cu`), all on the squaring
+# path (257 is on the blocked FW's, held at 300 below)
+@pytest.mark.parametrize("b,n", [(3, 1), (3, 2), (7, 8), (7, 9), (4, 55), (4, 57),
+                                 (4, 111), (4, 113), (2, 255)])
+def test_apsp_plain_bit_identical_to_jax_at_tile_edges(b, n):
+    assert tmp.apsp_path(n) == "squaring"
+    w = _weights(np.random.default_rng(n), b, n, min(1.0, 3.0 / n))
+    got = tapsp.apsp_minplus(torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w))))
+
+
 def test_minplus_closure_early_stop_equals_full_schedule():
     rng = np.random.default_rng(5)
     d = torch.from_numpy(_weights(rng, 3, 40, 0.08))
