@@ -29,6 +29,13 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   row walk) is on no path, in the JAX package as here: it is held on the
   sparse bucket 1's packed extended support (16 slots, E = 328) and on the
   JAX test's case.
+- Slice 12, the Trainer and Evaluator drivers (`train/driver.py`,
+  `cli/train.py`) over the committed paper dataset
+  (`data/aco_data_ba_paper`: the 20 `.mat` cases, B = 10 job sets a file,
+  load 0.15, T 1000; pads N=112, L=216), output in a temporary directory:
+  the Evaluator with the model of record, dense (K1, K2), and the Trainer
+  through `cli.train.main`, sparse, K=2, fresh init, 1 epoch, replay of
+  100 from the 10th file (K1, K4, K6).
 
 It
 
@@ -60,7 +67,9 @@ It
    `eval_methods`, `forward_env` and `forward_backward` (K3 launched, K1
    not, the fixed-point scan run; finite gradients); the service's plain
    run (K1, K2) and its sparse run (K1, K4, K6), each answering every
-   admitted request exactly once;
+   admitted request exactly once; the Evaluator file by file (K1 exactly
+   4 launches and K2 exactly 2 APSP calls on every file) and the Trainer
+   file by file (K1, K4 and K6 on every file);
 5. checks card against CPU (float32, plain versions): baseline and local
    `dst` identical, GNN `dst` agreement >= 0.99, `job_total` within rtol
    1e-4 on every request whose decisions all agree, for the dense
@@ -74,7 +83,12 @@ It
    `delay_est`, `job_total` within rtol 1e-5 where a request's decisions
    agree), the late tick served by the baseline with `baseline_policy`'s
    `dst`, and its first 64 requests re-served on the CPU (agreement >=
-   0.99, rtol 1e-4);
+   0.99, rtol 1e-4); the Evaluator's 600 CSV rows against its first 4
+   files on the CPU and against `file_batch=4` (`baseline` and `local`
+   rows: `congest_jobs` identical, `tau` within rtol 1e-4; `GNN` rows the
+   same on >= 99%); the Trainer's 800 rows, `tau` finite, its parameters
+   changed, `try_restore` bit for bit, and a second `cli.train.main`
+   resuming past the saved steps;
 6. times each kernel on the card's own clock (`device_us`: the kernels'
    durations in `torch.profiler`'s CUDA trace), as a call (CUDA events
    around a loop of calls, host enqueue included) and on the host
@@ -85,9 +99,11 @@ It
    `torch.sparse.mm` and `torch.bmm`), and the paths on the host clock; the
    service's requests/s, p50/p99 latency, dispatches per request, mean
    tick, launches per tick, host ms in `dispatch` against `fetch`; peak
-   memory;
-7. prints the serving line, the kernels line, then the `{"ok": true, ...}`
-   line last.
+   memory; the drivers' host ms per file (run-log step events and spans)
+   and the card's busy share over one Evaluator file and one Trainer
+   replay file;
+7. prints the serving line, the drivers line, the kernels line, then the
+   `{"ok": true, ...}` line last.
 
 Any failure raises, so the exit code is not 0 and no result line appears.
 
@@ -96,6 +112,7 @@ Any failure raises, so the exit code is not 0 and no result line appears.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1064,6 +1081,303 @@ def ragged_kernel_phase(dev, card, reqs) -> dict:
             "cap": cap, "nnz_live": n_live, "timing": timing, "sort": sort}
 
 
+def read_csv_rows(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def compare_eval_rows(tag: str, got: list, want: list) -> dict:
+    """Evaluator CSV rows against rows of the same files (the `runtime`
+    column excluded): strings and integers equal; `baseline` and `local`
+    rows with identical `congest_jobs` and `tau`, `gap_2_bl` and
+    `gnn_bl_ratio` each within rtol 1e-4; `GNN` rows meeting the same bars
+    on at least 99% of them, mismatches printed."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} rows against {len(want)}")
+    ints = ("seed", "num_nodes", "m", "num_mobile", "num_servers", "num_relays",
+            "num_jobs", "n_instance")
+    floats = ("tau", "gap_2_bl", "gnn_bl_ratio")
+    bad = {"baseline": 0, "local": 0, "GNN": 0}
+    worst = dict.fromkeys(floats, 0.0)
+    for g, w in zip(got, want):
+        if any(g[k] != w[k] for k in ("filename", "Algo") + ints):
+            raise AssertionError(f"{tag}: rows out of step: {g} against {w}")
+        rel = {}
+        for k in floats:
+            a, b = float(g[k]), float(w[k])
+            rel[k] = 0.0 if a == b else abs(a - b) / abs(b)
+        if g["congest_jobs"] != w["congest_jobs"] or not all(r <= 1e-4 for r in rel.values()):
+            bad[g["Algo"]] += 1
+            log(f"  {tag} mismatch: {g['filename']} n_instance {g['n_instance']} "
+                f"{g['Algo']}: " + ", ".join(f"{k} {g[k]} against {w[k]}" for k in floats)
+                + f", congest_jobs {g['congest_jobs']} against {w['congest_jobs']}")
+        else:
+            worst = {k: max(worst[k], rel[k]) for k in floats}
+    n_gnn = sum(r["Algo"] == "GNN" for r in want)
+    log(f"{tag}: {len(got)} rows; mismatched baseline {bad['baseline']}, local "
+        f"{bad['local']}, GNN {bad['GNN']} of {n_gnn}; max rel err over the matching "
+        f"rows: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    if bad["baseline"] or bad["local"] or bad["GNN"] > 0.01 * n_gnn:
+        raise AssertionError(f"{tag}: rows disagree beyond the bars: {bad}")
+    return {"rows": len(got), "mismatched": bad, "tau_max_rel_err": worst["tau"],
+            "gap_2_bl_max_rel_err": worst["gap_2_bl"],
+            "gnn_bl_ratio_max_rel_err": worst["gnn_bl_ratio"]}
+
+
+def busy_share(fn, wall_ms: float) -> dict:
+    """One call of `fn` under `torch.profiler`: the card's busy ms (the
+    union of its kernel, copy and memset intervals on the device clock)
+    over `wall_ms`, the unprofiled wall time of the same call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # record_function ranges show on the device timeline too: drop every
+    # name the host side also has
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name not in host)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"busy_ms": busy / 1e3, "wall_ms": wall_ms, "share": busy / 1e3 / wall_ms,
+            "device_records": len(spans)}
+
+
+def file_ms(log_path: str) -> list:
+    """Host ms of each file visit after the first, from a driver run log:
+    the gaps between consecutive `step` events (the whole visit: build,
+    device work, metrics, replay, checkpoint and CSV)."""
+    from multihop_offload_tpu_torch.obs.events import read_events
+
+    ts = [e["ts"] for e in read_events(log_path) if e.get("event") == "step"]
+    return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+
+
+def span_ms(names, visits: int) -> dict:
+    """Host ms per visit in each named span since the last `reset_phases`."""
+    from multihop_offload_tpu_torch.obs.spans import phase_stats
+
+    stats = phase_stats()
+    return {n: stats[n]["total_s"] * 1e3 / visits for n in names if n in stats}
+
+
+def driver_phase(dev, card) -> dict:
+    """Slice 12: the Evaluator and the Trainer over the committed paper
+    dataset (`data/aco_data_ba_paper`: 20 files, B = 10 job sets a file,
+    load 0.15, T 1000), all output in a temporary directory.  The
+    Evaluator with the model of record (dense): K1 4 launches and K2 2 APSP
+    calls on every file; 20 x 10 x 3 rows in `TEST_COLUMNS`; the first 4
+    files again on the CPU and the whole set at `file_batch=4`, both
+    against these rows.  The Trainer through `cli/train.py:main` (sparse,
+    K=2, fresh init, 1 epoch, batch 100, memory 5000, so replay starts at
+    the 10th file): on every file, the training step launches K1 3, K4 9,
+    K6 1 and K2 7 and its `eval_methods` K1 4, K4 5, K6 2 and K2 14, each
+    read on its own; 20 x 10 x 4 rows in `TRAIN_COLUMNS`, `tau` finite; the parameters
+    changed; `try_restore` bit for bit; a second `main` resumes past the
+    saved steps.  Then the host ms per file and the card's busy share over
+    one file of each."""
+    import shutil
+    import tempfile
+    from statistics import median
+
+    from multihop_offload_tpu_torch.cli import train as cli_train
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models.chebconv import load_weights, params_from_jax
+    from multihop_offload_tpu_torch.obs.spans import reset_phases
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    tmp = tempfile.mkdtemp(prefix="mho_drivers_")
+    out = {}
+    try:
+        # ---- the Evaluator: launches counted file by file -------------------
+        ecfg = Config(datapath=PAPER_DATASET, out=os.path.join(tmp, "eval"),
+                      model_root=os.path.join(tmp, "model"), arrival_scale=0.15, T=1000,
+                      num_instances=10, obs_log=os.path.join(tmp, "eval_count.jsonl"))
+        ev = drv.Evaluator(ecfg, device=dev)
+        ev.model.load_state_dict(params_from_jax(load_weights(MODEL_K1)))
+        pad = ev.data.pad
+        per_file = []
+        inner = ev._eval_methods
+
+        def counted(inst, jobs, gen):
+            reset_counts()
+            res = inner(inst, jobs, gen)
+            per_file.append(read_counts())
+            return res
+
+        ev._eval_methods = counted
+        rows = read_csv_rows(ev.run(verbose=False))
+        ev._eval_methods = inner
+        k2_per_file = 2 * mp.squaring_count(pad.n)
+        log(f"driver Evaluator (dense, {MODEL_K1}, pads {pad}): launches per file "
+            f"fixed_point {sorted({c['fixed_point'] for c in per_file})}, minplus "
+            f"{sorted({c['minplus'] for c in per_file})} (2 APSP calls x "
+            f"{mp.squaring_count(pad.n)} squarings), over {len(per_file)} files")
+        if len(per_file) != 20 or any(c["fixed_point"] != 4 or c["minplus"] != k2_per_file
+                                      for c in per_file):
+            raise AssertionError(f"Evaluator launches per file: {per_file}")
+        if len(rows) != 20 * 10 * 3 or list(rows[0]) != drv.TEST_COLUMNS:
+            raise AssertionError(f"Evaluator CSV: {len(rows)} rows, columns {list(rows[0])}")
+        if not all(math.isfinite(float(r["tau"])) for r in rows):
+            raise AssertionError("Evaluator CSV: a tau is not finite")
+        out["eval_launches_per_file"] = {"fixed_point": 4, "minplus": k2_per_file}
+        out["eval_counts_file0"] = per_file[0]
+
+        # the same files on the CPU (float32, plain versions), and batched
+        cpu_ev = drv.Evaluator(dataclasses.replace(ecfg, out=os.path.join(tmp, "eval_cpu"),
+                                                   obs_log=""), device="cpu")
+        cpu_ev.model.load_state_dict(params_from_jax(load_weights(MODEL_K1)))
+        cpu_rows = read_csv_rows(cpu_ev.run(files_limit=4, verbose=False))
+        out["eval_card_vs_cpu"] = compare_eval_rows("Evaluator card vs CPU (4 files)",
+                                                    rows[:len(cpu_rows)], cpu_rows)
+        ev.cfg.file_batch = 4
+        ev.cfg.obs_log = os.path.join(tmp, "eval_batch4.jsonl")
+        b4_rows = read_csv_rows(ev.run(out_dir=os.path.join(tmp, "eval_b4"), verbose=False))
+        out["eval_file_batch4"] = compare_eval_rows("Evaluator file_batch=4 vs 1", b4_rows,
+                                                    rows)
+        ev.cfg.file_batch = 1
+        ev.cfg.obs_log = os.path.join(tmp, "eval_time.jsonl")
+        reset_phases()
+        t_rows = read_csv_rows(ev.run(out_dir=os.path.join(tmp, "eval_t"), verbose=False))
+        out["eval_span_ms_per_file"] = span_ms(("eval/build", "eval/step"), 20)
+        eval_ms = file_ms(ev.cfg.obs_log)
+        b4_ms = file_ms(os.path.join(tmp, "eval_batch4.jsonl"))
+        out["eval_ms_per_file"] = median(eval_ms)
+        out["eval_ms_per_chunk_of_4"] = median(b4_ms)
+        out["eval_runtime_median_s"] = median(float(r["runtime"]) for r in t_rows)
+
+        # ---- the Trainer through its entry point ----------------------------
+        args = ["--datapath", PAPER_DATASET, "--out", os.path.join(tmp, "train"),
+                "--model_root", os.path.join(tmp, "model"), "--layout", "sparse",
+                "--cheb_k", "2", "--epochs", "1", "--batch", "100", "--memory_size",
+                "5000", "--arrival_scale", "0.15", "--T", "1000", "--num_instances", "10",
+                "--device", dev.type]
+        seen, step_counts, test_counts = {}, [], []
+        orig = {k: getattr(drv.Trainer, k) for k in ("run", "_train_step", "_eval_methods")}
+
+        def run(self, *a, **k):
+            seen["trainer"] = self
+            seen.setdefault("before", {n: p.clone() for n, p in self.params().items()})
+            return orig["run"](self, *a, **k)
+
+        def counted(name, into):
+            def call(self, *a, **k):
+                reset_counts()
+                res = orig[name](self, *a, **k)
+                into.append(read_counts())
+                return res
+            return call
+
+        train_step = counted("_train_step", step_counts)
+        eval_methods = counted("_eval_methods", test_counts)
+
+        drv.Trainer.run, drv.Trainer._train_step = run, train_step
+        drv.Trainer._eval_methods = eval_methods
+        reset_phases()
+        try:
+            train_csv = cli_train.main(args + ["--obs_log",
+                                               os.path.join(tmp, "train.jsonl")])
+        finally:
+            for k, v in orig.items():
+                setattr(drv.Trainer, k, v)
+        trainer = seen["trainer"]
+        trows = read_csv_rows(train_csv)
+        out["train_counts_file0"] = {k: step_counts[0][k] + test_counts[0][k]
+                                     for k in step_counts[0]}
+        out["train_span_ms_per_file"] = span_ms(("train/build", "train/step",
+                                                 "train/metrics"), 20)
+        out["train_span_ms_per_file"].update(span_ms(("train/replay",), 11))
+        # per file: the training step K4 9 (5 layers forward, 4 backward:
+        # layer 0 needs no d x), K1 3, K6 1; eval_methods K4 5, K1 4, K6 2;
+        # each K6 call hands its matrix to K2's squarings, which stop early
+        # by the data (`squarings`: those run, summed over the batch)
+        sq = mp.squaring_count(trainer.data.pad.n)
+        want_step = {"fixed_point": 3, "chebconv": 9, "coo_apsp": 1, "minplus": sq}
+        want_test = {"fixed_point": 4, "chebconv": 5, "coo_apsp": 2, "minplus": 2 * sq}
+        seen_counts = lambda got, keys: {k: sorted({c[k] for c in got}) for k in keys}
+        log(f"driver Trainer (sparse, K=2, fresh init, {len(step_counts)} files): "
+            f"launches per file in the training step {seen_counts(step_counts, want_step)}, "
+            f"in eval_methods {seen_counts(test_counts, want_test)}; replays "
+            f"{len(trainer.replay_losses)}, losses "
+            f"{[round(x, 4) for x in trainer.replay_losses]}")
+        for tag, got, want in (("training step", step_counts, want_step),
+                               ("eval_methods", test_counts, want_test)):
+            want = {k: want.get(k, 0) for k in read_counts() if k != "squarings"}
+            if len(got) != 20 or any({k: c[k] for k in want} != want or c["squarings"] <= 0
+                                     for c in got):
+                raise AssertionError(f"Trainer {tag} launches per file: {got}, want {want}")
+        if len(trows) != 20 * 10 * 4 or list(trows[0]) != drv.TRAIN_COLUMNS:
+            raise AssertionError(f"Trainer CSV: {len(trows)} rows, columns {list(trows[0])}")
+        if not all(math.isfinite(float(r["tau"])) for r in trows):
+            raise AssertionError("Trainer CSV: a tau is not finite")
+        if len(trainer.replay_losses) != 11:
+            raise AssertionError(f"replays: {len(trainer.replay_losses)}, want 11")
+        final = {n: p.clone() for n, p in trainer.params().items()}
+        if all(torch.equal(final[n], seen["before"][n]) for n in final):
+            raise AssertionError("Trainer: the parameters did not change")
+        for p in trainer.model.parameters():
+            p.data.zero_()
+        step = trainer.try_restore()
+        if step != 19 or not all(torch.equal(final[n], p)
+                                 for n, p in trainer.params().items()):
+            raise AssertionError(f"try_restore (step {step}) is not bit-exact")
+        seen.clear()
+        drv.Trainer.run = run
+        try:
+            cli_train.main(args + ["--files_limit", "2", "--obs_log",
+                                   os.path.join(tmp, "train_resume.jsonl")])
+        finally:
+            drv.Trainer.run = orig["run"]
+        resumed = read_csv_rows(train_csv)
+        gidx = sorted({int(r["fid"]) for r in resumed})
+        log(f"driver Trainer resumed: restored step {step}, visits {gidx}")
+        if gidx != [20, 21]:
+            raise AssertionError(f"the resumed run's visits are {gidx}, want [20, 21]")
+        tms = file_ms(os.path.join(tmp, "train.jsonl"))
+        # visit i >= 1 takes tms[i - 1]; visits 9 to 19 replay
+        out["train_ms_per_file"] = median(tms[:8])
+        out["train_ms_per_replay_file"] = median(tms[8:])
+        out["train_runtime_median_s"] = median(float(r["runtime"]) for r in trows)
+
+        # ---- the card's busy share over one file of each --------------------
+        ev.cfg.obs_log = ""
+        one = lambda: ev.run(files_limit=1, out_dir=os.path.join(tmp, "eval_1"),
+                             verbose=False)
+        out["eval_busy"] = busy_share(one, wall_ms(one, 3))
+        # the first Trainer: its replay memory is full, so every visit replays
+        trainer.cfg.obs_log = ""
+        one_t = lambda: trainer.run(epochs=1, files_limit=1,
+                                    out_dir=os.path.join(tmp, "train_1"), verbose=False)
+        out["train_replay_busy"] = busy_share(one_t, wall_ms(one_t, 3))
+        log(f"driver timing on {card['smi']}: Evaluator {out['eval_ms_per_file']:.2f} ms "
+            f"per file (median of 19 visits, host clock; file_batch=4: "
+            f"{out['eval_ms_per_chunk_of_4']:.2f} ms per chunk of 4), runtime column "
+            f"median {out['eval_runtime_median_s'] * 1e3:.4f} ms; Trainer "
+            f"{out['train_ms_per_file']:.2f} ms per file before replay, "
+            f"{out['train_ms_per_replay_file']:.2f} ms per replay file, runtime column "
+            f"median {out['train_runtime_median_s'] * 1e3:.4f} ms; busy share: Evaluator "
+            f"file {out['eval_busy']['share']:.4f} ({out['eval_busy']['busy_ms']:.3f} of "
+            f"{out['eval_busy']['wall_ms']:.2f} ms), Trainer replay file "
+            f"{out['train_replay_busy']['share']:.4f} ({out['train_replay_busy']['busy_ms']:.3f}"
+            f" of {out['train_replay_busy']['wall_ms']:.2f} ms); host ms per visit "
+            f"in the spans: Evaluator {out['eval_span_ms_per_file']}, Trainer (counted "
+            f"run; train/replay per replay) {out['train_span_ms_per_file']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -1353,13 +1667,19 @@ def main() -> int:
     # ---- slice 4: the service, and K5 on its sparse bucket's lists ----------
     serving = serving_phase(dev, card)
     k5 = ragged_kernel_phase(dev, card, serving.pop("sparse_bucket1"))
+
+    # ---- slice 12: the Trainer and Evaluator drivers --------------------------
+    drivers = driver_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
                "forward_backward_dense": fb_counts,
                **{f"large_{k}": v for k, v in large["counts"].items()},
-               **serving.pop("counts")}
+               **serving.pop("counts"),
+               "driver_eval_file": drivers.pop("eval_counts_file0"),
+               "driver_train_file": drivers.pop("train_counts_file0")}
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"drivers": drivers}), flush=True)
     kernels = [
         {"name": "fixed_point", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/fixed_point.cu",

@@ -8,7 +8,7 @@ kernel launch covers the batch.  The two Pallas kernels of the path are
 hand-written CUDA C++ under `csrc/` (see `ops/`).
 
 This package imports torch, numpy and scipy only: never jax, flax,
-networkx, orbax or `multihop_offload_tpu`.
+networkx, orbax, pandas, tensorflow or `multihop_offload_tpu`.
 """
 
 from multihop_offload_tpu_torch._device import resolve_device  # noqa: F401

@@ -25,3 +25,10 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on `dev`: the card's stream, or nothing on
+    the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -44,3 +44,20 @@ def stack_records(items: Sequence):
         else:
             out[f.name] = value
     return dataclasses.replace(first, **out)
+
+
+def cat_records(items: Sequence):
+    """Concatenate same-shape batched records along their batch axis,
+    field by field; nested records recurse, None and static fields are
+    kept."""
+    first = items[0]
+    out = {}
+    for f in dataclasses.fields(first):
+        value = getattr(first, f.name)
+        if isinstance(value, torch.Tensor):
+            out[f.name] = torch.cat([getattr(it, f.name) for it in items])
+        elif isinstance(value, TensorRecord):
+            out[f.name] = cat_records([getattr(it, f.name) for it in items])
+        else:
+            out[f.name] = value
+    return dataclasses.replace(first, **out)

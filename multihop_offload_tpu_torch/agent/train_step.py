@@ -30,6 +30,7 @@ from multihop_offload_tpu_torch._phases import phase
 from multihop_offload_tpu_torch.agent.actor import (
     ActorOutput,
     actor_delay_matrix,
+    compat_cycled_diagonal,
     default_support,
 )
 from multihop_offload_tpu_torch.env.offloading import offload_decide
@@ -52,6 +53,18 @@ class TrainStepOutput:
     routes: RouteSet
     actor: ActorOutput
     dst: torch.Tensor          # (B, J)
+
+
+def episode_grad_norms(grads: dict) -> torch.Tensor:
+    """(B,) global gradient norm per episode of per-episode gradients
+    (leaves (B, *shape)), accumulated in float32 whatever the parameters'
+    dtype, as JAX `agent/train_step.py:108` takes it."""
+    sq = None
+    for g in grads.values():
+        g = g.to(torch.float32)
+        s = (g * g).flatten(1).sum(dim=1)
+        sq = s if sq is None else sq + s
+    return torch.sqrt(sq)
 
 
 def _wide(*dtypes) -> torch.dtype:
@@ -200,10 +213,14 @@ def forward_backward(
     critic_weight: float = 1.0,
     layout=None,
     device=None,
+    compat_diagonal_bug: bool = False,
 ) -> TrainStepOutput:
     """One training step's gradients for a batch of B episodes on `device`
     (default CUDA).  Under `layout="sparse"` the instance must be built
-    sparse and the model carry the sparse `propagate`."""
+    sparse and the model carry the sparse `propagate`.
+    `compat_diagonal_bug=True` feeds the decision path the reference's
+    cycled node-delay diagonal, as `forward_env` does; the gradients are
+    unaffected (JAX `:346-352`)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -220,7 +237,10 @@ def forward_backward(
 
     # --- 2. decision path on detached values -----------------------------
     with torch.no_grad():
-        unit_diag = torch.diagonal(dmtx.detach(), dim1=1, dim2=2)
+        if compat_diagonal_bug:
+            unit_diag = compat_cycled_diagonal(inst, actor.node_delay.detach())
+        else:
+            unit_diag = torch.diagonal(dmtx.detach(), dim1=1, dim2=2)
         with phase("apsp"):
             sp = shortest_paths(inst, actor.link_delay.detach(), lay)
         with phase("offload_decide"):

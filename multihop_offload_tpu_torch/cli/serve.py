@@ -23,7 +23,7 @@ import time
 
 import torch
 
-from multihop_offload_tpu_torch.config import Config, build_parser
+from multihop_offload_tpu_torch.config import Config, from_cli
 
 
 def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
@@ -84,12 +84,7 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
 def main(argv=None):
     from multihop_offload_tpu_torch.serve.workload import request_stream
 
-    parser = build_parser(description=__doc__)
-    parser.add_argument("--device", default=None,
-                        help="cuda (default) or cpu")
-    ns = vars(parser.parse_args(argv))
-    device = ns.pop("device")
-    cfg = Config(**ns)
+    cfg, device = from_cli(argv, __doc__)
     service, pool = build_service(cfg, device=device)
 
     t0 = time.monotonic()

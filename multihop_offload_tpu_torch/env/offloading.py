@@ -46,6 +46,18 @@ def _pairs(mat: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor):
                         idx.reshape(b, -1)).view(idx.shape)
 
 
+def _uniform(shape, gen, dtype, device) -> torch.Tensor:
+    """U[0, 1) draws of `shape` from `gen`: one generator, or a list of
+    them, each drawing for an equal share of the leading (batch) axis in
+    order, so a batch stacked from several callers' rows draws what each
+    caller's generator would draw alone."""
+    if not isinstance(gen, (list, tuple)):
+        return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+    rows = shape[0] // len(gen)
+    return torch.cat([torch.rand((rows,) + tuple(shape[1:]), generator=g, dtype=dtype,
+                                 device=device) for g in gen])
+
+
 def offload_decide(
     inst,
     jobs,
@@ -60,7 +72,8 @@ def offload_decide(
     """Choose a compute destination per job.
 
     `sp`/`hop`: (B, N, N) delay / hop matrices with zero diagonal;
-    `unit_diag`: (B, N) per-node unit processing delays.  `gen` feeds the
+    `unit_diag`: (B, N) per-node unit processing delays.  `gen` (a generator, or a
+    list of them over equal shares of the batch, `_uniform`) feeds the
     exploration and sampling draws; it is not read at ``explore=0,
     prob=False``."""
     if objective is not None and not objective.is_null:
@@ -95,8 +108,7 @@ def offload_decide(
         valid = valid.unsqueeze(1).expand(b, j, k)
 
         def gumbel_argmax(logits):
-            u = torch.rand(logits.shape, generator=gen, dtype=dt,
-                           device=logits.device)
+            u = _uniform(logits.shape, gen, dt, logits.device)
             g = -torch.log(-torch.log(u.clamp_min(torch.finfo(dt).tiny)))
             return torch.argmax(logits + g, dim=2)
 
@@ -106,8 +118,7 @@ def offload_decide(
         # epsilon-greedy: uniform over the valid options incl. local
         zero = torch.zeros((), dtype=dt, device=costs.device)
         uniform = gumbel_argmax(torch.where(valid, zero, -inf))
-        do_explore = torch.rand((b, j), generator=gen, dtype=dt,
-                                device=costs.device) < explore
+        do_explore = _uniform((b, j), gen, dt, costs.device) < explore
         jidx = torch.where(do_explore, uniform, base)
 
     num_slots = servers.shape[1]

@@ -36,7 +36,7 @@ import time
 
 import torch
 
-from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch._device import resolve_device, synchronize
 from multihop_offload_tpu_torch.agent.policy import forward_env
 from multihop_offload_tpu_torch.agent.train_step import forward_backward
 from multihop_offload_tpu_torch.env.apsp import apsp_minplus
@@ -71,21 +71,16 @@ def reset_kernel_counts() -> None:
     cc.ragged_index_cuda.launches = 0
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _timed(dev, fn, counts: dict | None = None, name: str = ""):
     """(result, seconds) of one call ending in a sync; with `counts`, the
     kernel counts are set to 0 before it and read after it into
     counts[name]."""
     if counts is not None:
         reset_kernel_counts()
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     out = fn()
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
     if counts is not None:
         counts[name] = kernel_counts()
@@ -107,7 +102,7 @@ def run(device=None, steps: int = 3, backward: bool = False,
     case = case or load_large_case()
     inst, jobs, pad = large_request(case, device=dev)
     model = load_model(MODEL, device=dev)
-    _sync(dev)
+    synchronize(dev)
     build_s = time.perf_counter() - t0
     counts: dict = {}
 

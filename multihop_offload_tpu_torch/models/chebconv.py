@@ -114,6 +114,57 @@ def chebyshev_support(adj: torch.Tensor, mask: torch.Tensor | None = None) -> to
     return lap - eye  # (2 / lmax) * lap is lap itself at lmax = 2
 
 
+@torch.no_grad()
+def ensure_alive_output(model: ChebNet, feats, support, mask=None) -> ChebNet:
+    """Data-dependent init fixup for the dead-relu-at-birth pathology
+    (JAX `models/chebconv.py:188-215`): if the probe emits zero on every
+    valid slot, negate the output layer's kernel and bias in place.
+    `mask` marks the probe's valid rows (padded rows see zero features and
+    emit relu(bias) > 0)."""
+    return ensure_alive_output_multi(model, [(feats, support, mask)])
+
+
+@torch.no_grad()
+def ensure_alive_output_multi(model: ChebNet, probes) -> ChebNet:
+    """`ensure_alive_output` over several probes (JAX `:218-256`): the
+    init must be alive on every probe.  `probes` are (feats, support, mask)
+    triples with any leading batch axes; a probe is alive when some valid
+    slot's output is positive.  The output layer's sign is flipped when
+    that makes every probe alive; when neither sign does, the sign alive
+    on more probes is kept with a warning, and a unit dead on all probes
+    under both signs raises.  Returns `model`, changed in place."""
+    probes = [(f, s, torch.ones(f.shape[:-1], dtype=torch.bool, device=f.device)
+               if m is None else m) for (f, s, m) in probes]
+
+    def alive_count() -> int:
+        return sum(bool(((model(f, s)[..., 0] > 0) & m).any()) for (f, s, m) in probes)
+
+    last = model.layers[model.num_layer - 1]
+
+    def flip() -> None:
+        last.kernel.neg_()
+        last.bias.neg_()
+
+    n_orig = alive_count()
+    if n_orig == len(probes):
+        return model
+    flip()
+    n_flip = alive_count()
+    if n_flip == len(probes):
+        return model
+    if max(n_orig, n_flip) == 0:
+        raise RuntimeError("output unit dead on all probes under both signs")
+    import warnings
+
+    if n_orig >= n_flip:
+        flip()
+    warnings.warn(
+        f"output unit alive on only {max(n_orig, n_flip)}/{len(probes)} probe graphs "
+        "under the better kernel sign; proceeding (gradients flow on the alive graphs)",
+        RuntimeWarning, stacklevel=2)
+    return model
+
+
 def layout_propagate(layout=None):
     """The `propagate` hook of a layout: None (dense matmul) or the edge-list
     propagate of the sparse layout."""

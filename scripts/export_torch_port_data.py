@@ -15,6 +15,10 @@ two committed `.npz` files instead:
   `build_case` and job draw (`:97-109`) make it: the link list (not the
   (L, L) matrices), the link rates, roles, proc_bws, and the job sources
   and rates.
+* `multihop_offload_tpu_torch/data/aco_data_ba_paper/`: the same ``paper``
+  cases as `.mat` files in the reference schema, as
+  `cli/datagen.generate_dataset(d, "ba", size=2, seed0=500)` writes them
+  (the drivers' dataset: `cli/train.py`, `cli/test.py`).
 * `multihop_offload_tpu_torch/data/weights.npz`: the ``params`` of the model
   of record ``SCRATCH800_decay0.99`` (K=1) and of ``SPECTRAL_K2`` (K=2),
   keyed ``<model>/cheb_<i>/<kernel|bias>``; and ``LARGE_K3_init``, the
@@ -23,14 +27,17 @@ two committed `.npz` files instead:
   shapes, and so their values, do not depend on E, so they are drawn at a
   small E).
 
-Run once from the repository root:
+Run once from the repository root (``--mat`` writes only the `.mat`
+dataset, ``--npz`` only the two `.npz` files):
 
-    JAX_PLATFORMS=cpu python scripts/export_torch_port_data.py
+    JAX_PLATFORMS=cpu python scripts/export_torch_port_data.py [--mat | --npz]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import shutil
 import sys
 import tempfile
 
@@ -40,6 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 OUT_DIR = os.path.join(ROOT, "multihop_offload_tpu_torch", "data")
+MAT_DIR = os.path.join(OUT_DIR, "aco_data_ba_paper")
 CASE_GROUPS = {
     "paper": dict(size=2, graph_sizes=None),
     "rung256": dict(size=4, graph_sizes=[250]),
@@ -136,11 +144,33 @@ def weight_arrays() -> dict:
     return out
 
 
-def main() -> None:
+def write_paper_mat(out_dir: str = MAT_DIR) -> list:
+    """The ``paper`` cases as `.mat` files, written afresh by the JAX
+    package's `generate_dataset` into an emptied `out_dir`."""
+    from multihop_offload_tpu.cli.datagen import generate_dataset
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    spec = CASE_GROUPS["paper"]
+    return generate_dataset(out_dir, "ba", size=spec["size"], seed0=500,
+                            graph_sizes=spec["graph_sizes"], verbose=False)
+
+
+def main(argv=None) -> None:
     import jax
 
+    p = argparse.ArgumentParser(description=__doc__)
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--mat", action="store_true", help="only the .mat dataset")
+    g.add_argument("--npz", action="store_true", help="only the .npz files")
+    args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT_DIR, exist_ok=True)
+    if not args.npz:
+        paths = write_paper_mat()
+        print(f"wrote {len(paths)} cases into {MAT_DIR} "
+              f"({sum(os.path.getsize(q) for q in paths)} bytes)")
+    if args.mat:
+        return
     cases = {}
     for group in CASE_GROUPS:
         cases.update(case_arrays(group))

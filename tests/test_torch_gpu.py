@@ -667,3 +667,32 @@ def test_service_card_matches_cpu(cuda):
         p = out["cpu"][rid]
         assert np.array_equal(c.dst, p.dst) and np.array_equal(c.is_local, p.is_local)
         np.testing.assert_allclose(c.job_total, p.job_total, rtol=1e-4)
+
+
+def test_evaluator_file_on_card_matches_cpu(cuda, tmp_path):
+    """One file of the committed paper dataset through the Evaluator on the
+    card and on the CPU (float32, the model of record): the same 30 rows,
+    `congest_jobs` identical and `tau`, `gnn_bl_ratio` and `gap_2_bl`
+    each within rtol 1e-4 (`runtime` excluded)."""
+    import csv
+
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models.chebconv import load_weights, params_from_jax
+    from multihop_offload_tpu_torch.train.driver import Evaluator
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        cfg = Config(datapath=PAPER_DATASET, out=str(tmp_path / dev),
+                     model_root=str(tmp_path / "model"), arrival_scale=0.15)
+        ev = Evaluator(cfg, device=dev)
+        ev.model.load_state_dict(params_from_jax(load_weights("SCRATCH800_decay0.99")))
+        with open(ev.run(files_limit=1, verbose=False), newline="") as f:
+            rows[dev] = list(csv.DictReader(f))
+    assert len(rows["cuda"]) == len(rows["cpu"]) == 30
+    floats = ("runtime", "tau", "gnn_bl_ratio", "gap_2_bl")
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        assert {k: v for k, v in got.items() if k not in floats} == \
+            {k: v for k, v in want.items() if k not in floats}
+        for k in floats[1:]:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, err_msg=k)

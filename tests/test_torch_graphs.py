@@ -171,7 +171,8 @@ def test_request_batch_follows_bench_workload():
     assert (inst.T == 1000.0).all() and (jobs.ul == 100.0).all()
 
 
-_BANNED = ("jax", "flax", "optax", "networkx", "orbax", "multihop_offload_tpu")
+_BANNED = ("jax", "flax", "optax", "networkx", "orbax", "multihop_offload_tpu", "pandas",
+           "tensorflow")
 
 
 def _imports(path):
@@ -196,7 +197,9 @@ def test_port_imports_no_jax_side():
                    "obs/spans.py", "obs/trace.py", "obs/flightrec.py", "train/metrics.py",
                    "serve/request.py", "serve/guards.py", "serve/bucketing.py",
                    "serve/workload.py", "serve/metrics.py", "serve/executor.py",
-                   "serve/watchdog.py", "serve/service.py", "cli/serve.py"):
+                   "serve/watchdog.py", "serve/service.py", "cli/serve.py",
+                   "graphs/matio.py", "train/data.py", "train/checkpoints.py",
+                   "train/driver.py", "utils/durable.py", "cli/train.py", "cli/test.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):
