@@ -2,8 +2,9 @@
 
 A copy of the matching fields of `multihop_offload_tpu.config.Config`, with
 the same names and defaults; the port keeps its own so that it never imports
-the JAX package.  `serve_model` is the port's own: the JAX service loads
-its latest orbax checkpoint, the port a committed model by name.
+the JAX package.  `serve_model` and `sim_model` are the port's own: the
+JAX service and simulator load their latest orbax checkpoint (or a fresh
+init), the port a committed model by name where it has no checkpoint.
 
 `apsp_impl`, `fp_impl` and `csv_write_all_hosts` keep the JAX names, and
 a Config takes only the value the port runs: `auto` for both routes (the
@@ -99,6 +100,25 @@ class Config:
     #                                 slow, 10x slower stuck (0 = off)
     health_watchdog_recovery_s: float = 0.0  # how long a stuck bucket stays
     #                                          on the baseline
+    # ---- simulation (sim/, cli/sim.py) --------------------------------------
+    sim_policy: str = "baseline"   # offloading policy in the loop: baseline |
+    #                                local | gnn
+    sim_model: str = "SCRATCH800_decay0.99"  # the gnn policy's committed model
+    #                                when the model directory holds no torch/
+    #                                checkpoint ("" = seeded fresh init)
+    sim_fleet: int = 8             # instances simulated as one batch
+    sim_nodes: int = 10            # nodes per random BA scenario graph
+    sim_jobs: int = 4              # jobs per instance
+    sim_rounds: int = 5            # policy re-decisions per run
+    sim_slots: int = 1000          # slots per policy round
+    sim_util: float = 0.5          # analytic bottleneck-utilization target the
+    #                                workload is rescaled to before simulating
+    sim_margin: float = 5.0        # slot sizing: dt = 1/(margin * max link rate)
+    sim_cap: int = 128             # ring-buffer capacity per queue (overflow
+    #                                packets are dropped and counted)
+    sim_fail_links: int = 0        # random links to fail at mid-horizon
+    sim_fail_nodes: int = 0        # random non-server nodes to fail likewise
+    sim_out: str = ""              # write the run / fidelity JSON record here
 
     def __post_init__(self):
         for name in ("apsp_impl", "fp_impl"):
@@ -107,6 +127,9 @@ class Config:
                     f"{name}='{getattr(self, name)}': the port picks the route by "
                     "device (the CUDA kernel on the card, its plain version on the "
                     "CPU); only 'auto' is accepted")
+        if self.sim_policy not in ("gnn", "baseline", "local"):
+            raise ValueError(f"sim_policy must be one of gnn, baseline, local; "
+                             f"got '{self.sim_policy}'")
         if self.csv_write_all_hosts:
             raise NotImplementedError(
                 "csv_write_all_hosts: per-process shard CSVs wait on `parallel/` "

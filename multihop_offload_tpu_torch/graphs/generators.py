@@ -13,8 +13,9 @@ standard library alone, draw for draw as networkx 3.6.1's
   and the set's own iteration order extends `repeated_nodes`, as
   `_random_subset` does.
 
-The adjacency equals the JAX function's (`_to_adj`) bit for bit.  The other
-generators of that module are not ported yet.
+The adjacency equals the JAX function's (`_to_adj`) bit for bit.
+`unit_disk_adjacency` (JAX `:130`), which the mobility model calls, is the
+same scipy rule.  The other generators of that module are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import random
 from typing import Tuple
 
 import numpy as np
+from scipy.spatial import distance_matrix
 
 
 def barabasi_albert(n: int, m: int = 2, seed: int = 0) -> Tuple[np.ndarray, None]:
@@ -46,3 +48,12 @@ def barabasi_albert(n: int, m: int = 2, seed: int = 0) -> Tuple[np.ndarray, None
         repeated_nodes.extend(targets)
         repeated_nodes.extend([source] * m)
     return adj, None
+
+
+def unit_disk_adjacency(pos: np.ndarray, radius: float = 1.0) -> np.ndarray:
+    """(n, n) uint8 adjacency of the unit-disk graph over 2-D points: an
+    edge where two points lie within `radius`, no self-loops (the
+    reference's mobility and Poisson-generator rule)."""
+    adj = (distance_matrix(pos, pos) <= radius).astype(np.uint8)
+    np.fill_diagonal(adj, 0)
+    return adj

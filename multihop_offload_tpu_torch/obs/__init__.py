@@ -4,10 +4,12 @@ Port of the parts of `multihop_offload_tpu/obs/` the serving path and the
 drivers use: `registry` (counters, gauges, histograms with labels),
 `events` (the JSONL run log), `spans` (nested host spans as profiler
 ranges), `trace` (request-scoped hop events) and `flightrec` (the tick
-ring dumped on a stuck dispatch), and the drivers' `start_run` /
-`finish_run` (JAX `obs/__init__.py:78-110`; no retrace hooks, no device
-memory gauges, no per-program cost table: `obs/prof` and `obs/memwatch`
-are not ported yet).  Standard library and torch only.
+ring dumped on a stuck dispatch), `devmetrics` (the simulator's
+accumulators on the card, flushed into the registry), and the drivers'
+`start_run` / `finish_run` (JAX `obs/__init__.py:78-110`; no retrace
+hooks, no device memory gauges, no per-program cost table: `obs/prof` and
+`obs/memwatch` are not ported yet).  Standard library, numpy and torch
+only.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 Port of `multihop_offload_tpu/obs/registry.py` (standard library only; the
 port keeps its own copy).  Every method holds the registry lock, so the
 serving tick and a main thread may share it.  Snapshots are plain nested
-dicts; `prometheus_text()` renders the standard text exposition.  Not
-ported: `Histogram.observe_bucketed` and `le_total`, whose callers (the
-device-metric flush and the SLO engine) are not ported yet.
+dicts; `prometheus_text()` renders the standard text exposition.
+`Histogram.observe_bucketed` takes the device-metric flush
+(`obs/devmetrics.py`).  Not ported: `le_total`, whose caller (the SLO
+engine) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import math
 import os
 import threading
 import warnings
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 # latency-shaped default buckets (seconds), Prometheus-style, +Inf implicit
 DEFAULT_BUCKETS = (
@@ -214,6 +215,35 @@ class Histogram(_Metric):
                     break
             else:
                 s.bucket_counts[-1] += 1
+
+    def observe_bucketed(self, bucket_counts: List[int], sum_: float,
+                         min_: Optional[float] = None,
+                         max_: Optional[float] = None, **labels) -> None:
+        """Merge a window of observations already bucketed (a device-side
+        histogram flushed by `obs.devmetrics`): one count per boundary of
+        this histogram plus the +Inf tail.  min/max are optional because
+        an empty window has neither."""
+        if len(bucket_counts) != len(self.buckets) + 1:
+            raise ValueError(
+                f"bucket mismatch: got {len(bucket_counts)} counts for "
+                f"{len(self.buckets)} boundaries (+Inf tail) of '{self.name}'"
+            )
+        n = int(sum(bucket_counts))
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                if not self._admit(key):
+                    return
+                s = self._series[key] = _HistSeries(len(self.buckets))
+            s.count += n
+            s.sum += float(sum_)
+            if n > 0 and min_ is not None:
+                s.min = min(s.min, float(min_))
+            if n > 0 and max_ is not None:
+                s.max = max(s.max, float(max_))
+            for i, c in enumerate(bucket_counts):
+                s.bucket_counts[i] += int(c)
 
     def stats(self, **labels) -> Optional[dict]:
         with self._lock:

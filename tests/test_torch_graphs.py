@@ -199,7 +199,10 @@ def test_port_imports_no_jax_side():
                    "serve/workload.py", "serve/metrics.py", "serve/executor.py",
                    "serve/watchdog.py", "serve/service.py", "cli/serve.py",
                    "graphs/matio.py", "train/data.py", "train/checkpoints.py",
-                   "train/driver.py", "utils/durable.py", "cli/train.py", "cli/test.py"):
+                   "train/driver.py", "utils/durable.py", "cli/train.py", "cli/test.py",
+                   "env/scheduling.py", "graphs/mobility.py", "obs/devmetrics.py",
+                   "sim/__init__.py", "sim/state.py", "sim/step.py", "sim/policies.py",
+                   "sim/runner.py", "sim/fidelity.py", "cli/sim.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):
