@@ -47,6 +47,25 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   nodes (where it offloads), and `fidelity_sweep` at utilizations 0.3 and
   0.5 with the JAX record's settings (8 x 10 nodes, margin 10, 5 x 5000
   slots, 150 served).
+- Slice 14, the bf16 precision policy (`precision.py`) on the decision
+  paths: `eval_methods` under `precision="bf16"` on the paper batch with
+  the model of record, dense (K2 in bf16, K1 on fp32), and with
+  SPECTRAL_K2, sparse (K4's forward and K6 in bf16, K1 on fp32); the
+  Evaluator on the paper dataset; the serving pool, dense (256 requests)
+  and sparse (64); one `baseline` simulator run (the full-width fleet, 2
+  rounds x 250 slots).  The bf16 kernels are held against their plain
+  versions (K2 and K6 bit for bit, K2 at (64, 112), (16, 56), (16, 112)
+  and (4, 256); K4 within one bf16 ulp at (64, 328, 32) and (16, 328,
+  4)); each path's launches equal the counts the same calls make on the
+  CPU, which also holds K1 to fp32; card against the CPU in bf16
+  (`baseline` and `local` `dst` identical, the GNN's >= 0.99, per-method
+  mean job total within 1e-2; the Evaluator's rows likewise; the
+  service's answers to the same requests within 1e-2; the sim's
+  `baseline` on 4 of the networks, 2 rounds x 200 slots, under the same
+  injected draws, identical field for field), bf16 against fp32 on the
+  card (`dst` agreement reported, and held to 0.99 for the service and
+  the sim; mean job total within JAX's gate of 0.05); every request
+  answered once; the sim's packets conserved.
 
 It
 
@@ -124,8 +143,9 @@ It
    replay file; the simulator's ms a slot and a policy round, MWIS
    sweeps a slot, its busy share and device records a slot over one
    segment, and K1 and K2 at its own operands;
-7. prints the serving line, the drivers line, the sim line, the kernels
-   line, then the
+7. prints the serving line, the drivers line, the sim line, the precision
+   line, the kernels line (with the bf16 rows `minplus_squaring_bf16`,
+   `chebconv_propagate_bf16` and `coo_apsp_bf16`), then the
    `{"ok": true, ...}` line last.
 
 Any failure raises, so the exit code is not 0 and no result line appears.
@@ -154,6 +174,11 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_FP32_INSTR_PER_S = PEAK_FP32_FLOP_PER_S / 2
+# bf16 add and min outside the tensor cores: the packed bf16x2 path
+# (`__hadd2`, `__hmin2`) issues two elements an instruction, twice the fp32
+# path's element rate (the data sheet's 133.8 TFLOP/s non-tensor bf16)
+PEAK_BF16X2_OPS_PER_S = 2 * PEAK_FP32_INSTR_PER_S
+BF16_RATE = "bf16x2 add and min outside the tensor cores, 67e12 elements/s"
 MODEL_K1 = "SCRATCH800_decay0.99"
 MODEL_K2 = "SPECTRAL_K2"
 CHEB_SCALED_TOL = 4.5e-7  # the JAX package's bar for the fused propagate
@@ -495,8 +520,9 @@ def reset_counts():
     from multihop_offload_tpu_torch.ops import minplus as mp
 
     reset_kernel_counts()
-    if mp.minplus_closure_cuda.executed is not None:
-        mp.minplus_closure_cuda.executed.zero_()
+    for ex in (mp.minplus_closure_cuda.executed, mp.minplus_closure_cuda.executed_bf16):
+        if ex is not None:
+            ex.zero_()
 
 
 def read_counts() -> dict:
@@ -506,8 +532,9 @@ def read_counts() -> dict:
     from multihop_offload_tpu_torch.ops import minplus as mp
 
     torch.cuda.synchronize()
-    ex = mp.minplus_closure_cuda.executed
-    return {**kernel_counts(), "squarings": 0 if ex is None else int(ex)}
+    ex, ex16 = mp.minplus_closure_cuda.executed, mp.minplus_closure_cuda.executed_bf16
+    return {**kernel_counts(), "squarings": 0 if ex is None else int(ex),
+            "squarings_bf16": 0 if ex16 is None else int(ex16)}
 
 
 def scaled_err(got, want) -> float:
@@ -569,15 +596,16 @@ def episode_cosines(card: dict, cpu: dict) -> torch.Tensor:
     return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-300)
 
 
-def outcomes(model, inst, jobs, device, layout=None):
+def outcomes(model, inst, jobs, device, layout=None, precision=None):
     from multihop_offload_tpu_torch.agent.policy import forward_env
     from multihop_offload_tpu_torch.env.policies import baseline_policy, local_policy
 
     with torch.no_grad():
         inst, jobs = inst.to(device), jobs.to(device)
-        return {"baseline": baseline_policy(inst, jobs, layout=layout),
+        return {"baseline": baseline_policy(inst, jobs, layout=layout, precision=precision),
                 "local": local_policy(inst, jobs, layout=layout),
-                "gnn": forward_env(model, inst, jobs, device=device, layout=layout)[0]}
+                "gnn": forward_env(model, inst, jobs, device=device, layout=layout,
+                                   precision=precision)[0]}
 
 
 def compare(tag, card: dict, cpu: dict, mask: torch.Tensor) -> None:
@@ -1433,43 +1461,71 @@ SIM_FIDELITY = dict(margin=10.0, slots_per_round=5000, min_served=150)
 SIM_KERNELS = ("fixed_point", "minplus", "chebconv")
 
 
-def plain_policy_counts(cfg, scen) -> dict:
-    """The launches one policy round asks of K1, K2 and K4, counted on
-    the CPU: the fleet and the policy's model moved there, one decision,
-    each plain version's calls counted as the launches its kernel makes
-    for them (K1 and K4 one a call, K2 one a squaring of the schedule)."""
-    from multihop_offload_tpu_torch.cli.sim import load_gnn
+def count_plain(fn):
+    """(fn(), launches) with the plain versions' calls counted as the
+    launches their kernels make for them, by the dtype they receive: K1 one
+    a call (and only on float32 or wider), K2 one a squaring of the schedule
+    (`minplus` or `minplus_bf16`), K6 one a call plus its squarings, K4 one
+    a call (`chebconv` or `chebconv_bf16`).  Runs on the CPU."""
     from multihop_offload_tpu_torch.ops import chebconv as cc
     from multihop_offload_tpu_torch.ops import fixed_point as fp
     from multihop_offload_tpu_torch.ops import minplus as mp
+
+    counts: dict = {}
+
+    def add(key, n):
+        counts[key] = counts.get(key, 0) + n
+
+    def suffix(t):
+        return "_bf16" if t.dtype == torch.bfloat16 else ""
+
+    def k1(*a, **k):
+        if any(t.dtype == torch.bfloat16 for t in a[:4]):
+            raise AssertionError("K1 received bf16: the fixed_point island broke")
+        add("fixed_point", 1)
+        return orig["fixed_point_plain"](*a, **k)
+
+    def k2(d, iters, *a, **k):
+        add("minplus" + suffix(d), iters)
+        return orig["minplus_closure_plain"](d, iters, *a, **k)
+
+    def k6(ends, mask, delays, n):
+        add("coo_apsp" + suffix(delays), 1)
+        add("minplus" + suffix(delays), mp.squaring_count(n))
+        return orig["apsp_coo_plain"](ends, mask, delays, n)
+
+    def k4(rows, cols, vals, diag, x, *a, **k):
+        add("chebconv" + suffix(x), 1)
+        return orig["chebconv_propagate_plain"](rows, cols, vals, diag, x, *a, **k)
+
+    wraps = {"fixed_point_plain": (fp, k1), "minplus_closure_plain": (mp, k2),
+             "apsp_coo_plain": (mp, k6), "chebconv_propagate_plain": (cc, k4)}
+    orig = {name: getattr(mod, name) for name, (mod, _) in wraps.items()}
+    for name, (mod, fn_) in wraps.items():
+        setattr(mod, name, fn_)
+    try:
+        with torch.no_grad():
+            out = fn()
+    finally:
+        for name, (mod, _) in wraps.items():
+            setattr(mod, name, orig[name])
+    return out, counts
+
+
+def plain_policy_counts(cfg, scen) -> dict:
+    """The launches one policy round asks of K1, K2 and K4, counted on
+    the CPU (`count_plain`): the fleet and the policy's model moved there,
+    one decision."""
+    from multihop_offload_tpu_torch.cli.sim import load_gnn
     from multihop_offload_tpu_torch.sim.policies import make_policy
     from multihop_offload_tpu_torch.sim.state import liveness_masks
-
-    counts = dict.fromkeys(SIM_KERNELS, 0)
-    wraps = ((fp, "fixed_point_plain", "fixed_point", lambda a: 1),
-             (mp, "minplus_closure_plain", "minplus", lambda a: a[1]),
-             (cc, "chebconv_propagate_plain", "chebconv", lambda a: 1))
-    orig = {name: getattr(mod, name) for mod, name, _, _ in wraps}
-
-    def counting(mod, name, key, per_call):
-        def call(*a, **k):
-            counts[key] += per_call(a)
-            return orig[name](*a, **k)
-        setattr(mod, name, call)
 
     kw = {"model": load_gnn(cfg, "cpu")[0]} if cfg.sim_policy == "gnn" else {}
     policy = make_policy(cfg.sim_policy, layout=cfg.layout, **kw)
     insts, jobss, paramss = (scen[k].to("cpu") for k in ("insts", "jobss", "paramss"))
     up = liveness_masks(insts, paramss, torch.zeros_like(insts.link_mask[:, 0], dtype=torch.int32))
-    for w in wraps:
-        counting(*w)
-    try:
-        with torch.no_grad():
-            policy(insts, jobss, *up)
-    finally:
-        for mod, name, _, _ in wraps:
-            setattr(mod, name, orig[name])
-    return counts
+    _, counts = count_plain(lambda: policy(insts, jobss, *up))
+    return {k: counts.get(k, 0) for k in SIM_KERNELS}
 
 
 def sim_pair_phase(dev, base) -> dict:
@@ -1645,9 +1701,10 @@ def sim_phase(dev, card) -> dict:
     fp_args = captured["fp"]
     d, iters = captured["mp"]
     k1 = clocks(lambda: fp.fixed_point_cuda(*fp_args), 200)
-    # 100 calls a window: on an H100 these traces lost 7-8 records a window
-    # at 20 and 50 calls alike, within `device_us`'s tenth of 100
-    k2 = clocks(lambda: mp.minplus_closure_cuda(d, iters), 100, kernels_per_call=2 + iters)
+    # 200 calls a window: on an H100 these traces lost 7-8 records a window
+    # at 20 and 50 calls alike, and 15 at 100 late in the smoke, within
+    # `device_us`'s tenth of the window only at 200
+    k2 = clocks(lambda: mp.minplus_closure_cuda(d, iters), 200, kernels_per_call=2 + iters)
     out["kernels_on_path"] = {
         "fixed_point": {"shape": list(fp_args[3].shape), **k1},
         "minplus": {"shape": list(d.shape[:2]), "iters": iters, **k2}}
@@ -1672,6 +1729,523 @@ def sim_phase(dev, card) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     out["counts"] = counts_by_run
     log(f"sim phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---- slice 14: the bf16 precision policy --------------------------------------
+
+BF16_ULP = 2.0 ** -8       # one bf16 unit in the last place, relative
+BF16_GATE_TAU = 0.05       # JAX's bf16-vs-fp32 gate (`benchmarks/precision_ab.json`)
+BF16_CARD_VS_CPU = 1e-2    # per-method mean job total, card vs CPU, both bf16
+# the sim's bf16 run: the full-width fleet, 2 rounds of 250 slots
+SIM_BF16 = dict(sim_policy="baseline", sim_rounds=2, sim_slots=250, precision="bf16")
+# calls a profiler window in this phase, the smoke's last: late in the
+# process an H100 trace lost 29 records a window of 200 calls, whatever
+# the kernels a call, past `device_us`'s tenth of 200
+WINDOW = 500
+LAUNCH_KEYS = ("fixed_point", "minplus", "minplus_bf16", "coo_apsp", "coo_apsp_bf16",
+               "chebconv", "chebconv_bf16", "blocked_fw")
+
+
+def check_launches(tag, counts: dict, want: dict) -> None:
+    """Every kernel's launches equal the CPU run's prediction (kernels it
+    does not name launched no time)."""
+    got = {k: counts[k] for k in LAUNCH_KEYS}
+    exp = {k: want.get(k, 0) for k in LAUNCH_KEYS}
+    log(f"{tag}: launches {got} (the CPU run predicts {exp})")
+    if got != exp:
+        raise AssertionError(f"{tag}: launches {got}, want {exp}")
+
+
+def compare_bf16(tag, got: dict, want: dict, mask, rtol: float, exact_baseline: bool) -> dict:
+    """Outcomes of the same requests: `dst` agreement per method (the
+    `baseline` and `local` ones identical where `exact_baseline`; the GNN's
+    >= 0.99 there), and each method's mean job total within `rtol`
+    relative; job totals finite and fp32."""
+    out = {}
+    for method, g in got.items():
+        w = want[method]
+        tot, tot_w = g.job_total.cpu(), w.job_total.cpu()
+        if tot.dtype != torch.float32 or not torch.isfinite(tot[mask]).all():
+            raise AssertionError(f"{tag}/{method}: job_total {tot.dtype}, not finite fp32")
+        differ = (g.decision.dst.cpu() != w.decision.dst.cpu()) & mask
+        agree = 1.0 - int(differ.sum()) / int(mask.sum())
+        mean, mean_w = (float(t[mask].double().mean()) for t in (tot, tot_w))
+        rel = abs(mean - mean_w) / abs(mean_w)
+        out[method] = {"dst_agreement": agree, "mean_job_total": mean,
+                       "mean_job_total_ref": mean_w, "mean_rel_delta": rel}
+        log(f"{tag}/{method}: dst agreement {agree:.4f} ({int(differ.sum())} of "
+            f"{int(mask.sum())} jobs differ); mean job total {mean:.6f} against "
+            f"{mean_w:.6f} (rel {rel:.3e}, bar {rtol})")
+        if exact_baseline and (agree < (1.0 if method != "gnn" else 0.99)):
+            raise AssertionError(f"{tag}/{method}: dst agreement {agree}")
+        if not rel <= rtol:
+            raise AssertionError(f"{tag}/{method}: mean job total rel {rel} > {rtol}")
+    return out
+
+
+def compare_bf16_rows(tag: str, got: list, want: list, rtol: float, strict: bool) -> dict:
+    """Evaluator CSV rows of the same files: per method, the mean `tau`
+    within `rtol` relative, and the rows whose `congest_jobs` is identical
+    and `tau` within `rtol` counted; `strict` (both runs bf16): every
+    `baseline` and `local` row and >= 99% of the `GNN` rows so."""
+    if len(got) != len(want) or any(g["filename"] != w["filename"] or g["Algo"] != w["Algo"]
+                                    for g, w in zip(got, want)):
+        raise AssertionError(f"{tag}: rows out of step")
+    out = {}
+    for algo in ("baseline", "local", "GNN"):
+        pairs = [(g, w) for g, w in zip(got, want) if g["Algo"] == algo]
+        a = np.array([float(g["tau"]) for g, _ in pairs])
+        b = np.array([float(w["tau"]) for _, w in pairs])
+        same = sum(g["congest_jobs"] == w["congest_jobs"] and abs(x - y) <= rtol * abs(y)
+                   for (g, w), x, y in zip(pairs, a, b))
+        rel = abs(a.mean() - b.mean()) / abs(b.mean())
+        out[algo] = {"rows": len(pairs), "rows_within": int(same), "mean_tau": a.mean(),
+                     "mean_tau_ref": b.mean(), "mean_rel_delta": rel}
+        log(f"{tag}/{algo}: {same} of {len(pairs)} rows with equal congest_jobs and tau "
+            f"within {rtol}; mean tau {a.mean():.6f} against {b.mean():.6f} (rel {rel:.3e})")
+        floor = 1.0 if algo != "GNN" else 0.99
+        if not rel <= rtol or (strict and same < floor * len(pairs)):
+            raise AssertionError(f"{tag}/{algo}: {out[algo]}")
+    return out
+
+
+def compare_served(tag: str, got: dict, want: dict) -> dict:
+    """The service's answers under bf16 against fp32 on the same requests:
+    `dst` agreement over all jobs >= 0.99 (JAX's floor) and the mean job
+    total within JAX's gate `BF16_GATE_TAU` relative."""
+    g = np.concatenate([got[k].dst for k in sorted(want)])
+    w = np.concatenate([want[k].dst for k in sorted(want)])
+    agree = float((g == w).mean())
+    mean, mean_w = (float(np.concatenate([r[k].job_total for k in sorted(want)])
+                          .astype(np.float64).mean()) for r in (got, want))
+    rel = abs(mean - mean_w) / abs(mean_w)
+    log(f"{tag}: dst agreement {agree:.4f} over {g.size} jobs (bar 0.99); mean job "
+        f"total {mean:.6f} against {mean_w:.6f} (rel {rel:.3e}, bar {BF16_GATE_TAU})")
+    if agree < 0.99 or not rel <= BF16_GATE_TAU:
+        raise AssertionError(f"{tag}: dst agreement {agree}, mean job total rel {rel}")
+    return {"dst_agreement": agree, "jobs": int(g.size), "mean_job_total": mean,
+            "mean_job_total_ref": mean_w, "mean_rel_delta": rel}
+
+
+def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
+    """K2, K6 and K4's forward in bf16 against their plain versions on the
+    card, at the bf16 paths' shapes: K2 bit for bit with the squarings run
+    of `squarings_run_plain` on the paper batch's APSP input (64, 112), the
+    service's (16, 56), (16, 112) and the rung's (4, 256); K6 bit for bit
+    at (64, L 216 -> N 112), one build and `squaring_count(n)` squarings;
+    K4 within one bf16 ulp at (64, 328, 32) and (16, 328, 4).  Then each
+    one's device us, call us, plain ms, bound (2 B an element; K2 and K6
+    also their adds and mins at the card's bf16x2 rate, `BF16_RATE`, with
+    the fp32 path's rate beside it) and the float32 kernel's device us at
+    the same shape; K4 beside `torch.bmm` in bf16."""
+    from multihop_offload_tpu_torch.env.apsp import weight_matrix_from_link_delays
+    from multihop_offload_tpu_torch.layouts.sparse import (
+        CsrIndex,
+        SparseSupport,
+        sparse_chebyshev_support,
+    )
+    from multihop_offload_tpu_torch.models.chebconv import cast_support, chebyshev_support
+    from multihop_offload_tpu_torch.ops import chebconv as cc
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.ops.sparse import COO
+
+    bf = torch.bfloat16
+    out = {"minplus_bf16": {}, "coo_apsp_bf16": {}, "chebconv_bf16": {}}
+    # ---- K2 ----------------------------------------------------------------
+    w = weight_matrix_from_link_delays(inst.adj, inst.link_index, 1.0 / inst.link_rates)
+    n = w.shape[-1]
+    paper_d = torch.where(torch.eye(n, dtype=torch.bool, device=dev), 0.0, w).to(bf)
+    shapes = {"paper": paper_d.contiguous(),
+              **{f"{b}x{m}": minplus_input(b, m).to(dev).to(bf)
+                 for b, m in ((16, 56), (16, 112), (4, 256))}}
+    for tag, d in shapes.items():
+        b, m, _ = d.shape
+        iters = mp.squaring_count(m)
+        launches = (mp.minplus_closure_cuda.launches_bf16, mp.minplus_closure_cuda.launches)
+        ex = mp.minplus_closure_cuda.executed_bf16
+        ex0 = 0 if ex is None else int(ex)
+        got = mp.minplus_closure_cuda(d, iters)
+        torch.cuda.synchronize()
+        ran = int(mp.minplus_closure_cuda.executed_bf16) - ex0
+        pair = (mp.minplus_closure_cuda.launches_bf16 - launches[0],
+                mp.minplus_closure_cuda.launches - launches[1])
+        ref = mp.minplus_closure_plain(d, iters)
+        want_ran = mp.squarings_run_plain(d, iters)
+        if not torch.equal(got, ref) or got.dtype != bf:
+            raise AssertionError(f"K2 bf16 {tag}: {int((got != ref).sum())} entries differ")
+        if pair != (iters, 0) or ran != want_ran:
+            raise AssertionError(f"K2 bf16 {tag}: launches or squarings run {ran} "
+                                 f"(squarings_run_plain {want_ran})")
+        t = clocks(lambda: mp.minplus_closure_cuda(d, iters), WINDOW,
+                   kernels_per_call=2 + iters)
+        d32 = d.float()
+        t32 = clocks(lambda: mp.minplus_closure_cuda(d32, iters), WINDOW,
+                     kernels_per_call=2 + iters)
+        plain_ms = cuda_ms(lambda: mp.minplus_closure_plain(d, iters), 5, 1)
+        ops_ms = 2.0 * m ** 3 * ran / PEAK_BF16X2_OPS_PER_S * 1e3
+        bytes_ms = 2 * b * m * m * 2 / PEAK_BYTES_PER_S * 1e3
+        out["minplus_bf16"][tag] = {
+            "shape": [b, m], "iters": iters, "squarings_run": ran,
+            "device_us": t["device_ms"] * 1e3, "call_us": t["ms"] * 1e3,
+            "host_us": t["host_us"], "plain_ms": plain_ms,
+            "bound_us": max(ops_ms, bytes_ms) * 1e3,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_rate": BF16_RATE,
+            # the same operations at the fp32 path's rate, which this kernel
+            # runs them on (widened to fp32 in shared memory)
+            "bound_fp32_path_us": max(2 * ops_ms, bytes_ms) * 1e3,
+            "fp32_device_us": t32["device_ms"] * 1e3, "fp32_call_us": t32["ms"] * 1e3}
+        r = out["minplus_bf16"][tag]
+        log(f"K2 bf16 minplus {tag} B,N={(b, m)}: bit-identical to plain bf16, {iters} "
+            f"launches, {ran} squarings run (= squarings_run_plain); on {card['smi']}: "
+            f"device {r['device_us']:.2f} us (fp32 kernel {r['fp32_device_us']:.2f}), call "
+            f"{r['call_us']:.2f} us, plain {plain_ms:.3f} ms, bound {r['bound_us']:.2f} us "
+            f"({r['bound_by']})")
+    # ---- K6 ----------------------------------------------------------------
+    n6 = sp_inst.num_pad_nodes
+    b6, l6 = sp_inst.link_rates.shape
+    delays = (1.0 / sp_inst.link_rates).to(bf).contiguous()
+    args6 = (sp_inst.link_ends, sp_inst.link_mask, delays, n6)
+    before = (mp.apsp_coo_cuda.launches_bf16, mp.minplus_closure_cuda.launches_bf16)
+    ex0 = int(mp.minplus_closure_cuda.executed_bf16)
+    got = mp.apsp_minplus_coo(*args6)
+    torch.cuda.synchronize()
+    sq6 = int(mp.minplus_closure_cuda.executed_bf16) - ex0
+    pair = (mp.apsp_coo_cuda.launches_bf16 - before[0],
+            mp.minplus_closure_cuda.launches_bf16 - before[1])
+    if pair != (1, mp.squaring_count(n6)) or not torch.equal(got, mp.apsp_coo_plain(*args6)):
+        raise AssertionError(f"K6 bf16: launches {pair} or entries differ")
+    t = clocks(lambda: mp.apsp_coo_cuda(*args6), WINDOW,
+               kernels_per_call=2 + mp.squaring_count(n6))
+    args32 = (sp_inst.link_ends, sp_inst.link_mask, delays.float(), n6)
+    t32 = clocks(lambda: mp.apsp_coo_cuda(*args32), WINDOW,
+                 kernels_per_call=2 + mp.squaring_count(n6))
+    plain_ms = cuda_ms(lambda: mp.apsp_coo_plain(*args6), 3, 1)
+    ops_ms = 2.0 * n6 ** 3 * sq6 / PEAK_BF16X2_OPS_PER_S * 1e3
+    bytes_ms = b6 * (l6 * 11 + n6 * n6 * 2) / PEAK_BYTES_PER_S * 1e3
+    out["coo_apsp_bf16"]["paper"] = {
+        "shape": [b6, l6, n6], "squarings_run": sq6, "launches_per_call": list(pair),
+        "device_us": t["device_ms"] * 1e3, "call_us": t["ms"] * 1e3, "host_us": t["host_us"],
+        "plain_ms": plain_ms, "bound_us": max(ops_ms, bytes_ms) * 1e3,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_rate": BF16_RATE,
+        "bound_fp32_path_us": max(2 * ops_ms, bytes_ms) * 1e3,
+        "fp32_device_us": t32["device_ms"] * 1e3, "fp32_call_us": t32["ms"] * 1e3}
+    r = out["coo_apsp_bf16"]["paper"]
+    log(f"K6 bf16 coo_apsp B,L,N={(b6, l6, n6)}: bit-identical to the plain chain in bf16, "
+        f"launches (build, squarings) {pair}, {sq6} squarings run; device "
+        f"{r['device_us']:.2f} us (fp32 {r['fp32_device_us']:.2f}), call {r['call_us']:.2f} "
+        f"us, plain {plain_ms:.3f} ms, bound {r['bound_us']:.2f} us ({r['bound_by']})")
+    # ---- K4's forward --------------------------------------------------------
+    sup32 = sparse_chebyshev_support(sp_inst.sparse.ext, mask=sp_inst.ext_mask,
+                                     csr=sp_inst.sparse.ext_csr)
+    sup = cast_support(sup32, bf)
+    dense = chebyshev_support(inst.adj_ext, inst.ext_mask, dtype=bf).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for f, rows in ((32, slice(None)), (4, slice(0, 16))):
+        e0, c0 = sup.edges, sup.csr
+        s = SparseSupport(
+            edges=COO(rows=e0.rows[rows].contiguous(), cols=e0.cols[rows].contiguous(),
+                      vals=e0.vals[rows].contiguous(), shape=e0.shape),
+            diag=sup.diag[rows].contiguous(),
+            csr=CsrIndex(row_ptr=c0.row_ptr[rows].contiguous(),
+                         col_ptr=c0.col_ptr[rows].contiguous(),
+                         col_order=c0.col_order[rows].contiguous()))
+        b, e = s.diag.shape
+        x = torch.randn((b, e, f), generator=gen, device=dev).to(bf)
+        e_ = s.edges
+        launches = cc.chebconv_propagate_cuda.launches_bf16
+        got = cc.chebconv_propagate(s, x)
+        again = cc.chebconv_propagate(s, x)
+        launched = cc.chebconv_propagate_cuda.launches_bf16 - launches
+        ref = cc.chebconv_propagate_plain(e_.rows, e_.cols, e_.vals, s.diag, x)
+        torch.cuda.synchronize()
+        err = ((got.float() - ref.float()).abs()
+               - (BF16_ULP * ref.float().abs() + 1e-6)).max().item()
+        if launched != 2 or err > 0 or not torch.equal(got, again):
+            raise AssertionError(f"K4 bf16 F={f}: beyond one ulp ({err}) or not "
+                                 "deterministic")
+        fwd = lambda: cc.chebconv_propagate_cuda(  # noqa: E731
+            s.csr.row_ptr, None, e_.cols, e_.vals, s.diag, x)
+        t = clocks(fwd, WINDOW, kernels_per_call=1)
+        v32, d32, x32 = e_.vals.float(), s.diag.float(), x.float()
+        t32 = clocks(lambda: cc.chebconv_propagate_cuda(s.csr.row_ptr, None, e_.cols, v32,
+                                                        d32, x32), WINDOW,
+                     kernels_per_call=1)
+        plain_ms = cuda_ms(lambda: cc.chebconv_propagate_plain(e_.rows, e_.cols, e_.vals,
+                                                               s.diag, x), 20)
+        dsup = dense[rows]
+        lib = clocks(lambda: torch.bmm(dsup, x), WINDOW)
+        real = int((e_.vals != 0).sum())
+        bytes_ms = (real * 6 + b * (e + 1) * 4 + b * e * 2 + 2 * b * e * f * 2) \
+            / PEAK_BYTES_PER_S * 1e3
+        ops_ms = 2.0 * (real + b * e) * f / PEAK_FP32_FLOP_PER_S * 1e3
+        out["chebconv_bf16"][f"F{f}"] = {
+            "shape": [b, e, f], "nnz_real": real, "max_ulp_excess": err,
+            "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+            "device_us": t["device_ms"] * 1e3, "call_us": t["ms"] * 1e3,
+            "host_us": t["host_us"], "plain_ms": plain_ms,
+            "bound_us": max(bytes_ms, ops_ms) * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "fp32_device_us": t32["device_ms"] * 1e3,
+            "library": "torch.bmm bf16 (dense support)",
+            "library_device_us": lib["device_ms"] * 1e3, "library_call_us": lib["ms"] * 1e3}
+        r = out["chebconv_bf16"][f"F{f}"]
+        log(f"K4 bf16 chebconv B,E,F={(b, e, f)} ({real} real entries): within one bf16 ulp "
+            f"of plain, two calls bit-identical; device {r['device_us']:.2f} us (fp32 "
+            f"{r['fp32_device_us']:.2f}), call {r['call_us']:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, bound {r['bound_us']:.3f} us ({r['bound_by']}); "
+            f"torch.bmm bf16 device {r['library_device_us']:.2f} us")
+    return out
+
+
+def precision_phase(dev, card, paper, cfg, fp32_card: dict) -> dict:
+    """Slice 14: the bf16 precision policy on the decision paths at full
+    width.  `paper`: the committed networks of the paper batch; `fp32_card`:
+    the card's float32 outcomes of the same requests (dense, model of
+    record; sparse, SPECTRAL_K2).  Each path is driven with every count at
+    0 just before it and read just after, and its launches held to the
+    counts the same calls make on the CPU (`count_plain`); its answers are
+    held to that CPU run and to fp32 on the card."""
+    import shutil
+    import tempfile
+
+    from multihop_offload_tpu_torch.cli import sim as cli_sim
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import request_batch
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models.chebconv import load_model, load_weights
+    from multihop_offload_tpu_torch.models.chebconv import params_from_jax
+    from multihop_offload_tpu_torch.precision import resolve_precision
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+    from multihop_offload_tpu_torch.sim.state import liveness_masks
+    from multihop_offload_tpu_torch.train import driver as drv
+    from multihop_offload_tpu_torch.train.driver import eval_methods
+
+    t_phase = time.perf_counter()
+    pol = resolve_precision("bf16", device=dev)
+    bf = pol.storage_dtype
+    out: dict = {"policy": {"name": pol.name, "compute": str(pol.compute_dtype),
+                            "accum": str(pol.accum_dtype), "storage": str(pol.storage_dtype)},
+                 "paths": {}}
+    counts_by_path = {}
+    batches = {}
+    for layout, name in (("dense", MODEL_K1), ("sparse", MODEL_K2)):
+        i_cpu, j_cpu, _ = request_batch(paper, 4, seed=0, cfg=cfg, dtype=bf, device="cpu",
+                                        layout=layout)
+        batches[layout] = (i_cpu, j_cpu, load_model(name, device="cpu", layout=layout,
+                                                    policy=pol),
+                           load_model(name, device=dev, layout=layout, policy=pol))
+    out["kernels"] = bf16_kernel_phase(dev, card, batches["dense"][0].to(dev),
+                                       batches["sparse"][0].to(dev))
+    for layout, (i_cpu, j_cpu, m_cpu, m_dev) in batches.items():
+        tag = f"bf16 eval_methods ({layout}, {MODEL_K1 if layout == 'dense' else MODEL_K2})"
+        cpu_out, want = count_plain(lambda: outcomes(m_cpu, i_cpu, j_cpu, "cpu", layout, pol))
+        inst, jobs = i_cpu.to(dev), j_cpu.to(dev)
+        reset_counts()
+        totals = eval_methods(m_dev, inst, jobs, device=dev, layout=layout, precision=pol)
+        counts = read_counts()
+        check_launches(tag, counts, want)
+        if counts["squarings_bf16"] <= 0:
+            raise AssertionError(f"{tag}: no bf16 squaring ran")
+        counts_by_path[f"bf16_eval_methods_{layout}"] = counts
+        card_out = outcomes(m_dev, inst, jobs, dev, layout, pol)
+        for mname, tot in zip(("baseline", "local", "gnn"), totals):
+            if not torch.equal(tot, card_out[mname].job_total):
+                raise AssertionError(f"{tag}: eval_methods {mname} differs from its policy")
+        mask = j_cpu.mask
+        rec = {"card_vs_cpu": compare_bf16(f"{tag} card vs CPU", card_out, cpu_out, mask,
+                                           BF16_CARD_VS_CPU, True),
+               "bf16_vs_fp32": compare_bf16(f"{tag} bf16 vs fp32 on the card", card_out,
+                                            fp32_card[layout], mask, BF16_GATE_TAU, False)}
+        fp32_model = fp32_card[f"{layout}_model"]
+        i32, j32 = fp32_card[f"{layout}_batch"]
+        ms16 = wall_ms(lambda: eval_methods(m_dev, inst, jobs, device=dev, layout=layout,
+                                            precision=pol), 10)
+        ms32 = wall_ms(lambda: eval_methods(fp32_model, i32, j32, device=dev, layout=layout), 10)
+        busy16 = busy_share(lambda: eval_methods(m_dev, inst, jobs, device=dev,
+                                                 layout=layout, precision=pol), ms16)
+        busy32 = busy_share(lambda: eval_methods(fp32_model, i32, j32, device=dev, layout=layout), ms32)
+        rec.update(launches=counts, ms_bf16=ms16, ms_fp32=ms32, busy_bf16=busy16,
+                   busy_fp32=busy32)
+        log(f"{tag}: {ms16:.2f} ms a batch of {inst.adj.shape[0]} (fp32 {ms32:.2f}); busy "
+            f"{busy16['busy_ms']:.2f} ms, share {busy16['share']:.3f} (fp32 "
+            f"{busy32['busy_ms']:.2f}, {busy32['share']:.3f})")
+        out["paths"][f"eval_methods_{layout}"] = rec
+
+    tmp = tempfile.mkdtemp(prefix="mho_bf16_")
+    try:
+        # ---- the Evaluator on the paper dataset ------------------------------
+        ecfg = Config(datapath=PAPER_DATASET, out=os.path.join(tmp, "eval"),
+                      model_root=os.path.join(tmp, "model"), arrival_scale=0.15, T=1000,
+                      num_instances=10, precision="bf16")
+        evs = {"card": drv.Evaluator(ecfg, device=dev),
+               "cpu": drv.Evaluator(dataclasses.replace(ecfg, out=os.path.join(tmp, "cpu")),
+                                    device="cpu"),
+               "fp32": drv.Evaluator(dataclasses.replace(ecfg, out=os.path.join(tmp, "fp32"),
+                                                         precision="fp32"), device=dev)}
+        per_file = {"card": [], "cpu": []}
+        for name, ev in evs.items():
+            ev.model.load_state_dict(params_from_jax(load_weights(MODEL_K1)))
+        inner = {k: evs[k]._eval_methods for k in per_file}
+
+        def on_card(inst, jobs, gen):
+            reset_counts()
+            res = inner["card"](inst, jobs, gen)
+            per_file["card"].append(read_counts())
+            return res
+
+        def on_cpu(inst, jobs, gen):
+            res, c = count_plain(lambda: inner["cpu"](inst, jobs, gen))
+            per_file["cpu"].append(c)
+            return res
+
+        evs["card"]._eval_methods, evs["cpu"]._eval_methods = on_card, on_cpu
+        t0 = time.perf_counter()
+        rows = {"card": read_csv_rows(evs["card"].run(verbose=False))}
+        card_s = time.perf_counter() - t0
+        rows["cpu"] = read_csv_rows(evs["cpu"].run(files_limit=4, verbose=False))
+        t0 = time.perf_counter()
+        rows["fp32"] = read_csv_rows(evs["fp32"].run(verbose=False))
+        fp32_s = time.perf_counter() - t0
+        want = per_file["cpu"][0]
+        if len(per_file["card"]) != 20 or any(c != want for c in per_file["cpu"]):
+            raise AssertionError(f"bf16 Evaluator: {len(per_file['card'])} files, CPU "
+                                 f"launches {per_file['cpu']}")
+        bad = [fid for fid, c in enumerate(per_file["card"])
+               if any(c[k] != want.get(k, 0) for k in LAUNCH_KEYS)]
+        log(f"bf16 Evaluator (dense, {MODEL_K1}, 20 files x 10 job sets): launches of "
+            f"every file {per_file['card'][0]} (the CPU run predicts {want}); files that "
+            f"differ {bad}; {card_s:.2f} s")
+        if bad:
+            raise AssertionError(f"bf16 Evaluator: launches of files {bad} differ")
+        if not (want.get("minplus_bf16") and want.get("fixed_point")):
+            raise AssertionError(f"bf16 Evaluator: the CPU run predicts {want}")
+        log(f"bf16 Evaluator {card_s * 1e3 / 20:.2f} ms a file, fp32 "
+            f"{fp32_s * 1e3 / 20:.2f} (whole runs of 20 files, bf16 first)")
+        out["evaluator"] = {
+            "rows": len(rows["card"]), "s": card_s, "ms_per_file": card_s * 1e3 / 20,
+            "fp32_ms_per_file": fp32_s * 1e3 / 20,
+            "launches_per_file": want,
+            "card_vs_cpu": compare_bf16_rows("bf16 Evaluator card vs CPU (4 files)",
+                                             rows["card"][:len(rows["cpu"])], rows["cpu"],
+                                             BF16_CARD_VS_CPU, strict=True),
+            "bf16_vs_fp32": compare_bf16_rows("bf16 Evaluator vs fp32 on the card",
+                                              rows["card"], rows["fp32"], BF16_GATE_TAU,
+                                              strict=False)}
+        counts_by_path["bf16_evaluator_file0"] = per_file["card"][0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the serving pool, dense and sparse ---------------------------------
+    pool = case_pool([20, 50, 80, 110], per_size=2, seed=0)
+    reqs = list(request_stream(pool, 256, seed=1, arrival_scale=0.15))
+    base = dict(serve_slots=16, serve_queue_cap=64, serve_deadline_s=60.0)
+    out["serving"] = {}
+    for layout, model, n_req in (("dense", MODEL_K1, 256), ("sparse", MODEL_K2, 64)):
+        tag = f"bf16 service {layout}"
+        # fp32 first, in the same call: the yardstick of the bf16 run
+        fcfg = Config(**base, serve_model=model, layout=layout,
+                      cheb_k=2 if layout == "sparse" else 1)
+        fsvc, _ = build_service(fcfg, pool=pool, device=dev)
+        t0 = time.perf_counter()
+        fres = check_conservation(f"fp32 service {layout}", fsvc,
+                                  closed_loop(fsvc, reqs[:n_req]))
+        fp32_rps = len(fres) / (time.perf_counter() - t0)
+        scfg = dataclasses.replace(fcfg, precision="bf16")
+        # the same requests served on the CPU under bf16: the launches the
+        # card's run must make, and the answers it must give
+        csvc, _ = build_service(scfg, pool=pool, device="cpu")
+        cres, want = count_plain(lambda: check_conservation(
+            f"{tag} on the CPU", csvc, closed_loop(csvc, reqs[:n_req])))
+        svc, _ = build_service(scfg, pool=pool, device=dev)
+        if svc.dtype != bf or not svc.precision.mixed:
+            raise AssertionError("bf16 service: not packing bf16")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = check_conservation(tag, svc, closed_loop(svc, reqs[:n_req]))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_launches(tag, counts, want)
+        s = svc.stats.summary(wall_s=wall)
+        rec = {"requests": len(res), "wall_s": wall, "requests_per_s": len(res) / wall,
+               "fp32_requests_per_s": fp32_rps, "latency": s["latency"], "launches": counts,
+               "card_vs_cpu": compare_responses(f"{tag} card vs CPU", res, cres,
+                                                BF16_CARD_VS_CPU),
+               "bf16_vs_fp32": compare_served(f"{tag} vs fp32 on the card", res, fres)}
+        out["serving"][layout] = rec
+        counts_by_path[f"bf16_service_{layout}"] = counts
+        log(f"{tag} ({n_req} requests, 16 slots): every request answered once; "
+            f"{len(res) / wall:.1f} requests/s (fp32 {fp32_rps:.1f}, just before); dst "
+            f"agreement with fp32 {rec['bf16_vs_fp32']['dst_agreement']:.4f}")
+
+    # ---- one baseline simulator run ------------------------------------------
+    scfg = dataclasses.replace(Config(model_root=os.path.join(ROOT, "build",
+                                                              "sim_no_checkpoint")),
+                               **{**SIM_FULL, **SIM_BF16})
+    # fp32 first, in the same call: the yardstick of the bf16 run
+    fscen = cli_sim.build_scenarios(dataclasses.replace(scfg, precision="fp32"), dev)
+    t0 = time.perf_counter()
+    frun = fscen["sim"].run(fscen["insts"], fscen["jobss"], fscen["paramss"], fscen["seeds"])
+    fp32_ms = (time.perf_counter() - t0) * 1e3 / (scfg.sim_rounds * scfg.sim_slots)
+    scen = cli_sim.build_scenarios(scfg, dev)
+    from multihop_offload_tpu_torch.sim.policies import make_policy
+
+    cpu_policy = make_policy("baseline", precision=pol, layout=scfg.layout)
+    insts, jobss, paramss = (scen[k].to("cpu") for k in ("insts", "jobss", "paramss"))
+    up = liveness_masks(insts, paramss, torch.zeros_like(insts.link_mask[:, 0],
+                                                         dtype=torch.int32))
+    _, per_round = count_plain(lambda: cpu_policy(insts, jobss, *up))
+    want = {k: v * scfg.sim_rounds for k, v in per_round.items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    run = scen["sim"].run(scen["insts"], scen["jobss"], scen["paramss"], scen["seeds"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    summary = cli_sim.summarize(scfg, scen, run)
+    check_launches("bf16 sim baseline", counts, want)
+    if not summary["conservation_ok"]:
+        raise AssertionError(f"bf16 sim: conservation failed {summary}")
+    slots = scfg.sim_rounds * scfg.sim_slots
+    same_dst = float((run.routes.dst == frun.routes.dst).double().mean())
+    out["sim"] = {"rounds": scfg.sim_rounds, "slots": slots, "wall_s": wall,
+                  "ms_per_slot": wall * 1e3 / slots, "fp32_ms_per_slot": fp32_ms,
+                  "last_round_dst_agreement_vs_fp32": same_dst, "launches": counts,
+                  "delivered": summary["delivered"], "generated": summary["generated"]}
+    counts_by_path["bf16_sim_baseline"] = counts
+    log(f"bf16 sim baseline (fleet {scfg.sim_fleet}, n {scfg.sim_nodes}, {scfg.sim_rounds} x "
+        f"{scfg.sim_slots} slots): conservation held, {out['sim']['ms_per_slot']:.3f} ms a "
+        f"slot (fp32 {fp32_ms:.3f}, just before), delivered {summary['delivered']} of "
+        f"{summary['generated']}; last round's dst agreement with fp32 {same_dst:.4f} "
+        "(bar 0.99)")
+    if same_dst < 0.99:
+        raise AssertionError(f"bf16 sim: last round's dst agreement with fp32 {same_dst}")
+    # the card against the CPU under bf16 at the pair cell (`SIM_PAIR`), one
+    # fleet and one set of injected draws: every state field and every
+    # round's routes identical
+    pcfg = dataclasses.replace(scfg, **SIM_PAIR)
+    pscen = cli_sim.build_scenarios(pcfg, "cpu")
+    draws = cli_sim.uniform_draws(pscen["sim"].spec, pcfg.sim_fleet, pcfg.sim_rounds,
+                                  pcfg.sim_slots, seed=13)
+    pair = {}
+    for d in ("cpu", dev):
+        _, prun, prounds = cli_sim.run_on(pcfg, pscen, d, draws)
+        pair[torch.device(d).type] = (prun.state.to("cpu"), [r[0].cpu() for r in prounds])
+    differ = cli_sim.fields_that_differ(pair["cuda"][0], pair["cpu"][0])
+    same_rounds = [bool(torch.equal(a, b)) for a, b in zip(pair["cuda"][1], pair["cpu"][1])]
+    log(f"bf16 sim baseline card vs CPU (fleet {pcfg.sim_fleet}, {pcfg.sim_rounds} x "
+        f"{pcfg.sim_slots} slots, injected draws): state fields that differ {differ}; "
+        f"routes identical per round {same_rounds}")
+    if differ or not all(same_rounds) or len(same_rounds) != pcfg.sim_rounds:
+        raise AssertionError(f"bf16 sim card vs CPU: fields {differ}, rounds {same_rounds}")
+    out["sim"]["card_vs_cpu"] = {"fleet": pcfg.sim_fleet, "rounds": pcfg.sim_rounds,
+                                 "slots": pcfg.sim_slots, "fields_differ": differ,
+                                 "routes_identical": same_rounds}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["counts"] = counts_by_path
+    log(f"precision phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -1972,6 +2546,12 @@ def main() -> int:
 
     # ---- slice 13: the closed-loop packet simulator ---------------------------
     sim = sim_phase(dev, card)
+
+    # ---- slice 14: the bf16 precision policy on the decision paths ----------
+    prec = precision_phase(dev, card, paper, cfg, {
+        "dense": card_out, "sparse": sp_card, "dense_model": model,
+        "dense_batch": (inst, jobs), "sparse_model": sp_model_k2,
+        "sparse_batch": (sp_inst, sp_jobs)})
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -1980,10 +2560,15 @@ def main() -> int:
                **serving.pop("counts"),
                "driver_eval_file": drivers.pop("eval_counts_file0"),
                "driver_train_file": drivers.pop("train_counts_file0"),
-               **sim.pop("counts")}
+               **sim.pop("counts"), **prec.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
+    pk = prec.pop("kernels")
+    print(json.dumps({"precision": prec}), flush=True)
+    k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
+    k4b = pk["chebconv_bf16"]["F32"]
+    pc = prec["paths"]
     kernels = [
         {"name": "fixed_point", "route": "cuda",
          "source": "multihop_offload_tpu_torch/csrc/fixed_point.cu",
@@ -2057,6 +2642,43 @@ def main() -> int:
          "launches": k5["launches"]["ragged_index"], "max_abs_err": 0.0,
          **k5["sort"], "shape": [k5["shape"][0], k5["shape"][1], k5["cap"]],
          "launches_by_path": {k: v["ragged_index"] for k, v in by_path.items()}},
+        {"name": "minplus_squaring_bf16", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/minplus_bf16.cu",
+         "replaces": "multihop_offload_tpu/ops/minplus.py:88",
+         "launches": pc["eval_methods_dense"]["launches"]["minplus_bf16"],
+         "squarings": pc["eval_methods_dense"]["launches"]["squarings_bf16"],
+         "max_abs_err": 0.0, "ms": k2b["call_us"] / 1e3,
+         "device_ms": k2b["device_us"] / 1e3, "plain_ms": k2b["plain_ms"],
+         "bound_ms": k2b["bound_us"] / 1e3, "bound_by": k2b["bound_by"],
+         "bound_rate": k2b["bound_rate"],
+         "bound_fp32_path_ms": k2b["bound_fp32_path_us"] / 1e3,
+         "library_ms": None, "shape": k2b["shape"],
+         "fp32_device_ms": k2b["fp32_device_us"] / 1e3, "shapes": pk["minplus_bf16"],
+         "launches_by_path": {k: v["minplus_bf16"] for k, v in by_path.items()}},
+        {"name": "chebconv_propagate_bf16", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/chebconv_bf16.cu",
+         "replaces": "multihop_offload_tpu/ops/chebconv.py:162",
+         "launches": pc["eval_methods_sparse"]["launches"]["chebconv_bf16"],
+         "max_abs_err": k4b["max_abs_err"], "ms": k4b["call_us"] / 1e3,
+         "device_ms": k4b["device_us"] / 1e3, "plain_ms": k4b["plain_ms"],
+         "bound_ms": k4b["bound_us"] / 1e3, "bound_by": k4b["bound_by"],
+         "library_ms": k4b["library_call_us"] / 1e3, "library": k4b["library"],
+         "library_device_ms": k4b["library_device_us"] / 1e3, "shape": k4b["shape"],
+         "fp32_device_ms": k4b["fp32_device_us"] / 1e3, "f4": pk["chebconv_bf16"]["F4"],
+         "launches_by_path": {k: v["chebconv_bf16"] for k, v in by_path.items()}},
+        {"name": "coo_apsp_bf16", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/coo_apsp_bf16.cu",
+         "replaces": "multihop_offload_tpu/ops/minplus.py:487",
+         "launches": pc["eval_methods_sparse"]["launches"]["coo_apsp_bf16"],
+         "max_abs_err": 0.0, "ms": k6b["call_us"] / 1e3,
+         "device_ms": k6b["device_us"] / 1e3, "plain_ms": k6b["plain_ms"],
+         "bound_ms": k6b["bound_us"] / 1e3, "bound_by": k6b["bound_by"],
+         "bound_rate": k6b["bound_rate"],
+         "bound_fp32_path_ms": k6b["bound_fp32_path_us"] / 1e3,
+         "library_ms": None, "shape": k6b["shape"],
+         "fp32_device_ms": k6b["fp32_device_us"] / 1e3,
+         "squarings_per_call": k6b["squarings_run"],
+         "launches_by_path": {k: v["coo_apsp_bf16"] for k, v in by_path.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

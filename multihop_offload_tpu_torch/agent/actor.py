@@ -22,6 +22,7 @@ from multihop_offload_tpu_torch.layouts.sparse import (
     sparse_chebyshev_support,
 )
 from multihop_offload_tpu_torch.models.chebconv import chebyshev_support
+from multihop_offload_tpu_torch.precision import island_dtype
 
 
 @dataclasses.dataclass
@@ -53,8 +54,12 @@ def build_ext_features(inst, jobs) -> torch.Tensor:
     b, n = inst.proc_bws.shape
     dt = inst.ext_rate.dtype
     zero = torch.zeros((), dtype=dt, device=inst.ext_rate.device)
-    arr = torch.zeros((b, n), dtype=dt, device=zero.device).scatter_add_(
-        1, jobs.src.long(), torch.where(jobs.mask, jobs.rate * jobs.ul, zero))
+    # the per-node sums accumulate at >= fp32 and are rounded once to the
+    # storage dtype (no bf16 scatter-add: lossy, and unordered on the card)
+    acc = island_dtype(dt)
+    arr = torch.zeros((b, n), dtype=acc, device=zero.device).scatter_add_(
+        1, jobs.src.long(), torch.where(jobs.mask, jobs.rate * jobs.ul, zero).to(acc)
+    ).to(dt)
     jobs_arrivals = torch.cat(
         [torch.zeros((b, inst.num_pad_links), dtype=dt, device=zero.device),
          arr * inst.comp_mask], dim=1)

@@ -39,10 +39,13 @@ def forward_env(
     compat_diagonal_bug: bool = False,
     device=None,
     layout=None,
+    precision=None,
 ) -> tuple[PolicyOutcome, ActorOutput]:
     """Run the GNN policy on a batch on `device` (default CUDA; the model,
     instance and jobs are moved there).  `compat_diagonal_bug=True` feeds
-    the decision path the reference's cycled node-delay diagonal."""
+    the decision path the reference's cycled node-delay diagonal.  The
+    model carries its own compute dtypes (`make_model(policy=)`); the
+    `precision` policy (None: fp32) narrows the APSP."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -57,5 +60,6 @@ def forward_env(
     else:
         unit_diag = torch.diagonal(actor.delay_matrix, dim1=1, dim2=2)
     outcome = evaluate_spmatrix_policy(inst, jobs, actor.link_delay, unit_diag,
-                                       gen, explore=explore, prob=prob, layout=lay)
+                                       gen, explore=explore, prob=prob, layout=lay,
+                                       precision=precision)
     return outcome, actor

@@ -13,7 +13,9 @@ serving summary as JSON.  It runs on CUDA unless `--device cpu` is given,
 and raises when CUDA is absent.  The JAX demo stops ticking once the queue
 is empty, which under `--serve_overlap` leaves the last dispatched batch
 unanswered; here `drain()` settles it, so every admitted request is
-answered.
+answered.  `--precision bf16` (or `auto` on the card) serves under the
+bf16 policy: the model at its compute dtypes, the requests stored and
+shipped as bf16, the APSP squared in bf16.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
     """Construct (service, pool) from config.  `pool` overrides the traffic
     pool of `cfg.serve_sizes`; `clock` the service's time source; `model`
     the model to serve (default: the committed `cfg.serve_model`, or a fresh
-    init seeded by `cfg.seed`); `device` where it runs (default CUDA)."""
+    init seeded by `cfg.seed`, built under `cfg.precision`'s policy; a
+    given model must carry it); `device` where it runs (default CUDA)."""
     from multihop_offload_tpu_torch.models.chebconv import load_model, make_model
     from multihop_offload_tpu_torch.serve.service import OffloadService
     from multihop_offload_tpu_torch.serve.workload import buckets_for_pool, case_pool
@@ -46,20 +49,21 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
         pool, num_buckets=max(1, cfg.serve_buckets), round_to=cfg.round_to
     )
     dtype = cfg.torch_dtype
+    policy = cfg.precision_policy("cuda" if device is None else device)
     source = "the given model"
     if model is None and cfg.serve_model:
-        model = load_model(cfg.serve_model, dtype=dtype, device="cpu",
-                           layout=cfg.layout)
+        model = load_model(cfg.serve_model, device="cpu", layout=cfg.layout,
+                           policy=policy)
         source = f"committed model {cfg.serve_model}"
     elif model is None:
-        model = make_model(cfg, dtype=dtype, layout=cfg.layout,
+        model = make_model(cfg, layout=cfg.layout, policy=policy,
                            generator=torch.Generator().manual_seed(cfg.seed))
         source = f"fresh-init weights (seed {cfg.seed})"
     service = OffloadService(
         model, buckets,
         slots=cfg.serve_slots, queue_cap=cfg.serve_queue_cap,
         deadline_s=cfg.serve_deadline_s, prob=cfg.prob,
-        dtype=dtype, precision=cfg.precision, layout=cfg.layout,
+        dtype=dtype, precision=policy, layout=cfg.layout,
         trace=cfg.obs_trace,
         ragged=cfg.serve_ragged, overlap=cfg.serve_overlap,
         ladder_alpha=cfg.serve_ladder_alpha,

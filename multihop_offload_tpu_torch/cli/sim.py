@@ -16,7 +16,10 @@ device-metric block.  `--smoke` is a tiny self-check of the baseline and
 local policies; `--fidelity` runs `sim.fidelity.fidelity_sweep` and writes
 its record where `--sim_out` points (required: the JAX default path is
 the JAX package's own record).  It runs on CUDA unless `--device cpu` is
-given, and raises when CUDA is absent.
+given, and raises when CUDA is absent.  `--precision bf16` (or `auto` on
+the card) runs the policies under the bf16 policy: the gnn actor at its
+compute dtypes and every round's APSP squared in bf16 (the cases and the
+slot loop stay at `--dtype`, as in the JAX simulator).
 """
 
 from __future__ import annotations
@@ -36,23 +39,25 @@ def load_gnn(cfg: Config, device=None):
     """(model, source) of the gnn policy on `device`: the port's latest
     checkpoint in ``cfg.model_dir()/torch`` when there is one, else the
     committed model `cfg.sim_model`, else (`sim_model` empty) a fresh init
-    seeded by `cfg.seed`."""
+    seeded by `cfg.seed`; built under `cfg.precision`'s policy on that
+    device."""
     from multihop_offload_tpu_torch.models.chebconv import load_model, make_model
     from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 
-    dtype = cfg.torch_dtype
+    policy = cfg.precision_policy(device)
+    dtype = policy.param_dtype
     directory = os.path.join(cfg.model_dir(), "torch")
     step = ckpt_lib.latest_step(directory)
     if step is not None:
-        model = make_model(cfg, dtype=dtype, layout=cfg.layout)
+        model = make_model(cfg, layout=cfg.layout, policy=policy)
         params = ckpt_lib.restore_checkpoint_raw(directory, step)["params"]
         model.load_state_dict({k: v.to(dtype) for k, v in params.items()})
         source = f"checkpoint step {step} of {directory}"
     elif cfg.sim_model:
-        model = load_model(cfg.sim_model, dtype=dtype, device="cpu", layout=cfg.layout)
+        model = load_model(cfg.sim_model, device="cpu", layout=cfg.layout, policy=policy)
         source = f"committed model {cfg.sim_model}"
     else:
-        model = make_model(cfg, dtype=dtype, layout=cfg.layout,
+        model = make_model(cfg, layout=cfg.layout, policy=policy,
                            generator=torch.Generator().manual_seed(cfg.seed))
         source = f"fresh-init weights (seed {cfg.seed})"
     print(f"sim gnn policy: {source}")
@@ -122,11 +127,12 @@ def build_scenarios(cfg: Config, device=None) -> dict:
             fail_link_slot=fail_link, fail_node_slot=fail_node))
 
     source = None
+    precision = cfg.precision_policy(dev)
     if cfg.sim_policy == "gnn":
         model, source = load_gnn(cfg, dev)
-        policy = make_policy("gnn", model=model, precision=cfg.precision, layout=lay)
+        policy = make_policy("gnn", model=model, precision=precision, layout=lay)
     else:
-        policy = make_policy(cfg.sim_policy, precision=cfg.precision, layout=lay)
+        policy = make_policy(cfg.sim_policy, precision=precision, layout=lay)
     spec = spec_for(insts, jobss, cap=cfg.sim_cap)
     return {
         "sim": FleetSim(spec, policy, rounds=cfg.sim_rounds, slots_per_round=cfg.sim_slots,
@@ -280,7 +286,9 @@ def run_on(cfg: Config, scen: dict, device, draws: list):
     from multihop_offload_tpu_torch.sim.runner import FleetSim, InjectedDraws
 
     kw = {"model": load_gnn(cfg, device)[0]} if cfg.sim_policy == "gnn" else {}
-    sim = FleetSim(scen["sim"].spec, make_policy(cfg.sim_policy, layout=cfg.layout, **kw),
+    precision = cfg.precision_policy(device)
+    sim = FleetSim(scen["sim"].spec, make_policy(cfg.sim_policy, layout=cfg.layout,
+                                                 precision=precision, **kw),
                    rounds=cfg.sim_rounds, slots_per_round=cfg.sim_slots, dtype=cfg.torch_dtype)
     rounds = record_rounds(sim)
     insts, jobss, paramss = (scen[k].to(device) for k in ("insts", "jobss", "paramss"))

@@ -11,6 +11,9 @@ test CSV.  As in the JAX package the GNN is a seeded fresh init (the JAX
 entry point would load a TF-format checkpoint from the model directory;
 the port refuses one until `models/tf_import.py` is ported).  It runs on
 CUDA unless `--device cpu` is given, and raises when CUDA is absent.
+`--precision bf16` (or `auto` on the card) evaluates under the bf16
+policy: the files stored as bf16, the model at its compute dtypes, the
+APSP squared in bf16 (`train.driver.Evaluator`).
 """
 
 from __future__ import annotations

@@ -21,6 +21,12 @@ import dataclasses
 import os
 from typing import Optional
 
+from multihop_offload_tpu_torch.precision import (
+    PRECISION_CHOICES,
+    PrecisionPolicy,
+    resolve_precision,
+)
+
 
 @dataclasses.dataclass
 class Config:
@@ -63,7 +69,8 @@ class Config:
     arrival_scale: float = 0.1     # job arrival-rate scale
     layout: str = "dense"          # instance layout: dense | sparse | auto
     dtype: str = "float32"         # computation dtype ("float64" for parity)
-    precision: str = "fp32"        # precision policy (only fp32 is ported)
+    precision: str = "fp32"        # precision policy: fp32 | bf16 | auto
+    #                                (precision.py; auto = bf16 on the card)
     round_to: int = 8              # pad sizes up to a multiple of this
     seed: int = 0                  # workload RNG and fresh-init weights
     learning_rate: float = 1e-4
@@ -130,6 +137,9 @@ class Config:
         if self.sim_policy not in ("gnn", "baseline", "local"):
             raise ValueError(f"sim_policy must be one of gnn, baseline, local; "
                              f"got '{self.sim_policy}'")
+        if self.precision not in PRECISION_CHOICES:
+            raise ValueError(f"precision must be one of {PRECISION_CHOICES}; "
+                             f"got '{self.precision}'")
         if self.csv_write_all_hosts:
             raise NotImplementedError(
                 "csv_write_all_hosts: per-process shard CSVs wait on `parallel/` "
@@ -139,11 +149,18 @@ class Config:
     def torch_dtype(self):
         import torch
 
-        table = {"float32": torch.float32, "float64": torch.float64}
+        table = {"float32": torch.float32, "float64": torch.float64,
+                 "bfloat16": torch.bfloat16}
         if self.dtype not in table:
             raise ValueError(f"unsupported dtype '{self.dtype}'; choose one of "
-                             f"{sorted(table)} (bfloat16 waits for precision.py)")
+                             f"{sorted(table)}")
         return table[self.dtype]
+
+    def precision_policy(self, device) -> PrecisionPolicy:
+        """The resolved `PrecisionPolicy` of (precision, dtype) for an entry
+        point running on `device` (`auto`: bf16 on CUDA, fp32 on the CPU).
+        Every entry point that takes a Config resolves its policy here."""
+        return resolve_precision(self.precision, self.torch_dtype, device)
 
     def model_dir(self, root: Optional[str] = None) -> str:
         """Checkpoint directory; naming mirrors `AdHoc_train.py:59`."""

@@ -25,7 +25,8 @@ from multihop_offload_tpu_torch.ops.minplus import (  # noqa: F401
 )
 
 # elements of one (b, u, N, N) next-hop cost temp: batches, and at large N
-# source rows, are chunked to stay under this (128 MB in float32)
+# source rows, are chunked to stay under this (128 MB in float32); a bf16
+# temp takes twice as many in the same bytes
 _NEXT_HOP_CHUNK_ELEMS = 1 << 25
 
 
@@ -70,11 +71,14 @@ def next_hop_table(adj: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
     The masked (N, N, N) argmin of the JAX table, chunked over the batch
     and, where one (N, N, N) temp alone is too large, over source rows u,
     so that the cost temp stays bounded; each chunk computes the same
-    values."""
+    values.  A bf16 `sp` (the precision policy's bf16 leg) keeps its dtype:
+    the chunks hold twice the elements, and ties, far more common in bf16,
+    go to the lowest v as in float32."""
     b, n, _ = adj.shape
     out = torch.empty((b, n, n), dtype=torch.int32, device=adj.device)
-    step = max(1, _NEXT_HOP_CHUNK_ELEMS // max(n ** 3, 1))
-    rows = min(n, max(1, _NEXT_HOP_CHUNK_ELEMS // max(step * n * n, 1)))
+    elems = _NEXT_HOP_CHUNK_ELEMS * (2 if sp.dtype == torch.bfloat16 else 1)
+    step = max(1, elems // max(n ** 3, 1))
+    rows = min(n, max(1, elems // max(step * n * n, 1)))
     inf = torch.full((), float("inf"), dtype=sp.dtype, device=sp.device)
     for lo in range(0, b, step):
         a, s = adj[lo:lo + step], sp[lo:lo + step]

@@ -16,6 +16,8 @@ import dataclasses
 
 import torch
 
+from multihop_offload_tpu_torch.precision import island_dtype
+
 
 @dataclasses.dataclass(frozen=True)
 class ObjectiveWeights:
@@ -81,8 +83,9 @@ def offload_decide(
     servers = inst.servers                          # (B, S) ascending
     smask = inst.server_mask
     src = jobs.src
-    dt = torch.promote_types(torch.promote_types(sp.dtype, unit_diag.dtype),
-                             jobs.ul.dtype)
+    # the decision_costs island: the (J, S) gathers of a bf16 SP matrix are
+    # widened and the cost table summed at >= fp32 before the argmin
+    dt = island_dtype(sp.dtype, unit_diag.dtype, jobs.ul.dtype)
     ul_d = jobs.ul.to(dt)
     dl_d = jobs.dl.to(dt)
     srcl, srvl = src.long(), servers.long()

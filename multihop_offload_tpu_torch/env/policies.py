@@ -9,7 +9,9 @@ Under `layout="sparse"` (`:77-104`) the APSP is fed from the link list
 (K6, `ops.minplus.apsp_minplus_coo`, the JAX `apsp_edges_fn` regime) and
 the next-hop table comes from two segment-mins over the directed links;
 both equal the dense chain bit for bit, so decisions never depend on the
-layout.
+layout.  A `precision` policy (`precision.py`) narrows the APSP to its
+compute dtype: bf16 W and shortest paths (K2 or K6 in bf16 on the card),
+re-accumulated wide by the islands downstream.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from multihop_offload_tpu_torch.env.routing import RouteSet, trace_routes
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.layouts.sparse import next_hop_from_edges
 from multihop_offload_tpu_torch.ops.minplus import apsp_minplus_coo
+from multihop_offload_tpu_torch.precision import resolve_precision
 
 
 @dataclasses.dataclass
@@ -44,15 +47,20 @@ class PolicyOutcome:
         return self.delays.job_total
 
 
-def shortest_paths(inst, link_delays: torch.Tensor, layout=None) -> torch.Tensor:
+def shortest_paths(inst, link_delays: torch.Tensor, layout=None,
+                   precision=None) -> torch.Tensor:
     """(B, N, N) shortest-path delays over per-link delays (B, L): K2 on
     the dense weight matrix, or K6 on the link list under the sparse
-    layout."""
+    layout.  Under a mixed `precision` policy the APSP runs in its compute
+    dtype (`PrecisionPolicy.wrap_apsp`): the dense W is narrowed before K2,
+    and K6 takes the narrowed delays, which builds the same bf16 W (each
+    entry is one delay, and rounding commutes with the min)."""
+    pol = resolve_precision(precision)
     if resolve_layout(layout).sparse:
-        return apsp_minplus_coo(inst.link_ends, inst.link_mask, link_delays,
-                                inst.num_pad_nodes)
-    return apsp_minplus(weight_matrix_from_link_delays(inst.adj, inst.link_index,
-                                                       link_delays))
+        return apsp_minplus_coo(inst.link_ends, inst.link_mask,
+                                pol.cast_compute(link_delays), inst.num_pad_nodes)
+    apsp = pol.wrap_apsp(apsp_minplus) or apsp_minplus
+    return apsp(weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays))
 
 
 def next_hops(inst, sp: torch.Tensor, layout=None) -> torch.Tensor:
@@ -65,12 +73,12 @@ def next_hops(inst, sp: torch.Tensor, layout=None) -> torch.Tensor:
 def evaluate_spmatrix_policy(
     inst, jobs, link_delays: torch.Tensor, unit_diag: torch.Tensor,
     gen: torch.Generator | None = None, explore: float = 0.0, prob: bool = False,
-    layout=None,
+    layout=None, precision=None,
 ) -> PolicyOutcome:
     """Offload + route + run given per-link unit delays (B, L) and a node
-    diagonal (B, N)."""
+    diagonal (B, N), the APSP under the `precision` policy (None: fp32)."""
     with phase("apsp"):
-        sp = shortest_paths(inst, link_delays, layout)
+        sp = shortest_paths(inst, link_delays, layout, precision)
     with phase("offload_decide"):
         # hop counts are topology-only and precomputed at Instance build time
         dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
@@ -85,11 +93,11 @@ def evaluate_spmatrix_policy(
 
 def baseline_policy(inst, jobs, gen: torch.Generator | None = None,
                     explore: float = 0.0, prob: bool = False,
-                    layout=None) -> PolicyOutcome:
+                    layout=None, precision=None) -> PolicyOutcome:
     """Congestion-agnostic greedy offloading."""
     link_d, node_d = baseline_unit_delays(inst)
     return evaluate_spmatrix_policy(inst, jobs, link_d, node_d, gen, explore, prob,
-                                    layout)
+                                    layout, precision)
 
 
 def local_policy(inst, jobs, layout=None) -> PolicyOutcome:

@@ -1,7 +1,6 @@
 """Contention-coupled M/M/1 queueing model — the empirical evaluator.
 
-Port of `multihop_offload_tpu/env/queueing.py` (fp32/fp64 identity
-precision): per-link arrival rates from the realized routes, the
+Port of `multihop_offload_tpu/env/queueing.py`: per-link arrival rates from the realized routes, the
 10-iteration interference fixed point (K1, `ops.fixed_point`), per-(link,
 job) delays with the congestion fallback, per-job server delays, and the
 (N, N) empirical unit-delay matrix with last-write-wins job order.
@@ -38,6 +37,7 @@ import torch
 
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.ops.fixed_point import fixed_point
+from multihop_offload_tpu_torch.precision import island_dtype
 
 
 @dataclasses.dataclass
@@ -57,7 +57,8 @@ def interference_fixed_point(inst, link_lambda: torch.Tensor) -> torch.Tensor:
     """Converged per-link service rates mu (B, L) under conflict coupling:
     mu_0 = rate/(cf+1); 10x busy = clip(lambda/mu, 0, 1),
     mu = rate/(1 + A_conflict @ busy)."""
-    dt = torch.promote_types(link_lambda.dtype, inst.link_rates.dtype)
+    # the fixed_point island: K1 (and the scan above L=928) take >= fp32
+    dt = island_dtype(link_lambda.dtype, inst.link_rates.dtype)
     return fixed_point(
         inst.adj_conflict.to(dt).contiguous(), inst.link_rates.to(dt).contiguous(),
         inst.cf_degs.to(dt).contiguous(), link_lambda.to(dt).contiguous(),
@@ -77,8 +78,8 @@ def run_empirical(inst, jobs, routes, layout=None) -> EmpiricalDelays:
     b, n, _ = inst.adj.shape
     dev = inst.adj.device
     inc_dt = routes.inc_ext.dtype if routes.inc_ext is not None else inst.link_rates.dtype
-    dt = torch.promote_types(torch.promote_types(inc_dt, jobs.rate.dtype),
-                             inst.link_rates.dtype)
+    # the delay_reduction island: bf16 routes and rates in, >= fp32 delays out
+    dt = island_dtype(inc_dt, jobs.rate.dtype, inst.link_rates.dtype)
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
     jmask = jobs.mask

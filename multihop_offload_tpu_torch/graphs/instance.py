@@ -7,6 +7,10 @@ function of the port takes.  Under the sparse layout the Instance also
 carries the edge lists of its extended and conflict adjacencies
 (`inst.sparse`, `layouts.sparse.SparseInstance`) and packs `link_index`
 and the jobs' `src` at int16; the dense fields stay, as in the JAX package.
+Float fields are stored at the `dtype` given to `build_instance` and
+`build_jobset`: float32, float64, or the bf16 precision policy's
+`storage_dtype`, torch.bfloat16 (computed in float32 on the host and
+narrowed once).
 
 Extended-line-graph layout: slot ``e in [0, L)`` is real link ``e``; slot
 ``L + i`` is node ``i``'s pseudo-link ("compute here").
@@ -34,8 +38,13 @@ _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
 
 
 def numpy_dtype(dtype) -> np.dtype:
-    """numpy dtype for a torch or numpy float dtype (float32 / float64)."""
+    """The numpy dtype `build_instance` and `build_jobset` compute in for a
+    torch or numpy float dtype: float32 / float64 as they are, and float32
+    for torch.bfloat16 (numpy has no bf16: the float32 tensors are
+    narrowed once, `storage_dtype`)."""
     if isinstance(dtype, torch.dtype):
+        if dtype == torch.bfloat16:
+            return np.dtype(np.float32)
         for np_dt, t_dt in _TORCH_DTYPE.items():
             if t_dt == dtype:
                 return np_dt
@@ -44,6 +53,16 @@ def numpy_dtype(dtype) -> np.dtype:
     if dt not in _TORCH_DTYPE:
         raise ValueError(f"unsupported dtype {dt}; use float32 or float64")
     return dt
+
+
+def storage_dtype(dtype) -> torch.dtype:
+    """The torch dtype float fields are stored at: float32, float64 or
+    bfloat16 (the precision policy's `storage_dtype`), narrowed from the
+    float32 host arrays by `.to`, which rounds to nearest even as
+    `ml_dtypes` does."""
+    if isinstance(dtype, torch.dtype) and dtype == torch.bfloat16:
+        return dtype
+    return _TORCH_DTYPE[numpy_dtype(dtype)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,9 +159,14 @@ class JobSet(TensorRecord):
     mask: torch.Tensor  # (J,) bool
 
 
-def _tensors(cls, arrays: dict, device):
+def _narrow(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def _tensors(cls, arrays: dict, device, dtype: torch.dtype):
+    """`cls` of the host arrays on `device`, float fields at `dtype`."""
     dev = resolve_device(device)
-    return cls(**{k: torch.from_numpy(np.array(v)).to(dev)
+    return cls(**{k: _narrow(torch.from_numpy(np.array(v)), dtype).to(dev)
                   for k, v in arrays.items()})
 
 
@@ -163,6 +187,7 @@ def build_instance(
     `inst.sparse`, padded to `pad.ext_nnz` / `pad.cf_nnz`, and packs
     `link_index` at int16."""
     lay = resolve_layout(layout)
+    store = storage_dtype(dtype)
     dtype = numpy_dtype(dtype)
     n, l = topo.n, topo.num_links
     N, L, S = pad.n, pad.l, pad.s
@@ -235,10 +260,14 @@ def build_instance(
         ext_self_loop=ext_self_loop, ext_as_server=ext_as_server,
         ext_mask=ext_mask, servers=servers, server_mask=server_mask,
         hop=hop, T=np.asarray(t_max, dtype=dtype),
-    ), device)
+    ), device, store)
     if lay.sparse:
         sparse = build_sparse_instance(adj_ext, adj_cf, pad.ext_nnz,
                                        pad.cf_nnz, dtype=dtype)
+        if store != sparse.ext.vals.dtype:
+            sparse = dataclasses.replace(
+                sparse, ext=dataclasses.replace(sparse.ext, vals=sparse.ext.vals.to(store)),
+                cf=dataclasses.replace(sparse.cf, vals=sparse.cf.vals.to(store)))
         inst = dataclasses.replace(inst, sparse=sparse.to(inst.adj.device))
     return inst
 
@@ -270,6 +299,7 @@ def build_jobset(
     """Pad a concrete workload onto `device` (default CUDA).  `index_dtype`
     is the storage dtype of `src` (`LayoutPolicy.index_dtype`: int16 under
     the sparse layout), checked against the node ids."""
+    store = storage_dtype(dtype)
     dtype = numpy_dtype(dtype)
     src = np.asarray(src, dtype=np.int64)
     rate = np.asarray(rate, dtype=dtype)
@@ -289,7 +319,7 @@ def build_jobset(
         src=src_p, rate=rate_p,
         ul=np.full((J,), ul, dtype=dtype), dl=np.full((J,), dl, dtype=dtype),
         mask=mask,
-    ), device)
+    ), device, store)
 
 
 def stack_instances(items: Sequence):

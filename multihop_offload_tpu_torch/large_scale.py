@@ -58,7 +58,10 @@ def kernel_counts() -> dict:
             "blocked_fw": mp.blocked_fw_cuda.launches,
             "coo_apsp": mp.apsp_coo_cuda.launches,
             "chebconv": cc.chebconv_propagate_cuda.launches,
-            "ragged_index": cc.ragged_index_cuda.launches}
+            "ragged_index": cc.ragged_index_cuda.launches,
+            "minplus_bf16": mp.minplus_closure_cuda.launches_bf16,
+            "coo_apsp_bf16": mp.apsp_coo_cuda.launches_bf16,
+            "chebconv_bf16": cc.chebconv_propagate_cuda.launches_bf16}
 
 
 def reset_kernel_counts() -> None:
@@ -69,6 +72,9 @@ def reset_kernel_counts() -> None:
     mp.apsp_coo_cuda.launches = 0
     cc.chebconv_propagate_cuda.launches = 0
     cc.ragged_index_cuda.launches = 0
+    mp.minplus_closure_cuda.launches_bf16 = 0
+    mp.apsp_coo_cuda.launches_bf16 = 0
+    cc.chebconv_propagate_cuda.launches_bf16 = 0
 
 
 def _timed(dev, fn, counts: dict | None = None, name: str = ""):

@@ -25,6 +25,7 @@ import torch
 
 from multihop_offload_tpu_torch._records import TensorRecord
 from multihop_offload_tpu_torch.ops.sparse import COO
+from multihop_offload_tpu_torch.precision import island_dtype
 
 
 @dataclasses.dataclass
@@ -162,7 +163,7 @@ def sparse_chebyshev_support(edges: COO, mask=None, lmax: float = 2.0,
     keep their order, so the list's `csr` index carries over."""
     if lmax is None:
         raise ValueError("the sparse layout needs a static lmax; use lmax=2.0")
-    wide = torch.promote_types(edges.vals.dtype, torch.float32)
+    wide = island_dtype(edges.vals.dtype)  # the laplacian island
     vals = edges.vals.to(wide)
     n = edges.shape[0]
     deg = segment_sum(vals, edges.rows, n)
@@ -188,7 +189,7 @@ def propagate_edges(rows, cols, vals, diag, x, accum_dtype=None) -> torch.Tensor
     (B, E) diag and (B, E, F) x, accumulated at >= float32 and returned in
     x's dtype: the math of the JAX `layouts/sparse.py:make_sparse_propagate`
     and `ops/chebconv.py:_xla_propagate`."""
-    acc = accum_dtype or torch.promote_types(x.dtype, torch.float32)
+    acc = accum_dtype or island_dtype(x.dtype)
     contrib = (vals.unsqueeze(-1) * gather_rows(x, cols)).to(acc)
     agg = segment_sum(contrib, rows, x.shape[1])
     agg = agg + diag.to(acc).unsqueeze(-1) * x.to(acc)

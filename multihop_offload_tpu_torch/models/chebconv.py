@@ -1,7 +1,6 @@
 """Chebyshev-polynomial spectral graph convolutions as `nn.Module`s.
 
-Port of `multihop_offload_tpu/models/chebconv.py` (fp32/fp64 identity
-precision, no dropout).  The kernel keeps the flax layout (k, in, out), so
+Port of `multihop_offload_tpu/models/chebconv.py` (no dropout).  The kernel keeps the flax layout (k, in, out), so
 `params_from_jax` copies a flax parameter tree as it is.  The feature
 product ``x @ W_k`` stays `torch.matmul` (cuBLAS on the card), as the JAX
 package leaves it to XLA.
@@ -11,6 +10,13 @@ dense layout's (E, E) @ (E, F) `torch.matmul`, or under the sparse layout
 `ops.chebconv.chebconv_propagate` over a `layouts.sparse.SparseSupport`
 (K4 on the card, its plain version on the CPU).  `make_model(cfg, layout)`
 picks it (`:257-294`).  At K = 1 a layer never propagates.
+
+Mixed precision (`precision.PrecisionPolicy`, JAX `:42-90`): with a
+`compute_dtype` the layer narrows x, the support and its kernel to it, the
+Chebyshev recursion runs in it, and each feature product accumulates in
+`accum_dtype` (fp32): bf16 operands widened to fp32, which is what XLA's
+``preferred_element_type`` product computes (``torch.matmul`` of two bf16
+tensors would round its output to bf16).  Parameters stay `param_dtype`.
 
 Parameters may carry a leading batch axis, one copy per episode (kernel
 (B, k, in, out), bias (B, out)): `torch.matmul` broadcasts
@@ -32,7 +38,10 @@ from torch import nn
 from multihop_offload_tpu_torch._device import resolve_device
 from multihop_offload_tpu_torch.config import Config
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
 from multihop_offload_tpu_torch.ops.chebconv import chebconv_propagate
+from multihop_offload_tpu_torch.ops.sparse import COO
+from multihop_offload_tpu_torch.precision import island_dtype
 
 
 class ChebConv(nn.Module):
@@ -40,10 +49,14 @@ class ChebConv(nn.Module):
 
     def __init__(self, in_features: int, channels: int, k: int = 1,
                  bias_init: float = 0.0, dtype=torch.float32,
-                 generator: torch.Generator | None = None, propagate=None):
+                 generator: torch.Generator | None = None, propagate=None,
+                 compute_dtype=None, accum_dtype=None):
         super().__init__()
         self.k = k
         self.propagate = propagate  # (support, x) -> support @ x; None: matmul
+        # None: everything in the input dtype (the identity policy)
+        self.compute_dtype = compute_dtype
+        self.accum_dtype = accum_dtype
         kernel = torch.empty((k, in_features, channels), dtype=dtype)
         # glorot uniform over (in, out) per order, as flax's variance_scaling
         # (1.0, fan_avg, uniform, in_axis=-2, out_axis=-1) draws it
@@ -56,17 +69,40 @@ class ChebConv(nn.Module):
     def forward(self, x: torch.Tensor, support) -> torch.Tensor:
         prop = self.propagate or torch.matmul
         # kernel (k, in, out) or per episode (B, k, in, out)
-        w = [self.kernel.select(-3, i) for i in range(self.k)]
+        kernel = self.kernel
+        feat_mm = torch.matmul
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+            support = cast_support(support, self.compute_dtype)
+            kernel = kernel.to(self.compute_dtype)
+            acc = self.accum_dtype
+
+            def feat_mm(t, w):
+                # narrow operands, wide accumulation: bf16 x bf16 products
+                # are exact in fp32, summed in fp32, never rounded to bf16
+                return torch.matmul(t.to(acc), w.to(acc))
+        w = [kernel.select(-3, i) for i in range(self.k)]
         t_prev2 = x
-        out = torch.matmul(t_prev2, w[0])
+        out = feat_mm(t_prev2, w[0])
         if self.k > 1:
             t_prev = prop(support, x)
-            out = out + torch.matmul(t_prev, w[1])
+            out = out + feat_mm(t_prev, w[1])
             for i in range(2, self.k):
                 t_cur = 2.0 * prop(support, t_prev) - t_prev2
-                out = out + torch.matmul(t_cur, w[i])
+                out = out + feat_mm(t_cur, w[i])
                 t_prev2, t_prev = t_prev, t_cur
         return out + self.bias.unsqueeze(-2)
+
+
+def cast_support(support, dtype):
+    """A dense support, or a `SparseSupport`'s values and diagonal, in
+    `dtype` (its indices and CSR index unchanged)."""
+    if isinstance(support, SparseSupport):
+        e = support.edges
+        return SparseSupport(
+            edges=COO(rows=e.rows, cols=e.cols, vals=e.vals.to(dtype), shape=e.shape),
+            diag=support.diag.to(dtype), csr=support.csr)
+    return support.to(dtype)
 
 
 class ChebNet(nn.Module):
@@ -77,7 +113,8 @@ class ChebNet(nn.Module):
 
     def __init__(self, num_layer: int = 5, hidden: int = 32, k: int = 1,
                  leaky_alpha: float = 0.2, dtype=torch.float32,
-                 generator: torch.Generator | None = None, propagate=None):
+                 generator: torch.Generator | None = None, propagate=None,
+                 compute_dtype=None, accum_dtype=None):
         super().__init__()
         self.k = k
         self.num_layer = num_layer
@@ -87,7 +124,8 @@ class ChebNet(nn.Module):
         self.layers = nn.ModuleList(
             ChebConv(widths[i], widths[i + 1], k,
                      bias_init=0.1 if i == num_layer - 1 else 0.0,
-                     dtype=dtype, generator=generator, propagate=propagate)
+                     dtype=dtype, generator=generator, propagate=propagate,
+                     compute_dtype=compute_dtype, accum_dtype=accum_dtype)
             for i in range(num_layer)
         )
 
@@ -99,10 +137,14 @@ class ChebNet(nn.Module):
         return x
 
 
-def chebyshev_support(adj: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+def chebyshev_support(adj: torch.Tensor, mask: torch.Tensor | None = None,
+                      dtype=None) -> torch.Tensor:
     """Rescaled Laplacian 2 L_sym / lmax - I at lmax = 2, with
     L_sym = I - D^-1/2 A D^-1/2, masked so padded rows stay zero.  Any
-    leading batch axes."""
+    leading batch axes.  The `laplacian` fp32 island: built at >= fp32 and
+    narrowed once to `dtype` (default: the adjacency's own dtype)."""
+    out_dtype = adj.dtype if dtype is None else dtype
+    adj = adj.to(island_dtype(adj.dtype))
     deg = adj.sum(dim=-1)
     pos = deg > 0
     inv_sqrt = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, deg, 1.0)), 0.0)
@@ -111,7 +153,7 @@ def chebyshev_support(adj: torch.Tensor, mask: torch.Tensor | None = None) -> to
     eye = torch.eye(adj.shape[-1], dtype=adj.dtype, device=adj.device) \
         * valid.to(adj.dtype).unsqueeze(-2)
     lap = eye - a_norm
-    return lap - eye  # (2 / lmax) * lap is lap itself at lmax = 2
+    return (lap - eye).to(out_dtype)  # (2 / lmax) * lap is lap itself at lmax = 2
 
 
 @torch.no_grad()
@@ -171,15 +213,30 @@ def layout_propagate(layout=None):
     return chebconv_propagate if resolve_layout(layout).sparse else None
 
 
+def _policy_dtypes(policy, dtype) -> dict:
+    """ChebNet's dtype arguments under `policy` (None: the identity policy
+    at `dtype`): params at `param_dtype`, and under the mixed policy the
+    compute and accumulation dtypes."""
+    if policy is None:
+        return {"dtype": dtype}
+    out = {"dtype": policy.param_dtype}
+    if policy.mixed:
+        out.update(compute_dtype=policy.compute_dtype, accum_dtype=policy.accum_dtype)
+    return out
+
+
 def make_model(cfg: Config, dtype=torch.float32,
-               generator: torch.Generator | None = None, layout=None) -> ChebNet:
+               generator: torch.Generator | None = None, layout=None,
+               policy=None) -> ChebNet:
     """The actor stack for `cfg`, with glorot weights from `generator`, for
-    `layout` (default `cfg.layout`).  Parameters do not depend on the
-    layout: the same weights load either way."""
+    `layout` (default `cfg.layout`), under the precision `policy` (a
+    `precision.PrecisionPolicy`; None: the identity policy at `dtype`).
+    Parameters do not depend on the layout or the policy's compute dtype:
+    the same weights load either way."""
     return ChebNet(num_layer=cfg.num_layer, hidden=cfg.hidden, k=cfg.cheb_k,
-                   leaky_alpha=cfg.leaky_relu_alpha, dtype=dtype,
-                   generator=generator,
-                   propagate=layout_propagate(layout or cfg.layout))
+                   leaky_alpha=cfg.leaky_relu_alpha, generator=generator,
+                   propagate=layout_propagate(layout or cfg.layout),
+                   **_policy_dtypes(policy, dtype))
 
 
 def params_from_jax(tree) -> dict:
@@ -218,13 +275,16 @@ def load_weights(name: str, path: str = WEIGHTS_PATH) -> dict:
     return {"params": params}
 
 
-def load_model(name: str, dtype=torch.float32, device=None, layout=None) -> ChebNet:
+def load_model(name: str, dtype=torch.float32, device=None, layout=None,
+               policy=None) -> ChebNet:
     """A `ChebNet` shaped like the committed model `name`, with its weights,
-    on `device` (default CUDA), for `layout` (default dense)."""
+    on `device` (default CUDA), for `layout` (default dense), under the
+    precision `policy` (None: the identity policy at `dtype`)."""
     params = load_weights(name)["params"]
     k, _, hidden = params["cheb_0"]["kernel"].shape
+    dts = _policy_dtypes(policy, dtype)
     model = ChebNet(num_layer=len(params), hidden=int(hidden), k=int(k),
-                    dtype=dtype, propagate=layout_propagate(layout))
-    model.load_state_dict({key: val.to(dtype) for key, val
+                    propagate=layout_propagate(layout), **dts)
+    model.load_state_dict({key: val.to(dts["dtype"]) for key, val
                            in params_from_jax(params).items()})
     return model.to(resolve_device(device))

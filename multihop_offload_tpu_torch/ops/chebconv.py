@@ -36,6 +36,14 @@ walk over the column index the forward sorted (no second sort); d vals
 and d diag are the VJP terms of `_xla_propagate` over the full capacity,
 pads included.  No path of the JAX package calls it, and none of the
 port does.
+
+Under the bf16 precision policy x and the support are bfloat16 and the
+sum is fp32 (`ops/chebconv.py:203`): the plain version is
+`propagate_edges` (bf16 products, an fp32 segment sum, rounded once), and
+on the card `chebconv_propagate_cuda` launches K4's bf16 forward
+(`csrc/chebconv_bf16.cu`) on bfloat16 x, counted in
+`chebconv_propagate_cuda.launches_bf16`.  The backward in bf16 (the
+transposed walk) raises on every device: training under bf16 is queued.
 """
 
 from __future__ import annotations
@@ -55,6 +63,12 @@ from multihop_offload_tpu_torch.ops import _build
 chebconv_propagate_plain = propagate_edges
 
 
+BF16_TRAINER_ITEM = "ROADMAP.md Queue 1 item 10"
+_BF16_BACKWARD_MSG = (
+    "the ChebConv propagate's transposed walk (its backward) in bfloat16 waits on "
+    f"{BF16_TRAINER_ITEM} (the Trainer under bf16); train under precision='fp32'")
+
+
 def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
                             index: torch.Tensor, vals: torch.Tensor,
                             diag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -65,14 +79,22 @@ def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
 
     ptr (B, E + 1) and order, index (B, nnz) int32; vals (B, nnz), diag
     (B, E) and x (B, E, F) float32; all contiguous on one CUDA device.
-    Returns (B, E, F)."""
+    Returns (B, E, F).
+
+    On bfloat16 vals, diag and x it launches `csrc/chebconv_bf16.cu`, the
+    forward only (`order` None): each product rounded to bf16, the sum
+    taken in fp32 in list order and rounded to bf16 once."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, E, F), got {tuple(x.shape)}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and order is not None:
+        raise NotImplementedError(_BF16_BACKWARD_MSG)
+    fdt = torch.bfloat16 if bf16 else torch.float32
     b, e, f = x.shape
     nnz = index.shape[-1]
     shapes = {"ptr": (ptr, (b, e + 1), torch.int32), "index": (index, (b, nnz), torch.int32),
-              "vals": (vals, (b, nnz), torch.float32), "diag": (diag, (b, e), torch.float32),
-              "x": (x, (b, e, f), torch.float32)}
+              "vals": (vals, (b, nnz), fdt), "diag": (diag, (b, e), fdt),
+              "x": (x, (b, e, f), fdt)}
     if order is not None:
         shapes["order"] = (order, (b, nnz), torch.int32)
     for name, (t, shape, dtype) in shapes.items():
@@ -87,18 +109,25 @@ def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    fn = _build.kernel("chebconv")
+    name = "chebconv_bf16" if bf16 else "chebconv"
+    fn = _build.kernel(name)
+    # the bf16 launcher takes no `order`: it walks rows only
+    head = (ptr.data_ptr(),) if bf16 else (ptr.data_ptr(),
+                                           None if order is None else order.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr.data_ptr(), None if order is None else order.data_ptr(),
-                 index.data_ptr(), vals.data_ptr(), diag.data_ptr(), x.data_ptr(),
+        err = fn(*head, index.data_ptr(), vals.data_ptr(), diag.data_ptr(), x.data_ptr(),
                  out.data_ptr(), b, e, f, nnz, stream)
-    chebconv_propagate_cuda.launches += 1
-    _build.check_launch("chebconv", err)
+    if bf16:
+        chebconv_propagate_cuda.launches_bf16 += 1
+    else:
+        chebconv_propagate_cuda.launches += 1
+    _build.check_launch(name, err)
     return out
 
 
 chebconv_propagate_cuda.launches = 0
+chebconv_propagate_cuda.launches_bf16 = 0
 
 
 def chebconv_walk_plain(ptr, order, index, vals, diag, x) -> torch.Tensor:
@@ -118,6 +147,8 @@ def chebconv_walk_plain(ptr, order, index, vals, diag, x) -> torch.Tensor:
 
 
 def _run(support: SparseSupport, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    if transpose and x.dtype == torch.bfloat16:
+        raise NotImplementedError(_BF16_BACKWARD_MSG)
     e = support.edges
     if x.device.type == "cpu":
         rows, cols = (e.cols, e.rows) if transpose else (e.rows, e.cols)

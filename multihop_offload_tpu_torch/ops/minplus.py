@@ -50,6 +50,14 @@ it shares with K2.  On the `blocked-fw` path K3 takes the place of K2
 after the build, as `ops/minplus.py:507-515` hands the scatter-built W to
 the blocked FW.  `apsp_minplus_coo` dispatches on the device of the delays
 as `minplus_closure` does.
+
+The bf16 leg of the precision policy (`precision.py`): `minplus_closure_cuda`
+launches `csrc/minplus_bf16.cu` on bfloat16 input and `apsp_coo_cuda`
+`csrc/coo_apsp_bf16.cu` on bfloat16 delays (then the bf16 squarings); both
+equal their plain versions in bf16 bit for bit.  Each bf16 kernel has its
+own counters beside the float32 ones: `minplus_closure_cuda.launches_bf16`
+and `.executed_bf16`, `apsp_coo_cuda.launches_bf16`.  K3 has no bf16 form
+yet: `blocked_fw` raises on bfloat16.
 """
 
 from __future__ import annotations
@@ -122,17 +130,24 @@ def squarings_run_plain(d: torch.Tensor, iters: int) -> int:
     return count
 
 
+# each dtype K2 takes: the suffix of its kernel (`csrc/minplus<sfx>.cu`,
+# `csrc/coo_apsp<sfx>.cu`) and of its counters on the wrappers
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
 def minplus_closure_cuda(d: torch.Tensor, iters: int, owned: bool = False) -> torch.Tensor:
-    """`iters` squarings of (B, N, N) float32 contiguous CUDA `d` (zero
-    diagonal, +inf for non-edges), one kernel launch per squaring.  The
-    input is copied, so it is never written, unless `owned`: then `d` is a
+    """`iters` squarings of (B, N, N) float32 or bfloat16 contiguous CUDA
+    `d` (zero diagonal, +inf for non-edges), one kernel launch per
+    squaring.  In bf16 every candidate sum is rounded to bf16, so the
+    result equals `minplus_closure_plain` in bf16 bit for bit.  The input
+    is copied, so it is never written, unless `owned`: then `d` is a
     temporary the caller gives up, and K2 takes it as its first buffer."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"d must be (B, N, N), got {tuple(d.shape)}")
     if d.device.type != "cuda":
         raise ValueError("minplus_closure_cuda takes a CUDA tensor")
-    if d.dtype != torch.float32:
-        raise TypeError(f"minplus_closure_cuda takes float32, got {d.dtype}")
+    if d.dtype not in _SUFFIX:
+        raise TypeError(f"minplus_closure_cuda takes float32 or bfloat16, got {d.dtype}")
     if not d.is_contiguous():
         raise ValueError("minplus_closure_cuda takes a contiguous tensor")
     b, n, _ = d.shape
@@ -142,17 +157,18 @@ def minplus_closure_cuda(d: torch.Tensor, iters: int, owned: bool = False) -> to
 
 
 def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
-    """K2's launches on (B, N, N) float32 contiguous CUDA `first` (B, N,
-    iters > 0), which it takes as the first ping-pong buffer and may
-    overwrite.  Returns the buffer that holds the result."""
+    """K2's launches on (B, N, N) float32 or bfloat16 contiguous CUDA
+    `first` (B, N, iters > 0), which it takes as the first ping-pong buffer
+    and may overwrite.  Returns the buffer that holds the result."""
     b, n, _ = first.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel grid's z limit 65535")
-    fn = _build.kernel("minplus")
-    counter = minplus_closure_cuda.executed
+    sfx = _SUFFIX[first.dtype]
+    fn = _build.kernel("minplus" + sfx)
+    counter = getattr(minplus_closure_cuda, "executed" + sfx)
     if counter is None or counter.device != first.device:
         counter = torch.zeros((), dtype=torch.int64, device=first.device)
-        minplus_closure_cuda.executed = counter
+        setattr(minplus_closure_cuda, "executed" + sfx, counter)
     flags = torch.zeros((iters, b), dtype=torch.int32, device=first.device)
     bufs = (first, torch.empty_like(first))
     with torch.cuda.device(first.device):
@@ -161,13 +177,18 @@ def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
             src, dst = bufs[step % 2], bufs[(step + 1) % 2]
             err = fn(src.data_ptr(), dst.data_ptr(), flags.data_ptr(),
                      counter.data_ptr(), b, n, step, stream)
-            minplus_closure_cuda.launches += 1
-            _build.check_launch("minplus", err)
+            if sfx:
+                minplus_closure_cuda.launches_bf16 += 1
+            else:
+                minplus_closure_cuda.launches += 1
+            _build.check_launch("minplus" + sfx, err)
     return bufs[iters % 2]
 
 
 minplus_closure_cuda.launches = 0
 minplus_closure_cuda.executed = None  # int64 device tensor, made at first use
+minplus_closure_cuda.launches_bf16 = 0
+minplus_closure_cuda.executed_bf16 = None
 
 PLAN_FIELDS = ("tile_rows", "tile_cols", "threads", "k_groups", "slice", "stages",
                "smem_bytes", "blocks")
@@ -306,9 +327,18 @@ def blocked_fw_cuda(d: torch.Tensor) -> torch.Tensor:
 blocked_fw_cuda.launches = 0
 
 
+BF16_BLOCKED_FW_ITEM = "ROADMAP.md Queue 1 item 11"
+
+
 def blocked_fw(d: torch.Tensor) -> torch.Tensor:
     """Blocked FW of (B, N, N) `d`, N a multiple of 128: plain version on
-    the CPU, K3 on CUDA."""
+    the CPU, K3 on CUDA.  bf16 raises on both (K3's bf16 form is queued:
+    no bf16 path of the repo's data reaches a padded N above 256)."""
+    if d.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"blocked_fw on bfloat16 (padded N {d.shape[-1]} > 256 under the bf16 "
+            f"precision policy): K3's bf16 form waits on {BF16_BLOCKED_FW_ITEM}; "
+            "run this size under precision='fp32'")
     if d.device.type == "cpu":
         return blocked_fw_plain(d)
     if d.device.type == "cuda":
@@ -356,18 +386,20 @@ def apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes: int) -> torch.T
 
 
 def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
-    """Launch `csrc/coo_apsp.cu` for the whole batch, then close its W with
-    K2 (squaring) or K3 (blocked FW, W built at the 128-rounded N; the
-    extra nodes are isolated): link_ends (B, L, 2) int32, link_mask (B, L)
-    bool, link_delays (B, L) float32, contiguous, on one CUDA device.
-    Returns (B, N, N) distances."""
+    """Launch `csrc/coo_apsp.cu` (float32 delays) or `csrc/coo_apsp_bf16.cu`
+    (bfloat16) for the whole batch, then close its W with K2 (squaring) or
+    K3 (blocked FW, W built at the 128-rounded N; the extra nodes are
+    isolated; float32 only): link_ends (B, L, 2) int32, link_mask (B, L)
+    bool, link_delays (B, L), contiguous, on one CUDA device.  Returns
+    (B, N, N) distances in the delays' dtype."""
     if link_ends.dim() != 3 or link_ends.shape[2] != 2:
         raise ValueError(f"link_ends must be (B, L, 2), got {tuple(link_ends.shape)}")
     b, l, _ = link_ends.shape
     n = num_nodes
+    ddt = link_delays.dtype if link_delays.dtype in _SUFFIX else torch.float32
     for t, dtype, shape in ((link_ends, torch.int32, (b, l, 2)),
                             (link_mask, torch.bool, (b, l)),
-                            (link_delays, torch.float32, (b, l))):
+                            (link_delays, ddt, (b, l))):
         if t.device != link_delays.device or t.device.type != "cuda":
             raise ValueError("apsp_coo_cuda: operands must share one CUDA device")
         if t.dtype != dtype:
@@ -375,18 +407,26 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"apsp_coo_cuda: want a contiguous {shape}, got "
                              f"{tuple(t.shape)}")
+    sfx = _SUFFIX[ddt]
     blocked = apsp_path(n) == "blocked-fw"
+    if blocked and sfx:
+        raise NotImplementedError(
+            f"apsp_coo_cuda in bfloat16 at N={n}: the blocked FW in bf16 waits on "
+            f"{BF16_BLOCKED_FW_ITEM}; run this size under precision='fp32'")
     n_w = padded_n(n) if blocked else n
-    w = torch.empty((b, n_w, n_w), dtype=torch.float32, device=link_delays.device)
+    w = torch.empty((b, n_w, n_w), dtype=ddt, device=link_delays.device)
     if b == 0 or n == 0:
         return w[:, :n, :n]
     with torch.cuda.device(link_delays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _build.kernel("coo_apsp")(link_ends.data_ptr(), link_mask.data_ptr(),
-                                        link_delays.data_ptr(), w.data_ptr(), b, l, n_w,
-                                        stream)
-    apsp_coo_cuda.launches += 1
-    _build.check_launch("coo_apsp", err)
+        err = _build.kernel("coo_apsp" + sfx)(link_ends.data_ptr(), link_mask.data_ptr(),
+                                              link_delays.data_ptr(), w.data_ptr(), b, l,
+                                              n_w, stream)
+    if sfx:
+        apsp_coo_cuda.launches_bf16 += 1
+    else:
+        apsp_coo_cuda.launches += 1
+    _build.check_launch("coo_apsp" + sfx, err)
     if blocked:
         out = blocked_fw_cuda(w)
         return out if n_w == n else out[:, :n, :n].contiguous()
@@ -395,6 +435,7 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
 
 
 apsp_coo_cuda.launches = 0
+apsp_coo_cuda.launches_bf16 = 0
 
 
 def apsp_minplus_coo(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:

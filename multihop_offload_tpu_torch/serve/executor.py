@@ -40,6 +40,7 @@ from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.obs import events as obs_events
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
+from multihop_offload_tpu_torch.precision import resolve_precision
 
 DM_SERVE_LOCAL = "mho_dev_serve_decisions_total{decision=local}"
 DM_SERVE_OFFLOAD = "mho_dev_serve_decisions_total{decision=offload}"
@@ -81,10 +82,13 @@ class DispatchHandle:
 class BucketExecutor:
     """Batched decision passes of one model, plus its weight state."""
 
-    def __init__(self, model, layout=None, device=None):
+    def __init__(self, model, layout=None, device=None, precision=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.layout = resolve_layout(layout)
+        # the APSP of every dispatch runs in the policy's compute dtype
+        # (JAX `executor.py:239`: a wrapped APSP per bucket program)
+        self.precision = resolve_precision(precision)
         self.dispatch_count = 0
         self.dispatches_by_width: Dict[Tuple[int, int], int] = {}
         self.loaded_step: Optional[int] = None
@@ -94,12 +98,12 @@ class BucketExecutor:
 
     def gnn_step(self, binst, bjobs):
         outcome, _ = forward_env(self.model, binst, bjobs, device=self.device,
-                                 layout=self.layout)
+                                 layout=self.layout, precision=self.precision)
         d = outcome.decision
         return d.dst, d.is_local, d.delay_est, outcome.job_total
 
     def baseline_step(self, binst, bjobs):
-        o = baseline_policy(binst, bjobs, layout=self.layout)
+        o = baseline_policy(binst, bjobs, layout=self.layout, precision=self.precision)
         d = o.decision
         return d.dst, d.is_local, d.delay_est, o.job_total
 

@@ -18,9 +18,14 @@ in-flight batches, so every admitted request is answered exactly once.
 Greedy decisions (`prob=False`) read no random key, so batching never
 changes an answer.  Not ported, each refused with an error where asked
 for: the sharded executor and its placement planner (`mesh_devices`),
-experience capture (`capture_sample > 0`), precision policies other than
-fp32, `prob=True` (the JAX keys are threefry `fold_in(PRNGKey(seed),
-request_id)` bits) and `hot_reload` from disk.  The health wiring
+experience capture (`capture_sample > 0`), `prob=True` (the JAX keys are
+threefry `fold_in(PRNGKey(seed), request_id)` bits) and `hot_reload` from
+disk.  The bf16 precision policy runs (`precision`, JAX `:107-155`):
+requests are packed at its storage dtype, so the batch crosses to the card
+as bf16 bytes, and each dispatch squares in bf16 (K2 or K6 in bf16); the
+model must carry the policy's dtypes (`cli/serve.py:build_service` builds
+it so).  Training under bf16 and K3 in bf16 wait on ROADMAP.md Queue 1
+items 10 and 11.  The health wiring
 (`attach_health`: the SLO engine and a per-tick flight-recorder row) waits
 for `obs/slo.py`; the watchdog's flight recorder is wired.
 """
@@ -42,6 +47,7 @@ from multihop_offload_tpu_torch.obs import events as obs_events
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
 from multihop_offload_tpu_torch.obs.spans import span
+from multihop_offload_tpu_torch.precision import resolve_precision
 from multihop_offload_tpu_torch.serve.bucketing import (
     OccupancyLadder,
     ShapeBuckets,
@@ -111,20 +117,20 @@ class OffloadService:
             raise NotImplementedError(
                 "prob=True needs per-request draws independent of batching (the JAX "
                 "service folds each request id into a threefry key); not ported yet")
-        if precision not in (None, "fp32"):
-            raise NotImplementedError(
-                f"precision '{precision}' is not ported yet (precision.py); use fp32")
         if capture_sample > 0.0:
             raise NotImplementedError(
                 "experience capture (capture_sample > 0, loop/) is not ported yet")
         self.layout = resolve_layout(layout)
         self.device = resolve_device(device)
-        self.executor = BucketExecutor(model, layout=self.layout, device=self.device)
+        # `dtype` is the base dtype, `precision` the policy over it
+        self.precision = resolve_precision(precision, dtype, self.device)
+        self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
+                                       precision=self.precision)
         self.buckets = buckets
         self.slots = slots
         self.queue_cap = queue_cap
         self.deadline_s = deadline_s
-        self.dtype = dtype
+        self.dtype = self.precision.storage_dtype
         self.clock = clock
         # request-scoped tracing (obs.trace): batched hop events through the
         # active run log; with no log installed it costs one check

@@ -33,6 +33,7 @@ from multihop_offload_tpu_torch.layouts.sparse import (
     next_hop_from_edges,
     weight_matrix_from_edges,
 )
+from multihop_offload_tpu_torch.precision import resolve_precision
 from multihop_offload_tpu_torch.sim.state import SimRoutes
 
 POLICY_KINDS = ("gnn", "baseline", "local")
@@ -46,9 +47,12 @@ def decide_routes(
     node_up: torch.Tensor,
     link_up: torch.Tensor,
     layout=None,
+    apsp_fn=None,
 ) -> SimRoutes:
     """The decision skeleton on per-link delays (B, L) and a node diagonal
-    (B, N), returning the forwarding table (int16 under every layout)."""
+    (B, N), returning the forwarding table (int16 under every layout).
+    `apsp_fn` (a `PrecisionPolicy.wrap_apsp` result; None: `apsp_minplus`)
+    squares the weight matrix."""
     lay = resolve_layout(layout)
     inf = torch.full((), float("inf"), dtype=link_delays.dtype, device=link_delays.device)
     link_delays = torch.where(link_up, link_delays, inf)
@@ -58,7 +62,7 @@ def decide_routes(
                                      inst.num_pad_nodes)
     else:
         w = weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays)
-    sp = apsp_minplus(w)
+    sp = (apsp_fn or apsp_minplus)(w)
     dec = offload_decide(inst, jobs_est, sp, inst.hop, unit_diag)
     # a destination cut off by a failure degrades to local compute: packets
     # must never chase an infinite-cost route
@@ -82,17 +86,15 @@ def make_policy(
 ):
     """The per-round policy function of `sim.runner.simulate`.
 
-    `model` (a `ChebNet` carrying its weights, built for `layout`) is the
-    GNN's actor, on its default support.  `precision`
-    other than fp32 is refused, as `serve/` refuses it (the bf16 policy is
-    not ported).  The instances fed to the returned function must be built
-    with `layout`."""
+    `model` (a `ChebNet` carrying its weights, built for `layout` and the
+    policy's dtypes) is the GNN's actor, on its default support.
+    `precision` (str | `PrecisionPolicy` | None) narrows the APSP to its
+    compute dtype (JAX `:105-125`: W is squared in bf16, K2 on the card);
+    the decision read-back stays an fp32 island.  The instances fed to the
+    returned function must be built with `layout`."""
     if kind not in POLICY_KINDS:
         raise ValueError(f"unknown sim policy '{kind}'; one of {POLICY_KINDS}")
-    if precision not in (None, "fp32"):
-        raise NotImplementedError(
-            f"precision '{precision}': only fp32 is ported (the bf16 policy waits "
-            "on precision.py)")
+    apsp_fn = resolve_precision(precision).wrap_apsp(None)
     lay = resolve_layout(layout)
 
     if kind == "local":
@@ -114,7 +116,7 @@ def make_policy(
         def baseline_fn(inst, jobs_est, node_up, link_up, gen=None):
             link_d, node_d = baseline_unit_delays(inst)
             return decide_routes(inst, jobs_est, link_d, node_d, node_up, link_up,
-                                 layout=lay)
+                                 layout=lay, apsp_fn=apsp_fn)
 
         return baseline_fn
 
@@ -136,6 +138,6 @@ def make_policy(
         else:
             unit_diag = torch.diagonal(actor.delay_matrix, dim1=1, dim2=2)
         return decide_routes(inst, jobs_est, actor.link_delay, unit_diag,
-                             node_up, link_up, layout=lay)
+                             node_up, link_up, layout=lay, apsp_fn=apsp_fn)
 
     return gnn_fn

@@ -18,6 +18,7 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from multihop_offload_tpu_torch.config import Config
 from multihop_offload_tpu_torch.graphs.instance import (
@@ -60,9 +61,13 @@ class DatasetCache:
     pads: List[PadSpec]       # per bucket, ascending node pad
     bucket_of: List[int]      # record index -> bucket index
     _hop_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # float fields' dtype (the precision policy's storage dtype); None:
+    # cfg.dtype
+    storage_dtype: Optional[torch.dtype] = None
 
     @classmethod
-    def load(cls, cfg: Config, datapath: Optional[str] = None) -> "DatasetCache":
+    def load(cls, cfg: Config, datapath: Optional[str] = None,
+             storage_dtype: Optional[torch.dtype] = None) -> "DatasetCache":
         datapath = datapath or cfg.datapath
         names = list_dataset(datapath)
         if not names:
@@ -82,7 +87,7 @@ class DatasetCache:
             enn=max(p.enn for p in pads), cnn=max(p.cnn for p in pads),
         )
         return cls(cfg=cfg, records=records, pad=global_pad, pads=pads,
-                   bucket_of=bucket_of)
+                   bucket_of=bucket_of, storage_dtype=storage_dtype)
 
     def __len__(self) -> int:
         return len(self.records)
@@ -91,8 +96,9 @@ class DatasetCache:
         return self.pads[self.bucket_of[idx]]
 
     def instance(self, idx: int, rng: np.random.Generator) -> Instance:
-        """Case `idx` with freshly drawn link capacities, on the CPU, in
-        `cfg.dtype` and `cfg.layout`; the hop matrix is cached."""
+        """Case `idx` with freshly drawn link capacities, on the CPU, at
+        `storage_dtype` (default `cfg.dtype`) and `cfg.layout`; the hop
+        matrix is cached."""
         rec = self.records[idx]
         pad = self.pad_of(idx)
         hop = self._hop_cache.get(idx)
@@ -100,7 +106,8 @@ class DatasetCache:
             hop = self._hop_cache[idx] = compute_hop_matrix(rec.topo, pad.n)
         rates = sample_link_rates(rec.topo, rec.link_rates, rng=rng)
         return build_instance(rec.topo, rec.roles, rec.proc_bws, rates,
-                              float(self.cfg.T), pad, dtype=self.cfg.torch_dtype,
+                              float(self.cfg.T), pad,
+                              dtype=self.storage_dtype or self.cfg.torch_dtype,
                               hop=hop, device="cpu", layout=self.cfg.layout)
 
 

@@ -22,8 +22,9 @@ instance, net of the overlapped build of the next file, as in the JAX
 drivers.
 
 Refused, each with the ROADMAP item it waits on: `mesh_data > 1`,
-`dropout > 0`, `tb_logdir`, `precision` other than fp32, and a TF
-checkpoint in the model directory (which the JAX harness would load).
+`dropout > 0`, `tb_logdir`, the Trainer under a bf16 precision policy
+(the Evaluator runs it), and a TF checkpoint in the model directory
+(which the JAX harness would load).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
 from multihop_offload_tpu_torch.models.chebconv import ensure_alive_output_multi, make_model
 from multihop_offload_tpu_torch.obs.spans import span
+from multihop_offload_tpu_torch.ops.chebconv import BF16_TRAINER_ITEM
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 from multihop_offload_tpu_torch.train.data import DatasetCache, sample_jobsets
 from multihop_offload_tpu_torch.train.metrics import instance_metrics
@@ -80,23 +82,26 @@ TEST_COLUMNS = [
 
 @torch.no_grad()
 def eval_methods(model, inst, jobs, gen=None, device=None, layout=None,
-                 prob: bool = False, compat_diagonal_bug: bool = False):
+                 prob: bool = False, compat_diagonal_bug: bool = False,
+                 precision=None):
     """Per-job delays (B, J) of the baseline, local and GNN methods on a
     batch of requests, on `device` (default CUDA), under `layout` (default
-    dense).  The baseline and local methods are greedy; the GNN samples its
-    decision when `prob` (draws from `gen`: a generator, or a list of them
-    over equal shares of the batch) and reads the reference's cycled
-    diagonal under `compat_diagonal_bug` (JAX `train/driver.py:283-303`)."""
+    dense) and the `precision` policy's APSP (None: fp32).  The baseline
+    and local methods are greedy; the GNN samples its decision when `prob`
+    (draws from `gen`: a generator, or a list of them over equal shares of
+    the batch) and reads the reference's cycled diagonal under
+    `compat_diagonal_bug` (JAX `train/driver.py:283-303`)."""
     dev = resolve_device(device)
     inst, jobs = inst.to(dev), jobs.to(dev)
     with phase("baseline"):
-        bl = baseline_policy(inst, jobs, gen, layout=layout).job_total
+        bl = baseline_policy(inst, jobs, gen, layout=layout,
+                             precision=precision).job_total
     with phase("local"):
         loc = local_policy(inst, jobs, layout=layout).job_total
     with phase("gnn"):
         gnn = forward_env(model, inst, jobs, gen, prob=prob,
                           compat_diagonal_bug=compat_diagonal_bug, device=dev,
-                          layout=layout)[0].job_total
+                          layout=layout, precision=precision)[0].job_total
     return bl, loc, gnn
 
 
@@ -199,9 +204,10 @@ def _step_fields(stats: dict) -> dict:
 # ---- the file loops -------------------------------------------------------
 
 
-def _refuse_unported(cfg: Config, model_dir: str) -> None:
+def _refuse_unported(cfg: Config, model_dir: str, precision, trains: bool) -> None:
     """Raise for a setting whose code is not ported, naming what it waits
-    on, rather than run something else quietly."""
+    on, rather than run something else quietly.  `precision` is the
+    resolved policy; `trains`: a Trainer (the Evaluator runs under bf16)."""
     if cfg.mesh_data > 1:
         raise NotImplementedError(
             f"mesh_data={cfg.mesh_data}: the data-parallel drivers wait on "
@@ -214,10 +220,12 @@ def _refuse_unported(cfg: Config, model_dir: str) -> None:
         raise NotImplementedError(
             "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 "
             "item 3); use obs_log for the JSONL run log")
-    if cfg.precision != "fp32":
+    if trains and precision.mixed:
         raise NotImplementedError(
-            f"precision='{cfg.precision}' waits on `precision.py` (ROADMAP.md "
-            "Queue 1 item 5); only fp32 is ported")
+            f"precision='{cfg.precision}' (resolved '{precision.name}'): training "
+            f"under bf16 waits on {BF16_TRAINER_ITEM} (K4's transposed walk in "
+            "bf16, the critic's fp32 islands through autograd); the Evaluator, "
+            "the service and the simulator run it; train under precision='fp32'")
     if model_dir and os.path.isfile(os.path.join(model_dir, "checkpoint")):
         raise NotImplementedError(
             f"{model_dir} holds a TF-format checkpoint, which the JAX drivers "
@@ -227,23 +235,30 @@ def _refuse_unported(cfg: Config, model_dir: str) -> None:
 
 class _Harness:
     """Shared model / optimizer / data plumbing of Trainer and Evaluator
-    (JAX `_Harness`, `:80-449`), on `device` (default CUDA).
+    (JAX `_Harness`, `:80-449`), on `device` (default CUDA), under the
+    precision policy of `cfg.precision` resolved for that device (JAX
+    `:110-143`): the model at its dtypes, instances and job sets stored at
+    the policy's `storage_dtype`, the APSP in its compute dtype.
 
     `memory_size=0` skips the gradient replay (the Evaluator never
     replays).  A fresh init is probed with real features from four files
     spread over the dataset, and its output unit's sign flipped when it is
     dead (`ensure_alive_output_multi`)."""
 
+    trains = True
+
     def __init__(self, cfg: Config, datapath: Optional[str] = None,
                  memory_size: Optional[int] = None, device=None):
         self.cfg = cfg
         self.model_dir = cfg.model_dir()
-        _refuse_unported(cfg, self.model_dir)
+        self.precision = cfg.precision_policy("cuda" if device is None else device)
+        _refuse_unported(cfg, self.model_dir, self.precision, self.trains)
         self.device = resolve_device(device)
-        self.dtype = cfg.torch_dtype
+        self.dtype = self.precision.param_dtype       # parameters
+        self.store = self.precision.storage_dtype     # instances and job sets
         self.layout = resolve_layout(cfg.layout)
-        self.data = DatasetCache.load(cfg, datapath)
-        self.model = make_model(cfg, dtype=self.dtype, layout=self.layout,
+        self.data = DatasetCache.load(cfg, datapath, storage_dtype=self.store)
+        self.model = make_model(cfg, layout=self.layout, policy=self.precision,
                                 generator=torch.Generator().manual_seed(cfg.seed))
         if len(self.data):
             ensure_alive_output_multi(self.model, self._probes())
@@ -267,7 +282,7 @@ class _Harness:
             inst = stack_instances([self.data.instance(fid, probe_rng)])
             jobs, _ = sample_jobsets(
                 self.data.records[fid], self.data.pad_of(fid), 1, probe_rng,
-                cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.dtype,
+                cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.store,
                 index_dtype=self.layout.index_dtype)
             if self.layout.sparse:
                 ext = inst.sparse.ext
@@ -304,7 +319,8 @@ class _Harness:
         cfg = self.cfg
         return eval_methods(self.model, inst, jobs, gen, device=self.device,
                             layout=self.layout, prob=cfg.prob,
-                            compat_diagonal_bug=cfg.compat_diagonal_bug)
+                            compat_diagonal_bug=cfg.compat_diagonal_bug,
+                            precision=self.precision)
 
     def _replay(self):
         """`train_replay`: (mean sampled critic loss, skipped) as host values."""
@@ -502,7 +518,7 @@ class Trainer(_Harness):
             inst = self.data.instance(fid, self.rng)
             jobsets, counts = sample_jobsets(
                 rec, self.data.pad_of(fid), cfg.num_instances, self.rng,
-                cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.dtype,
+                cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.store,
                 index_dtype=self.layout.index_dtype)
         return (rec, inst, jobsets, counts), time.perf_counter() - t0
 
@@ -609,6 +625,8 @@ class Evaluator(_Harness):
     """The `bash/test.sh` -> `AdHoc_test.py` workflow, no weight updates
     (JAX `:809-1035`)."""
 
+    trains = False
+
     def __init__(self, cfg: Config, datapath: Optional[str] = None, device=None):
         super().__init__(cfg, datapath, memory_size=0, device=device)
 
@@ -635,7 +653,7 @@ class Evaluator(_Harness):
             inst = self.data.instance(fid, frng)
             jobsets, counts = sample_jobsets(
                 rec, self.data.pad_of(fid), cfg.num_instances, frng,
-                cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.dtype,
+                cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.store,
                 index_dtype=self.layout.index_dtype)
         return (rec, inst, jobsets, counts), time.perf_counter() - t0
 

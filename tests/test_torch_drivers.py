@@ -251,7 +251,7 @@ def test_instance_metrics_match_jax():
 
 @pytest.mark.parametrize("setting,waits", [
     ({"mesh_data": 2}, "item 7"), ({"dropout": 0.1}, "item 3"),
-    ({"tb_logdir": "tb"}, "item 3"), ({"precision": "bf16"}, "item 5"),
+    ({"tb_logdir": "tb"}, "item 3"), ({"precision": "bf16"}, "item 10"),
     ({"tf_checkpoint": True}, "item 4"), ({"csv_write_all_hosts": True}, "item 7"),
     ({"apsp_impl": "xla"}, "only 'auto'"), ({"fp_impl": "pallas"}, "only 'auto'"),
 ])
@@ -261,9 +261,13 @@ def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
         model_dir = Config(**kw).model_dir()
         os.makedirs(model_dir)
         open(os.path.join(model_dir, "checkpoint"), "w").close()
-    for cls in (td.Evaluator, td.Trainer):
+    # the Evaluator runs under bf16; only the Trainer waits on item 10
+    bf16 = "precision" in setting
+    for cls in (td.Trainer,) if bf16 else (td.Evaluator, td.Trainer):
         with pytest.raises(NotImplementedError, match=waits):
             cls(Config(**kw, **setting), device="cpu")
+    if bf16:
+        assert td.Evaluator(Config(**kw, **setting), device="cpu").precision.mixed
 
 
 def test_cli_test_runs_on_the_cpu_and_refuses_a_missing_card(tiny, tmp_path, capsys):

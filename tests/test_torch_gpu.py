@@ -748,3 +748,148 @@ def test_sim_card_matches_cpu_under_injected_draws(cuda, kind):
                  "gnn": tmp.squaring_count(spec.num_nodes)}[kind]
     assert card[2]["minplus"] == cfg.sim_rounds * per_round
     assert card[2]["fixed_point"] == (cfg.sim_rounds if kind == "gnn" else 0)
+
+
+# ---- the bf16 precision policy: K2, K6 and K4's forward in bf16 ----------------
+
+BF16_ULP = 2.0 ** -8  # one bf16 unit in the last place, relative
+
+
+def _bf16_weights(b, n):
+    """`_weights` narrowed to bf16 with its zero diagonal (the APSP input
+    of the bf16 leg)."""
+    w = _weights(np.random.default_rng(n), b, n, 3.0 / n)
+    d = torch.where(torch.eye(n, dtype=torch.bool), 0.0, w)
+    return d.to(torch.bfloat16)
+
+
+# the decision paths' (B, N) under bf16, the rung's N = 256 and odd N
+@pytest.mark.parametrize("b,n", [(64, 112), (16, 56), (16, 112), (4, 256), (5, 37),
+                                 (3, 1), (4, 33)])
+def test_minplus_bf16_kernel_bit_identical(cuda, b, n):
+    d = _bf16_weights(b, n)
+    iters = tmp.squaring_count(n)
+    launches = (tmp.minplus_closure_cuda.launches_bf16, tmp.minplus_closure_cuda.launches)
+    ex = tmp.minplus_closure_cuda.executed_bf16
+    ex0 = 0 if ex is None else int(ex)
+    got = tmp.minplus_closure(d.to(cuda), iters)
+    torch.cuda.synchronize()
+    assert (tmp.minplus_closure_cuda.launches_bf16 - launches[0],
+            tmp.minplus_closure_cuda.launches - launches[1]) == (iters, 0)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), tmp.minplus_closure_plain(d, iters))
+    assert torch.equal(got, tmp.minplus_closure_plain(d.to(cuda), iters))
+    ran = int(tmp.minplus_closure_cuda.executed_bf16) - ex0
+    assert ran == tmp.squarings_run_plain(d, iters)
+
+
+@pytest.mark.parametrize("group,per_network", [("paper", 4), ("rung256", 1)])
+def test_coo_apsp_bf16_kernel_bit_identical(cuda, group, per_network):
+    inst, _, _ = _sparse_batch(group, per_network, slice(0, 16))
+    n = inst.num_pad_nodes
+    rng = np.random.default_rng(11)
+    noisy = inst.link_rates * torch.from_numpy(
+        rng.uniform(0.5, 2.0, tuple(inst.link_rates.shape)).astype(np.float32))
+    for delays in (1.0 / inst.link_rates, 1.0 / noisy):
+        d = delays.to(torch.bfloat16)
+        ends, mask = inst.link_ends.to(cuda), inst.link_mask.to(cuda)
+        before = (tmp.apsp_coo_cuda.launches_bf16, tmp.minplus_closure_cuda.launches_bf16,
+                  tmp.apsp_coo_cuda.launches)
+        got = tmp.apsp_minplus_coo(ends, mask, d.to(cuda), n)
+        torch.cuda.synchronize()
+        assert (tmp.apsp_coo_cuda.launches_bf16 - before[0],
+                tmp.minplus_closure_cuda.launches_bf16 - before[1],
+                tmp.apsp_coo_cuda.launches - before[2]) == (1, tmp.squaring_count(n), 0)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, tmp.apsp_coo_plain(ends, mask, d.to(cuda), n))
+        assert torch.equal(got.cpu(), tmp.apsp_coo_plain(inst.link_ends, inst.link_mask,
+                                                          d, n))
+
+
+def _within_one_ulp(got, want):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= BF16_ULP * want.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("f", [4, 32])
+@pytest.mark.parametrize("group,per_network", [("paper", 4), ("rung256", 1)])
+def test_chebconv_bf16_kernel_within_one_ulp(cuda, group, per_network, f):
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+    from multihop_offload_tpu_torch.models.chebconv import cast_support
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    inst, _, _ = _sparse_batch(group, per_network, slice(0, 16))
+    support = cast_support(sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
+                                                    csr=inst.sparse.ext_csr),
+                           torch.bfloat16)
+    b, e = support.diag.shape
+    rng = np.random.default_rng(f)
+    x = torch.from_numpy(rng.normal(size=(b, e, f)).astype(np.float32)).to(torch.bfloat16)
+    sup = support.to(cuda)
+    before = (tcc.chebconv_propagate_cuda.launches_bf16, tcc.chebconv_propagate_cuda.launches)
+    got = tcc.chebconv_propagate(sup, x.to(cuda))
+    again = tcc.chebconv_propagate(sup, x.to(cuda))
+    torch.cuda.synchronize()
+    assert (tcc.chebconv_propagate_cuda.launches_bf16 - before[0],
+            tcc.chebconv_propagate_cuda.launches - before[1]) == (2, 0)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    e_ = sup.edges
+    plain = tcc.chebconv_propagate_plain(e_.rows, e_.cols, e_.vals, sup.diag, x.to(cuda))
+    cpu = tcc.chebconv_propagate_plain(support.edges.rows, support.edges.cols,
+                                       support.edges.vals, support.diag, x)
+    assert _within_one_ulp(got, plain) and _within_one_ulp(got.cpu(), cpu)
+
+
+def test_chebconv_bf16_backward_raises(cuda):
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+    from multihop_offload_tpu_torch.models.chebconv import cast_support
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    inst, _, _ = _sparse_batch("paper", 1, slice(0, 2))
+    sup = cast_support(sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
+                                                csr=inst.sparse.ext_csr),
+                       torch.bfloat16).to(cuda)
+    x = torch.ones(tuple(sup.diag.shape) + (4,), dtype=torch.bfloat16, device=cuda,
+                   requires_grad=True)
+    out = tcc.chebconv_propagate(sup, x)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("layout,model", [("dense", "SCRATCH800_decay0.99"),
+                                          ("sparse", "SPECTRAL_K2")])
+def test_bf16_eval_methods_card_matches_cpu(cuda, layout, model):
+    """`eval_methods` under the bf16 policy on 8 paper networks x 2 job
+    sets, card against CPU: every baseline and local request's job totals,
+    and >= 99% of the GNN's, within 1e-2 relative, fp32 out; K1 launched
+    (on fp32), the float32 K2 not, K2 in bf16 (dense) or K4 and K6 in bf16
+    (sparse) launched."""
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.precision import resolve_precision
+    from multihop_offload_tpu_torch.train.driver import eval_methods
+
+    pol = resolve_precision("bf16")
+    inst, jobs, _ = request_batch(load_cases("paper")[:8], 2, seed=0, device="cpu",
+                                  layout=layout, dtype=pol.storage_dtype)
+    outs = {}
+    for dev in ("cpu", cuda):
+        m = load_model(model, device=dev, layout=layout, policy=pol)
+        reset_kernel_counts()
+        outs[str(dev)] = [t.cpu() for t in eval_methods(m, inst, jobs, device=dev,
+                                                         layout=layout, precision=pol)]
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+    assert counts["fixed_point"] > 0 and counts["minplus"] == 0
+    if layout == "sparse":
+        assert counts["coo_apsp_bf16"] > 0 and counts["chebconv_bf16"] > 0
+    else:
+        assert counts["minplus_bf16"] > 0
+    mask = jobs.mask
+    for i, name in enumerate(("baseline", "local", "gnn")):
+        got, want = outs["cuda"][i], outs["cpu"][i]
+        assert got.dtype == torch.float32
+        close = ((got - want).abs() <= 1e-2 * want.abs()) | ~mask
+        share = close.all(dim=1).double().mean().item()
+        assert share >= (1.0 if name != "gnn" else 0.99), (name, share)

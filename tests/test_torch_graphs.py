@@ -172,7 +172,7 @@ def test_request_batch_follows_bench_workload():
 
 
 _BANNED = ("jax", "flax", "optax", "networkx", "orbax", "multihop_offload_tpu", "pandas",
-           "tensorflow")
+           "tensorflow", "ml_dtypes")
 
 
 def _imports(path):
@@ -202,7 +202,7 @@ def test_port_imports_no_jax_side():
                    "train/driver.py", "utils/durable.py", "cli/train.py", "cli/test.py",
                    "env/scheduling.py", "graphs/mobility.py", "obs/devmetrics.py",
                    "sim/__init__.py", "sim/state.py", "sim/step.py", "sim/policies.py",
-                   "sim/runner.py", "sim/fidelity.py", "cli/sim.py"):
+                   "sim/runner.py", "sim/fidelity.py", "cli/sim.py", "precision.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):

@@ -318,10 +318,15 @@ def test_cli_serves_every_request_on_cpu_and_refuses_unported_options(capsys):
                          "--serve_model=SCRATCH800_decay0.99"])
     assert summary["served"] == summary["admitted"] == 9
     assert "committed model SCRATCH800_decay0.99" in capsys.readouterr().out
-    for bad in (Config(serve_mesh=2), Config(prob=True), Config(precision="bf16")):
+    for bad in (Config(serve_mesh=2), Config(prob=True)):
         with pytest.raises(NotImplementedError):
             tcli.build_service(bad, pool=twork.case_pool(SIZES, per_size=1, seed=0),
                                device="cpu")
+    # the bf16 precision policy is served (`tests/test_torch_precision.py`)
+    svc, _ = tcli.build_service(Config(precision="bf16"),
+                                pool=twork.case_pool(SIZES, per_size=1, seed=0),
+                                device="cpu")
+    assert svc.dtype == torch.bfloat16 and svc.precision.mixed
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tcli.build_service(Config(), pool=twork.case_pool(SIZES, per_size=1, seed=0))

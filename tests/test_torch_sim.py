@@ -367,8 +367,9 @@ def test_decisions_at_the_full_width_cell_match_jax():
 
 
 def test_policy_refuses_other_precisions():
-    with pytest.raises(NotImplementedError, match="fp32"):
-        tpol.make_policy("baseline", precision="bf16")
+    # fp32, bf16 and auto run (`tests/test_torch_precision.py`); others raise
+    with pytest.raises(ValueError, match="unsupported precision"):
+        tpol.make_policy("baseline", precision="fp16")
     with pytest.raises(ValueError, match="unknown sim policy"):
         tpol.make_policy("oracle")
 
