@@ -66,6 +66,22 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   card (`dst` agreement reported, and held to 0.99 for the service and
   the sim; mean job total within JAX's gate of 0.05); every request
   answered once; the sim's packets conserved.
+- Slice 15, the last two kernel forms: K4's transposed walk in bf16 (the
+  backward of the propagate) and K3 in bf16.  The Trainer under
+  `precision="bf16"` through `cli.train.main` on 2 files of the paper
+  dataset (10 job sets each, fresh K=2 init, replay of 20 from the second
+  file, exploration off, the replay's indices injected), dense (K2 bf16,
+  K1) and sparse (K4's bf16 forward and transposed walk, K6 and K2 in
+  bf16, K1): every file's launches equal the CPU's bf16 run's, its rows
+  (`baseline`, `local` all, `GNN` >= 99% with equal `congest_jobs` and
+  `tau` within 1e-2), replay loss (1e-2) and final params (drift <= 0.05
+  of the move) held to that run, checkpoints fp32, ms and busy share
+  beside fp32; K4's transposed walk bit-identical to its plain version
+  on 3 calls at (64, 328, 32) and (16, 328, 4).  In the large phase, K3
+  in bf16 bit-identical to `blocked_fw_plain` in bf16 at (1, 1024) (the
+  path's own delays narrowed) and (2, 384), and one `eval_methods(...,
+  precision=bf16)` at N = 1,024 launching K3 bf16 2 x 3 N / 128 times and
+  no other kernel.
 
 It
 
@@ -144,8 +160,9 @@ It
    sweeps a slot, its busy share and device records a slot over one
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
-   line, the kernels line (with the bf16 rows `minplus_squaring_bf16`,
-   `chebconv_propagate_bf16` and `coo_apsp_bf16`), then the
+   line, the bf16 training line, the kernels line (with the bf16 rows
+   `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
+   `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
    `{"ok": true, ...}` line last.
 
 Any failure raises, so the exit code is not 0 and no result line appears.
@@ -769,7 +786,8 @@ def large_phase(dev, card) -> dict:
     log(f"large path: forward_env {env_ms:.2f} ms, eval_methods {eval_ms:.2f} ms per "
         f"request, forward_backward {fb_ms:.2f} ms per episode; peak memory "
         f"{peak / 2**20:.1f} MiB (max_memory_allocated, eval_methods + forward_backward)")
-    return {"counts": counts, "shape": [b, n], "launches_per_call": 3 * nb,
+    bf16 = large_bf16(dev, card, case, d, small["2x384"], results["eval_methods"])
+    return {"counts": counts, "shape": [b, n], "launches_per_call": 3 * nb, "bf16": bf16,
             "ms": k3_ms, "device_ms": k3["device_ms"], "plain_ms": k3_plain_ms,
             "squaring_ms": k2_ms, "phase_device_us": phases,
             "pivot_ns_per_step": ns_per_step,
@@ -777,6 +795,99 @@ def large_phase(dev, card) -> dict:
             "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
             "forward_env_ms": env_ms, "eval_methods_ms": eval_ms,
             "forward_backward_ms": fb_ms, "peak_mib": peak / 2**20}
+
+
+def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
+    """Slice 15: K3 in bf16 on the large path.  K3 bf16 against
+    `blocked_fw_plain` in bf16 on the card, bit for bit on 2 calls, at the
+    path's own predicted-delay matrix narrowed (1, 1024) and at (2, 384)
+    (also against the CPU); then one `eval_methods(..., precision=bf16)` at
+    N = 1,024 (the case stored as bf16, the random K=3 weights under the
+    bf16 policy) with every count at 0 just before it and read just after:
+    2 APSP calls of 3 N / 128 K3 bf16 launches (`blocked_fw_cuda`'s rule),
+    no other kernel, the fixed-point scan run; job totals finite fp32, the
+    `baseline` and `local` mean job totals within JAX's gate of fp32's.
+    Then K3 bf16's device us by phase, call us, plain ms and bound: 2 N^3
+    adds and mins at the card's bf16x2 rate (the bound), and at the fp32
+    path's rate, on which the kernel runs them."""
+    from multihop_offload_tpu_torch.graphs.cases import large_request
+    from multihop_offload_tpu_torch.large_scale import MODEL
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.precision import resolve_precision
+    from multihop_offload_tpu_torch.train.driver import eval_methods
+
+    bf = torch.bfloat16
+    b, n, _ = d.shape
+    nb = n // mp.FW_TILE
+    d16 = d.to(bf).contiguous()
+    for tag, x in (("1x1024", d16), ("2x384", d384.to(bf))):
+        launches = (mp.blocked_fw_cuda.launches_bf16, mp.blocked_fw_cuda.launches)
+        outs = [mp.blocked_fw_cuda(x) for _ in range(2)]
+        ref = mp.blocked_fw_plain(x)
+        torch.cuda.synchronize()
+        per_call = 3 * (x.shape[-1] // mp.FW_TILE)
+        got = (mp.blocked_fw_cuda.launches_bf16 - launches[0],
+               mp.blocked_fw_cuda.launches - launches[1])
+        bad = [int((o != ref).sum()) for o in outs]
+        if tag == "2x384":
+            bad.append(int((outs[0].cpu() != mp.blocked_fw_plain(x.cpu())).sum()))
+        if any(bad) or got != (2 * per_call, 0) or outs[0].dtype != bf:
+            raise AssertionError(f"K3 bf16 {tag}: entries differ {bad}, launches {got}")
+    log(f"K3 blocked_fw bf16 B,N in [1x1024 (the path's predicted delays), 2x384]: "
+        f"bit-identical to blocked_fw_plain in bf16 on the card on 2 calls (and on the CPU "
+        f"at 2x384), 3 N / 128 launches a call, no float32 K3")
+
+    # ---- main path: eval_methods under bf16, counts at 0 just before -------
+    pol = resolve_precision("bf16", device=dev)
+    t0 = time.perf_counter()
+    inst, jobs, _ = large_request(case, dtype=pol.storage_dtype, device=dev)
+    model = load_model(MODEL, device=dev, policy=pol)
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    totals = eval_methods(model, inst, jobs, device=dev, precision=pol)
+    counts = read_counts()
+    want = {"blocked_fw_bf16": 2 * 3 * nb}
+    check_launches(f"large bf16 eval_methods (B=1, N={n})", counts, want)
+    if counts["fixed_point_scan"] == 0:
+        raise AssertionError("large bf16 eval_methods: the fixed-point scan did not run")
+    mask = jobs.mask
+    rel = {}
+    for name, tot, ref in zip(("baseline", "local", "gnn"), totals, fp32_totals):
+        if tot.dtype != torch.float32 or not torch.isfinite(tot[mask]).all():
+            raise AssertionError(f"large bf16 {name}: job totals not finite fp32")
+        m16, m32 = float(tot[mask].double().mean()), float(ref[mask].double().mean())
+        rel[name] = abs(m16 - m32) / abs(m32)
+    log(f"large bf16 eval_methods: mean job total rel to fp32 on the card {rel} (gate "
+        f"{BF16_GATE_TAU} on baseline and local); the case built at bf16 in {build_s:.2f} s")
+    if not (rel["baseline"] <= BF16_GATE_TAU and rel["local"] <= BF16_GATE_TAU):
+        raise AssertionError(f"large bf16 eval_methods: mean job totals {rel}")
+    eval_ms = wall_ms(lambda: eval_methods(model, inst, jobs, device=dev, precision=pol), 3)
+
+    # ---- timing ----------------------------------------------------------------
+    k3 = clocks(lambda: mp.blocked_fw_cuda(d16), 50, kernels_per_call=3 * nb + 1)
+    phases = k3_phase_us(device_us.last)
+    lost = device_us.last["lost_records"]
+    plain_ms = cuda_ms(lambda: mp.blocked_fw_plain(d16), 3, warmup=1)
+    ops_ms = 2.0 * b * n ** 3 / PEAK_BF16X2_OPS_PER_S * 1e3
+    bytes_ms = 2 * b * n * n * 2 / PEAK_BYTES_PER_S * 1e3
+    rec = {"shape": [b, n], "launches": counts["blocked_fw_bf16"], "launches_per_call": 3 * nb,
+           "counts": counts, "device_us": k3["device_ms"] * 1e3, "call_us": k3["ms"] * 1e3,
+           "host_us": k3["host_us"], "phase_device_us": phases,
+           "pivot_ns_per_step": phases["pivot"] * 1e3 / n, "lost_records": lost,
+           "plain_ms": plain_ms, "bound_us": max(ops_ms, bytes_ms) * 1e3,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bound_rate": BF16_RATE, "bound_fp32_path_us": max(2 * ops_ms, bytes_ms) * 1e3,
+           "eval_methods_ms": eval_ms, "mean_job_total_rel_to_fp32": rel}
+    log(f"timing on {card['smi']}: K3 blocked_fw bf16 B,N={(b, n)} per call ({3 * nb} "
+        f"launches): device {rec['device_us']:.1f} us (pivot {phases['pivot']:.2f}, "
+        f"{rec['pivot_ns_per_step']:.1f} ns a step; panels {phases['panels']:.2f}; outer "
+        f"{phases['outer']:.2f}; input clone {phases['clone']:.2f}; {lost} records lost), "
+        f"call {rec['call_us']:.1f} us, host {rec['host_us']:.1f} us; plain {plain_ms:.3f} "
+        f"ms; bound {rec['bound_us']:.2f} us (operations at the bf16x2 rate; "
+        f"{rec['bound_fp32_path_us']:.2f} at the fp32 path's); large bf16 eval_methods "
+        f"{eval_ms:.2f} ms")
+    return rec
 
 
 def closed_loop(svc, reqs) -> list:
@@ -1464,9 +1575,13 @@ SIM_KERNELS = ("fixed_point", "minplus", "chebconv")
 def count_plain(fn):
     """(fn(), launches) with the plain versions' calls counted as the
     launches their kernels make for them, by the dtype they receive: K1 one
-    a call (and only on float32 or wider), K2 one a squaring of the schedule
-    (`minplus` or `minplus_bf16`), K6 one a call plus its squarings, K4 one
-    a call (`chebconv` or `chebconv_bf16`).  Runs on the CPU."""
+    a forward call of its autograd Function (and only on float32 or
+    wider), K2 one a squaring of the schedule (`minplus` or
+    `minplus_bf16`), K3 3 N / 128 a call (1 at N = 128;
+    `blocked_fw` or `blocked_fw_bf16`), K6 one a call plus its squarings
+    (or K3's launches above a padded 256), K4 one a call (`chebconv` or
+    `chebconv_bf16`; the bf16 transposed walk `chebconv_bf16_t`).  Runs on
+    the CPU; gradients flow where `fn` enables them."""
     from multihop_offload_tpu_torch.ops import chebconv as cc
     from multihop_offload_tpu_torch.ops import fixed_point as fp
     from multihop_offload_tpu_torch.ops import minplus as mp
@@ -1483,23 +1598,37 @@ def count_plain(fn):
         if any(t.dtype == torch.bfloat16 for t in a[:4]):
             raise AssertionError("K1 received bf16: the fixed_point island broke")
         add("fixed_point", 1)
-        return orig["fixed_point_plain"](*a, **k)
+        return orig["_forward"](*a, **k)
 
     def k2(d, iters, *a, **k):
         add("minplus" + suffix(d), iters)
         return orig["minplus_closure_plain"](d, iters, *a, **k)
 
+    def k3(d, *a, **k):
+        nb = d.shape[-1] // mp.FW_TILE
+        add("blocked_fw" + suffix(d), 3 * nb if nb > 1 else 1)
+        return orig["blocked_fw_plain"](d, *a, **k)
+
     def k6(ends, mask, delays, n):
         add("coo_apsp" + suffix(delays), 1)
-        add("minplus" + suffix(delays), mp.squaring_count(n))
+        if mp.apsp_path(n) != "blocked-fw":  # K3's launches count themselves
+            add("minplus" + suffix(delays), mp.squaring_count(n))
         return orig["apsp_coo_plain"](ends, mask, delays, n)
 
     def k4(rows, cols, vals, diag, x, *a, **k):
         add("chebconv" + suffix(x), 1)
         return orig["chebconv_propagate_plain"](rows, cols, vals, diag, x, *a, **k)
 
-    wraps = {"fixed_point_plain": (fp, k1), "minplus_closure_plain": (mp, k2),
-             "apsp_coo_plain": (mp, k6), "chebconv_propagate_plain": (cc, k4)}
+    def k4t(rows, cols, vals, diag, g):
+        add("chebconv_bf16_t", 1)
+        return orig["chebconv_transpose_bf16_plain"](rows, cols, vals, diag, g)
+
+    # K1: its autograd Function's forward (the backward recomputes the
+    # plain scan on the card too, and the scan path launches no K1)
+    wraps = {"_forward": (fp, k1), "minplus_closure_plain": (mp, k2),
+             "blocked_fw_plain": (mp, k3), "apsp_coo_plain": (mp, k6),
+             "chebconv_propagate_plain": (cc, k4),
+             "chebconv_transpose_bf16_plain": (cc, k4t)}
     orig = {name: getattr(mod, name) for name, (mod, _) in wraps.items()}
     for name, (mod, fn_) in wraps.items():
         setattr(mod, name, fn_)
@@ -1744,13 +1873,14 @@ SIM_BF16 = dict(sim_policy="baseline", sim_rounds=2, sim_slots=250, precision="b
 # the kernels a call, past `device_us`'s tenth of 200
 WINDOW = 500
 LAUNCH_KEYS = ("fixed_point", "minplus", "minplus_bf16", "coo_apsp", "coo_apsp_bf16",
-               "chebconv", "chebconv_bf16", "blocked_fw")
+               "chebconv", "chebconv_bf16", "chebconv_bf16_t", "blocked_fw",
+               "blocked_fw_bf16")
 
 
 def check_launches(tag, counts: dict, want: dict) -> None:
     """Every kernel's launches equal the CPU run's prediction (kernels it
     does not name launched no time)."""
-    got = {k: counts[k] for k in LAUNCH_KEYS}
+    got = {k: counts.get(k, 0) for k in LAUNCH_KEYS}
     exp = {k: want.get(k, 0) for k in LAUNCH_KEYS}
     log(f"{tag}: launches {got} (the CPU run predicts {exp})")
     if got != exp:
@@ -1829,16 +1959,18 @@ def compare_served(tag: str, got: dict, want: dict) -> dict:
 
 
 def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
-    """K2, K6 and K4's forward in bf16 against their plain versions on the
-    card, at the bf16 paths' shapes: K2 bit for bit with the squarings run
-    of `squarings_run_plain` on the paper batch's APSP input (64, 112), the
-    service's (16, 56), (16, 112) and the rung's (4, 256); K6 bit for bit
-    at (64, L 216 -> N 112), one build and `squaring_count(n)` squarings;
-    K4 within one bf16 ulp at (64, 328, 32) and (16, 328, 4).  Then each
-    one's device us, call us, plain ms, bound (2 B an element; K2 and K6
-    also their adds and mins at the card's bf16x2 rate, `BF16_RATE`, with
-    the fp32 path's rate beside it) and the float32 kernel's device us at
-    the same shape; K4 beside `torch.bmm` in bf16."""
+    """K2, K6 and K4 (forward and transposed walk) in bf16 against their
+    plain versions on the card, at the bf16 paths' shapes: K2 bit for bit
+    with the squarings run of `squarings_run_plain` on the paper batch's
+    APSP input (64, 112), the service's (16, 56), (16, 112) and the rung's
+    (4, 256); K6 bit for bit at (64, L 216 -> N 112), one build and
+    `squaring_count(n)` squarings; K4's forward within one bf16 ulp and its
+    transposed walk bit for bit on 3 calls, at (64, 328, 32) and (16, 328,
+    4).  Then each one's device us, call us, plain ms, bound (2 B an
+    element; K2 and K6 also their adds and mins at the card's bf16x2 rate,
+    `BF16_RATE`, with the fp32 path's rate beside it) and the float32
+    kernel's device us at the same shape; K4 beside `torch.bmm` in bf16 on
+    the dense support (the transposed walk on its transpose)."""
     from multihop_offload_tpu_torch.env.apsp import weight_matrix_from_link_delays
     from multihop_offload_tpu_torch.layouts.sparse import (
         CsrIndex,
@@ -1851,7 +1983,8 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
     from multihop_offload_tpu_torch.ops.sparse import COO
 
     bf = torch.bfloat16
-    out = {"minplus_bf16": {}, "coo_apsp_bf16": {}, "chebconv_bf16": {}}
+    out = {"minplus_bf16": {}, "coo_apsp_bf16": {}, "chebconv_bf16": {},
+           "chebconv_bf16_t": {}}
     # ---- K2 ----------------------------------------------------------------
     w = weight_matrix_from_link_delays(inst.adj, inst.link_index, 1.0 / inst.link_rates)
     n = w.shape[-1]
@@ -1997,6 +2130,49 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
             f"{r['fp32_device_us']:.2f}), call {r['call_us']:.2f} us, plain "
             f"{plain_ms * 1e3:.2f} us, bound {r['bound_us']:.3f} us ({r['bound_by']}); "
             f"torch.bmm bf16 device {r['library_device_us']:.2f} us")
+        # ---- K4's bf16 transposed walk (the Trainer's backward) on the same lists
+        g = torch.randn((b, e, f), generator=gen, device=dev).to(bf)
+        tr_args = (s.csr.col_ptr, s.csr.col_order, e_.rows, e_.vals, s.diag, g)
+        launches = cc.chebconv_propagate_cuda.launches_bf16_t
+        outs_t = [cc.chebconv_propagate_cuda(*tr_args) for _ in range(3)]
+        launched = cc.chebconv_propagate_cuda.launches_bf16_t - launches
+        ref_t = cc.chebconv_transpose_bf16_plain(e_.rows, e_.cols, e_.vals, s.diag, g)
+        torch.cuda.synchronize()
+        bad = [int((o != ref_t).sum()) for o in outs_t]
+        if launched != 3 or any(bad) or outs_t[0].dtype != bf:
+            raise AssertionError(f"K4 bf16 transposed F={f}: {bad} entries differ from the "
+                                 f"plain version, {launched} launches")
+        tt = clocks(lambda: cc.chebconv_propagate_cuda(*tr_args), WINDOW, kernels_per_call=1)
+        g32 = g.float()
+        tt32 = clocks(lambda: cc.chebconv_propagate_cuda(s.csr.col_ptr, s.csr.col_order,
+                                                         e_.rows, v32, d32, g32), WINDOW,
+                      kernels_per_call=1)
+        plain_t_ms = cuda_ms(lambda: cc.chebconv_transpose_bf16_plain(
+            e_.rows, e_.cols, e_.vals, s.diag, g), 5, 1)
+        dsup_t = dsup.transpose(1, 2).contiguous()
+        lib_t = clocks(lambda: torch.bmm(dsup_t, g), WINDOW)
+        # bytes: each real entry's entry id, gather id and value, the column
+        # pointers, diag, g and out once
+        bytes_t = (real * 10 + b * (e + 1) * 4 + b * e * 2 + 2 * b * e * f * 2) \
+            / PEAK_BYTES_PER_S * 1e3
+        out["chebconv_bf16_t"][f"F{f}"] = {
+            "shape": [b, e, f], "nnz_real": real, "calls_bit_identical": 3,
+            "max_abs_err": 0.0, "device_us": tt["device_ms"] * 1e3, "call_us": tt["ms"] * 1e3,
+            "host_us": tt["host_us"], "plain_ms": plain_t_ms,
+            "bound_us": max(bytes_t, ops_ms) * 1e3,
+            "bound_by": "bytes" if bytes_t >= ops_ms else "operations",
+            "fp32_device_us": tt32["device_ms"] * 1e3,
+            "forward_device_us": t["device_ms"] * 1e3,
+            "library": "torch.bmm bf16 (transposed dense support)",
+            "library_device_us": lib_t["device_ms"] * 1e3, "library_call_us": lib_t["ms"] * 1e3}
+        r = out["chebconv_bf16_t"][f"F{f}"]
+        log(f"K4 bf16 transposed walk B,E,F={(b, e, f)}: bit-identical to "
+            f"chebconv_transpose_bf16_plain on 3 calls; on {card['smi']}: device "
+            f"{r['device_us']:.2f} us (bf16 forward {r['forward_device_us']:.2f}, fp32 "
+            f"transposed {r['fp32_device_us']:.2f}), call {r['call_us']:.2f} us, plain "
+            f"{plain_t_ms * 1e3:.2f} us, bound {r['bound_us']:.3f} us ({r['bound_by']}); "
+            f"torch.bmm bf16 on the transposed dense support device "
+            f"{r['library_device_us']:.2f} us")
     return out
 
 
@@ -2246,6 +2422,198 @@ def precision_phase(dev, card, paper, cfg, fp32_card: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     out["counts"] = counts_by_path
     log(f"precision phase {out['phase_s']:.1f} s")
+    return out
+
+
+# the bf16 Trainer's run: 2 files of the paper dataset, 10 job sets each,
+# replay of 20 from the second file (so 1 replay), exploration off
+BF16_TRAIN = ["--epochs", "1", "--files_limit", "2", "--batch", "20", "--memory_size", "40",
+              "--explore", "0", "--arrival_scale", "0.15", "--T", "1000",
+              "--num_instances", "10", "--cheb_k", "2"]
+BF16_PARAM_DRIFT = 0.05  # ||p_card - p_cpu|| over ||p_cpu - p0||
+
+
+def injected_indices(mem, batch, gen=None):
+    """The replay's sampled slots, the same on the card and the CPU: the
+    first `batch` of a permutation of the filled slots from
+    `default_rng(count)`."""
+    count = int(mem.count)
+    idx = np.random.default_rng(count).permutation(count)[:batch]
+    return torch.from_numpy(idx).to(mem.loss_critic.device)
+
+
+def compare_train_rows(tag: str, got: list, want: list) -> dict:
+    """Trainer CSV rows of the same visits: per method the share of rows
+    with identical `congest_jobs` and `tau` within `BF16_CARD_VS_CPU`;
+    every `baseline` and `local` row and >= 99% of the `GNN` and
+    `GNN-test` rows so."""
+    if len(got) != len(want) or not got or any(
+            (g["fid"], g["method"], g["n_instance"]) != (w["fid"], w["method"], w["n_instance"])
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{tag}: rows out of step ({len(got)}, {len(want)})")
+    share = {}
+    for method in ("baseline", "local", "GNN", "GNN-test"):
+        pairs = [(g, w) for g, w in zip(got, want) if g["method"] == method]
+        same = sum(g["congest_jobs"] == w["congest_jobs"]
+                   and abs(float(g["tau"]) - float(w["tau"]))
+                   <= BF16_CARD_VS_CPU * abs(float(w["tau"])) for g, w in pairs)
+        share[method] = same / len(pairs)
+    log(f"{tag}: rows with equal congest_jobs and tau within {BF16_CARD_VS_CPU}: {share}")
+    if share["baseline"] < 1.0 or share["local"] < 1.0 or min(
+            share["GNN"], share["GNN-test"]) < 0.99:
+        raise AssertionError(f"{tag}: {share}")
+    return share
+
+
+def bf16_training_phase(dev, card) -> dict:
+    """Slice 15: the Trainer under `precision="bf16"` through
+    `cli/train.py:main` on the committed paper dataset (2 files of 10 job
+    sets, fresh K=2 init, replay of 20 from the second file, exploration
+    off), dense and sparse, the replay's indices injected
+    (`injected_indices`).  On the card every file's training step and its
+    `eval_methods` are counted with every count at 0 just before and read
+    just after, and held to the counts the same calls make on the CPU
+    (`count_plain`): sparse K4's bf16 forward and transposed walk, K6 and
+    K2 in bf16, K1 on fp32; dense K2 in bf16 and K1.  The card's rows,
+    replay losses and final params are held to the same run on the CPU
+    (the rows' bars of the CPU parity test, replay losses within 1e-2,
+    ||p_card - p_cpu|| <= 0.05 ||p_cpu - p0||), its checkpoints to fp32.
+    Then bf16 beside fp32 on the card in the same call: host ms a visit in
+    the spans, the replay file's ms and the busy share over one replay
+    file."""
+    import shutil
+    import tempfile
+
+    from multihop_offload_tpu_torch.agent import replay as replay_mod
+    from multihop_offload_tpu_torch.cli import train as cli_train
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.obs.spans import reset_phases
+    from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mho_bf16_train_")
+    orig = {k: getattr(drv.Trainer, k) for k in ("run", "_train_step", "_eval_methods")}
+    orig_sample = replay_mod.sample_indices
+    out: dict = {"config": " ".join(BF16_TRAIN), "layouts": {}}
+    counts_by_path = {}
+    try:
+        replay_mod.sample_indices = injected_indices
+        for layout in ("dense", "sparse"):
+            runs = {}
+            for name, device, precision in (("card", dev.type, "bf16"), ("cpu", "cpu", "bf16"),
+                                            ("fp32", dev.type, "fp32")):
+                seen = {"steps": [], "tests": []}
+
+                def run(self, *a, _seen=seen, **k):
+                    _seen.setdefault("trainer", self)
+                    _seen.setdefault("p0", {n_: p.clone() for n_, p in self.params().items()})
+                    return orig["run"](self, *a, **k)
+
+                def counted(key, into):
+                    def call(self, *a, **k):
+                        if self.device.type == "cpu":
+                            res, c = count_plain(lambda: orig[key](self, *a, **k))
+                        else:
+                            reset_counts()
+                            res = orig[key](self, *a, **k)
+                            c = read_counts()
+                        into.append(c)
+                        return res
+                    return call
+
+                drv.Trainer.run = run
+                drv.Trainer._train_step = counted("_train_step", seen["steps"])
+                drv.Trainer._eval_methods = counted("_eval_methods", seen["tests"])
+                root = os.path.join(tmp, f"{layout}_{name}")
+                args = ["--datapath", PAPER_DATASET, "--out", os.path.join(root, "out"),
+                        "--model_root", os.path.join(root, "model"), "--layout", layout,
+                        "--precision", precision, "--device", device, *BF16_TRAIN]
+                reset_phases()
+                t0 = time.perf_counter()
+                try:
+                    csv_path = cli_train.main(args)
+                finally:
+                    for k, v in orig.items():
+                        setattr(drv.Trainer, k, v)
+                seen["wall_s"] = time.perf_counter() - t0
+                seen["spans"] = span_ms(("train/build", "train/step", "train/metrics"), 2)
+                seen["spans"].update(span_ms(("train/replay",), 1))
+                seen["rows"] = read_csv_rows(csv_path)
+                runs[name] = seen
+            on_card, cpu = runs["card"], runs["cpu"]
+            tag = f"bf16 Trainer ({layout}, K=2, 2 files)"
+            tr = on_card["trainer"]
+            if not tr.precision.mixed or cpu["trainer"].precision != tr.precision:
+                raise AssertionError(f"{tag}: not under bf16 ({tr.precision})")
+            # launches: every file's step and eval_methods as the CPU predicts
+            for what in ("steps", "tests"):
+                if len(on_card[what]) != 2 or len(cpu[what]) != 2:
+                    raise AssertionError(f"{tag}: {what} counted {len(on_card[what])} times")
+                for i, (c, w) in enumerate(zip(on_card[what], cpu[what])):
+                    check_launches(f"{tag} file {i} {what}", c, w)
+            step0 = on_card["steps"][0]
+            need = (("chebconv_bf16", "chebconv_bf16_t", "coo_apsp_bf16", "minplus_bf16",
+                     "fixed_point") if layout == "sparse" else ("minplus_bf16", "fixed_point"))
+            if any(step0.get(k, 0) <= 0 for k in need) or step0.get("chebconv") or step0.get(
+                    "minplus"):
+                raise AssertionError(f"{tag}: the training step's launches {step0}")
+            counts_by_path[f"bf16_train_step_{layout}"] = step0
+            # card against the CPU: rows, replay losses, params, fp32 state
+            share = compare_train_rows(f"{tag} card vs CPU", on_card["rows"], cpu["rows"])
+            rl, rl_cpu = np.array(tr.replay_losses), np.array(cpu["trainer"].replay_losses)
+            if rl.size != 1 or rl_cpu.size != 1 or not np.all(
+                    np.abs(rl - rl_cpu) <= BF16_CARD_VS_CPU * np.abs(rl_cpu)):
+                raise AssertionError(f"{tag}: replay losses {rl} against the CPU's {rl_cpu}")
+            p_card = {k: v.cpu().double() for k, v in tr.params().items()}
+            p_cpu = {k: v.double() for k, v in cpu["trainer"].params().items()}
+            p0 = {k: v.cpu().double() for k, v in on_card["p0"].items()}
+            moved = math.sqrt(sum(float(((p_cpu[k] - p0[k]) ** 2).sum()) for k in p0))
+            drift = math.sqrt(sum(float(((p_card[k] - p_cpu[k]) ** 2).sum()) for k in p0))
+            saved = ckpt_lib.restore_checkpoint_raw(tr._ckpt_dir())
+            dtypes = {str(v.dtype) for part in (saved["params"], saved["opt_state"]["mu"],
+                                                saved["opt_state"]["nu"])
+                      for v in part.values()} | {str(v.dtype) for v in tr.params().values()}
+            log(f"{tag} card vs CPU: replay loss {rl[0]:.6f} against {rl_cpu[0]:.6f}; params "
+                f"moved {moved:.4e} on the CPU, card - CPU {drift:.4e} (bar "
+                f"{BF16_PARAM_DRIFT} of the move); params and checkpoint dtypes {dtypes}")
+            if not (moved > 0 and drift <= BF16_PARAM_DRIFT * moved) or dtypes != {
+                    "torch.float32"}:
+                raise AssertionError(f"{tag}: params drift {drift} of {moved}, dtypes {dtypes}")
+            # bf16 beside fp32 on the card: one replay file each (memory full)
+            timing = {}
+            for name in ("card", "fp32"):
+                trn = runs[name]["trainer"]
+                one = lambda trn=trn, name=name: trn.run(  # noqa: E731
+                    epochs=1, files_limit=1, verbose=False,
+                    out_dir=os.path.join(tmp, f"{layout}_{name}_one"))
+                ms = wall_ms(one, 3)
+                timing[name] = {"wall_s_2_files": runs[name]["wall_s"],
+                                "span_ms_per_visit": runs[name]["spans"],
+                                "replay_file_ms": ms, "busy": busy_share(one, ms)}
+            b16, b32 = timing["card"], timing["fp32"]
+            log(f"{tag} timing on {card['smi']}: train/step "
+                f"{b16['span_ms_per_visit'].get('train/step', float('nan')):.2f} ms a visit "
+                f"(fp32 {b32['span_ms_per_visit'].get('train/step', float('nan')):.2f}), "
+                f"train/replay {b16['span_ms_per_visit'].get('train/replay', float('nan')):.2f} "
+                f"({b32['span_ms_per_visit'].get('train/replay', float('nan')):.2f}); a replay "
+                f"file {b16['replay_file_ms']:.2f} ms ({b32['replay_file_ms']:.2f}); busy "
+                f"{b16['busy']['busy_ms']:.3f} ms, share {b16['busy']['share']:.4f} (fp32 "
+                f"{b32['busy']['busy_ms']:.3f}, {b32['busy']['share']:.4f})")
+            out["layouts"][layout] = {
+                "launches_per_file": {"train_step": step0,
+                                      "eval_methods": on_card["tests"][0]},
+                "card_vs_cpu": {"rows": share, "replay_loss": [float(rl[0]), float(rl_cpu[0])],
+                                "param_drift_over_move": drift / moved},
+                "bf16": b16, "fp32": b32}
+    finally:
+        replay_mod.sample_indices = orig_sample
+        for k, v in orig.items():
+            setattr(drv.Trainer, k, v)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["counts"] = counts_by_path
+    log(f"bf16 training phase {out['phase_s']:.1f} s")
     return out
 
 
@@ -2552,6 +2920,9 @@ def main() -> int:
         "dense": card_out, "sparse": sp_card, "dense_model": model,
         "dense_batch": (inst, jobs), "sparse_model": sp_model_k2,
         "sparse_batch": (sp_inst, sp_jobs)})
+
+    # ---- slice 15: the Trainer under bf16 ------------------------------------
+    train16 = bf16_training_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -2560,14 +2931,17 @@ def main() -> int:
                **serving.pop("counts"),
                "driver_eval_file": drivers.pop("eval_counts_file0"),
                "driver_train_file": drivers.pop("train_counts_file0"),
-               **sim.pop("counts"), **prec.pop("counts")}
+               **sim.pop("counts"), **prec.pop("counts"), **train16.pop("counts"),
+               "large_bf16_eval_methods": large["bf16"].pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
     pk = prec.pop("kernels")
     print(json.dumps({"precision": prec}), flush=True)
+    print(json.dumps({"bf16_training": train16}), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
-    k4b = pk["chebconv_bf16"]["F32"]
+    k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
+    k3b = large["bf16"]
     pc = prec["paths"]
     kernels = [
         {"name": "fixed_point", "route": "cuda",
@@ -2679,6 +3053,33 @@ def main() -> int:
          "fp32_device_ms": k6b["fp32_device_us"] / 1e3,
          "squarings_per_call": k6b["squarings_run"],
          "launches_by_path": {k: v["coo_apsp_bf16"] for k, v in by_path.items()}},
+        {"name": "chebconv_transpose_bf16", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/chebconv_bf16.cu",
+         "replaces": "multihop_offload_tpu/ops/chebconv.py:184",
+         "launches": by_path["bf16_train_step_sparse"]["chebconv_bf16_t"],
+         "max_abs_err": k4t["max_abs_err"], "ms": k4t["call_us"] / 1e3,
+         "device_ms": k4t["device_us"] / 1e3, "plain_ms": k4t["plain_ms"],
+         "bound_ms": k4t["bound_us"] / 1e3, "bound_by": k4t["bound_by"],
+         "library_ms": k4t["library_call_us"] / 1e3, "library": k4t["library"],
+         "library_device_ms": k4t["library_device_us"] / 1e3, "shape": k4t["shape"],
+         "fp32_device_ms": k4t["fp32_device_us"] / 1e3,
+         "forward_device_ms": k4t["forward_device_us"] / 1e3,
+         "f4": pk["chebconv_bf16_t"]["F4"],
+         "launches_by_path": {k: v["chebconv_bf16_t"] for k, v in by_path.items()}},
+        {"name": "blocked_fw_bf16", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/blocked_fw_bf16.cu",
+         "replaces": "multihop_offload_tpu/ops/minplus.py:195",
+         "launches": k3b["launches"], "max_abs_err": 0.0, "ms": k3b["call_us"] / 1e3,
+         "device_ms": k3b["device_us"] / 1e3, "plain_ms": k3b["plain_ms"],
+         "bound_ms": k3b["bound_us"] / 1e3, "bound_by": k3b["bound_by"],
+         "bound_rate": k3b["bound_rate"],
+         "bound_fp32_path_ms": k3b["bound_fp32_path_us"] / 1e3,
+         "library_ms": None, "shape": k3b["shape"],
+         "launches_per_call": k3b["launches_per_call"],
+         "phase_device_us": k3b["phase_device_us"],
+         "pivot_ns_per_step": k3b["pivot_ns_per_step"],
+         "fp32_device_ms": large["device_ms"],
+         "launches_by_path": {k: v["blocked_fw_bf16"] for k, v in by_path.items()}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

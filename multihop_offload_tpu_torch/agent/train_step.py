@@ -214,13 +214,18 @@ def forward_backward(
     layout=None,
     device=None,
     compat_diagonal_bug: bool = False,
+    precision=None,
 ) -> TrainStepOutput:
     """One training step's gradients for a batch of B episodes on `device`
     (default CUDA).  Under `layout="sparse"` the instance must be built
     sparse and the model carry the sparse `propagate`.
     `compat_diagonal_bug=True` feeds the decision path the reference's
     cycled node-delay diagonal, as `forward_env` does; the gradients are
-    unaffected (JAX `:346-352`)."""
+    unaffected (JAX `:346-352`).  `precision` (a `PrecisionPolicy` or its
+    name; None: fp32) narrows the APSP to its compute dtype, as the JAX
+    harness hands `forward_backward` its `wrap_apsp`-ped APSP; the actor
+    runs at the model's own dtypes, and the critic, the suffix bias and the
+    MSE term at >= fp32 (the islands)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -242,7 +247,7 @@ def forward_backward(
         else:
             unit_diag = torch.diagonal(dmtx.detach(), dim1=1, dim2=2)
         with phase("apsp"):
-            sp = shortest_paths(inst, actor.link_delay.detach(), lay)
+            sp = shortest_paths(inst, actor.link_delay.detach(), lay, precision)
         with phase("offload_decide"):
             dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
         with phase("next_hops"):

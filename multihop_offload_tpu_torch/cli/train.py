@@ -9,6 +9,12 @@ Port of `multihop_offload_tpu/cli/train.py` (one device):
 Resumes from the newest checkpoint in the model directory's `torch/` when
 there is one, runs the epoch loop and writes the training CSV.  It runs on
 CUDA unless `--device cpu` is given, and raises when CUDA is absent.
+`--precision bf16` (or `auto`, which is bf16 on the card and fp32 on the
+CPU) trains under the bf16 policy (`precision.py`): job sets stored bf16,
+the ChebNet's operands and its backward in bf16 (K4's forward and
+transposed walk in bf16 on the sparse layout), the APSP in bf16, the
+critic and K1 on fp32, and parameters, Adam moments and checkpoints in
+fp32, so a bf16 run resumes an fp32 checkpoint and the reverse.
 """
 
 from __future__ import annotations

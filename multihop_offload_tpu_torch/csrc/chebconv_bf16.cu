@@ -13,8 +13,31 @@
 // entry's product is a bf16 product, widened before the segment sum).  It
 // walks the host CSR index of the list as the float32 kernel's forward
 // does (`csrc/chebconv.cu`): row r is the range [ptr[r], ptr[r + 1]) of the
-// row-sorted real entries, and the pads are never read.  The transposed
-// walk (the backward) is not here: training under bf16 is queued.
+// row-sorted real entries, and the pads are never read.
+//
+// The transposed walk (`mho_chebconv_transpose_bf16`, the backward of the
+// propagate under the Trainer's bf16 policy) follows JAX's VJP of
+// `_xla_propagate` instead, which does not sum in fp32:
+//
+//     out[b, c, f] = bf16( acc[b, c, f] + bf16(diag[b, c] * x[b, c, f]) ),
+//     acc <- bf16(acc + bf16(vals[b, e] * x[b, index[b, e], f])), from +0,
+//
+// over the entries e = order[b, p] of column c, p in [ptr[b, c], ptr[b, c
+// + 1]) (the column ranges of `col_ptr` / `col_order`, list order within
+// a column): the cotangents of the bf16 products are scatter-added in bf16,
+// one rounding an add, and the diagonal term, itself rounded, comes last
+// (`ops/chebconv.py:chebconv_transpose_bf16_plain`).  The chain of
+// roundings is sequential per (column, feature), so it is the same loop as
+// the forward with each add rounded to bf16 before the next one reads it,
+// and the same bits on every call.  Each add is an fp32 add of two bf16
+// values, rounded to bf16: an fp32 sum of two bf16 is within 2^-24 of
+// the exact one, far inside half a bf16 ulp, so the two roundings give
+// the one correct rounding the CPU's bf16 add gives.  The column's entry
+// ids come through `order` (one more dependent load an entry, made for the
+// whole chunk before the index and vals loads).  Its bound is the
+// forward's bytes and 4 more an entry (the entry id); in practice the
+// chain: a column's adds wait for one another, as the forward's do, with a
+// rounding more in each link.
 //
 // What bounds it on an H100: bytes in principle (each entry's 6 bytes,
 // diag, x and out once), latency in practice: a row's sum is a chain of
@@ -64,6 +87,10 @@ __device__ __forceinline__ unsigned float_to_bf16_bits(float a) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(a));
 }
 
+__device__ __forceinline__ float round_bf16(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
 __device__ __forceinline__ __nv_bfloat162 as_bf162(unsigned w) {
   return *reinterpret_cast<const __nv_bfloat162*>(&w);
 }
@@ -85,11 +112,14 @@ template <> struct Vec<1> {
     *p = __float2bfloat16_rn(a[0]);
   }
   static __device__ __forceinline__ float get(const T& v, int) { return bf16_bits_to_float(v); }
-  // acc += bf16(v * x) for the word's bf16; v2 holds v's bf16 bits twice
+  // acc += bf16(v * x) for the word's bf16; v2 holds v's bf16 bits twice;
+  // R: each sum rounded to bf16 (the transposed walk)
+  template <bool R>
   static __device__ __forceinline__ void madd(float (&acc)[1], const T& w, unsigned v2) {
     const __nv_bfloat16 p = __hmul(__ushort_as_bfloat16(w),
                                    __ushort_as_bfloat16(static_cast<unsigned short>(v2)));
     acc[0] = __fadd_rn(acc[0], __bfloat162float(p));
+    if constexpr (R) acc[0] = round_bf16(acc[0]);
   }
 };
 template <> struct Vec<4> {
@@ -103,6 +133,7 @@ template <> struct Vec<4> {
                    float_to_bf16_bits(a[2]) | (float_to_bf16_bits(a[3]) << 16));
   }
   static __device__ __forceinline__ float get(const T& v, int j) { return word_elem(v, j); }
+  template <bool R>
   static __device__ __forceinline__ void madd(float (&acc)[4], const T& w, unsigned v2) {
     const __nv_bfloat162 lo = __hmul2(as_bf162(w.x), as_bf162(v2));
     const __nv_bfloat162 hi = __hmul2(as_bf162(w.y), as_bf162(v2));
@@ -110,13 +141,19 @@ template <> struct Vec<4> {
     acc[1] = __fadd_rn(acc[1], __high2float(lo));
     acc[2] = __fadd_rn(acc[2], __low2float(hi));
     acc[3] = __fadd_rn(acc[3], __high2float(hi));
+    if constexpr (R) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = round_bf16(acc[j]);
+    }
   }
 };
 
-// G lanes per row, V bf16 per lane and pass
-template <int G, int V>
+// G lanes per row, V bf16 per lane and pass; T: the transposed walk (entry
+// ids through `order`, each add rounded, diag * x rounded and added last)
+template <int G, int V, bool T>
 __global__ void __launch_bounds__(kThreads)
 chebconv_bf16_kernel(const int* __restrict__ ptr,             // (B, E + 1)
+                     const int* __restrict__ order,           // (B, nnz) entry ids (T)
                      const int* __restrict__ index,           // (B, nnz) gather ids
                      const __nv_bfloat16* __restrict__ vals,  // (B, nnz)
                      const __nv_bfloat16* __restrict__ diag,  // (B, E)
@@ -147,6 +184,7 @@ chebconv_bf16_kernel(const int* __restrict__ ptr,             // (B, E + 1)
       __reduce_max_sync(kFull, static_cast<unsigned>((len + C - 1) / C)));
   const long long lb = static_cast<long long>(b) * nnz;
   const int* ix = index + lb;
+  const int* od = T ? order + lb : nullptr;
   const __nv_bfloat16* vl = vals + lb;
   const __nv_bfloat16* xb = x + static_cast<long long>(b) * E * F;
   const int fvn = F / V;
@@ -159,6 +197,13 @@ chebconv_bf16_kernel(const int* __restrict__ ptr,             // (B, E + 1)
     for (int i = 0; i < P; ++i) {
       const int k = c * C + gl + i * G;
       e[i] = k < len ? p0 + k : 0;
+    }
+    if constexpr (T) {  // a column's entry ids, all loads out before any is used
+      int o[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) o[i] = od[e[i]];
+#pragma unroll
+      for (int i = 0; i < P; ++i) e[i] = o[i];
     }
 #pragma unroll
     for (int i = 0; i < P; ++i) {
@@ -216,7 +261,7 @@ chebconv_bf16_kernel(const int* __restrict__ ptr,             // (B, E + 1)
           for (int u = 0; u < NB; ++u) {
             const int k = j * NB + u;
             const unsigned v2 = __shfl_sync(kFull, val[k / G], k % G, G);
-            if (fok && k < cnt) VT::madd(acc, xa[u], v2);
+            if (fok && k < cnt) VT::template madd<T>(acc, xa[u], v2);
           }
           if (kPrefetchX) {
 #pragma unroll
@@ -239,44 +284,53 @@ chebconv_bf16_kernel(const int* __restrict__ ptr,             // (B, E + 1)
       const typename VT::T xr = VT::load(xb + static_cast<long long>(r) * F + foff);
       float res[V];
 #pragma unroll
-      for (int q = 0; q < V; ++q) res[q] = __fadd_rn(acc[q], __fmul_rn(d, VT::get(xr, q)));
+      for (int q = 0; q < V; ++q) {
+        const float h = __fmul_rn(d, VT::get(xr, q));  // exact: two bf16
+        res[q] = T ? __fadd_rn(acc[q], round_bf16(h)) : __fadd_rn(acc[q], h);
+      }
       VT::store(out + row * F + foff, res);
     }
   }
 }
 
-template <int G, int V>
-int launch(const void* ptr, const void* index, const void* vals, const void* diag,
-           const void* x, void* out, int B, int E, int F, int nnz, void* stream) {
+template <int G, int V, bool T>
+int launch(const void* ptr, const void* order, const void* index, const void* vals,
+           const void* diag, const void* x, void* out, int B, int E, int F, int nnz,
+           void* stream) {
   const long long rows_per_block = kThreads / G;
   const long long blocks = (static_cast<long long>(B) * E + rows_per_block - 1) / rows_per_block;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  chebconv_bf16_kernel<G, V><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ptr), static_cast<const int*>(index),
-      static_cast<const __nv_bfloat16*>(vals), static_cast<const __nv_bfloat16*>(diag),
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), B, E, F, nnz);
+  chebconv_bf16_kernel<G, V, T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ptr), static_cast<const int*>(order),
+      static_cast<const int*>(index), static_cast<const __nv_bfloat16*>(vals),
+      static_cast<const __nv_bfloat16*>(diag), static_cast<const __nv_bfloat16*>(x),
+      static_cast<__nv_bfloat16*>(out), B, E, F, nnz);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int V>
-int launch_v(const void* ptr, const void* index, const void* vals, const void* diag,
-             const void* x, void* out, int B, int E, int F, int nnz, void* stream) {
+template <int V, bool T>
+int launch_v(const void* ptr, const void* order, const void* index, const void* vals,
+             const void* diag, const void* x, void* out, int B, int E, int F, int nnz,
+             void* stream) {
   const int fv = F / V;
   const int g = fv <= 4 ? 4 : fv <= 8 ? 8 : fv <= 16 ? 16 : 32;
   switch (g) {
-    case 4: return launch<4, V>(ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
-    case 8: return launch<8, V>(ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
-    case 16: return launch<16, V>(ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
-    default: return launch<32, V>(ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
+    case 4: return launch<4, V, T>(ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
+    case 8: return launch<8, V, T>(ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
+    case 16:
+      return launch<16, V, T>(ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
+    default:
+      return launch<32, V, T>(ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
   }
 }
 
-int launch_width(int v, const void* ptr, const void* index, const void* vals,
-                 const void* diag, const void* x, void* out, int B, int E, int F, int nnz,
-                 void* stream) {
-  if (v == 4) return launch_v<4>(ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
-  return launch_v<1>(ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
+template <bool T>
+int launch_width(int v, const void* ptr, const void* order, const void* index,
+                 const void* vals, const void* diag, const void* x, void* out, int B, int E,
+                 int F, int nnz, void* stream) {
+  if (v == 4) return launch_v<4, T>(ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
+  return launch_v<1, T>(ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
 }
 
 bool aligned(const void* x, const void* out, unsigned bytes) {
@@ -294,7 +348,20 @@ extern "C" int mho_chebconv_propagate_bf16(const void* ptr, const void* index,
                                            const void* x, void* out, int B, int E, int F,
                                            int nnz, void* stream) {
   const int v = F % 4 == 0 && F >= 16 && aligned(x, out, 8) ? 4 : 1;
-  return launch_width(v, ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
+  return launch_width<false>(v, ptr, nullptr, index, vals, diag, x, out, B, E, F, nnz, stream);
+}
+
+// The transposed walk: out (B, E, F) bf16 on `stream`, column c the entries
+// order[b, p], p in [ptr[b, c], ptr[b, c + 1]), gathering x at index[b, e]
+// (the rows); ptr (B, E + 1), order and index (B, nnz) int32; vals (B, nnz),
+// diag (B, E) and x (B, E, F) bf16; all contiguous.  Returns the
+// cudaError_t of the launch.
+extern "C" int mho_chebconv_transpose_bf16(const void* ptr, const void* order,
+                                           const void* index, const void* vals,
+                                           const void* diag, const void* x, void* out, int B,
+                                           int E, int F, int nnz, void* stream) {
+  const int v = F % 4 == 0 && F >= 16 && aligned(x, out, 8) ? 4 : 1;
+  return launch_width<true>(v, ptr, order, index, vals, diag, x, out, B, E, F, nnz, stream);
 }
 
 // The same walk at a chosen word width V (1 or 4; F must be a multiple of
@@ -306,5 +373,5 @@ extern "C" int mho_chebconv_propagate_bf16_v(int v, const void* ptr, const void*
                                              int nnz, void* stream) {
   if ((v != 1 && v != 4) || F % v != 0 || !aligned(x, out, 2 * v))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_width(v, ptr, index, vals, diag, x, out, B, E, F, nnz, stream);
+  return launch_width<false>(v, ptr, nullptr, index, vals, diag, x, out, B, E, F, nnz, stream);
 }

@@ -61,7 +61,9 @@ def kernel_counts() -> dict:
             "ragged_index": cc.ragged_index_cuda.launches,
             "minplus_bf16": mp.minplus_closure_cuda.launches_bf16,
             "coo_apsp_bf16": mp.apsp_coo_cuda.launches_bf16,
-            "chebconv_bf16": cc.chebconv_propagate_cuda.launches_bf16}
+            "chebconv_bf16": cc.chebconv_propagate_cuda.launches_bf16,
+            "chebconv_bf16_t": cc.chebconv_propagate_cuda.launches_bf16_t,
+            "blocked_fw_bf16": mp.blocked_fw_cuda.launches_bf16}
 
 
 def reset_kernel_counts() -> None:
@@ -75,6 +77,8 @@ def reset_kernel_counts() -> None:
     mp.minplus_closure_cuda.launches_bf16 = 0
     mp.apsp_coo_cuda.launches_bf16 = 0
     cc.chebconv_propagate_cuda.launches_bf16 = 0
+    cc.chebconv_propagate_cuda.launches_bf16_t = 0
+    mp.blocked_fw_cuda.launches_bf16 = 0
 
 
 def _timed(dev, fn, counts: dict | None = None, name: str = ""):

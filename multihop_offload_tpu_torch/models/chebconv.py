@@ -17,6 +17,10 @@ Chebyshev recursion runs in it, and each feature product accumulates in
 `accum_dtype` (fp32): bf16 operands widened to fp32, which is what XLA's
 ``preferred_element_type`` product computes (``torch.matmul`` of two bf16
 tensors would round its output to bf16).  Parameters stay `param_dtype`.
+Under autograd the `.to` casts give the kernel's gradient as JAX's
+transpose of its `preferred_element_type` product gives it: the fp32
+product rounded to the bf16 operand, then widened to the fp32 parameter;
+the sparse propagate's backward is K4's bf16 transposed walk.
 
 Parameters may carry a leading batch axis, one copy per episode (kernel
 (B, k, in, out), bias (B, out)): `torch.matmul` broadcasts

@@ -42,13 +42,15 @@ SIGNATURES = {
     "coo_apsp": ("mho_coo_weights_f32",
                  [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "blocked_fw": ("mho_blocked_fw_f32", [_c_void_p] + [_c_int] * 2 + [_c_void_p]),
-    # the bf16 leg of the precision policy (K2, K6's build, K4's forward)
+    # the bf16 leg of the precision policy (K2, K6's build, K4's forward; K4's
+    # transposed walk is `mho_chebconv_transpose_bf16` of the same library; K3)
     "minplus_bf16": ("mho_minplus_square_bf16",
                      [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "coo_apsp_bf16": ("mho_coo_weights_bf16",
                       [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "chebconv_bf16": ("mho_chebconv_propagate_bf16",
                       [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p]),
+    "blocked_fw_bf16": ("mho_blocked_fw_bf16", [_c_void_p] + [_c_int] * 2 + [_c_void_p]),
 }
 
 _loaded: dict = {}   # (name, symbol) -> bound ctypes function, one load per process

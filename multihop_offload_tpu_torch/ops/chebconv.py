@@ -38,16 +38,22 @@ pads included.  No path of the JAX package calls it, and none of the
 port does.
 
 Under the bf16 precision policy x and the support are bfloat16 and the
-sum is fp32 (`ops/chebconv.py:203`): the plain version is
+forward's sum is fp32 (`ops/chebconv.py:203`): the plain version is
 `propagate_edges` (bf16 products, an fp32 segment sum, rounded once), and
 on the card `chebconv_propagate_cuda` launches K4's bf16 forward
 (`csrc/chebconv_bf16.cu`) on bfloat16 x, counted in
-`chebconv_propagate_cuda.launches_bf16`.  The backward in bf16 (the
-transposed walk) raises on every device: training under bf16 is queued.
+`chebconv_propagate_cuda.launches_bf16`.  The backward in bf16 does not
+sum in fp32: JAX's VJP of `_xla_propagate` (`:56-63`) scatter-adds the
+bf16 products into their columns in bf16, one rounding an add, and adds
+the diagonal term, itself rounded to bf16, last.  Its plain version is
+`chebconv_transpose_bf16_plain`, and on the card the transposed walk of
+the same file runs it (`order` given on bfloat16 x), counted in
+`chebconv_propagate_cuda.launches_bf16_t`; both equal JAX bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -63,10 +69,35 @@ from multihop_offload_tpu_torch.ops import _build
 chebconv_propagate_plain = propagate_edges
 
 
-BF16_TRAINER_ITEM = "ROADMAP.md Queue 1 item 10"
-_BF16_BACKWARD_MSG = (
-    "the ChebConv propagate's transposed walk (its backward) in bfloat16 waits on "
-    f"{BF16_TRAINER_ITEM} (the Trainer under bf16); train under precision='fp32'")
+def chebconv_transpose_bf16_plain(rows, cols, vals, diag, g) -> torch.Tensor:
+    """The transposed propagate in bf16, as JAX's VJP of `_xla_propagate`
+    with bf16 x and fp32 accumulation computes d x: for (B, nnz) lists,
+    (B, E) diag and (B, E, F) g, all bf16 but the indices,
+
+        out[b, c] = bf16(h[b, c] + acc[b, c]),  h = bf16(fp32(diag) * fp32(g)),
+
+    acc the running sum, from +0, of the products bf16(vals[e] g[rows[e]])
+    over the entries e with cols[e] == c in entry order, each add rounded
+    to bf16.  Vectorised over columns, one step a position up to the
+    longest column (no bf16 `index_add_`, whose order is not promised).
+    Entries of value 0 (the pads) are left out: their products are +-0,
+    and adding +-0 leaves a sum that starts at +0 as it is."""
+    b, nnz = cols.shape
+    e = g.shape[1]
+    key = torch.where(vals != 0, cols.long(), e)  # pads sort last, past every column
+    key, order = torch.sort(key, dim=1, stable=True)
+    prod = torch.gather(vals, 1, order).unsqueeze(-1) * gather_rows(
+        g, torch.gather(rows, 1, order))          # bf16 products, column-sorted
+    col = torch.arange(e, device=g.device).expand(b, e).contiguous()
+    start = torch.searchsorted(key, col)
+    length = torch.searchsorted(key, col, right=True) - start
+    acc = torch.zeros_like(g)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    for k in range(int(length.max()) if e and nnz else 0):
+        term = gather_rows(prod, (start + k).clamp(max=nnz - 1))
+        acc = acc + torch.where((k < length).unsqueeze(-1), term, zero)
+    h = (diag.float().unsqueeze(-1) * g.float()).to(g.dtype)
+    return h + acc
 
 
 def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
@@ -81,14 +112,15 @@ def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
     (B, E) and x (B, E, F) float32; all contiguous on one CUDA device.
     Returns (B, E, F).
 
-    On bfloat16 vals, diag and x it launches `csrc/chebconv_bf16.cu`, the
-    forward only (`order` None): each product rounded to bf16, the sum
-    taken in fp32 in list order and rounded to bf16 once."""
+    On bfloat16 vals, diag and x it launches `csrc/chebconv_bf16.cu`: with
+    `order` None the forward (each product rounded to bf16, the sum taken
+    in fp32 in list order and rounded to bf16 once), with `order` the
+    transposed walk of the backward (each add rounded to bf16 in list
+    order, then diag * x rounded to bf16 added last:
+    `chebconv_transpose_bf16_plain`)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, E, F), got {tuple(x.shape)}")
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and order is not None:
-        raise NotImplementedError(_BF16_BACKWARD_MSG)
     fdt = torch.bfloat16 if bf16 else torch.float32
     b, e, f = x.shape
     nnz = index.shape[-1]
@@ -110,15 +142,22 @@ def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
     if out.numel() == 0:
         return out
     name = "chebconv_bf16" if bf16 else "chebconv"
-    fn = _build.kernel(name)
-    # the bf16 launcher takes no `order`: it walks rows only
-    head = (ptr.data_ptr(),) if bf16 else (ptr.data_ptr(),
-                                           None if order is None else order.data_ptr())
+    if bf16 and order is not None:
+        fn = _build.symbol(name, "mho_chebconv_transpose_bf16",
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        head = (ptr.data_ptr(), order.data_ptr())
+    elif bf16:  # the forward launcher takes no `order`
+        fn, head = _build.kernel(name), (ptr.data_ptr(),)
+    else:
+        fn = _build.kernel(name)
+        head = (ptr.data_ptr(), None if order is None else order.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*head, index.data_ptr(), vals.data_ptr(), diag.data_ptr(), x.data_ptr(),
                  out.data_ptr(), b, e, f, nnz, stream)
-    if bf16:
+    if bf16 and order is not None:
+        chebconv_propagate_cuda.launches_bf16_t += 1
+    elif bf16:
         chebconv_propagate_cuda.launches_bf16 += 1
     else:
         chebconv_propagate_cuda.launches += 1
@@ -128,6 +167,7 @@ def chebconv_propagate_cuda(ptr: torch.Tensor, order: torch.Tensor | None,
 
 chebconv_propagate_cuda.launches = 0
 chebconv_propagate_cuda.launches_bf16 = 0
+chebconv_propagate_cuda.launches_bf16_t = 0
 
 
 def chebconv_walk_plain(ptr, order, index, vals, diag, x) -> torch.Tensor:
@@ -147,10 +187,10 @@ def chebconv_walk_plain(ptr, order, index, vals, diag, x) -> torch.Tensor:
 
 
 def _run(support: SparseSupport, x: torch.Tensor, transpose: bool) -> torch.Tensor:
-    if transpose and x.dtype == torch.bfloat16:
-        raise NotImplementedError(_BF16_BACKWARD_MSG)
     e = support.edges
     if x.device.type == "cpu":
+        if transpose and x.dtype == torch.bfloat16:
+            return chebconv_transpose_bf16_plain(e.rows, e.cols, e.vals, support.diag, x)
         rows, cols = (e.cols, e.rows) if transpose else (e.rows, e.cols)
         return chebconv_propagate_plain(rows, cols, e.vals, support.diag, x)
     if x.device.type == "cuda":

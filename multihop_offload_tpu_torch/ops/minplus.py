@@ -56,8 +56,13 @@ launches `csrc/minplus_bf16.cu` on bfloat16 input and `apsp_coo_cuda`
 `csrc/coo_apsp_bf16.cu` on bfloat16 delays (then the bf16 squarings); both
 equal their plain versions in bf16 bit for bit.  Each bf16 kernel has its
 own counters beside the float32 ones: `minplus_closure_cuda.launches_bf16`
-and `.executed_bf16`, `apsp_coo_cuda.launches_bf16`.  K3 has no bf16 form
-yet: `blocked_fw` raises on bfloat16.
+and `.executed_bf16`, `apsp_coo_cuda.launches_bf16`.  K3 in bf16 is
+`csrc/blocked_fw_bf16.cu`, launched by `blocked_fw_cuda` on bfloat16 input
+and counted in `blocked_fw_cuda.launches_bf16`: the bf16 decision paths
+above a padded N of 256 (the dense route through `apsp_blocked_fw`, the
+sparse one through K6's bf16 build at the 128-rounded N), bit-identical to
+`blocked_fw_plain` in bf16, which equals the TPU kernel's interpret mode on
+bf16.
 """
 
 from __future__ import annotations
@@ -293,16 +298,19 @@ def blocked_fw_plain(d: torch.Tensor, tile: int = FW_TILE) -> torch.Tensor:
 
 
 def blocked_fw_cuda(d: torch.Tensor) -> torch.Tensor:
-    """K3 on (B, N, N) float32 contiguous CUDA `d` (zero diagonal, +inf for
-    non-edges, N a multiple of 128): 3 launches per pivot block (pivot, the
-    row and column panels, outer), 3 N / 128 per call, no host sync.  The
-    input is copied; the copy is updated in place and returned."""
+    """K3 on (B, N, N) float32 or bfloat16 contiguous CUDA `d` (zero
+    diagonal, +inf for non-edges, N a multiple of 128): 3 launches per
+    pivot block (pivot, the row and column panels, outer), 3 N / 128 per
+    call, no host sync.  The input is copied; the copy is updated in place
+    and returned.  In bf16 (`csrc/blocked_fw_bf16.cu`) the pivot rounds
+    each candidate and the panels and outer their results, so the result
+    equals `blocked_fw_plain` in bf16 bit for bit."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"d must be (B, N, N), got {tuple(d.shape)}")
     if d.device.type != "cuda":
         raise ValueError("blocked_fw_cuda takes a CUDA tensor")
-    if d.dtype != torch.float32:
-        raise TypeError(f"blocked_fw_cuda takes float32, got {d.dtype}")
+    if d.dtype not in _SUFFIX:
+        raise TypeError(f"blocked_fw_cuda takes float32 or bfloat16, got {d.dtype}")
     if not d.is_contiguous():
         raise ValueError("blocked_fw_cuda takes a contiguous tensor")
     b, n, _ = d.shape
@@ -313,32 +321,29 @@ def blocked_fw_cuda(d: torch.Tensor) -> torch.Tensor:
     out = d.clone()
     if b == 0 or n == 0:
         return out
-    fn = _build.kernel("blocked_fw")
+    name = "blocked_fw" + _SUFFIX[d.dtype]
+    fn = _build.kernel(name)
     nb = n // FW_TILE
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(out.data_ptr(), b, n, stream)
     # the panel and outer phases have no blocks when N is one pivot block
-    blocked_fw_cuda.launches += nb * (3 if nb > 1 else 1)
-    _build.check_launch("blocked_fw", err)
+    launches = nb * (3 if nb > 1 else 1)
+    if d.dtype == torch.bfloat16:
+        blocked_fw_cuda.launches_bf16 += launches
+    else:
+        blocked_fw_cuda.launches += launches
+    _build.check_launch(name, err)
     return out
 
 
 blocked_fw_cuda.launches = 0
-
-
-BF16_BLOCKED_FW_ITEM = "ROADMAP.md Queue 1 item 11"
+blocked_fw_cuda.launches_bf16 = 0
 
 
 def blocked_fw(d: torch.Tensor) -> torch.Tensor:
     """Blocked FW of (B, N, N) `d`, N a multiple of 128: plain version on
-    the CPU, K3 on CUDA.  bf16 raises on both (K3's bf16 form is queued:
-    no bf16 path of the repo's data reaches a padded N above 256)."""
-    if d.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"blocked_fw on bfloat16 (padded N {d.shape[-1]} > 256 under the bf16 "
-            f"precision policy): K3's bf16 form waits on {BF16_BLOCKED_FW_ITEM}; "
-            "run this size under precision='fp32'")
+    the CPU, K3 on CUDA (float32 or bfloat16)."""
     if d.device.type == "cpu":
         return blocked_fw_plain(d)
     if d.device.type == "cuda":
@@ -389,7 +394,7 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
     """Launch `csrc/coo_apsp.cu` (float32 delays) or `csrc/coo_apsp_bf16.cu`
     (bfloat16) for the whole batch, then close its W with K2 (squaring) or
     K3 (blocked FW, W built at the 128-rounded N; the extra nodes are
-    isolated; float32 only): link_ends (B, L, 2) int32, link_mask (B, L)
+    isolated), each in the delays' dtype: link_ends (B, L, 2) int32, link_mask (B, L)
     bool, link_delays (B, L), contiguous, on one CUDA device.  Returns
     (B, N, N) distances in the delays' dtype."""
     if link_ends.dim() != 3 or link_ends.shape[2] != 2:
@@ -409,10 +414,6 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
                              f"{tuple(t.shape)}")
     sfx = _SUFFIX[ddt]
     blocked = apsp_path(n) == "blocked-fw"
-    if blocked and sfx:
-        raise NotImplementedError(
-            f"apsp_coo_cuda in bfloat16 at N={n}: the blocked FW in bf16 waits on "
-            f"{BF16_BLOCKED_FW_ITEM}; run this size under precision='fp32'")
     n_w = padded_n(n) if blocked else n
     w = torch.empty((b, n_w, n_w), dtype=ddt, device=link_delays.device)
     if b == 0 or n == 0:

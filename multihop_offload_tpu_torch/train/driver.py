@@ -21,9 +21,16 @@ injected.  The `runtime` column is the wall time of a file's methods per
 instance, net of the overlapped build of the next file, as in the JAX
 drivers.
 
+Both drivers run under the precision policy of `cfg.precision` (JAX
+`:107-115,219-221`): job sets stored at its `storage_dtype`, the model at
+its dtypes, the APSP of every method in its compute dtype, and, in the
+Trainer, `forward_backward` under it (K4's bf16 forward and transposed
+walk, K6 or K2 in bf16, K1 on fp32 on the card) with parameters, stored
+gradients, Adam moments and checkpoints in fp32 whatever the policy, so a
+bf16 run resumes an fp32 checkpoint and the reverse.
+
 Refused, each with the ROADMAP item it waits on: `mesh_data > 1`,
-`dropout > 0`, `tb_logdir`, the Trainer under a bf16 precision policy
-(the Evaluator runs it), and a TF checkpoint in the model directory
+`dropout > 0`, `tb_logdir`, and a TF checkpoint in the model directory
 (which the JAX harness would load).
 """
 
@@ -62,7 +69,6 @@ from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
 from multihop_offload_tpu_torch.models.chebconv import ensure_alive_output_multi, make_model
 from multihop_offload_tpu_torch.obs.spans import span
-from multihop_offload_tpu_torch.ops.chebconv import BF16_TRAINER_ITEM
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 from multihop_offload_tpu_torch.train.data import DatasetCache, sample_jobsets
 from multihop_offload_tpu_torch.train.metrics import instance_metrics
@@ -132,16 +138,17 @@ def train_init(model, cfg: Config, device=None) -> TrainState:
 
 def train_forward(model, state: TrainState, inst, jobs, cfg: Config,
                   gen: torch.Generator | None = None, explore: float | None = None,
-                  device=None):
-    """Batched `forward_backward` under `cfg.layout`, every episode's
-    gradient remembered in `state.mem` (JAX `gnn_train_step`,
-    `:243-279`).  Returns the step's `TrainStepOutput`."""
+                  device=None, precision=None):
+    """Batched `forward_backward` under `cfg.layout` and the `precision`
+    policy's APSP (None: fp32), every episode's gradient remembered in
+    `state.mem` (JAX `gnn_train_step`, `:243-279`).  Returns the step's
+    `TrainStepOutput`."""
     dev = resolve_device(device)
     outs = forward_backward(
         model.to(dev), inst, jobs, gen,
         explore=cfg.explore if explore is None else explore, prob=cfg.prob,
         mse_weight=cfg.mse_weight, critic_weight=cfg.critic_weight, layout=cfg.layout,
-        device=dev, compat_diagonal_bug=cfg.compat_diagonal_bug)
+        device=dev, compat_diagonal_bug=cfg.compat_diagonal_bug, precision=precision)
     replay_remember(state.mem, outs.grads, outs.loss_critic, outs.loss_mse)
     return outs
 
@@ -165,13 +172,14 @@ def train_replay(model, state: TrainState, cfg: Config,
 
 def train_step(model, state: TrainState, inst, jobs, cfg: Config,
                gen: torch.Generator | None = None, explore: float | None = None,
-               device=None) -> TrainReport:
+               device=None, precision=None) -> TrainReport:
     """One training step on a batch of B episodes, on `device` (default
-    CUDA): `train_forward`, then, once `cfg.batch` gradients are stored,
-    `train_replay`.  `explore` defaults to `cfg.explore`; `gen` feeds the
-    exploration draws and the replay's sampling."""
+    CUDA), under the `precision` policy (None: fp32; the model carries its
+    own dtypes): `train_forward`, then, once `cfg.batch` gradients are
+    stored, `train_replay`.  `explore` defaults to `cfg.explore`; `gen`
+    feeds the exploration draws and the replay's sampling."""
     dev = resolve_device(device)
-    outs = train_forward(model, state, inst, jobs, cfg, gen, explore, dev)
+    outs = train_forward(model, state, inst, jobs, cfg, gen, explore, dev, precision)
     replay_loss = torch.full((), float("nan"), device=dev)
     skipped = 0
     replayed = state.mem.count >= cfg.batch
@@ -204,10 +212,9 @@ def _step_fields(stats: dict) -> dict:
 # ---- the file loops -------------------------------------------------------
 
 
-def _refuse_unported(cfg: Config, model_dir: str, precision, trains: bool) -> None:
+def _refuse_unported(cfg: Config, model_dir: str) -> None:
     """Raise for a setting whose code is not ported, naming what it waits
-    on, rather than run something else quietly.  `precision` is the
-    resolved policy; `trains`: a Trainer (the Evaluator runs under bf16)."""
+    on, rather than run something else quietly."""
     if cfg.mesh_data > 1:
         raise NotImplementedError(
             f"mesh_data={cfg.mesh_data}: the data-parallel drivers wait on "
@@ -220,12 +227,6 @@ def _refuse_unported(cfg: Config, model_dir: str, precision, trains: bool) -> No
         raise NotImplementedError(
             "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 "
             "item 3); use obs_log for the JSONL run log")
-    if trains and precision.mixed:
-        raise NotImplementedError(
-            f"precision='{cfg.precision}' (resolved '{precision.name}'): training "
-            f"under bf16 waits on {BF16_TRAINER_ITEM} (K4's transposed walk in "
-            "bf16, the critic's fp32 islands through autograd); the Evaluator, "
-            "the service and the simulator run it; train under precision='fp32'")
     if model_dir and os.path.isfile(os.path.join(model_dir, "checkpoint")):
         raise NotImplementedError(
             f"{model_dir} holds a TF-format checkpoint, which the JAX drivers "
@@ -245,14 +246,12 @@ class _Harness:
     spread over the dataset, and its output unit's sign flipped when it is
     dead (`ensure_alive_output_multi`)."""
 
-    trains = True
-
     def __init__(self, cfg: Config, datapath: Optional[str] = None,
                  memory_size: Optional[int] = None, device=None):
         self.cfg = cfg
         self.model_dir = cfg.model_dir()
         self.precision = cfg.precision_policy("cuda" if device is None else device)
-        _refuse_unported(cfg, self.model_dir, self.precision, self.trains)
+        _refuse_unported(cfg, self.model_dir)
         self.device = resolve_device(device)
         self.dtype = self.precision.param_dtype       # parameters
         self.store = self.precision.storage_dtype     # instances and job sets
@@ -311,9 +310,10 @@ class _Harness:
     # ---- the step closures (JAX `_build_steps`, `:206-318`) --------------
 
     def _train_step(self, inst, jobs, explore: float):
-        """`train_forward`: the step's `TrainStepOutput`."""
+        """`train_forward` under the harness's policy: the step's
+        `TrainStepOutput`."""
         return train_forward(self.model, self.state, inst, jobs, self.cfg, self.gen,
-                             explore, self.device)
+                             explore, self.device, self.precision)
 
     def _eval_methods(self, inst, jobs, gen):
         cfg = self.cfg
@@ -624,8 +624,6 @@ class Trainer(_Harness):
 class Evaluator(_Harness):
     """The `bash/test.sh` -> `AdHoc_test.py` workflow, no weight updates
     (JAX `:809-1035`)."""
-
-    trains = False
 
     def __init__(self, cfg: Config, datapath: Optional[str] = None, device=None):
         super().__init__(cfg, datapath, memory_size=0, device=device)

@@ -750,7 +750,7 @@ def test_sim_card_matches_cpu_under_injected_draws(cuda, kind):
     assert card[2]["fixed_point"] == (cfg.sim_rounds if kind == "gnn" else 0)
 
 
-# ---- the bf16 precision policy: K2, K6 and K4's forward in bf16 ----------------
+# ---- the bf16 precision policy: K2, K6, K4 and K3 in bf16 ---------------------
 
 BF16_ULP = 2.0 ** -8  # one bf16 unit in the last place, relative
 
@@ -840,20 +840,148 @@ def test_chebconv_bf16_kernel_within_one_ulp(cuda, group, per_network, f):
     assert _within_one_ulp(got, plain) and _within_one_ulp(got.cpu(), cpu)
 
 
-def test_chebconv_bf16_backward_raises(cuda):
+def _bf16_support(group, per_network, cases):
     from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+    from multihop_offload_tpu_torch.models.chebconv import cast_support
+
+    inst, _, _ = _sparse_batch(group, per_network, cases)
+    return cast_support(sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
+                                                 csr=inst.sparse.ext_csr), torch.bfloat16)
+
+
+# the Trainer's shapes: (64, 328, 32) and (16, 328, 4) on the paper batch,
+# the rung, and the random non-symmetric lists (not sorted by column)
+@pytest.mark.parametrize("case,f", [("paper", 32), ("paper16", 4), ("rung256", 32),
+                                    ("random", 7)])
+def test_chebconv_bf16_transposed_kernel_bit_identical(cuda, case, f):
+    """K4's bf16 transposed walk equals `chebconv_transpose_bf16_plain` bit
+    for bit, on the card and on the CPU, on every one of 3 calls, and is
+    what `chebconv_propagate`'s backward launches on bf16 (one launch,
+    counted in `launches_bf16_t`)."""
     from multihop_offload_tpu_torch.models.chebconv import cast_support
     from multihop_offload_tpu_torch.ops import chebconv as tcc
 
-    inst, _, _ = _sparse_batch("paper", 1, slice(0, 2))
-    sup = cast_support(sparse_chebyshev_support(inst.sparse.ext, mask=inst.ext_mask,
-                                                csr=inst.sparse.ext_csr),
-                       torch.bfloat16).to(cuda)
-    x = torch.ones(tuple(sup.diag.shape) + (4,), dtype=torch.bfloat16, device=cuda,
-                   requires_grad=True)
-    out = tcc.chebconv_propagate(sup, x)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        out.sum().backward()
+    if case == "random":
+        support = cast_support(_random_coo(np.random.default_rng(5), 5, 70, 600, 0.08),
+                               torch.bfloat16)
+    else:
+        support = _bf16_support(*{"paper": ("paper", 4, slice(0, 16)),
+                                  "paper16": ("paper", 1, slice(0, 16)),
+                                  "rung256": ("rung256", 1, slice(0, 16))}[case])
+    b, e = support.diag.shape
+    rng = np.random.default_rng(f)
+    x, g = (torch.from_numpy(rng.normal(size=(b, e, f)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    sup = support.to(cuda)
+    e_, csr = sup.edges, sup.csr
+    gc = g.to(cuda)
+    before = (tcc.chebconv_propagate_cuda.launches_bf16_t,
+              tcc.chebconv_propagate_cuda.launches_bf16, tcc.chebconv_propagate_cuda.launches)
+    got = [tcc.chebconv_propagate_cuda(csr.col_ptr, csr.col_order, e_.rows, e_.vals,
+                                       sup.diag, gc) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (tcc.chebconv_propagate_cuda.launches_bf16_t - before[0],
+            tcc.chebconv_propagate_cuda.launches_bf16 - before[1],
+            tcc.chebconv_propagate_cuda.launches - before[2]) == (3, 0, 0)
+    plain = tcc.chebconv_transpose_bf16_plain(e_.rows, e_.cols, e_.vals, sup.diag, gc)
+    cpu = tcc.chebconv_transpose_bf16_plain(support.edges.rows, support.edges.cols,
+                                            support.edges.vals, support.diag, g)
+    for out in got:
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, plain) and torch.equal(out.cpu(), cpu)
+    # through autograd: one forward and one transposed launch
+    xc = x.to(cuda).requires_grad_()
+    before = (tcc.chebconv_propagate_cuda.launches_bf16,
+              tcc.chebconv_propagate_cuda.launches_bf16_t)
+    (dx,) = torch.autograd.grad(tcc.chebconv_propagate(sup, xc), xc, gc)
+    torch.cuda.synchronize()
+    assert (tcc.chebconv_propagate_cuda.launches_bf16 - before[0],
+            tcc.chebconv_propagate_cuda.launches_bf16_t - before[1]) == (1, 1)
+    assert torch.equal(dx, plain)
+
+
+@pytest.mark.parametrize("b,n,density", [(2, 384, None), (1, 1024, None), (3, 128, None),
+                                         (2, 384, 0.5), (1, 384, 0.0)])
+def test_blocked_fw_bf16_kernel_bit_identical(cuda, b, n, density):
+    """K3 in bf16 equals `blocked_fw_plain` in bf16 bit for bit, on the card
+    and on the CPU, on each of 2 calls; 3 N / 128 launches a call (the
+    pivot alone at N = 128), counted in `launches_bf16`; the input is not
+    written."""
+    d = _fw_input(b, n, symmetric=n == 1024, density=density).to(torch.bfloat16)
+    dc = d.to(cuda)
+    before = (tmp.blocked_fw_cuda.launches_bf16, tmp.blocked_fw_cuda.launches)
+    got = [tmp.blocked_fw_cuda(dc) for _ in range(2)]
+    plain = tmp.blocked_fw_plain(dc)
+    torch.cuda.synchronize()
+    per_call = 3 * (n // 128) if n > 128 else 1
+    assert (tmp.blocked_fw_cuda.launches_bf16 - before[0],
+            tmp.blocked_fw_cuda.launches - before[1]) == (2 * per_call, 0)
+    assert torch.equal(dc.cpu(), d)
+    cpu = tmp.blocked_fw_plain(d)
+    for out in got:
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, plain) and torch.equal(out.cpu(), cpu)
+    if density == 0.0:
+        assert torch.equal(got[0].cpu(), d)
+
+
+def test_apsp_takes_blocked_fw_bf16_above_256(cuda):
+    """Under bf16 `apsp_minplus` at N = 300 pads to 384 and runs K3 in bf16
+    (9 launches); the COO-fed APSP is K6's bf16 build at the 128-rounded N,
+    then K3 in bf16; both equal their plain versions bit for bit."""
+    w = torch.from_numpy(_weights(np.random.default_rng(4), 1, 300, 4.0 / 300).numpy())
+    wb = w.to(torch.bfloat16)
+    before = (tmp.blocked_fw_cuda.launches_bf16, tmp.minplus_closure_cuda.launches_bf16)
+    got = apsp_minplus(wb.to(cuda))
+    torch.cuda.synchronize()
+    assert (tmp.blocked_fw_cuda.launches_bf16 - before[0],
+            tmp.minplus_closure_cuda.launches_bf16 - before[1]) == (9, 0)
+    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), apsp_minplus(wb))
+    iu, ju = np.nonzero(np.triu(np.isfinite(w[0].numpy()), 1))
+    ends = torch.from_numpy(np.stack([iu, ju], 1).astype(np.int32))[None]
+    mask = torch.ones((1, iu.size), dtype=torch.bool)
+    delays = w[0][iu, ju][None].contiguous().to(torch.bfloat16)
+    before = (tmp.apsp_coo_cuda.launches_bf16, tmp.blocked_fw_cuda.launches_bf16)
+    coo = tmp.apsp_minplus_coo(ends.to(cuda), mask.to(cuda), delays.to(cuda), 300)
+    torch.cuda.synchronize()
+    assert (tmp.apsp_coo_cuda.launches_bf16 - before[0],
+            tmp.blocked_fw_cuda.launches_bf16 - before[1]) == (1, 9)
+    assert torch.equal(coo.cpu(), tmp.apsp_coo_plain(ends, mask, delays, 300))
+    assert torch.equal(coo.cpu(), got.cpu())
+
+
+def test_bf16_sparse_train_step_launches_the_bf16_kernels(cuda):
+    """`train_step` under the bf16 policy on the sparse layout (SPECTRAL_K2,
+    8 episodes): K1 3 (on fp32: actor, empirical evaluator, critic), K4's
+    bf16 forward 5 (one a layer), its transposed walk 4 (layer 0 needs no
+    d x), K6 in bf16 1 with its squarings; no float32 K4, K6 or K2; finite
+    losses, the parameters changed and still fp32."""
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.precision import resolve_precision
+    from multihop_offload_tpu_torch.train.driver import train_init, train_step
+
+    pol = resolve_precision("bf16")
+    inst, jobs, _ = request_batch(load_cases("paper")[2:6], 2, seed=0, device="cpu",
+                                  layout="sparse", dtype=pol.storage_dtype)
+    cfg = Config(layout="sparse", batch=8, memory_size=16, precision="bf16")
+    model = load_model("SPECTRAL_K2", device=cuda, layout="sparse", policy=pol)
+    state = train_init(model, cfg, device=cuda)
+    before = [p.detach().clone() for p in model.parameters()]
+    reset_kernel_counts()
+    rep = train_step(model, state, inst, jobs, cfg,
+                     gen=torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                     precision=pol)
+    torch.cuda.synchronize()
+    c = kernel_counts()
+    assert (c["fixed_point"], c["chebconv_bf16"], c["chebconv_bf16_t"], c["coo_apsp_bf16"],
+            c["chebconv"], c["coo_apsp"], c["minplus"]) == (3, 5, 4, 1, 0, 0, 0)
+    assert c["minplus_bf16"] == tmp.squaring_count(inst.num_pad_nodes)
+    assert rep.replayed and torch.isfinite(rep.loss_critic).all()
+    assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 @pytest.mark.parametrize("layout,model", [("dense", "SCRATCH800_decay0.99"),

@@ -24,6 +24,7 @@ relative):
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -528,22 +529,42 @@ def test_sim_baseline_bf16_round_bit_for_bit():
     assert (tr.state.delivered.sum(dim=1) > 0).all()
 
 
-# ---- what waits: the Trainer, K3 and K4's backward in bf16 ----------------------
+# ---- what still waits, and what now runs under bf16 ----------------------------
 
 
 def test_bf16_refusals_name_their_roadmap_items(tiny, tmp_path):
+    """Under bf16 the drivers still refuse what waits on another ROADMAP
+    item, naming it; the Trainer (item 10), K3 (item 11) and K4's backward
+    in bf16 now run: both drivers build under bf16, `blocked_fw` and the
+    APSP above a padded 256 return bf16, and d x of the bf16 propagate is
+    the transposed walk's plain version."""
     kw = {**common(tiny, tmp_path), "dtype": "float32", "precision": "bf16"}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        td.Trainer(Config(**kw), device="cpu")
+    for setting, waits in (({"mesh_data": 2}, "item 7"), ({"dropout": 0.1}, "item 3"),
+                           ({"tb_logdir": "tb"}, "item 3")):
+        for cls in (td.Evaluator, td.Trainer):
+            with pytest.raises(NotImplementedError, match=waits):
+                cls(Config(**kw, **setting), device="cpu")
+    tf_kw = {**kw, "model_root": str(tmp_path / "tf_model")}
+    model_dir = Config(**tf_kw).model_dir()
+    os.makedirs(model_dir)
+    open(os.path.join(model_dir, "checkpoint"), "w").close()
+    for cls in (td.Evaluator, td.Trainer):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            cls(Config(**tf_kw), device="cpu")
+    for cls in (td.Evaluator, td.Trainer):
+        assert cls(Config(**kw), device="cpu").precision == T16
     d = torch.zeros((1, 384, 384), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmp.blocked_fw(d)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        apsp_minplus(torch.full((1, 300, 300), float("inf"), dtype=torch.bfloat16))
+    assert torch.equal(tmp.blocked_fw(d), d)
+    w = torch.full((1, 300, 300), float("inf"), dtype=torch.bfloat16)
+    sp = apsp_minplus(w)
+    assert sp.dtype == torch.bfloat16 and torch.equal(
+        torch.diagonal(sp, dim1=1, dim2=2), torch.zeros((1, 300), dtype=torch.bfloat16))
     _, _, ti, _, _ = bf16_batch([synthetic(12, 1)], "sparse")
     sup = tsparse.sparse_chebyshev_support(ti.sparse.ext, mask=ti.ext_mask,
                                            csr=ti.sparse.ext_csr)
     x = torch.ones(tuple(sup.diag.shape) + (4,), dtype=torch.bfloat16, requires_grad=True)
     out = tcc.chebconv_propagate(sup, x)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        out.sum().backward()
+    (dx,) = torch.autograd.grad(out.sum(), x)
+    e_ = sup.edges
+    assert dx.dtype == torch.bfloat16 and torch.equal(dx, tcc.chebconv_transpose_bf16_plain(
+        e_.rows, e_.cols, e_.vals, sup.diag, torch.ones_like(x)))
