@@ -82,6 +82,15 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   path's own delays narrowed) and (2, 384), and one `eval_methods(...,
   precision=bf16)` at N = 1,024 launching K3 bf16 2 x 3 N / 128 times and
   no other kernel.
+- Slice 16, the APSP route of `apsp_impl` brought back to JAX's default
+  (`'xla'`: the squarings at every N).  `route_phase`: on 2 BA(300, m=2)
+  networks x 2 job sets (pad N 304, which the `'pallas'` route pads to
+  384) one default-Config `eval_methods` in fp32 and one under bf16
+  launch K2 (fp32, bf16) and no K3, as the CPU run of the same calls
+  predicts, and their outcomes are held to that CPU run; K2 is held bit
+  for bit to its plain closure on the (4, 304) matrix that path hands it,
+  in both dtypes.  The large phases name the demo's `'pallas'` route
+  (`large_scale.LARGE_APSP`) and keep their K3 counts.
 
 It
 
@@ -613,16 +622,17 @@ def episode_cosines(card: dict, cpu: dict) -> torch.Tensor:
     return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-300)
 
 
-def outcomes(model, inst, jobs, device, layout=None, precision=None):
+def outcomes(model, inst, jobs, device, layout=None, precision=None, apsp_impl="xla"):
     from multihop_offload_tpu_torch.agent.policy import forward_env
     from multihop_offload_tpu_torch.env.policies import baseline_policy, local_policy
 
     with torch.no_grad():
         inst, jobs = inst.to(device), jobs.to(device)
-        return {"baseline": baseline_policy(inst, jobs, layout=layout, precision=precision),
+        return {"baseline": baseline_policy(inst, jobs, layout=layout, precision=precision,
+                                            apsp_impl=apsp_impl),
                 "local": local_policy(inst, jobs, layout=layout),
                 "gnn": forward_env(model, inst, jobs, device=device, layout=layout,
-                                   precision=precision)[0]}
+                                   precision=precision, apsp_impl=apsp_impl)[0]}
 
 
 def compare(tag, card: dict, cpu: dict, mask: torch.Tensor) -> None:
@@ -651,7 +661,8 @@ def compare(tag, card: dict, cpu: dict, mask: torch.Tensor) -> None:
 
 
 def large_phase(dev, card) -> dict:
-    """Slice 3: the large-graph path at N=1,024.  K3 against its plain
+    """Slice 3: the large-graph path at N=1,024, on the demo's APSP route
+    (`large_scale.LARGE_APSP`, `apsp_impl='pallas'`).  K3 against its plain
     version on the path's own predicted-delay matrix; the three calls of
     the path with counts set to 0 just before and read just after each;
     card against CPU; then K3's and the paths' times."""
@@ -660,19 +671,21 @@ def large_phase(dev, card) -> dict:
     from multihop_offload_tpu_torch.agent.train_step import forward_backward
     from multihop_offload_tpu_torch.env.apsp import weight_matrix_from_link_delays
     from multihop_offload_tpu_torch.graphs.cases import large_request, load_large_case
-    from multihop_offload_tpu_torch.large_scale import MODEL
+    from multihop_offload_tpu_torch.large_scale import LARGE_APSP, MODEL
     from multihop_offload_tpu_torch.models.chebconv import load_model
     from multihop_offload_tpu_torch.ops import fixed_point as fp
     from multihop_offload_tpu_torch.ops import minplus as mp
     from multihop_offload_tpu_torch.train.driver import eval_methods
 
     t0 = time.perf_counter()
+    route = {"apsp_impl": LARGE_APSP}
     case = load_large_case()
     inst_cpu, jobs_cpu, pad = large_request(case, device="cpu")
     inst, jobs = inst_cpu.to(dev), jobs_cpu.to(dev)
     model_cpu = load_model(MODEL, device="cpu")
     model = load_model(MODEL, device=dev)
-    paths = {"apsp": mp.apsp_path(pad.n), "fixed_point": fp.fixed_point_path(pad.l)}
+    paths = {"apsp": mp.resolve_apsp(LARGE_APSP, pad.n)[1],
+             "fixed_point": fp.fixed_point_path(pad.l)}
     log(f"large case: n={case.rec.topo.n}, {case.rec.topo.num_links} links, "
         f"{int(jobs_cpu.mask.sum())} jobs; {pad}, E={pad.e}; paths {paths}; "
         f"built on the host in {time.perf_counter() - t0:.2f} s")
@@ -717,9 +730,9 @@ def large_phase(dev, card) -> dict:
         f"on the card and on the CPU (bar: torch.equal)")
 
     # ---- main path: counts at 0 just before each call, read just after ------
-    calls = {"eval_methods": lambda: eval_methods(model, inst, jobs),
-             "forward_env": lambda: forward_env(model, inst, jobs),
-             "forward_backward": lambda: forward_backward(model, inst, jobs)}
+    calls = {"eval_methods": lambda: eval_methods(model, inst, jobs, **route),
+             "forward_env": lambda: forward_env(model, inst, jobs, **route),
+             "forward_backward": lambda: forward_backward(model, inst, jobs, **route)}
     counts, results = {}, {}
     for name, call in calls.items():
         reset_counts()
@@ -736,8 +749,8 @@ def large_phase(dev, card) -> dict:
 
     # ---- card against CPU (float32, plain versions) --------------------------
     t1 = time.perf_counter()
-    compare("large", outcomes(model, inst, jobs, dev),
-            outcomes(model_cpu, inst_cpu, jobs_cpu, "cpu"), jobs_cpu.mask)
+    compare("large", outcomes(model, inst, jobs, dev, **route),
+            outcomes(model_cpu, inst_cpu, jobs_cpu, "cpu", **route), jobs_cpu.mask)
     log(f"large card-vs-CPU check took {time.perf_counter() - t1:.2f} s")
 
     # ---- timing --------------------------------------------------------------
@@ -764,12 +777,12 @@ def large_phase(dev, card) -> dict:
     # then min; no tensor-core path); bytes: d read once, the result written
     k3_ops_ms = 2.0 * b * n ** 3 / PEAK_FP32_INSTR_PER_S * 1e3
     k3_bytes_ms = 2 * b * n * n * 4 / PEAK_BYTES_PER_S * 1e3
-    env_ms = wall_ms(lambda: forward_env(model, inst, jobs), 5)
-    eval_ms = wall_ms(lambda: eval_methods(model, inst, jobs), 5)
-    fb_ms = wall_ms(lambda: forward_backward(model, inst, jobs), 3)
+    env_ms = wall_ms(lambda: forward_env(model, inst, jobs, **route), 5)
+    eval_ms = wall_ms(lambda: eval_methods(model, inst, jobs, **route), 5)
+    fb_ms = wall_ms(lambda: forward_backward(model, inst, jobs, **route), 3)
     torch.cuda.reset_peak_memory_stats()
-    eval_methods(model, inst, jobs)
-    forward_backward(model, inst, jobs)
+    eval_methods(model, inst, jobs, **route)
+    forward_backward(model, inst, jobs, **route)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log(f"timing on {card['smi']}: K3 blocked_fw B,N={(b, n)} per APSP call ({3 * nb} "
@@ -801,8 +814,8 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
     """Slice 15: K3 in bf16 on the large path.  K3 bf16 against
     `blocked_fw_plain` in bf16 on the card, bit for bit on 2 calls, at the
     path's own predicted-delay matrix narrowed (1, 1024) and at (2, 384)
-    (also against the CPU); then one `eval_methods(..., precision=bf16)` at
-    N = 1,024 (the case stored as bf16, the random K=3 weights under the
+    (also against the CPU); then one `eval_methods(..., precision=bf16)` on
+    the demo's `'pallas'` route at N = 1,024 (the case stored as bf16, the random K=3 weights under the
     bf16 policy) with every count at 0 just before it and read just after:
     2 APSP calls of 3 N / 128 K3 bf16 launches (`blocked_fw_cuda`'s rule),
     no other kernel, the fixed-point scan run; job totals finite fp32, the
@@ -811,7 +824,7 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
     adds and mins at the card's bf16x2 rate (the bound), and at the fp32
     path's rate, on which the kernel runs them."""
     from multihop_offload_tpu_torch.graphs.cases import large_request
-    from multihop_offload_tpu_torch.large_scale import MODEL
+    from multihop_offload_tpu_torch.large_scale import LARGE_APSP, MODEL
     from multihop_offload_tpu_torch.models.chebconv import load_model
     from multihop_offload_tpu_torch.ops import minplus as mp
     from multihop_offload_tpu_torch.precision import resolve_precision
@@ -845,7 +858,7 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
     model = load_model(MODEL, device=dev, policy=pol)
     build_s = time.perf_counter() - t0
     reset_counts()
-    totals = eval_methods(model, inst, jobs, device=dev, precision=pol)
+    totals = eval_methods(model, inst, jobs, device=dev, precision=pol, apsp_impl=LARGE_APSP)
     counts = read_counts()
     want = {"blocked_fw_bf16": 2 * 3 * nb}
     check_launches(f"large bf16 eval_methods (B=1, N={n})", counts, want)
@@ -862,7 +875,8 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
         f"{BF16_GATE_TAU} on baseline and local); the case built at bf16 in {build_s:.2f} s")
     if not (rel["baseline"] <= BF16_GATE_TAU and rel["local"] <= BF16_GATE_TAU):
         raise AssertionError(f"large bf16 eval_methods: mean job totals {rel}")
-    eval_ms = wall_ms(lambda: eval_methods(model, inst, jobs, device=dev, precision=pol), 3)
+    eval_ms = wall_ms(lambda: eval_methods(model, inst, jobs, device=dev, precision=pol,
+                                           apsp_impl=LARGE_APSP), 3)
 
     # ---- timing ----------------------------------------------------------------
     k3 = clocks(lambda: mp.blocked_fw_cuda(d16), 50, kernels_per_call=3 * nb + 1)
@@ -888,6 +902,111 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
         f"{rec['bound_fp32_path_us']:.2f} at the fp32 path's); large bf16 eval_methods "
         f"{eval_ms:.2f} ms")
     return rec
+
+
+ROUTE_NODES = 300  # BA(300, m=2): pad N 304, which the blocked FW pads to 384
+
+
+def route_phase(dev, card) -> dict:
+    """Slice 16: the default Config's APSP route (`apsp_impl='xla'`, JAX's
+    default) squares at every N.  On 2 BA(300, m=2) networks
+    (`serve.workload.case_pool`, pad N 304, which the `'pallas'` route pads
+    to 384) x 2 job sets, one `eval_methods` in fp32 (model of record) and
+    one under bf16, each with every count at 0 just before it and read just
+    after, its launches held to the counts the same calls make on the CPU
+    (`count_plain`): K2 (fp32, then bf16) launched, K3 in neither dtype.
+    The outcomes are held to that CPU run (`compare` in fp32,
+    `compare_bf16` under bf16), and K2 to `minplus_closure_plain` bit for
+    bit, a launch a squaring, on the (B, N) = (4, 304) matrix the path hands
+    it (captured from one more decision, outside the counted run)."""
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import CaseRecord, request_batch
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.precision import resolve_precision
+    from multihop_offload_tpu_torch.serve.workload import case_pool
+    from multihop_offload_tpu_torch.train.driver import eval_methods
+
+    t0 = time.perf_counter()
+    cfg = Config(arrival_scale=0.15)
+    cases = [CaseRecord(topo=c.topo, roles=c.roles, proc_bws=c.proc_bws,
+                        link_rates=np.full(c.topo.num_links, c.base_rate), seed=i,
+                        name=f"ba{ROUTE_NODES}-{i}")
+             for i, c in enumerate(case_pool([ROUTE_NODES], per_size=2, seed=16))]
+    out = {"counts": {}, "k2": {}, "card_vs_cpu": {}}
+    orig = mp.minplus_closure
+    for name in ("fp32", "bf16"):
+        pol = resolve_precision(name, device=dev)
+        dtype = pol.storage_dtype if pol.mixed else torch.float32
+        inst_cpu, jobs_cpu, pad = request_batch(cases, 2, seed=0, cfg=cfg, device="cpu",
+                                                dtype=dtype)
+        paths = {impl: mp.resolve_apsp(impl, pad.n)[1] for impl in ("xla", "pallas")}
+        if (cfg.apsp_impl, mp.padded_n(pad.n)) != ("xla", 384) or paths != {
+                "xla": "squaring", "pallas": "blocked-fw"}:
+            raise AssertionError(f"route: Config's {cfg.apsp_impl}, {pad}, paths {paths}")
+        out["pad"], out["paths"] = [pad.n, pad.l, pad.s, pad.j], paths
+        tag = f"route {name} eval_methods (B={inst_cpu.adj.shape[0]}, N={pad.n})"
+        m_cpu = load_model(MODEL_K1, device="cpu", policy=pol)
+        model = load_model(MODEL_K1, device=dev, policy=pol)
+        cpu_out, want = count_plain(
+            lambda: outcomes(m_cpu, inst_cpu, jobs_cpu, "cpu", precision=pol,
+                             apsp_impl=cfg.apsp_impl))
+        inst, jobs = inst_cpu.to(dev), jobs_cpu.to(dev)
+        reset_counts()
+        totals = eval_methods(model, inst, jobs, device=dev, precision=pol,
+                              apsp_impl=cfg.apsp_impl)
+        counts = read_counts()
+        check_launches(tag, counts, want)
+        if (counts["minplus" + ("_bf16" if pol.mixed else "")] == 0 or counts["blocked_fw"] or counts["blocked_fw_bf16"]
+                or not all(torch.isfinite(t[jobs.mask]).all() for t in totals)):
+            raise AssertionError(f"{tag}: K2 must launch, K3 not, totals finite: {counts}")
+        out["counts"][f"route_eval_methods_{name}"] = counts
+
+        # the operand the path hands K2, from one more decision
+        captured = {}
+
+        def capture(d, iters, owned=False):
+            captured.setdefault("d", (d.clone(), iters))
+            return orig(d, iters, owned)
+
+        mp.minplus_closure = capture
+        try:
+            card_out = outcomes(model, inst, jobs, dev, precision=pol, apsp_impl=cfg.apsp_impl)
+        finally:
+            mp.minplus_closure = orig
+        for mname, tot in zip(("baseline", "local", "gnn"), totals):
+            if not torch.equal(tot, card_out[mname].job_total):
+                raise AssertionError(f"{tag}: eval_methods {mname} differs from its policy")
+        if pol.mixed:
+            out["card_vs_cpu"][name] = compare_bf16(f"{tag} card vs CPU", card_out, cpu_out,
+                                                    jobs_cpu.mask, BF16_CARD_VS_CPU, True)
+        else:
+            compare(tag, card_out, cpu_out, jobs_cpu.mask)
+        d, iters = captured["d"]
+        b, n, _ = d.shape
+        sfx = "_bf16" if pol.mixed else ""
+        launches = getattr(mp.minplus_closure_cuda, "launches" + sfx)
+        ex0 = read_counts()["squarings" + sfx]
+        got = mp.minplus_closure_cuda(d, iters)
+        ran = read_counts()["squarings" + sfx] - ex0
+        launched = getattr(mp.minplus_closure_cuda, "launches" + sfx) - launches
+        ref = mp.minplus_closure_plain(d, iters)
+        run_plain = mp.squarings_run_plain(d, iters)
+        if (d.dtype != (torch.bfloat16 if pol.mixed else torch.float32) or (b, n) != (4, pad.n)
+                or not torch.equal(got, ref) or launched != iters or ran != run_plain):
+            raise AssertionError(f"route K2 {name} at {tuple(d.shape)} {d.dtype}: "
+                                 f"{int((got != ref).sum())} entries differ from "
+                                 f"minplus_closure_plain, {launched} launches (want {iters}), "
+                                 f"{ran} squarings run (plain {run_plain})")
+        plan = mp.tile_plan(b, n)
+        out["k2"][name] = {"shape": [b, n], "dtype": str(d.dtype), "iters": iters,
+                           "squarings_run": ran, "plan": plan}
+        log(f"route K2 {name} on the path's own W, B,N={(b, n)}: bit-identical to "
+            f"minplus_closure_plain (bar: torch.equal), {iters} launches, {ran} of "
+            f"{b * iters} squarings run (= squarings_run_plain), plan {plan}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"route phase {out['seconds']:.1f} s")
+    return out
 
 
 def closed_loop(svc, reqs) -> list:
@@ -1579,7 +1698,7 @@ def count_plain(fn):
     wider), K2 one a squaring of the schedule (`minplus` or
     `minplus_bf16`), K3 3 N / 128 a call (1 at N = 128;
     `blocked_fw` or `blocked_fw_bf16`), K6 one a call plus its squarings
-    (or K3's launches above a padded 256), K4 one a call (`chebconv` or
+    (or K3's launches on the `pallas` route's blocked FW), K4 one a call (`chebconv` or
     `chebconv_bf16`; the bf16 transposed walk `chebconv_bf16_t`).  Runs on
     the CPU; gradients flow where `fn` enables them."""
     from multihop_offload_tpu_torch.ops import chebconv as cc
@@ -1602,18 +1721,18 @@ def count_plain(fn):
 
     def k2(d, iters, *a, **k):
         add("minplus" + suffix(d), iters)
-        return orig["minplus_closure_plain"](d, iters, *a, **k)
+        return orig["minplus_closure"](d, iters, *a, **k)
 
     def k3(d, *a, **k):
         nb = d.shape[-1] // mp.FW_TILE
         add("blocked_fw" + suffix(d), 3 * nb if nb > 1 else 1)
         return orig["blocked_fw_plain"](d, *a, **k)
 
-    def k6(ends, mask, delays, n):
+    def k6(ends, mask, delays, n, path=None):
         add("coo_apsp" + suffix(delays), 1)
-        if mp.apsp_path(n) != "blocked-fw":  # K3's launches count themselves
+        if (path or mp.apsp_path(n)) != "blocked-fw":  # K3's launches count themselves
             add("minplus" + suffix(delays), mp.squaring_count(n))
-        return orig["apsp_coo_plain"](ends, mask, delays, n)
+        return orig["apsp_coo_plain"](ends, mask, delays, n, path)
 
     def k4(rows, cols, vals, diag, x, *a, **k):
         add("chebconv" + suffix(x), 1)
@@ -1625,7 +1744,7 @@ def count_plain(fn):
 
     # K1: its autograd Function's forward (the backward recomputes the
     # plain scan on the card too, and the scan path launches no K1)
-    wraps = {"_forward": (fp, k1), "minplus_closure_plain": (mp, k2),
+    wraps = {"_forward": (fp, k1), "minplus_closure": (mp, k2),
              "blocked_fw_plain": (mp, k3), "apsp_coo_plain": (mp, k6),
              "chebconv_propagate_plain": (cc, k4),
              "chebconv_transpose_bf16_plain": (cc, k4t)}
@@ -1730,7 +1849,6 @@ def sim_phase(dev, card) -> dict:
     from multihop_offload_tpu_torch.sim.runner import FleetSim
     from multihop_offload_tpu_torch.sim.state import liveness_masks
 
-    from multihop_offload_tpu_torch.env import apsp as env_apsp
     from multihop_offload_tpu_torch.env import queueing as env_queueing
 
     t_phase = time.perf_counter()
@@ -1739,7 +1857,7 @@ def sim_phase(dev, card) -> dict:
     # the callers' names for the fixed point and the squarings, wrapped to
     # keep the first operands they pass on (the kernel wrappers stay as
     # they are, counters included)
-    orig = {"fp": env_queueing.fixed_point, "mp": env_apsp.minplus_closure}
+    orig = {"fp": env_queueing.fixed_point, "mp": mp.minplus_closure}
 
     def capture_fp(*a, **k):
         captured.setdefault("fp", [x.clone() for x in a])
@@ -1805,13 +1923,13 @@ def sim_phase(dev, card) -> dict:
         if name == "gnn_dense":
             # the operands the path hands K1 and K2, from one more decision
             # (outside the counted run)
-            env_queueing.fixed_point, env_apsp.minplus_closure = capture_fp, capture_mp
+            env_queueing.fixed_point, mp.minplus_closure = capture_fp, capture_mp
             try:
                 up = liveness_masks(scen["insts"], scen["paramss"], run.state.t)
                 with torch.no_grad():
                     sim.policy_fn(scen["insts"], scen["jobss"], *up, None)
             finally:
-                env_queueing.fixed_point, env_apsp.minplus_closure = orig["fp"], orig["mp"]
+                env_queueing.fixed_point, mp.minplus_closure = orig["fp"], orig["mp"]
         if name in ("gnn_dense", "local"):
             # one segment (1 round x 100 slots) under the profiler: the
             # card's busy share and its device records a slot
@@ -2905,6 +3023,9 @@ def main() -> int:
     # ---- slice 3: the large-graph path ---------------------------------------
     large = large_phase(dev, card)
 
+    # ---- slice 16: the default APSP route at a padded N of 384 -------------
+    route = route_phase(dev, card)
+
     # ---- slice 4: the service, and K5 on its sparse bucket's lists ----------
     serving = serving_phase(dev, card)
     k5 = ragged_kernel_phase(dev, card, serving.pop("sparse_bucket1"))
@@ -2932,13 +3053,15 @@ def main() -> int:
                "driver_eval_file": drivers.pop("eval_counts_file0"),
                "driver_train_file": drivers.pop("train_counts_file0"),
                **sim.pop("counts"), **prec.pop("counts"), **train16.pop("counts"),
-               "large_bf16_eval_methods": large["bf16"].pop("counts")}
+               "large_bf16_eval_methods": large["bf16"].pop("counts"),
+               **route.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
     pk = prec.pop("kernels")
     print(json.dumps({"precision": prec}), flush=True)
     print(json.dumps({"bf16_training": train16}), flush=True)
+    print(json.dumps({"route": route}), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

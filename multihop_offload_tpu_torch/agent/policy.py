@@ -40,12 +40,15 @@ def forward_env(
     device=None,
     layout=None,
     precision=None,
+    apsp_impl: str = "xla",
 ) -> tuple[PolicyOutcome, ActorOutput]:
     """Run the GNN policy on a batch on `device` (default CUDA; the model,
     instance and jobs are moved there).  `compat_diagonal_bug=True` feeds
     the decision path the reference's cycled node-delay diagonal.  The
     model carries its own compute dtypes (`make_model(policy=)`); the
-    `precision` policy (None: fp32) narrows the APSP."""
+    `precision` policy (None: fp32) narrows the APSP, which takes the route
+    of `apsp_impl` (`ops.minplus.resolve_apsp`; `'xla'`: the squarings at
+    every N, as JAX's `apsp_fn=None`)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -61,5 +64,5 @@ def forward_env(
         unit_diag = torch.diagonal(actor.delay_matrix, dim1=1, dim2=2)
     outcome = evaluate_spmatrix_policy(inst, jobs, actor.link_delay, unit_diag,
                                        gen, explore=explore, prob=prob, layout=lay,
-                                       precision=precision)
+                                       precision=precision, apsp_impl=apsp_impl)
     return outcome, actor

@@ -215,6 +215,7 @@ def forward_backward(
     device=None,
     compat_diagonal_bug: bool = False,
     precision=None,
+    apsp_impl: str = "xla",
 ) -> TrainStepOutput:
     """One training step's gradients for a batch of B episodes on `device`
     (default CUDA).  Under `layout="sparse"` the instance must be built
@@ -223,9 +224,10 @@ def forward_backward(
     cycled node-delay diagonal, as `forward_env` does; the gradients are
     unaffected (JAX `:346-352`).  `precision` (a `PrecisionPolicy` or its
     name; None: fp32) narrows the APSP to its compute dtype, as the JAX
-    harness hands `forward_backward` its `wrap_apsp`-ped APSP; the actor
-    runs at the model's own dtypes, and the critic, the suffix bias and the
-    MSE term at >= fp32 (the islands)."""
+    harness hands `forward_backward` its `wrap_apsp`-ped APSP, on the route
+    of `apsp_impl` (`ops.minplus.resolve_apsp`); the actor runs at the
+    model's own dtypes, and the critic, the suffix bias and the MSE term at
+    >= fp32 (the islands)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -247,7 +249,7 @@ def forward_backward(
         else:
             unit_diag = torch.diagonal(dmtx.detach(), dim1=1, dim2=2)
         with phase("apsp"):
-            sp = shortest_paths(inst, actor.link_delay.detach(), lay, precision)
+            sp = shortest_paths(inst, actor.link_delay.detach(), lay, precision, apsp_impl)
         with phase("offload_decide"):
             dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
         with phase("next_hops"):

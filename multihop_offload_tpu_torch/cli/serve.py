@@ -63,7 +63,7 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
         model, buckets,
         slots=cfg.serve_slots, queue_cap=cfg.serve_queue_cap,
         deadline_s=cfg.serve_deadline_s, prob=cfg.prob,
-        dtype=dtype, precision=policy, layout=cfg.layout,
+        dtype=dtype, precision=policy, layout=cfg.layout, apsp_impl=cfg.apsp_impl,
         trace=cfg.obs_trace,
         ragged=cfg.serve_ragged, overlap=cfg.serve_overlap,
         ladder_alpha=cfg.serve_ladder_alpha,

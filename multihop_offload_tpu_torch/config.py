@@ -6,12 +6,14 @@ the JAX package.  `serve_model` and `sim_model` are the port's own: the
 JAX service and simulator load their latest orbax checkpoint (or a fresh
 init), the port a committed model by name where it has no checkpoint.
 
-`apsp_impl`, `fp_impl` and `csv_write_all_hosts` keep the JAX names, and
-a Config takes only the value the port runs: `auto` for both routes (the
-device picks: the kernel for CUDA tensors, its plain version for CPU
-tensors, as `ops/minplus.py:apsp_path` and
-`ops/fixed_point.py:fixed_point_path` say) and False for the per-process
-CSVs (the port is one process).  Any other value raises.
+`apsp_impl`, `fp_impl` and `csv_write_all_hosts` keep the JAX names and
+defaults.  `apsp_impl` takes JAX's values (`ops/minplus.py:resolve_apsp`):
+`xla`, the default, squares at every N; `pallas` and `auto` take the
+blocked Floyd-Warshall above a padded N of 256; anything else raises the
+JAX message.  Whichever route, the device picks the code: the kernel for
+CUDA tensors, its plain version for CPU tensors.  `fp_impl` takes only
+`auto` (`ops/fixed_point.py:fixed_point_path`), and `csv_write_all_hosts`
+only False (the port is one process); any other value raises.
 """
 
 from __future__ import annotations
@@ -54,8 +56,10 @@ class Config:
     #                                (multi-process runs; only False)
     compat_diagonal_bug: bool = False  # reproduce the reference's cycled
     #                                decision-path diagonal (A/B validation)
-    apsp_impl: str = "auto"        # APSP route; only auto: the device picks
-    fp_impl: str = "auto"          # fixed-point route; only auto, as apsp_impl
+    apsp_impl: str = "xla"         # APSP route: xla (the squarings at every N)
+    #                                | pallas | auto (the blocked FW above a
+    #                                padded 256); ops.minplus.resolve_apsp
+    fp_impl: str = "auto"          # fixed-point route; only auto: the device picks
     tb_logdir: str = ""            # refused when set (no TensorBoard)
     obs_log: str = ""              # JSONL run log of the drivers ("" = off)
     # ---- model, workload, training ------------------------------------------
@@ -128,12 +132,14 @@ class Config:
     sim_out: str = ""              # write the run / fidelity JSON record here
 
     def __post_init__(self):
-        for name in ("apsp_impl", "fp_impl"):
-            if getattr(self, name) != "auto":
-                raise NotImplementedError(
-                    f"{name}='{getattr(self, name)}': the port picks the route by "
-                    "device (the CUDA kernel on the card, its plain version on the "
-                    "CPU); only 'auto' is accepted")
+        from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl
+
+        check_apsp_impl(self.apsp_impl)
+        if self.fp_impl != "auto":
+            raise NotImplementedError(
+                f"fp_impl='{self.fp_impl}': the port picks the route by device (the "
+                "CUDA kernel on the card, its plain version on the CPU); only 'auto' "
+                "is accepted")
         if self.sim_policy not in ("gnn", "baseline", "local"):
             raise ValueError(f"sim_policy must be one of gnn, baseline, local; "
                              f"got '{self.sim_policy}'")

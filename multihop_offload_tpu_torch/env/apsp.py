@@ -1,49 +1,28 @@
 """All-pairs shortest paths as dense min-plus linear algebra, batched.
 
-Port of `multihop_offload_tpu/env/apsp.py`, run on the kernel path of
-`apsp_minplus_pallas` (`apsp_impl='pallas'`): `ops.minplus.apsp_path`
-picks the squarings (K2 on the card, the plain broadcast on the CPU) up to
-a 128-rounded N of 256 and the blocked Floyd-Warshall (K3 on the card, its
-plain version on the CPU) above it.  The greedy next-hop table breaks ties
-at the lowest neighbour index, exactly as the reference's forwarding rule
-and the JAX table do.  `apsp_minplus_blocked` (`env/apsp.py:98-132`,
-defined in `ops.minplus`) is the plain k-blocked squaring the sparse
-layout's chain ends in; on the card that chain is K6
-(`ops.minplus.apsp_minplus_coo`).
+Port of `multihop_offload_tpu/env/apsp.py`.  `apsp_minplus` squares at
+every N, as the JAX function does (the `apsp_impl='xla'` route, JAX's
+default: K2 on the card, the plain squaring on the CPU); the
+`apsp_impl='pallas'` route is `ops.minplus.apsp_minplus_pallas`, which
+takes the blocked Floyd-Warshall (K3 on the card) above a 128-rounded N
+of 256 (`ops.minplus.resolve_apsp` picks between them).  The greedy
+next-hop table breaks ties at the lowest neighbour index, exactly as the
+reference's forwarding rule and the JAX table do.  `apsp_minplus` and
+`apsp_minplus_blocked` (`env/apsp.py:98-132`, the plain k-blocked squaring
+the sparse layout's chain ends in; on the card that chain is K6,
+`ops.minplus.apsp_coo_squaring`) are defined in `ops.minplus`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from multihop_offload_tpu_torch.ops.minplus import (  # noqa: F401
-    apsp_blocked_fw,
-    apsp_minplus_blocked,
-    apsp_path,
-    minplus_closure,
-    squaring_count,
-)
+from multihop_offload_tpu_torch.ops.minplus import apsp_minplus, apsp_minplus_blocked  # noqa: F401
 
 # elements of one (b, u, N, N) next-hop cost temp: batches, and at large N
 # source rows, are chunked to stay under this (128 MB in float32); a bf16
 # temp takes twice as many in the same bytes
 _NEXT_HOP_CHUNK_ELEMS = 1 << 25
-
-
-def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
-    """Shortest-path distances (B, N, N) from one-hop weights (inf where no
-    edge; the diagonal is forced to 0) on the path `apsp_path(N)` names:
-    the squarings with the early stop of the JAX `apsp_minplus` (identical
-    to the full ceil(log2(N-1)) schedule), or the blocked FW.  `d` is a
-    fresh temporary, so on the card K2 takes it as its first buffer with
-    no copy."""
-    n = weights.shape[-1]
-    eye = torch.eye(n, dtype=torch.bool, device=weights.device)
-    d = torch.where(eye, torch.zeros((), dtype=weights.dtype,
-                                     device=weights.device), weights)
-    if apsp_path(n) == "blocked-fw":
-        return apsp_blocked_fw(d)
-    return minplus_closure(d.contiguous(), squaring_count(n), owned=True)
 
 
 def hop_matrix(adj: torch.Tensor) -> torch.Tensor:

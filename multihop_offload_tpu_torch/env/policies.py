@@ -5,12 +5,16 @@ baseline method and the GNN policy (weight matrix, APSP, greedy decision,
 next-hop table, route tracing, empirical scoring), plus the `baseline` and
 `local` methods.  All functions take a batch (leading B).
 
-Under `layout="sparse"` (`:77-104`) the APSP is fed from the link list
-(K6, `ops.minplus.apsp_minplus_coo`, the JAX `apsp_edges_fn` regime) and
-the next-hop table comes from two segment-mins over the directed links;
-both equal the dense chain bit for bit, so decisions never depend on the
-layout.  A `precision` policy (`precision.py`) narrows the APSP to its
-compute dtype: bf16 W and shortest paths (K2 or K6 in bf16 on the card),
+The APSP takes the route of `apsp_impl` (`ops.minplus.resolve_apsp`, as
+JAX threads `apsp_fn`): `'xla'`, the default, squares at every N (JAX
+with `apsp_fn=None`); `'pallas'` and `'auto'` take the blocked FW above
+a padded N of 256.  Under `layout="sparse"` (`:77-104`) the APSP is fed
+from the link list (K6, `ops.minplus.resolve_coo_apsp`, the JAX
+`apsp_edges_fn` regime) and the next-hop table comes from two
+segment-mins over the directed links; both equal the dense chain of the
+same route bit for bit, so decisions never depend on the layout.  A
+`precision` policy (`precision.py`) narrows the APSP to its compute
+dtype: bf16 W and shortest paths (K2, K3 or K6 in bf16 on the card),
 re-accumulated wide by the islands downstream.
 """
 
@@ -22,7 +26,6 @@ import torch
 
 from multihop_offload_tpu_torch._phases import phase
 from multihop_offload_tpu_torch.env.apsp import (
-    apsp_minplus,
     next_hop_table,
     weight_matrix_from_link_delays,
 )
@@ -32,7 +35,7 @@ from multihop_offload_tpu_torch.env.queueing import EmpiricalDelays, run_empiric
 from multihop_offload_tpu_torch.env.routing import RouteSet, trace_routes
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.layouts.sparse import next_hop_from_edges
-from multihop_offload_tpu_torch.ops.minplus import apsp_minplus_coo
+from multihop_offload_tpu_torch.ops.minplus import resolve_apsp, resolve_coo_apsp
 from multihop_offload_tpu_torch.precision import resolve_precision
 
 
@@ -48,19 +51,22 @@ class PolicyOutcome:
 
 
 def shortest_paths(inst, link_delays: torch.Tensor, layout=None,
-                   precision=None) -> torch.Tensor:
-    """(B, N, N) shortest-path delays over per-link delays (B, L): K2 on
-    the dense weight matrix, or K6 on the link list under the sparse
-    layout.  Under a mixed `precision` policy the APSP runs in its compute
-    dtype (`PrecisionPolicy.wrap_apsp`): the dense W is narrowed before K2,
-    and K6 takes the narrowed delays, which builds the same bf16 W (each
-    entry is one delay, and rounding commutes with the min)."""
+                   precision=None, apsp_impl: str = "xla") -> torch.Tensor:
+    """(B, N, N) shortest-path delays over per-link delays (B, L) on the
+    route of `apsp_impl`: K2 (or K3) on the dense weight matrix, or K6 on
+    the link list under the sparse layout.  Under a mixed `precision`
+    policy the APSP runs in its compute dtype (`PrecisionPolicy.wrap_apsp`):
+    the dense W is narrowed before K2, and K6 takes the narrowed delays,
+    which builds the same bf16 W (each entry is one delay, and rounding
+    commutes with the min)."""
     pol = resolve_precision(precision)
+    n = inst.num_pad_nodes
     if resolve_layout(layout).sparse:
-        return apsp_minplus_coo(inst.link_ends, inst.link_mask,
-                                pol.cast_compute(link_delays), inst.num_pad_nodes)
-    apsp = pol.wrap_apsp(apsp_minplus) or apsp_minplus
-    return apsp(weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays))
+        edges_fn, _ = resolve_coo_apsp(apsp_impl, n)
+        return edges_fn(inst.link_ends, inst.link_mask, pol.cast_compute(link_delays), n)
+    apsp, _ = resolve_apsp(apsp_impl, n)
+    return pol.wrap_apsp(apsp)(
+        weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays))
 
 
 def next_hops(inst, sp: torch.Tensor, layout=None) -> torch.Tensor:
@@ -73,12 +79,13 @@ def next_hops(inst, sp: torch.Tensor, layout=None) -> torch.Tensor:
 def evaluate_spmatrix_policy(
     inst, jobs, link_delays: torch.Tensor, unit_diag: torch.Tensor,
     gen: torch.Generator | None = None, explore: float = 0.0, prob: bool = False,
-    layout=None, precision=None,
+    layout=None, precision=None, apsp_impl: str = "xla",
 ) -> PolicyOutcome:
     """Offload + route + run given per-link unit delays (B, L) and a node
-    diagonal (B, N), the APSP under the `precision` policy (None: fp32)."""
+    diagonal (B, N), the APSP on the route of `apsp_impl` under the
+    `precision` policy (None: fp32)."""
     with phase("apsp"):
-        sp = shortest_paths(inst, link_delays, layout, precision)
+        sp = shortest_paths(inst, link_delays, layout, precision, apsp_impl)
     with phase("offload_decide"):
         # hop counts are topology-only and precomputed at Instance build time
         dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
@@ -93,11 +100,11 @@ def evaluate_spmatrix_policy(
 
 def baseline_policy(inst, jobs, gen: torch.Generator | None = None,
                     explore: float = 0.0, prob: bool = False,
-                    layout=None, precision=None) -> PolicyOutcome:
+                    layout=None, precision=None, apsp_impl: str = "xla") -> PolicyOutcome:
     """Congestion-agnostic greedy offloading."""
     link_d, node_d = baseline_unit_delays(inst)
     return evaluate_spmatrix_policy(inst, jobs, link_d, node_d, gen, explore, prob,
-                                    layout, precision)
+                                    layout, precision, apsp_impl)
 
 
 def local_policy(inst, jobs, layout=None) -> PolicyOutcome:

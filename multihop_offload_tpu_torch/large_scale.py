@@ -1,7 +1,7 @@
 """The large-graph path on one card: the port's counterpart of
 
     python scripts/large_scale_demo.py --n 1024 --gtype er --seed 42 --k 3 \\
-        --apsp auto --backward
+        --apsp pallas --backward
 
 It loads the committed 1,024-node Erdős–Rényi network and its job set
 (`graphs.cases.load_large_case`: 7,694 links, 451 jobs; the demo's pads
@@ -9,10 +9,11 @@ N=1,024, L=7,696, E=8,720; dense layout) and the demo's random K=3 initial
 parameters (`LARGE_K3_init` in `data/weights.npz`), then runs, as the demo
 does, `agent.policy.forward_env` and, under `--backward`,
 `agent.train_step.forward_backward`; besides them it runs
-`train.driver.eval_methods` (baseline, local, GNN) on the same request.  At
-this size the APSP takes the blocked-FW path (K3) and the fixed point the
-scan (L > 928, where K1's shared memory ends); the report names the paths
-and counts each kernel's launches per call.
+`train.driver.eval_methods` (baseline, local, GNN) on the same request.
+Every call takes the demo's default APSP route, `apsp_impl='pallas'`
+(`LARGE_APSP`): at this size the blocked-FW path (K3); the fixed point
+takes the scan (L > 928, where K1's shared memory ends); the report names
+the paths and counts each kernel's launches per call.
 
     python -m multihop_offload_tpu_torch.large_scale [--device cpu] [--steps 3]
         [--backward] [--out FILE]
@@ -23,7 +24,7 @@ call (on the card it builds the kernels), `step_s` the mean of `--steps`
 more; `apsp_pallas_ms` times the APSP of the demo's unit-weight matrix on
 the path taken (K3 on the card) and `apsp_xla_ms` the squarings on the
 same matrix (K2 on the card), as the demo times its kernel path against
-the XLA squaring.  Added keys: the fixed-point path, `eval_methods` time
+the XLA squaring (the `'xla'` route).  Added keys: the fixed-point path, `eval_methods` time
 and per-method tau, launches per call, peak device memory.
 """
 
@@ -39,7 +40,6 @@ import torch
 from multihop_offload_tpu_torch._device import resolve_device, synchronize
 from multihop_offload_tpu_torch.agent.policy import forward_env
 from multihop_offload_tpu_torch.agent.train_step import forward_backward
-from multihop_offload_tpu_torch.env.apsp import apsp_minplus
 from multihop_offload_tpu_torch.graphs.cases import LargeCase, large_request, load_large_case
 from multihop_offload_tpu_torch.models.chebconv import load_model
 from multihop_offload_tpu_torch.ops import chebconv as cc
@@ -48,6 +48,7 @@ from multihop_offload_tpu_torch.ops import minplus as mp
 from multihop_offload_tpu_torch.train.driver import eval_methods
 
 MODEL = "LARGE_K3_init"
+LARGE_APSP = "pallas"  # `scripts/large_scale_demo.py --apsp`'s default
 
 
 def kernel_counts() -> dict:
@@ -116,10 +117,11 @@ def run(device=None, steps: int = 3, backward: bool = False,
     build_s = time.perf_counter() - t0
     counts: dict = {}
 
-    (outcome, _), compile_s = _timed(dev, lambda: forward_env(model, inst, jobs, device=dev),
+    route = {"device": dev, "apsp_impl": LARGE_APSP}
+    (outcome, _), compile_s = _timed(dev, lambda: forward_env(model, inst, jobs, **route),
                                      counts, "forward_env")
-    step_s = _mean_s(dev, lambda: forward_env(model, inst, jobs, device=dev), steps)
-    (bl, loc, gnn), eval_s = _timed(dev, lambda: eval_methods(model, inst, jobs, device=dev),
+    step_s = _mean_s(dev, lambda: forward_env(model, inst, jobs, **route), steps)
+    (bl, loc, gnn), eval_s = _timed(dev, lambda: eval_methods(model, inst, jobs, **route),
                                     counts, "eval_methods")
 
     m = jobs.mask[0]
@@ -129,7 +131,8 @@ def run(device=None, steps: int = 3, backward: bool = False,
     report = {
         "metric": "large_scale_forward_env",
         "n": case.rec.topo.n, "links": case.rec.topo.num_links, "ext_slots": pad.e,
-        "jobs": nj, "gtype": case.gtype, "cheb_k": model.k, "apsp": mp.apsp_path(pad.n),
+        "jobs": nj, "gtype": case.gtype, "cheb_k": model.k,
+        "apsp": mp.resolve_apsp(LARGE_APSP, pad.n)[1],
         "fixed_point": fp.fixed_point_path(pad.l),
         "pad": [pad.n, pad.l, pad.s, pad.j],
         "build_s": build_s, "compile_s": compile_s, "step_s": step_s,
@@ -150,17 +153,17 @@ def run(device=None, steps: int = 3, backward: bool = False,
     iters = mp.squaring_count(pad.n)
     # one call each first: the squarings are off the path, so their first
     # call here loads K2
-    apsp_minplus(wmat)
+    mp.apsp_minplus_pallas(wmat)
     mp.minplus_closure(d0, iters)
-    report["apsp_pallas_ms"] = 1e3 * _mean_s(dev, lambda: apsp_minplus(wmat), reps)
+    report["apsp_pallas_ms"] = 1e3 * _mean_s(dev, lambda: mp.apsp_minplus_pallas(wmat), reps)
     report["apsp_xla_ms"] = 1e3 * _mean_s(dev, lambda: mp.minplus_closure(d0, iters), reps)
 
     if backward:
         outs, report["bwd_compile_s"] = _timed(
-            dev, lambda: forward_backward(model, inst, jobs, device=dev),
+            dev, lambda: forward_backward(model, inst, jobs, **route),
             counts, "forward_backward")
         report["bwd_step_s"] = _mean_s(
-            dev, lambda: forward_backward(model, inst, jobs, device=dev), steps)
+            dev, lambda: forward_backward(model, inst, jobs, **route), steps)
         report["loss_critic"] = outs.loss_critic[0].item()
         report["grads_finite"] = all(bool(torch.isfinite(g).all())
                                      for g in outs.grads.values())

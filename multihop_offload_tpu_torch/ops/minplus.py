@@ -29,12 +29,20 @@ Pallas kernels `_pivot_kernel`, `_panel_kernel`, `_outer_kernel`): exact
 three-phase blocked Floyd-Warshall on 128 x 128 pivot blocks.  Its plain
 version `blocked_fw_plain` follows the same schedule, so the two are
 bit-identical to each other and to the interpret-mode TPU kernel; the CUDA
-source is `csrc/blocked_fw.cu`.  `apsp_path(n)` is the port's counterpart
-of `pallas_apsp_path` (`apsp_impl='pallas'`): K2's squaring up to a
-128-rounded N of 256, K3 above it up to 2,048, the squaring again beyond
-(what the JAX XLA delegation computes there).  On the `blocked-fw` path the
-matrix is padded with +inf to a multiple of 128 and sliced back, as
-`apsp_minplus_pallas` pads it.
+source is `csrc/blocked_fw.cu`.
+
+The APSP routes follow the JAX knob `apsp_impl` (`resolve_apsp`,
+`resolve_coo_apsp`).  `'xla'`, JAX's default, squares at every N:
+`apsp_minplus` (JAX `env/apsp.py:apsp_minplus`) and, from the link list,
+`apsp_coo_squaring` (JAX's default sparse chain, `weight_matrix_from_edges`
+-> `apsp_minplus_blocked`), K2 on the card.  `'pallas'` and `'auto'` take
+`apsp_path(n)`, the port's counterpart of `pallas_apsp_path`: K2's squaring
+up to a 128-rounded N of 256, K3 above it up to 2,048, the squaring again
+beyond (what the JAX XLA delegation computes there): `apsp_minplus_pallas`
+and `apsp_minplus_coo`.  On the `blocked-fw` path the matrix is padded with
++inf to a multiple of 128 and sliced back, as `apsp_minplus_pallas` pads
+it.  The squarings and the blocked FW agree up to a few ulps, so the routes
+may differ at near-ties of a decision.
 
 K6 replaces `multihop_offload_tpu/ops/minplus.py:apsp_minplus_coo` (the
 Pallas kernel `_coo_apsp_kernel`): the weight matrix is built on the card
@@ -58,11 +66,11 @@ equal their plain versions in bf16 bit for bit.  Each bf16 kernel has its
 own counters beside the float32 ones: `minplus_closure_cuda.launches_bf16`
 and `.executed_bf16`, `apsp_coo_cuda.launches_bf16`.  K3 in bf16 is
 `csrc/blocked_fw_bf16.cu`, launched by `blocked_fw_cuda` on bfloat16 input
-and counted in `blocked_fw_cuda.launches_bf16`: the bf16 decision paths
-above a padded N of 256 (the dense route through `apsp_blocked_fw`, the
-sparse one through K6's bf16 build at the 128-rounded N), bit-identical to
-`blocked_fw_plain` in bf16, which equals the TPU kernel's interpret mode on
-bf16.
+and counted in `blocked_fw_cuda.launches_bf16`: the bf16 decision paths of
+the `'pallas'` route above a padded N of 256 (the dense route through
+`apsp_blocked_fw`, the sparse one through K6's bf16 build at the
+128-rounded N), bit-identical to `blocked_fw_plain` in bf16, which equals
+the TPU kernel's interpret mode on bf16.
 """
 
 from __future__ import annotations
@@ -211,11 +219,20 @@ def tile_plan(b: int, n: int) -> dict:
     return dict(zip(PLAN_FIELDS, info))
 
 
+# elements of the (B, N, N, N) temp of `minplus_closure_plain` above which
+# the CPU path squares k-blocked instead (the same bits; 1 GB in float64)
+_BROADCAST_ELEMS = 1 << 27
+
+
 def minplus_closure(d: torch.Tensor, iters: int, owned: bool = False) -> torch.Tensor:
-    """APSP by squaring: plain version on the CPU, K2 on CUDA.  `d` is
+    """APSP by squaring: plain version on the CPU (k-blocked where the
+    broadcast temp would pass `_BROADCAST_ELEMS`), K2 on CUDA.  `d` is
     (B, N, N) with zero diagonal and +inf for non-edges; `owned`: the caller
     gives `d` up, so K2 need not copy it (the CPU path never writes it)."""
     if d.device.type == "cpu":
+        b, n, _ = d.shape
+        if b * n ** 3 > _BROADCAST_ELEMS:
+            return minplus_closure_blocked(d, iters)
         return minplus_closure_plain(d, iters)
     if d.device.type == "cuda":
         return minplus_closure_cuda(d, iters, owned)
@@ -364,6 +381,68 @@ def apsp_blocked_fw(d: torch.Tensor) -> torch.Tensor:
     return out if n_pad == n else out[:, :n, :n].contiguous()
 
 
+def _zero_diagonal(weights: torch.Tensor) -> torch.Tensor:
+    n = weights.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=weights.device)
+    return torch.where(eye, torch.zeros((), dtype=weights.dtype, device=weights.device),
+                       weights)
+
+
+def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
+    """Shortest-path distances (B, N, N) from one-hop weights (inf where no
+    edge; the diagonal is forced to 0) by squarings at every N, with the
+    early stop of the JAX `env/apsp.py:apsp_minplus` (identical to the
+    full ceil(log2(N-1)) schedule): the `'xla'` route.  The zeroed matrix
+    is a fresh temporary, so on the card K2 takes it as its first buffer
+    with no copy."""
+    d = _zero_diagonal(weights)
+    return minplus_closure(d.contiguous(), squaring_count(weights.shape[-1]), owned=True)
+
+
+def apsp_minplus_pallas(weights: torch.Tensor) -> torch.Tensor:
+    """`apsp_minplus` on the path `apsp_path(N)` names (JAX
+    `apsp_minplus_pallas`, the `'pallas'` route): the squarings, or the
+    blocked FW above a 128-rounded N of 256."""
+    n = weights.shape[-1]
+    if apsp_path(n) == "blocked-fw":
+        return apsp_blocked_fw(_zero_diagonal(weights))
+    return apsp_minplus(weights)
+
+
+APSP_IMPLS = ("xla", "pallas", "auto")
+
+
+def check_apsp_impl(impl: str) -> None:
+    """Raise, as the JAX `resolve_apsp` does, for an `apsp_impl` other than
+    xla, pallas or auto."""
+    if impl not in APSP_IMPLS:
+        raise ValueError(f"apsp_impl must be xla|pallas|auto, got '{impl}'")
+
+
+def resolve_apsp(impl: str, n: int):
+    """The dense APSP of the knob `apsp_impl` for N nodes, as the JAX
+    `resolve_apsp`: (apsp_fn, path).  `'xla'`: `apsp_minplus`, the
+    squarings at every N; `'pallas'` and `'auto'`: `apsp_minplus_pallas`
+    (JAX's `'auto'` takes its squarings below a padded 256 and the
+    kernels from there, as `apsp_path` does).  `path` names what runs at
+    this N: 'squaring' (K2 on the card) or 'blocked-fw' (K3)."""
+    check_apsp_impl(impl)
+    if impl == "xla":
+        return apsp_minplus, "squaring"
+    return apsp_minplus_pallas, apsp_path(n)
+
+
+def resolve_coo_apsp(impl: str, n: int):
+    """The link-list APSP of the knob `apsp_impl` (JAX `resolve_coo_apsp`):
+    (edges_fn, path), `edges_fn(link_ends, link_mask, link_delays,
+    num_nodes)`.  `'xla'`: `apsp_coo_squaring`; `'pallas'` and `'auto'`:
+    `apsp_minplus_coo`; `path` as `resolve_apsp` names it."""
+    check_apsp_impl(impl)
+    if impl == "xla":
+        return apsp_coo_squaring, "squaring"
+    return apsp_minplus_coo, apsp_path(n)
+
+
 def apsp_minplus_blocked(weights: torch.Tensor, block: int = 8,
                          num_iters: int | None = None) -> torch.Tensor:
     """Shortest-path distances (B, N, N) from one-hop weights (inf where no
@@ -372,31 +451,30 @@ def apsp_minplus_blocked(weights: torch.Tensor, block: int = 8,
     bit for bit, with a (B, N, block, N) temp instead of (B, N, N, N).
     Plain PyTorch on any device."""
     n = weights.shape[-1]
-    eye = torch.eye(n, dtype=torch.bool, device=weights.device)
-    d = torch.where(eye, torch.zeros((), dtype=weights.dtype, device=weights.device),
-                    weights)
-    return minplus_closure_blocked(d, num_iters or squaring_count(n), block)
+    return minplus_closure_blocked(_zero_diagonal(weights), num_iters or squaring_count(n),
+                                   block)
 
 
-def apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
+def apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes: int,
+                   path: str | None = None) -> torch.Tensor:
     """The plain version of K6: `weight_matrix_from_edges`, then
     `apsp_minplus_blocked`, or on the `blocked-fw` path `apsp_blocked_fw`
-    of W with its diagonal zeroed."""
+    of W with its diagonal zeroed.  `path`: 'squaring' or 'blocked-fw'
+    (None: `apsp_path(num_nodes)`)."""
     w = weight_matrix_from_edges(link_ends, link_mask, link_delays, num_nodes)
-    if apsp_path(num_nodes) == "blocked-fw":
-        eye = torch.eye(num_nodes, dtype=torch.bool, device=w.device)
-        return apsp_blocked_fw(torch.where(eye, torch.zeros((), dtype=w.dtype,
-                                                            device=w.device), w))
+    if (path or apsp_path(num_nodes)) == "blocked-fw":
+        return apsp_blocked_fw(_zero_diagonal(w))
     return apsp_minplus_blocked(w)
 
 
-def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
+def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int,
+                  path: str | None = None) -> torch.Tensor:
     """Launch `csrc/coo_apsp.cu` (float32 delays) or `csrc/coo_apsp_bf16.cu`
     (bfloat16) for the whole batch, then close its W with K2 (squaring) or
     K3 (blocked FW, W built at the 128-rounded N; the extra nodes are
     isolated), each in the delays' dtype: link_ends (B, L, 2) int32, link_mask (B, L)
-    bool, link_delays (B, L), contiguous, on one CUDA device.  Returns
-    (B, N, N) distances in the delays' dtype."""
+    bool, link_delays (B, L), contiguous, on one CUDA device; `path` as for
+    `apsp_coo_plain`.  Returns (B, N, N) distances in the delays' dtype."""
     if link_ends.dim() != 3 or link_ends.shape[2] != 2:
         raise ValueError(f"link_ends must be (B, L, 2), got {tuple(link_ends.shape)}")
     b, l, _ = link_ends.shape
@@ -413,7 +491,7 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Te
             raise ValueError(f"apsp_coo_cuda: want a contiguous {shape}, got "
                              f"{tuple(t.shape)}")
     sfx = _SUFFIX[ddt]
-    blocked = apsp_path(n) == "blocked-fw"
+    blocked = (path or apsp_path(n)) == "blocked-fw"
     n_w = padded_n(n) if blocked else n
     w = torch.empty((b, n_w, n_w), dtype=ddt, device=link_delays.device)
     if b == 0 or n == 0:
@@ -439,11 +517,20 @@ apsp_coo_cuda.launches = 0
 apsp_coo_cuda.launches_bf16 = 0
 
 
-def apsp_minplus_coo(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
-    """(B, N, N) shortest-path distances from the padded link list: plain
-    chain on the CPU, K6 on CUDA."""
+def apsp_minplus_coo(link_ends, link_mask, link_delays, num_nodes: int,
+                     path: str | None = None) -> torch.Tensor:
+    """(B, N, N) shortest-path distances from the padded link list on
+    `path` (None: `apsp_path(num_nodes)`, the `'pallas'` route, as the JAX
+    `apsp_minplus_coo` dispatches): plain chain on the CPU, K6 on CUDA."""
     if link_delays.device.type == "cpu":
-        return apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes)
+        return apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes, path)
     if link_delays.device.type == "cuda":
-        return apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes)
+        return apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes, path)
     raise ValueError(f"apsp_minplus_coo: unsupported device {link_delays.device}")
+
+
+def apsp_coo_squaring(link_ends, link_mask, link_delays, num_nodes: int) -> torch.Tensor:
+    """The `'xla'` route from the link list: K6's build, then K2's
+    squarings at every N (the JAX default sparse chain,
+    `weight_matrix_from_edges` -> `apsp_minplus_blocked`, bit for bit)."""
+    return apsp_minplus_coo(link_ends, link_mask, link_delays, num_nodes, "squaring")

@@ -87,7 +87,9 @@ class PrecisionPolicy:
         the compute dtype: under the mixed policy W is narrowed before the
         squarings (K2 in bf16 on the card) and the shortest paths come back
         bf16, re-accumulated wide at the `decision_costs` island.  Under the
-        identity policy `apsp_fn` is returned as it is (None stays None)."""
+        identity policy `apsp_fn` is returned as it is (None stays None).
+        `apsp_fn` is a route of `ops.minplus.resolve_apsp`; None is
+        `apsp_minplus`, the squarings at every N, as JAX's None."""
         if not self.mixed:
             return apsp_fn
         compute = self.compute_dtype

@@ -40,6 +40,7 @@ from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.obs import events as obs_events
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
+from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl
 from multihop_offload_tpu_torch.precision import resolve_precision
 
 DM_SERVE_LOCAL = "mho_dev_serve_decisions_total{decision=local}"
@@ -82,13 +83,17 @@ class DispatchHandle:
 class BucketExecutor:
     """Batched decision passes of one model, plus its weight state."""
 
-    def __init__(self, model, layout=None, device=None, precision=None):
+    def __init__(self, model, layout=None, device=None, precision=None,
+                 apsp_impl: str = "xla"):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.layout = resolve_layout(layout)
-        # the APSP of every dispatch runs in the policy's compute dtype
-        # (JAX `executor.py:239`: a wrapped APSP per bucket program)
+        # the APSP of every dispatch runs in the policy's compute dtype, on
+        # the route of `apsp_impl` (JAX `executor.py:236-239`: a wrapped
+        # APSP per bucket program, resolved at its pad)
         self.precision = resolve_precision(precision)
+        check_apsp_impl(apsp_impl)
+        self.apsp_impl = apsp_impl
         self.dispatch_count = 0
         self.dispatches_by_width: Dict[Tuple[int, int], int] = {}
         self.loaded_step: Optional[int] = None
@@ -98,12 +103,14 @@ class BucketExecutor:
 
     def gnn_step(self, binst, bjobs):
         outcome, _ = forward_env(self.model, binst, bjobs, device=self.device,
-                                 layout=self.layout, precision=self.precision)
+                                 layout=self.layout, precision=self.precision,
+                                 apsp_impl=self.apsp_impl)
         d = outcome.decision
         return d.dst, d.is_local, d.delay_est, outcome.job_total
 
     def baseline_step(self, binst, bjobs):
-        o = baseline_policy(binst, bjobs, layout=self.layout, precision=self.precision)
+        o = baseline_policy(binst, bjobs, layout=self.layout, precision=self.precision,
+                            apsp_impl=self.apsp_impl)
         d = o.decision
         return d.dst, d.is_local, d.delay_est, o.job_total
 

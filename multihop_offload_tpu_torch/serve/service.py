@@ -24,8 +24,9 @@ disk.  The bf16 precision policy runs (`precision`, JAX `:107-155`):
 requests are packed at its storage dtype, so the batch crosses to the card
 as bf16 bytes, and each dispatch squares in bf16 (K2 or K6 in bf16); the
 model must carry the policy's dtypes (`cli/serve.py:build_service` builds
-it so).  Training under bf16 and K3 in bf16 wait on ROADMAP.md Queue 1
-items 10 and 11.  The health wiring
+it so).  Each dispatch's APSP takes the route of `apsp_impl` (JAX `:90`,
+`ops.minplus.resolve_apsp`): `'xla'`, the default, squares at every N;
+`'pallas'` and `'auto'` take K3 above a padded N of 256.  The health wiring
 (`attach_health`: the SLO engine and a per-tick flight-recorder row) waits
 for `obs/slo.py`; the watchdog's flight recorder is wired.
 """
@@ -97,6 +98,7 @@ class OffloadService:
         dtype=torch.float32,
         precision: Optional[str] = "fp32",
         layout=None,
+        apsp_impl: str = "xla",
         clock: Callable[[], float] = time.monotonic,
         capture_sample: float = 0.0,
         trace: bool = True,
@@ -125,7 +127,7 @@ class OffloadService:
         # `dtype` is the base dtype, `precision` the policy over it
         self.precision = resolve_precision(precision, dtype, self.device)
         self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
-                                       precision=self.precision)
+                                       precision=self.precision, apsp_impl=apsp_impl)
         self.buckets = buckets
         self.slots = slots
         self.queue_cap = queue_cap

@@ -52,7 +52,8 @@ def decide_routes(
     """The decision skeleton on per-link delays (B, L) and a node diagonal
     (B, N), returning the forwarding table (int16 under every layout).
     `apsp_fn` (a `PrecisionPolicy.wrap_apsp` result; None: `apsp_minplus`)
-    squares the weight matrix."""
+    squares the weight matrix at every N, as the JAX simulator does
+    (`sim/policies.py:76`), whatever a Config's `apsp_impl`."""
     lay = resolve_layout(layout)
     inf = torch.full((), float("inf"), dtype=link_delays.dtype, device=link_delays.device)
     link_delays = torch.where(link_up, link_delays, inf)

@@ -21,8 +21,10 @@ injected.  The `runtime` column is the wall time of a file's methods per
 instance, net of the overlapped build of the next file, as in the JAX
 drivers.
 
-Both drivers run under the precision policy of `cfg.precision` (JAX
-`:107-115,219-221`): job sets stored at its `storage_dtype`, the model at
+Both drivers take the APSP route of `cfg.apsp_impl` (JAX `:212-221`,
+`ops.minplus.resolve_apsp`; `'xla'`, the default, squares at every N;
+`self.apsp_path` names the path at the dataset's pad) and run under the
+precision policy of `cfg.precision` (JAX `:107-115,219-221`): job sets stored at its `storage_dtype`, the model at
 its dtypes, the APSP of every method in its compute dtype, and, in the
 Trainer, `forward_backward` under it (K4's bf16 forward and transposed
 walk, K6 or K2 in bf16, K1 on fp32 on the card) with parameters, stored
@@ -68,6 +70,7 @@ from multihop_offload_tpu_torch.graphs.instance import stack_instances
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
 from multihop_offload_tpu_torch.models.chebconv import ensure_alive_output_multi, make_model
+from multihop_offload_tpu_torch.ops.minplus import resolve_apsp
 from multihop_offload_tpu_torch.obs.spans import span
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 from multihop_offload_tpu_torch.train.data import DatasetCache, sample_jobsets
@@ -89,10 +92,11 @@ TEST_COLUMNS = [
 @torch.no_grad()
 def eval_methods(model, inst, jobs, gen=None, device=None, layout=None,
                  prob: bool = False, compat_diagonal_bug: bool = False,
-                 precision=None):
+                 precision=None, apsp_impl: str = "xla"):
     """Per-job delays (B, J) of the baseline, local and GNN methods on a
     batch of requests, on `device` (default CUDA), under `layout` (default
-    dense) and the `precision` policy's APSP (None: fp32).  The baseline
+    dense) and the `precision` policy's APSP (None: fp32) on the route of
+    `apsp_impl` (`ops.minplus.resolve_apsp`).  The baseline
     and local methods are greedy; the GNN samples its decision when `prob`
     (draws from `gen`: a generator, or a list of them over equal shares of
     the batch) and reads the reference's cycled diagonal under
@@ -101,13 +105,14 @@ def eval_methods(model, inst, jobs, gen=None, device=None, layout=None,
     inst, jobs = inst.to(dev), jobs.to(dev)
     with phase("baseline"):
         bl = baseline_policy(inst, jobs, gen, layout=layout,
-                             precision=precision).job_total
+                             precision=precision, apsp_impl=apsp_impl).job_total
     with phase("local"):
         loc = local_policy(inst, jobs, layout=layout).job_total
     with phase("gnn"):
         gnn = forward_env(model, inst, jobs, gen, prob=prob,
                           compat_diagonal_bug=compat_diagonal_bug, device=dev,
-                          layout=layout, precision=precision)[0].job_total
+                          layout=layout, precision=precision,
+                          apsp_impl=apsp_impl)[0].job_total
     return bl, loc, gnn
 
 
@@ -139,8 +144,8 @@ def train_init(model, cfg: Config, device=None) -> TrainState:
 def train_forward(model, state: TrainState, inst, jobs, cfg: Config,
                   gen: torch.Generator | None = None, explore: float | None = None,
                   device=None, precision=None):
-    """Batched `forward_backward` under `cfg.layout` and the `precision`
-    policy's APSP (None: fp32), every episode's gradient remembered in
+    """Batched `forward_backward` under `cfg.layout`, `cfg.apsp_impl` and the
+    `precision` policy's APSP (None: fp32), every episode's gradient remembered in
     `state.mem` (JAX `gnn_train_step`, `:243-279`).  Returns the step's
     `TrainStepOutput`."""
     dev = resolve_device(device)
@@ -148,7 +153,8 @@ def train_forward(model, state: TrainState, inst, jobs, cfg: Config,
         model.to(dev), inst, jobs, gen,
         explore=cfg.explore if explore is None else explore, prob=cfg.prob,
         mse_weight=cfg.mse_weight, critic_weight=cfg.critic_weight, layout=cfg.layout,
-        device=dev, compat_diagonal_bug=cfg.compat_diagonal_bug, precision=precision)
+        device=dev, compat_diagonal_bug=cfg.compat_diagonal_bug, precision=precision,
+        apsp_impl=cfg.apsp_impl)
     replay_remember(state.mem, outs.grads, outs.loss_critic, outs.loss_mse)
     return outs
 
@@ -239,7 +245,8 @@ class _Harness:
     (JAX `_Harness`, `:80-449`), on `device` (default CUDA), under the
     precision policy of `cfg.precision` resolved for that device (JAX
     `:110-143`): the model at its dtypes, instances and job sets stored at
-    the policy's `storage_dtype`, the APSP in its compute dtype.
+    the policy's `storage_dtype`, the APSP in its compute dtype on the route
+    of `cfg.apsp_impl` (`self.apsp_path`: the path at the dataset's pad).
 
     `memory_size=0` skips the gradient replay (the Evaluator never
     replays).  A fresh init is probed with real features from four files
@@ -257,6 +264,7 @@ class _Harness:
         self.store = self.precision.storage_dtype     # instances and job sets
         self.layout = resolve_layout(cfg.layout)
         self.data = DatasetCache.load(cfg, datapath, storage_dtype=self.store)
+        _, self.apsp_path = resolve_apsp(cfg.apsp_impl, self.data.pad.n)
         self.model = make_model(cfg, layout=self.layout, policy=self.precision,
                                 generator=torch.Generator().manual_seed(cfg.seed))
         if len(self.data):
@@ -320,7 +328,7 @@ class _Harness:
         return eval_methods(self.model, inst, jobs, gen, device=self.device,
                             layout=self.layout, prob=cfg.prob,
                             compat_diagonal_bug=cfg.compat_diagonal_bug,
-                            precision=self.precision)
+                            precision=self.precision, apsp_impl=cfg.apsp_impl)
 
     def _replay(self):
         """`train_replay`: (mean sampled critic loss, skipped) as host values."""

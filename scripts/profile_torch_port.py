@@ -7,7 +7,8 @@ same batch as 64 episodes (SPECTRAL_K2, sparse layout; the step replays
 `Config.batch` stored gradients once that many are stored, which the
 warm-up calls ensure); `--path large` runs the large-graph path of
 `large_scale.py` on its one 1,024-node request (`LARGE_K3_init`, dense
-layout): `eval_methods`, then `forward_backward`, as one call.  It
+layout, the demo's `'pallas'` APSP route): `eval_methods`, then
+`forward_backward`, as one call.  It
 reports:
 
 * the wall time of each named phase of the path (`_phases.phase` marks
@@ -48,6 +49,7 @@ from multihop_offload_tpu_torch.graphs.cases import (  # noqa: E402
     load_cases,
     request_batch,
 )
+from multihop_offload_tpu_torch.large_scale import LARGE_APSP  # noqa: E402
 from multihop_offload_tpu_torch.large_scale import MODEL as LARGE_MODEL  # noqa: E402
 from multihop_offload_tpu_torch.models.chebconv import load_model  # noqa: E402
 from multihop_offload_tpu_torch.train.driver import (  # noqa: E402
@@ -91,8 +93,8 @@ def main() -> int:
         model = load_model(LARGE_MODEL, device=dev)
 
         def call():
-            eval_methods(model, inst, jobs)
-            forward_backward(model, inst, jobs)
+            eval_methods(model, inst, jobs, apsp_impl=LARGE_APSP)
+            forward_backward(model, inst, jobs, apsp_impl=LARGE_APSP)
     else:
         cfg = Config(arrival_scale=0.15, layout="sparse", cheb_k=2)
         inst, jobs, pad = request_batch(load_cases("paper")[:16], 4, seed=0, cfg=cfg,

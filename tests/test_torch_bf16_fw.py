@@ -7,11 +7,13 @@ bf16 before the blocked FW (JAX `precision.py:wrap_apsp` over
 
 * K3's plain version in bf16 against the TPU kernel `blocked_fw_call` in
   interpret mode on the same bf16 input, bit for bit, at tile 8 and at the
-  128 tile; `apsp_minplus` on a bf16 W at N = 300 (padded to 384) against
+  128 tile; `apsp_minplus_pallas` (the `'pallas'` route) on a bf16 W at
+  N = 300 (padded to 384) against
   `apsp_minplus_pallas(w.astype(bf16), interpret=True)`, bit for bit; the
   sparse chain (K6's plain version on the narrowed delays) the same;
 * on the 300-node demo network (`tests/test_torch_large.py`'s draw)
-  stored as bf16: `baseline_policy` under bf16, dense and sparse, against
+  stored as bf16: `baseline_policy` under bf16 on the `'pallas'` route,
+  dense and sparse, against
   the JAX one given `wrap_apsp(partial(apsp_minplus_pallas,
   interpret=True))`: decisions, routes and next hops identical, job
   totals within 1e-2 relative; `forward_env` with the demo's K=3 initial
@@ -38,7 +40,6 @@ from multihop_offload_tpu.models.chebconv import ChebNet as JChebNet
 from multihop_offload_tpu.ops.minplus import apsp_minplus_pallas, blocked_fw_call
 from multihop_offload_tpu_torch import large_scale
 from multihop_offload_tpu_torch.agent.policy import forward_env
-from multihop_offload_tpu_torch.env import apsp as tapsp
 from multihop_offload_tpu_torch.env.policies import baseline_policy
 from multihop_offload_tpu_torch.graphs import cases as tcases
 from multihop_offload_tpu_torch.graphs import instance as tinst
@@ -87,16 +88,16 @@ def test_blocked_fw_plain_bf16_bit_identical_to_jax(b, n, tile, p):
 def test_apsp_bf16_at_n300_bit_identical_to_jax_pallas():
     """N = 300 takes the blocked FW (padded to 384) under bf16 as in
     float32, on the CPU through `blocked_fw`'s plain version: dense
-    `apsp_minplus` and the sparse chain (`apsp_minplus_coo` on the narrowed
+    `apsp_minplus_pallas` and the sparse chain (`apsp_minplus_coo` on the narrowed
     delays: W built at the 128-rounded N) equal JAX's narrowed
     `apsp_minplus_pallas` bit for bit."""
     w = _weights(np.random.default_rng(11), 1, 300, 4.0 / 300).astype(np.float32)
     assert tmp.apsp_path(300) == "blocked-fw" and tmp.padded_n(300) == 384
-    got = tapsp.apsp_minplus(torch.from_numpy(w).to(torch.bfloat16))
+    got = tmp.apsp_minplus_pallas(torch.from_numpy(w).to(torch.bfloat16))
     want = apsp_minplus_pallas(jnp.asarray(w).astype(BF), interpret=True)
     assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
     np.testing.assert_array_equal(bits(got), bits(want))
-    assert torch.equal(got, T16.wrap_apsp(None)(torch.from_numpy(w)))
+    assert torch.equal(got, T16.wrap_apsp(tmp.apsp_minplus_pallas)(torch.from_numpy(w)))
     iu, ju = np.nonzero(np.triu(np.isfinite(w[0]), 1))
     ends = torch.from_numpy(np.stack([iu, ju], 1).astype(np.int32))[None]
     mask = torch.ones((1, iu.size), dtype=torch.bool)
@@ -140,7 +141,7 @@ def test_baseline_bf16_at_padded_384_matches_jax(er300_bf16, layout):
     assert tmp.apsp_path(pad.n) == "blocked-fw"
     want = strict_jit(jax.vmap(lambda i, j: j_baseline(
         i, j, _KEY, apsp_fn=_BF16_PALLAS_APSP, layout=layout)), bi, bj)
-    got = baseline_policy(ti, tj, layout=layout, precision=T16)
+    got = baseline_policy(ti, tj, layout=layout, precision=T16, apsp_impl="pallas")
     for f in ("dst", "is_local"):
         np.testing.assert_array_equal(getattr(got.decision, f).numpy(),
                                       np.asarray(getattr(want.decision, f)), err_msg=f)
@@ -162,7 +163,7 @@ def test_forward_env_bf16_at_padded_384_matches_jax(er300_bf16):
     tmodel = tcheb.load_model(large_scale.MODEL, device="cpu", policy=T16)
     jout, _ = strict_jit(jax.vmap(lambda i, j: j_forward_env(
         jmodel, variables, i, j, _KEY, apsp_fn=_BF16_PALLAS_APSP)), bi, bj)
-    tout, _ = forward_env(tmodel, ti, tj, device="cpu", precision=T16)
+    tout, _ = forward_env(tmodel, ti, tj, device="cpu", precision=T16, apsp_impl="pallas")
     m = tj.mask.numpy()
     tdst, jdst = tout.decision.dst.numpy(), np.asarray(jout.decision.dst)
     assert (tdst[m] == jdst[m]).mean() >= AGREEMENT_FLOOR

@@ -261,6 +261,11 @@ def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
         model_dir = Config(**kw).model_dir()
         os.makedirs(model_dir)
         open(os.path.join(model_dir, "checkpoint"), "w").close()
+    # apsp_impl takes JAX's values: xla, JAX's default, squares at every N
+    if "apsp_impl" in setting:
+        for cls in (td.Evaluator, td.Trainer):
+            assert cls(Config(**kw, **setting), device="cpu").apsp_path == "squaring"
+        return
     # the Trainer under bf16 waited on item 10, which is done: both drivers
     # now run under it
     if "precision" in setting:
@@ -280,9 +285,10 @@ def test_cli_test_runs_on_the_cpu_and_refuses_a_missing_card(tiny, tmp_path, cap
     assert os.path.basename(path) == "Adhoc_test_data_aco_data_ba_tiny_load_0.15_T_1000.csv"
     assert len(rows) == 4 * 2 * 3 and list(rows[0]) == td.TEST_COLUMNS
     assert "test results written to" in capsys.readouterr().out
-    for flag in (["--apsp_impl", "xla"], ["--fp_impl", "pallas"],
-                 ["--csv_write_all_hosts", "true"]):
-        with pytest.raises(NotImplementedError):
+    for flag, err in ((["--apsp_impl", "bogus"], ValueError),
+                      (["--fp_impl", "pallas"], NotImplementedError),
+                      (["--csv_write_all_hosts", "true"], NotImplementedError)):
+        with pytest.raises(err):
             cli_test.main(args + ["--device", "cpu"] + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

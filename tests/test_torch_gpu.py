@@ -138,8 +138,6 @@ def test_apsp_minplus_hands_its_temporary_to_k2(cuda, monkeypatch):
     """On the card the dense APSP gives K2 its fresh `torch.where` result as
     the first buffer: its weights stay as they were, and a call runs one
     device operation fewer than with `minplus_closure`'s copy."""
-    from multihop_offload_tpu_torch.env import apsp as tapsp
-
     b, n = 8, 112
     w = _weights(np.random.default_rng(11), b, n, 3.0 / n).to(cuda)
     keep = w.clone()
@@ -152,8 +150,8 @@ def test_apsp_minplus_hands_its_temporary_to_k2(cuda, monkeypatch):
     d = torch.where(torch.eye(n, dtype=torch.bool, device=cuda), 0.0, w)
     assert torch.equal(got, tmp.minplus_closure_plain(d, iters))
     owned = _device_ops(lambda: apsp_minplus(w))
-    monkeypatch.setattr(tapsp, "minplus_closure",
-                        lambda x, k, owned=False: tmp.minplus_closure(x, k))
+    closure = tmp.minplus_closure
+    monkeypatch.setattr(tmp, "minplus_closure", lambda x, k, owned=False: closure(x, k))
     copied = _device_ops(lambda: apsp_minplus(w))
     assert torch.equal(apsp_minplus(w), got)
     k2 = [sum(c for k, c in ops.items() if "minplus" in k) for ops in (owned, copied)]
@@ -408,15 +406,15 @@ def test_blocked_fw_kernel_follows_the_128_schedule(cuda):
 
 
 def test_apsp_takes_blocked_fw_above_256(cuda):
-    """apsp_minplus at N=300 pads to 384 and runs K3, not K2; the COO-fed
-    APSP there is K6's build, then K3."""
+    """The `'pallas'` route (`apsp_minplus_pallas`) at N=300 pads to 384 and
+    runs K3, not K2; the COO-fed APSP there is K6's build, then K3."""
     w = _weights(np.random.default_rng(4), 2, 300, 4.0 / 300)
     before = (tmp.blocked_fw_cuda.launches, tmp.minplus_closure_cuda.launches)
-    got = apsp_minplus(w.to(cuda))
+    got = tmp.apsp_minplus_pallas(w.to(cuda))
     torch.cuda.synchronize()
     assert (tmp.blocked_fw_cuda.launches - before[0],
             tmp.minplus_closure_cuda.launches - before[1]) == (9, 0)
-    assert torch.equal(got.cpu(), apsp_minplus(w))
+    assert torch.equal(got.cpu(), tmp.apsp_minplus_pallas(w))
     iu, ju = np.nonzero(np.triu(np.isfinite(w[0].numpy()), 1))
     ends = torch.from_numpy(np.stack([iu, ju], 1).astype(np.int32))[None]
     mask = torch.ones((1, iu.size), dtype=torch.bool)
@@ -426,6 +424,37 @@ def test_apsp_takes_blocked_fw_above_256(cuda):
     torch.cuda.synchronize()
     assert tmp.apsp_coo_cuda.launches - k6 == 1
     assert torch.equal(coo.cpu(), tmp.apsp_coo_plain(ends, mask, delays, 300))
+    assert torch.equal(coo.cpu(), got[:1].cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_default_apsp_route_squares_at_padded_384(cuda, dtype):
+    """The default route (`apsp_impl='xla'`: `apsp_minplus`, and
+    `apsp_coo_squaring` from the link list) at N = 300, which the blocked
+    FW would pad to 384, launches K2 (and K6's build) and no K3, and equals
+    the plain squarings bit for bit; `shortest_paths` under the default
+    `Config` takes it."""
+    from multihop_offload_tpu_torch.config import Config
+
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    w = _weights(np.random.default_rng(4), 2, 300, 4.0 / 300).to(dtype)
+    counters = (tmp.minplus_closure_cuda, tmp.blocked_fw_cuda, tmp.apsp_coo_cuda)
+    launches = lambda: tuple(getattr(c, "launches" + sfx) for c in counters)  # noqa: E731
+    before = launches()
+    fn, path = tmp.resolve_apsp(Config().apsp_impl, 300)
+    got = fn(w.to(cuda))
+    torch.cuda.synchronize()
+    assert path == "squaring" and fn is apsp_minplus
+    assert tuple(a - b for a, b in zip(launches(), before)) == (tmp.squaring_count(300), 0, 0)
+    assert torch.equal(got.cpu(), apsp_minplus(w)) and got.dtype == dtype
+    iu, ju = np.nonzero(np.triu(np.isfinite(w[0].float().numpy()), 1))
+    ends = torch.from_numpy(np.stack([iu, ju], 1).astype(np.int32))[None]
+    mask = torch.ones((1, iu.size), dtype=torch.bool)
+    delays = w[0][iu, ju][None].contiguous()
+    before = launches()
+    coo = tmp.apsp_coo_squaring(ends.to(cuda), mask.to(cuda), delays.to(cuda), 300)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(launches(), before)) == (tmp.squaring_count(300), 0, 1)
     assert torch.equal(coo.cpu(), got[:1].cpu())
 
 
@@ -926,17 +955,18 @@ def test_blocked_fw_bf16_kernel_bit_identical(cuda, b, n, density):
 
 
 def test_apsp_takes_blocked_fw_bf16_above_256(cuda):
-    """Under bf16 `apsp_minplus` at N = 300 pads to 384 and runs K3 in bf16
-    (9 launches); the COO-fed APSP is K6's bf16 build at the 128-rounded N,
-    then K3 in bf16; both equal their plain versions bit for bit."""
+    """Under bf16 the `'pallas'` route at N = 300 pads to 384 and runs K3 in
+    bf16 (9 launches); the COO-fed APSP is K6's bf16 build at the
+    128-rounded N, then K3 in bf16; both equal their plain versions bit for
+    bit."""
     w = torch.from_numpy(_weights(np.random.default_rng(4), 1, 300, 4.0 / 300).numpy())
     wb = w.to(torch.bfloat16)
     before = (tmp.blocked_fw_cuda.launches_bf16, tmp.minplus_closure_cuda.launches_bf16)
-    got = apsp_minplus(wb.to(cuda))
+    got = tmp.apsp_minplus_pallas(wb.to(cuda))
     torch.cuda.synchronize()
     assert (tmp.blocked_fw_cuda.launches_bf16 - before[0],
             tmp.minplus_closure_cuda.launches_bf16 - before[1]) == (9, 0)
-    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), apsp_minplus(wb))
+    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), tmp.apsp_minplus_pallas(wb))
     iu, ju = np.nonzero(np.triu(np.isfinite(w[0].numpy()), 1))
     ends = torch.from_numpy(np.stack([iu, ju], 1).astype(np.int32))[None]
     mask = torch.ones((1, iu.size), dtype=torch.bool)

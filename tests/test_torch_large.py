@@ -3,7 +3,8 @@ package, in float64 on the CPU.
 
 On an Erdős–Rényi network of 300 nodes drawn by the large-scale demo's own
 `build_case` (padded N=304, which the APSP pads to 384; L > 928), the port
-takes the blocked-FW APSP and the fixed-point scan; the JAX run takes
+takes the blocked-FW APSP (the demo's `'pallas'` route, `large_scale.LARGE_APSP`)
+and the fixed-point scan; the JAX run takes
 `apsp_minplus_pallas` in interpret mode (the blocked FW there too) and its
 XLA scan.  `dst`, next hops, routes and masks must be identical,
 `job_total` and the other delays within 1e-12 relative.  The committed
@@ -38,6 +39,7 @@ from multihop_offload_tpu_torch.models import chebconv as tcheb
 from multihop_offload_tpu_torch.ops import fixed_point as tfp
 from multihop_offload_tpu_torch.ops import minplus as tmp
 from multihop_offload_tpu_torch.train.driver import eval_methods
+from tests.test_torch_ops import clear_jax_caches_after_module  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-12
@@ -123,13 +125,13 @@ def test_forward_env_matches_jax_at_padded_384(er300):
     jout, jact = jax.jit(jax.vmap(lambda i, j: j_forward_env(
         jmodel, variables, i, j, _KEY, apsp_fn=_PALLAS_APSP)))(bi, bj)
     runs = tfp.fixed_point_scan.runs
-    tout, tact = forward_env(tmodel, ti, tj, device="cpu")
+    tout, tact = forward_env(tmodel, ti, tj, device="cpu", apsp_impl=large_scale.LARGE_APSP)
     assert tfp.fixed_point_scan.runs - runs == 2  # actor, empirical evaluator
     _compare_outcome(tout, jout)
     _close(tact.lam, jact.lam)
     # the next hops over the GNN's predicted delays (the JAX model's: the two
     # models' agree to ~1e-15, and sp would carry that), from each APSP
-    sp = tapsp.apsp_minplus(tapsp.weight_matrix_from_link_delays(
+    sp = tmp.apsp_minplus_pallas(tapsp.weight_matrix_from_link_delays(
         ti.adj, ti.link_index, torch.from_numpy(np.array(jact.link_delay))))
     jsp = jax.vmap(lambda a, li, d: _PALLAS_APSP(japsp.weight_matrix_from_link_delays(
         a, li, d)))(bi.adj, bi.link_index, jact.link_delay)
@@ -150,10 +152,10 @@ def test_eval_methods_matches_jax_at_padded_384(er300):
                           apsp_fn=_PALLAS_APSP)[0].job_total))(i, j)
 
     jbase, jloc, jgnn = triple(bi, bj)
-    got = eval_methods(tmodel, ti, tj, device="cpu")
+    got = eval_methods(tmodel, ti, tj, device="cpu", apsp_impl=large_scale.LARGE_APSP)
     for t, j in zip(got, (jbase.delays.job_total, jloc, jgnn)):
         _close(t, j)
-    _compare_outcome(baseline_policy(ti, tj), jbase)
+    _compare_outcome(baseline_policy(ti, tj, apsp_impl=large_scale.LARGE_APSP), jbase)
 
 
 def test_large_scale_run_on_cpu(er300):

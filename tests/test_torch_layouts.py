@@ -40,6 +40,7 @@ from multihop_offload_tpu_torch.layouts import sparse as tsparse
 from multihop_offload_tpu_torch.models import chebconv as tcheb
 from multihop_offload_tpu_torch.ops import chebconv as tcc
 from multihop_offload_tpu_torch.train.driver import eval_methods
+from tests.test_torch_ops import clear_jax_caches_after_module  # noqa: F401
 
 RTOL = 1e-12
 _KEY = jax.random.PRNGKey(0)

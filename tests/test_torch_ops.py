@@ -23,6 +23,19 @@ from multihop_offload_tpu_torch.ops import fixed_point as tfp
 from multihop_offload_tpu_torch.ops import minplus as tmp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def clear_jax_caches_after_module():
+    """Leave JAX's caches as a fresh process has them once the module ends.
+
+    The module runs the JAX reference eagerly at length, which fills JAX's
+    cache of eager primitives; a module run after it in the same process
+    then sees a primitive it had just run traced again (in
+    `tests/test_obs.py`, a retrace counted after steady state).  Other
+    `test_torch_*` modules that do the same take this fixture by import."""
+    yield
+    jax.clear_caches()
+
+
 def _conflict_batch(rng, b, l, p=0.1):
     a = np.triu((rng.uniform(size=(b, l, l)) < p).astype(np.float64), 1)
     a = a + np.swapaxes(a, 1, 2)
@@ -315,13 +328,14 @@ def test_blocked_fw_plain_bit_identical_to_jax_tile8():
 
 
 def test_blocked_fw_apsp_bit_identical_to_jax_tile128():
-    """`apsp_minplus` at N=300 takes the blocked-FW path, pads to 384 and
-    equals `apsp_minplus_pallas(interpret=True)` bit for bit; it is not the
-    squarings' result (the two closures differ by ulps)."""
+    """`apsp_minplus_pallas` (the `'pallas'` route) at N=300 takes the
+    blocked-FW path, pads to 384 and equals `apsp_minplus_pallas(interpret=
+    True)` bit for bit; it is not the squarings' result (the two closures
+    differ by ulps)."""
     rng = np.random.default_rng(7)
     w = _weights(rng, 1, 300, 4.0 / 300)
     assert tmp.apsp_path(300) == "blocked-fw" and tmp.padded_n(300) == 384
-    got = tapsp.apsp_minplus(torch.from_numpy(w)).numpy()
+    got = tmp.apsp_minplus_pallas(torch.from_numpy(w)).numpy()
     pallas = np.asarray(apsp_minplus_pallas(jnp.asarray(w), interpret=True))
     np.testing.assert_array_equal(got, pallas)
     squared = np.asarray(jax.vmap(japsp.apsp_minplus)(jnp.asarray(w)))

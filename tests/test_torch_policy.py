@@ -30,6 +30,7 @@ from multihop_offload_tpu_torch.graphs import instance as tinst
 from multihop_offload_tpu_torch.graphs import topology as ttopo
 from multihop_offload_tpu_torch.models import chebconv as tcheb
 from multihop_offload_tpu_torch.train.driver import eval_methods
+from tests.test_torch_ops import clear_jax_caches_after_module  # noqa: F401
 
 RTOL = 1e-12
 

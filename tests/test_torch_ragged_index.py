@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from multihop_offload_tpu_torch.ops import chebconv as tcc
+from tests.test_torch_ops import clear_jax_caches_after_module  # noqa: F401
 
 
 def _numpy_index(keys, live, num_rows):
