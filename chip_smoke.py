@@ -91,6 +91,13 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   for bit to its plain closure on the (4, 304) matrix that path hands it,
   in both dtypes.  The large phases name the demo's `'pallas'` route
   (`large_scale.LARGE_APSP`) and keep their K3 counts.
+- Slice 17, K2 and K3 in bf16 on packed bf16x2 arithmetic, each sharing
+  one body with its float32 kernel (`csrc/minplus.cuh`,
+  `csrc/blocked_fw.cuh`).  `bf16_kernel_phase` logs each K2 bf16 shape's
+  bf16 tile plan beside the float32 one, and `large_bf16` times the
+  float32 K3 on the same (1, 1024) matrix beside K3 bf16, with both
+  pivots' ns a step; the bars are unchanged (bit for bit against the
+  plain versions in bf16).
 
 It
 
@@ -820,9 +827,10 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
     2 APSP calls of 3 N / 128 K3 bf16 launches (`blocked_fw_cuda`'s rule),
     no other kernel, the fixed-point scan run; job totals finite fp32, the
     `baseline` and `local` mean job totals within JAX's gate of fp32's.
-    Then K3 bf16's device us by phase, call us, plain ms and bound: 2 N^3
+    Then K3 bf16's device us by phase and ns a pivot step, beside the
+    float32 K3's on the same matrix, call us, plain ms and bound: 2 N^3
     adds and mins at the card's bf16x2 rate (the bound), and at the fp32
-    path's rate, on which the kernel runs them."""
+    path's rate."""
     from multihop_offload_tpu_torch.graphs.cases import large_request
     from multihop_offload_tpu_torch.large_scale import LARGE_APSP, MODEL
     from multihop_offload_tpu_torch.models.chebconv import load_model
@@ -882,6 +890,8 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
     k3 = clocks(lambda: mp.blocked_fw_cuda(d16), 50, kernels_per_call=3 * nb + 1)
     phases = k3_phase_us(device_us.last)
     lost = device_us.last["lost_records"]
+    k3_32 = clocks(lambda: mp.blocked_fw_cuda(d), 50, kernels_per_call=3 * nb + 1)
+    phases32 = k3_phase_us(device_us.last)
     plain_ms = cuda_ms(lambda: mp.blocked_fw_plain(d16), 3, warmup=1)
     ops_ms = 2.0 * b * n ** 3 / PEAK_BF16X2_OPS_PER_S * 1e3
     bytes_ms = 2 * b * n * n * 2 / PEAK_BYTES_PER_S * 1e3
@@ -892,11 +902,16 @@ def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
            "plain_ms": plain_ms, "bound_us": max(ops_ms, bytes_ms) * 1e3,
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "bound_rate": BF16_RATE, "bound_fp32_path_us": max(2 * ops_ms, bytes_ms) * 1e3,
+           "fp32_device_us": k3_32["device_ms"] * 1e3, "fp32_phase_device_us": phases32,
+           "fp32_pivot_ns_per_step": phases32["pivot"] * 1e3 / n,
            "eval_methods_ms": eval_ms, "mean_job_total_rel_to_fp32": rel}
     log(f"timing on {card['smi']}: K3 blocked_fw bf16 B,N={(b, n)} per call ({3 * nb} "
         f"launches): device {rec['device_us']:.1f} us (pivot {phases['pivot']:.2f}, "
         f"{rec['pivot_ns_per_step']:.1f} ns a step; panels {phases['panels']:.2f}; outer "
-        f"{phases['outer']:.2f}; input clone {phases['clone']:.2f}; {lost} records lost), "
+        f"{phases['outer']:.2f}; input clone {phases['clone']:.2f}; {lost} records lost; "
+        f"fp32 K3 on the same matrix {rec['fp32_device_us']:.1f} us: pivot "
+        f"{phases32['pivot']:.2f}, {rec['fp32_pivot_ns_per_step']:.1f} ns a step, panels "
+        f"{phases32['panels']:.2f}, outer {phases32['outer']:.2f}), "
         f"call {rec['call_us']:.1f} us, host {rec['host_us']:.1f} us; plain {plain_ms:.3f} "
         f"ms; bound {rec['bound_us']:.2f} us (operations at the bf16x2 rate; "
         f"{rec['bound_fp32_path_us']:.2f} at the fp32 path's); large bf16 eval_methods "
@@ -998,7 +1013,7 @@ def route_phase(dev, card) -> dict:
                                  f"{int((got != ref).sum())} entries differ from "
                                  f"minplus_closure_plain, {launched} launches (want {iters}), "
                                  f"{ran} squarings run (plain {run_plain})")
-        plan = mp.tile_plan(b, n)
+        plan = mp.tile_plan(b, n, d.dtype)
         out["k2"][name] = {"shape": [b, n], "dtype": str(d.dtype), "iters": iters,
                            "squarings_run": ran, "plan": plan}
         log(f"route K2 {name} on the path's own W, B,N={(b, n)}: bit-identical to "
@@ -2087,8 +2102,12 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
     4).  Then each one's device us, call us, plain ms, bound (2 B an
     element; K2 and K6 also their adds and mins at the card's bf16x2 rate,
     `BF16_RATE`, with the fp32 path's rate beside it) and the float32
-    kernel's device us at the same shape; K4 beside `torch.bmm` in bf16 on
-    the dense support (the transposed walk on its transpose)."""
+    kernel's device us at the same shape, K2 with its bf16 tile plan
+    (`ops.minplus.tile_plan(..., bfloat16)`) beside the float32 one and the
+    squarings the float32 kernel runs on the same matrices (float32 sums
+    can reach the fixed point in fewer); K4
+    beside `torch.bmm` in bf16 on the dense support (the transposed walk on
+    its transpose)."""
     from multihop_offload_tpu_torch.env.apsp import weight_matrix_from_link_delays
     from multihop_offload_tpu_torch.layouts.sparse import (
         CsrIndex,
@@ -2131,11 +2150,15 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
         t = clocks(lambda: mp.minplus_closure_cuda(d, iters), WINDOW,
                    kernels_per_call=2 + iters)
         d32 = d.float()
+        ex32 = read_counts()["squarings"]
+        mp.minplus_closure_cuda(d32, iters)
+        ran32 = read_counts()["squarings"] - ex32  # float32 sums converge sooner
         t32 = clocks(lambda: mp.minplus_closure_cuda(d32, iters), WINDOW,
                      kernels_per_call=2 + iters)
         plain_ms = cuda_ms(lambda: mp.minplus_closure_plain(d, iters), 5, 1)
         ops_ms = 2.0 * m ** 3 * ran / PEAK_BF16X2_OPS_PER_S * 1e3
         bytes_ms = 2 * b * m * m * 2 / PEAK_BYTES_PER_S * 1e3
+        plan, plan32 = mp.tile_plan(b, m, bf), mp.tile_plan(b, m)
         out["minplus_bf16"][tag] = {
             "shape": [b, m], "iters": iters, "squarings_run": ran,
             "device_us": t["device_ms"] * 1e3, "call_us": t["ms"] * 1e3,
@@ -2143,14 +2166,16 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
             "bound_us": max(ops_ms, bytes_ms) * 1e3,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_rate": BF16_RATE,
-            # the same operations at the fp32 path's rate, which this kernel
-            # runs them on (widened to fp32 in shared memory)
+            # the same operations at the fp32 path's rate, for comparison
+            # with the float32 kernel
             "bound_fp32_path_us": max(2 * ops_ms, bytes_ms) * 1e3,
-            "fp32_device_us": t32["device_ms"] * 1e3, "fp32_call_us": t32["ms"] * 1e3}
+            "fp32_device_us": t32["device_ms"] * 1e3, "fp32_call_us": t32["ms"] * 1e3,
+            "fp32_squarings_run": ran32, "plan": plan, "fp32_plan": plan32}
         r = out["minplus_bf16"][tag]
         log(f"K2 bf16 minplus {tag} B,N={(b, m)}: bit-identical to plain bf16, {iters} "
-            f"launches, {ran} squarings run (= squarings_run_plain); on {card['smi']}: "
-            f"device {r['device_us']:.2f} us (fp32 kernel {r['fp32_device_us']:.2f}), call "
+            f"launches, {ran} squarings run (= squarings_run_plain); bf16 plan {plan} "
+            f"(fp32 {plan32}); on {card['smi']}: device {r['device_us']:.2f} us (fp32 kernel "
+            f"{r['fp32_device_us']:.2f} on the same matrices, {ran32} squarings run), call "
             f"{r['call_us']:.2f} us, plain {plain_ms:.3f} ms, bound {r['bound_us']:.2f} us "
             f"({r['bound_by']})")
     # ---- K6 ----------------------------------------------------------------
@@ -2182,10 +2207,11 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_rate": BF16_RATE,
         "bound_fp32_path_us": max(2 * ops_ms, bytes_ms) * 1e3,
-        "fp32_device_us": t32["device_ms"] * 1e3, "fp32_call_us": t32["ms"] * 1e3}
+        "fp32_device_us": t32["device_ms"] * 1e3, "fp32_call_us": t32["ms"] * 1e3,
+        "plan": mp.tile_plan(b6, n6, bf)}
     r = out["coo_apsp_bf16"]["paper"]
     log(f"K6 bf16 coo_apsp B,L,N={(b6, l6, n6)}: bit-identical to the plain chain in bf16, "
-        f"launches (build, squarings) {pair}, {sq6} squarings run; device "
+        f"launches (build, squarings) {pair}, {sq6} squarings run, bf16 plan {r['plan']}; device "
         f"{r['device_us']:.2f} us (fp32 {r['fp32_device_us']:.2f}), call {r['call_us']:.2f} "
         f"us, plain {plain_ms:.3f} ms, bound {r['bound_us']:.2f} us ({r['bound_by']})")
     # ---- K4's forward --------------------------------------------------------

@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` exports a plain C interface and is compiled on its own
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``build/kernels/<name>-<hash>.so`` beside the
-package, at first use.  The hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  All
+package, at first use.  A kernel body shared by two element types lives in
+a `csrc/*.cuh` header that each type's source includes.  The hash covers
+the source, every header of `csrc/` and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  All
 sources compile in parallel, one nvcc process each.  Importing this module
 builds nothing; nothing here runs without nvcc (the CPU path never calls it).
 """
@@ -43,7 +45,9 @@ SIGNATURES = {
                  [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "blocked_fw": ("mho_blocked_fw_f32", [_c_void_p] + [_c_int] * 2 + [_c_void_p]),
     # the bf16 leg of the precision policy (K2, K6's build, K4's forward; K4's
-    # transposed walk is `mho_chebconv_transpose_bf16` of the same library; K3)
+    # transposed walk is `mho_chebconv_transpose_bf16` of the same library;
+    # K3); K2's and K3's bf16 sources instantiate the float32 kernels' bodies
+    # (`csrc/minplus.cuh`, `csrc/blocked_fw.cuh`) on bf16
     "minplus_bf16": ("mho_minplus_square_bf16",
                      [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "coo_apsp_bf16": ("mho_coo_weights_bf16",
@@ -69,8 +73,9 @@ def _nvcc() -> str:
 
 def _target(src: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as fh:
-        h.update(fh.read())
+    for path in (src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

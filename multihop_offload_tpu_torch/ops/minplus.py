@@ -3,9 +3,11 @@ link list, batched.
 
 Replaces `multihop_offload_tpu/ops/minplus.py:minplus_power_kernel_call`
 (the Pallas kernel `_apsp_kernel` -> `_chunked_squaring`).  The CUDA kernel
-is `csrc/minplus.cu`; its source note says what bounds it on an H100
-(issue slots: 2 * N^3 CUDA-core instructions per squaring per matrix, no
-tensor-core or DPX path for (min, +) in float32) and how its tiles follow
+is `csrc/minplus.cu` (float32) and `csrc/minplus_bf16.cu` (bf16), one body
+templated on the element type (`csrc/minplus.cuh`); its source note says
+what bounds it on an H100 (issue slots: 2 * N^3 adds and mins per squaring
+per matrix, CUDA-core instructions in float32 and packed bf16x2 pairs in
+bf16, with no tensor-core or DPX path for (min, +)) and how its tiles follow
 N: the launcher picks a tile plan from (B, N) (`tile_plan` names it), and
 the k loop runs to exactly N.
 
@@ -29,7 +31,8 @@ Pallas kernels `_pivot_kernel`, `_panel_kernel`, `_outer_kernel`): exact
 three-phase blocked Floyd-Warshall on 128 x 128 pivot blocks.  Its plain
 version `blocked_fw_plain` follows the same schedule, so the two are
 bit-identical to each other and to the interpret-mode TPU kernel; the CUDA
-source is `csrc/blocked_fw.cu`.
+sources are `csrc/blocked_fw.cu` and `csrc/blocked_fw_bf16.cu`, one body
+templated on the element type (`csrc/blocked_fw.cuh`).
 
 The APSP routes follow the JAX knob `apsp_impl` (`resolve_apsp`,
 `resolve_coo_apsp`).  `'xla'`, JAX's default, squares at every N:
@@ -60,7 +63,8 @@ the blocked FW.  `apsp_minplus_coo` dispatches on the device of the delays
 as `minplus_closure` does.
 
 The bf16 leg of the precision policy (`precision.py`): `minplus_closure_cuda`
-launches `csrc/minplus_bf16.cu` on bfloat16 input and `apsp_coo_cuda`
+launches `csrc/minplus_bf16.cu` on bfloat16 input (the float32 kernel's
+body and plans on packed bf16x2 adds and mins) and `apsp_coo_cuda`
 `csrc/coo_apsp_bf16.cu` on bfloat16 delays (then the bf16 squarings); both
 equal their plain versions in bf16 bit for bit.  Each bf16 kernel has its
 own counters beside the float32 ones: `minplus_closure_cuda.launches_bf16`
@@ -204,15 +208,20 @@ minplus_closure_cuda.launches_bf16 = 0
 minplus_closure_cuda.executed_bf16 = None
 
 PLAN_FIELDS = ("tile_rows", "tile_cols", "threads", "k_groups", "slice", "stages",
-               "smem_bytes", "blocks")
+               "smem_bytes", "blocks", "copy_bytes", "tensor_copies")
 
 
-def tile_plan(b: int, n: int) -> dict:
-    """The tile plan K2's launcher picks for (B, N) (`csrc/minplus.cu:
-    mho_minplus_plan`): a tile's rows and columns, threads a block, k-groups
-    a block, k-slice depth, stages, dynamic shared bytes a block and blocks
-    a squaring.  Builds the kernel at first use (needs nvcc and a card)."""
-    fn = _build.symbol("minplus", "mho_minplus_plan",
+def tile_plan(b: int, n: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The tile plan K2's launcher picks for (B, N) in `dtype` (float32 or
+    bfloat16; `mho_minplus_plan` of `csrc/minplus.cu` or
+    `csrc/minplus_bf16.cu`): a tile's rows and columns, threads a block,
+    k-groups a block, k-slice depth, stages, dynamic shared bytes a block,
+    blocks a squaring, bytes a copy of the slices (for buffers PyTorch
+    allocates) and 1 where they come by tensor copies.  Builds the kernel at
+    first use (needs nvcc and a card)."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"tile_plan takes float32 or bfloat16, got {dtype}")
+    fn = _build.symbol("minplus" + _SUFFIX[dtype], "mho_minplus_plan",
                        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     info = (ctypes.c_int * len(PLAN_FIELDS))()
     _build.check_launch("minplus plan", fn(b, n, ctypes.addressof(info)))
@@ -319,9 +328,9 @@ def blocked_fw_cuda(d: torch.Tensor) -> torch.Tensor:
     diagonal, +inf for non-edges, N a multiple of 128): 3 launches per
     pivot block (pivot, the row and column panels, outer), 3 N / 128 per
     call, no host sync.  The input is copied; the copy is updated in place
-    and returned.  In bf16 (`csrc/blocked_fw_bf16.cu`) the pivot rounds
-    each candidate and the panels and outer their results, so the result
-    equals `blocked_fw_plain` in bf16 bit for bit."""
+    and returned.  In bf16 (`csrc/blocked_fw_bf16.cu`) every candidate is a
+    packed bf16x2 add, rounded to bf16 as the plain version rounds it, so
+    the result equals `blocked_fw_plain` in bf16 bit for bit."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"d must be (B, N, N), got {tuple(d.shape)}")
     if d.device.type != "cuda":

@@ -1,14 +1,16 @@
-"""Hold builds of K2 (`csrc/minplus.cu`, the min-plus squaring APSP) against
-each other on one card, in one process, shape by shape.
+"""Hold builds of K2 (`csrc/minplus.cu`, `csrc/minplus_bf16.cu`: the
+min-plus squaring APSP) against each other on one card, in one process,
+shape by shape.
 
 Each `--variant TAG=SOURCE[:NAME=VALUE,...]` is a source (the package's own,
 an older copy unpacked with `git archive`, `scripts/minplus_tile32.cu` or a
-trial build), with each `constexpr int NAME` of the source set to VALUE.
-All are compiled in parallel with the package's nvcc flags into
-`build/k2_bench/`.  A variant's C interface says how to drive it:
-`mho_minplus_square_f32`, a launch per squaring as `ops/minplus.py` drives
-it (the input cloned into the first ping-pong buffer, the flags zeroed,
-then the launches), or `mho_minplus_closure_f32(buf0, buf1, work, executed,
+trial build), with each `constexpr int NAME` of the source or of a header
+it includes from its own directory set to VALUE.  All are compiled in
+parallel with the package's nvcc flags into `build/k2_bench/`.  A variant's
+C interface says how to drive it: `mho_minplus_square_f32` or
+`mho_minplus_square_bf16`, a launch per squaring as `ops/minplus.py` drives
+it in that element type (the input cloned into the first ping-pong buffer,
+the flags zeroed, then the launches), or `mho_minplus_closure_f32(buf0, buf1, work, executed,
 B, N, iters, stream)`, every squaring of a call in one launch, `work`
 holding the flags (iters x B), a count per (squaring, matrix) of finished
 tiles and a claim counter, zeroed.  A one-launch source whose `kSpinClock`
@@ -18,7 +20,11 @@ all their cycles.  A source whose `kClock` is set to 1 adds thread 0's
 clock64 split of every block to `executed[1..7]` (`scripts/
 minplus_tile32.cu` says which phase is which); it is logged per block at
 the path's squarings.  A source that exports `mho_minplus_plan` names its
-tile plan per shape.
+tile plan per shape.  With `--dtype bf16` the shapes are the bf16 paths'
+(below, with the route cell's (4, 304) and without the float32-only (1,
+1024) and (1, 128)) and the package's float32 kernel joins as the variant
+`fp32`, on the same matrices in float32; each variant's input is narrowed
+to its element type.
 
 The shapes are the paths' own: the paper batch (64, 112) and the 256-node
 rung (4, 256) from the decision path's APSP input
@@ -28,7 +34,7 @@ rung (4, 256) from the decision path's APSP input
 (5, 37), each at the squarings its path runs; and (1, 128), where every
 tile of a squaring has an SM to itself (`--shapes` picks some).  At each
 shape every variant is first held bit-identical to the plain closure and
-its squarings run to `squarings_run_plain`; one that fails is logged and
+its squarings run to `squarings_run_plain`, in its element type; one that fails is logged and
 not timed there, and the script exits 1.  Then each is timed in turns
 (forward, then backward order, `--rounds` times) on the card's own clock
 (`chip_smoke.device_us`) at iters = 1 .. the path's: the device us of the
@@ -38,7 +44,8 @@ memset) and kernels per call, each squaring's us, the matrices live in each
 squaring (from the flags of one run), the squarings run of B iters, the
 call us (CUDA events around a loop of calls), the candidates a squaring of
 one matrix computes against N^3, and the K2 kernels' share of their bound
-(2 N^3 fp32 instructions per squaring run at 33.5e12 a second).  With
+(2 N^3 adds and mins per squaring run: in float32 CUDA-core instructions at
+33.5e12 a second, in bf16 at the bf16x2 rate of 67e12 a second).  With
 `--sass DIR`, each variant's `cuobjdump -sass` goes to DIR and its
 instruction counts per kernel are logged.
 
@@ -47,6 +54,9 @@ instruction counts per kernel are logged.
         --variant new=multihop_offload_tpu_torch/csrc/minplus.cu \\
         --variant split=scripts/minplus_tile32.cu:kClock=1 \\
         --out build/k2_bench.json
+    python3 scripts/bench_minplus.py --dtype bf16 \\
+        --variant old=build/parent/multihop_offload_tpu_torch/csrc/minplus_bf16.cu \\
+        --variant new=multihop_offload_tpu_torch/csrc/minplus_bf16.cu
 """
 
 from __future__ import annotations
@@ -67,20 +77,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
-    K2_GENERATED, MODEL_K1, PEAK_FP32_INSTR_PER_S, cuda_ms, device_lines, device_us,
-    kernel_inputs, minplus_input)
+    K2_GENERATED, MODEL_K1, PEAK_BF16X2_OPS_PER_S, PEAK_FP32_INSTR_PER_S, cuda_ms,
+    device_lines, device_us, kernel_inputs, minplus_input)
 from scripts.bench_blocked_fw import parse_variant, variant_source  # noqa: E402
 from multihop_offload_tpu_torch.ops import _build  # noqa: E402
 from multihop_offload_tpu_torch.ops import minplus as mp  # noqa: E402
 
 ONE_LAUNCH, PER_SQUARING = "mho_minplus_closure_f32", "mho_minplus_square_f32"
+PER_SQUARING_BF16 = "mho_minplus_square_bf16"
+DTYPES = {ONE_LAUNCH: torch.float32, PER_SQUARING: torch.float32,
+          PER_SQUARING_BF16: torch.bfloat16}
+# adds and mins a second: CUDA-core fp32 instructions, or bf16x2 elements
+RATE = {torch.float32: PEAK_FP32_INSTR_PER_S, torch.bfloat16: PEAK_BF16X2_OPS_PER_S}
 PLAN = "mho_minplus_plan"
+FP32_SOURCE = os.path.join(ROOT, "multihop_offload_tpu_torch", "csrc", "minplus.cu")
 # every 32 x 32 tile of a squaring on an SM of its own: a lone tile's time
 LONE = {(1, 128): 7}
+# the bf16 paths' generated shapes: the service's buckets, the route cell's
+# (4, 304) and an odd N (the paper batch and the rung come from the path)
+K2_BF16_GENERATED = {(16, 56): 6, (16, 112): 7, (4, 304): 9, (5, 37): 6}
 CLOCK_PHASES = ("blocks", "load_issue", "wait_store_barrier", "k_loop", "barrier",
                 "epilogue", "total")
-SASS_OPS = ("FADD", "FMNMX", "LDS", "STS", "LDG", "STG", "LDGSTS", "BAR", "IMAD", "IADD3",
-            "ISETP", "LEA", "SHF", "MOV", "BRA")
+SASS_OPS = ("FADD", "FMNMX", "HADD2", "HFMA2", "HMNMX2", "PRMT", "F2FP", "LDS", "STS", "LDG",
+            "STG", "LDGSTS", "BAR", "IMAD", "IADD3", "ISETP", "LEA", "SHF", "MOV", "BRA")
 
 
 def path_inputs(dev) -> dict:
@@ -127,13 +146,13 @@ def bind(lib: str):
         plan = getattr(cdll, PLAN)
         plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         plan.restype = ctypes.c_int
-    for symbol in (ONE_LAUNCH, PER_SQUARING):
+    for symbol in DTYPES:
         if hasattr(cdll, symbol):
             fn = getattr(cdll, symbol)
             fn.argtypes = _build.SIGNATURES["minplus"][1]
             fn.restype = ctypes.c_int
             return symbol, fn, plan
-    raise RuntimeError(f"{lib} exports neither {ONE_LAUNCH} nor {PER_SQUARING}")
+    raise RuntimeError(f"{lib} exports none of {list(DTYPES)}")
 
 
 def sass_counts(text: str) -> dict:
@@ -162,6 +181,7 @@ class Variant:
         self.tag = tag
         self.values = values
         self.symbol, self.fn, self.plan_fn = bind(lib)
+        self.dtype = DTYPES[self.symbol]
         self.spin = "kSpinClock=1" in values
         self.clock = "kClock=1" in values
         # with kClock the split sits after the squarings counter
@@ -188,8 +208,10 @@ class Variant:
         plan = self.plan(b, n)
         if plan is not None:
             return plan["blocks"] // b * plan["tile_rows"] * plan["tile_cols"] * n
-        if self.symbol != PER_SQUARING:
+        if self.symbol == ONE_LAUNCH:
             return None
+        if self.symbol == PER_SQUARING_BF16:  # the planless bf16 kernel: 32 x 32 tiles
+            return (32 * math.ceil(n / 32)) ** 2 * n
         if "kCut=1" in self.values:  # `scripts/minplus_tile32.cu`'s cut tiles
             parts = math.ceil(n / 32)
             edge = 4 * math.ceil(math.ceil(n / parts) / 4)
@@ -269,6 +291,8 @@ def kernel_us(last: dict) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", required=True, type=parse_variant)
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="bf16: the bf16 paths' shapes, the package's fp32 K2 beside")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--shapes", default=None,
@@ -282,13 +306,15 @@ def main() -> int:
         return 1
     card = device_lines()
     variants = dict(args.variant)
+    if args.dtype == "bf16":
+        variants.setdefault("fp32", (FP32_SOURCE, []))
     built = build(variants, os.path.join(ROOT, "build", "k2_bench"))
     dev = torch.device("cuda")
     runs = {tag: Variant(tag, lib, variants[tag][1], dev) for tag, (lib, _) in built.items()}
     result = {"card": card["smi"], "variants": {t: f"{s} {v}" for t, (s, v) in variants.items()},
               "sass": {}, "shapes": {}, "failed": []}
     for tag, (lib, log) in built.items():
-        print(f"  {tag}: {runs[tag].symbol}", flush=True)
+        print(f"  {tag}: {runs[tag].symbol} ({runs[tag].dtype})", flush=True)
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 print(f"  ptxas[{tag}] {line.strip()}", flush=True)
@@ -302,20 +328,23 @@ def main() -> int:
             for name, counts in result["sass"][tag].items():
                 print(f"  sass[{tag}] {name[:90]}: {counts}", flush=True)
     inputs = path_inputs(dev)
+    generated = K2_BF16_GENERATED if args.dtype == "bf16" else {**K2_GENERATED, **LONE}
     inputs.update({shape: (minplus_input(*shape).to(dev), iters)
-                   for shape, iters in {**K2_GENERATED, **LONE}.items()})
+                   for shape, iters in generated.items()})
     if args.shapes:
         keep = {tuple(int(x) for x in s.split("x")) for s in args.shapes.split(",")}
         inputs = {shape: v for shape, v in inputs.items() if shape in keep}
-    for (b, n), (d, iters) in inputs.items():
-        want = (mp.minplus_closure_plain(d, iters) if n <= 256
-                else mp.minplus_closure_blocked(d, iters))
-        run = mp.squarings_run_plain(d, iters)
-        bound_us = 2.0 * n ** 3 * run / PEAK_FP32_INSTR_PER_S * 1e6
+    for (b, n), (d32, iters) in inputs.items():
+        ds, want, run = {}, {}, {}
+        for dtype in {v.dtype for v in runs.values()}:
+            d = ds[dtype] = d32.to(dtype)
+            want[dtype] = (mp.minplus_closure_plain(d, iters) if n <= 256
+                           else mp.minplus_closure_blocked(d, iters))
+            run[dtype] = mp.squarings_run_plain(d, iters)
         live, ok = {}, {}
         for tag, v in runs.items():
             try:
-                live[tag] = check(v, d, iters, want, run)
+                live[tag] = check(v, ds[v.dtype], iters, want[v.dtype], run[v.dtype])
                 ok[tag] = v
             except AssertionError as exc:
                 print(f"K2 bench CHECK FAILED: {exc}", flush=True)
@@ -325,23 +354,25 @@ def main() -> int:
         for _ in range(args.rounds):
             for order in (list(ok), list(reversed(ok))):
                 for tag in order:
-                    v = ok[tag]
+                    v, d = ok[tag], ds[ok[tag].dtype]
                     for k in range(1, iters + 1):
-                        total = device_us(lambda v=v, k=k: v(d, k), args.reps,
+                        total = device_us(lambda v=v, d=d, k=k: v(d, k), args.reps,
                                           kernels_per_call=v.kernels_per_call(k))
                         samples[tag][k].append(kernel_us(device_us.last))
                         if k == iters:
                             totals[tag].append(total)
         out = {}
         for tag, v in ok.items():
+            d = ds[v.dtype]
+            bound_us = 2.0 * n ** 3 * run[v.dtype] / RATE[v.dtype] * 1e6
             kern = [statistics.median(samples[tag][k]) for k in range(1, iters + 1)]
             per_sq = [kern[0]] + [kern[k] - kern[k - 1] for k in range(1, iters)]
-            call = [cuda_ms(lambda v=v: v(d, iters), args.reps) * 1e3
+            call = [cuda_ms(lambda v=v, d=d: v(d, iters), args.reps) * 1e3
                     for _ in range(args.rounds)]
             v(d, iters)
             torch.cuda.synchronize()
             cand = v.candidates(b, n)
-            out[tag] = {"symbol": v.symbol, "iters": iters,
+            out[tag] = {"symbol": v.symbol, "dtype": str(v.dtype), "iters": iters,
                         "device_us": statistics.median(totals[tag]),
                         "device_us_range": [min(totals[tag]), max(totals[tag])],
                         "kernel_us": kern[-1], "kernels_per_call": v.kernels_per_call(iters),
@@ -355,7 +386,8 @@ def main() -> int:
                         "bound_us": bound_us, "share_of_bound": bound_us / kern[-1],
                         "clock": v.clock_split(d, iters)}
             o = out[tag]
-            print(f"K2 bench on {card['smi']}: {tag} B,N={(b, n)} iters={iters}: device us "
+            print(f"K2 bench on {card['smi']}: {tag} ({v.dtype}) B,N={(b, n)} iters={iters}: "
+                  f"device us "
                   f"per call (median of {len(totals[tag])}) {o['device_us']:.2f} "
                   f"[{min(totals[tag]):.2f}, {max(totals[tag]):.2f}], K2 kernels "
                   f"{o['kernel_us']:.2f} ({o['share_of_bound']:.3f} of the bound "

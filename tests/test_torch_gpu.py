@@ -792,10 +792,47 @@ def _bf16_weights(b, n):
     return d.to(torch.bfloat16)
 
 
-# the decision paths' (B, N) under bf16, the rung's N = 256 and odd N
-@pytest.mark.parametrize("b,n", [(64, 112), (16, 56), (16, 112), (4, 256), (5, 37),
-                                 (3, 1), (4, 33)])
+# K2's templates (`csrc/minplus.cuh`), the same in both element types:
+# tile rows, tile columns, threads, k-groups, slice depth, stages
+_K2_TEMPLATES = {"56x56": (56, 56, 224, 2, 32, 2), "56x28": (56, 28, 224, 4, 64, 2),
+                 "64x64": (64, 64, 256, 2, 32, 3), "64x32": (64, 32, 256, 4, 64, 2)}
+# the decision paths' (B, N) under bf16 (the paper batch, the service's two
+# buckets, the rung's N = 256, the route cell's 304), odd N and one shape
+# for every plan the launcher can pick, with the template and the bytes a
+# bf16 copy moves there: 16 (tensor copies on the 56 x 56 and 64-row
+# tiles), 8 where the rows or the 56 x 28 tile's columns are 8-byte
+# multiples, 4 at even N, 2 (plain loads) at odd N
+_K2_BF16_PLANS = {(64, 112): ("56x56", 16), (16, 56): ("strip", 16), (16, 112): ("56x28", 8),
+                  (4, 256): ("64x32", 16), (4, 304): ("64x32", 16), (16, 256): ("64x64", 16),
+                  (5, 37): ("strip", 2), (3, 1): ("strip", 2), (4, 33): ("strip", 2),
+                  (7, 9): ("strip", 2), (4, 20): ("strip", 8), (4, 32): ("strip", 16),
+                  (4, 46): ("strip", 4), (2, 64): ("strip", 16), (2, 257): ("64x32", 2)}
+
+
+def _expected_plan(n, name, copy):
+    """The plan fields `tmp.tile_plan` reports for template `name` at N
+    (the strips: 8 x N rounded up to 8, 8 k-groups, one stage of 64)."""
+    if name == "strip":
+        tn = 8 * math.ceil(n / 8)
+        rows, cols, threads, groups, depth, stages = 8, tn, 4 * tn, 8, 64, 1
+    else:
+        rows, cols, threads, groups, depth, stages = _K2_TEMPLATES[name]
+    return {"tile_rows": rows, "tile_cols": cols, "threads": threads, "k_groups": groups,
+            "slice": depth, "stages": stages, "copy_bytes": copy,
+            "tensor_copies": int(copy == 16 and name in ("56x56", "64x64", "64x32"))}
+
+
+@pytest.mark.parametrize("b,n", list(_K2_BF16_PLANS))
 def test_minplus_bf16_kernel_bit_identical(cuda, b, n):
+    """K2 in bf16 equals `minplus_closure_plain` in bf16 bit for bit, with a
+    launch per squaring, the squarings run of `squarings_run_plain`, and the
+    plan the launcher reports for the bf16 launch the template expected for
+    the shape."""
+    name, copy = _K2_BF16_PLANS[(b, n)]
+    plan, want = tmp.tile_plan(b, n, torch.bfloat16), _expected_plan(n, name, copy)
+    assert {k: plan[k] for k in want} == want
+    assert plan["blocks"] == b * math.ceil(n / plan["tile_rows"]) * math.ceil(
+        n / plan["tile_cols"])
     d = _bf16_weights(b, n)
     iters = tmp.squaring_count(n)
     launches = (tmp.minplus_closure_cuda.launches_bf16, tmp.minplus_closure_cuda.launches)
@@ -930,7 +967,7 @@ def test_chebconv_bf16_transposed_kernel_bit_identical(cuda, case, f):
 
 
 @pytest.mark.parametrize("b,n,density", [(2, 384, None), (1, 1024, None), (3, 128, None),
-                                         (2, 384, 0.5), (1, 384, 0.0)])
+                                         (2, 384, 0.5), (1, 384, 0.0), (2, 512, None)])
 def test_blocked_fw_bf16_kernel_bit_identical(cuda, b, n, density):
     """K3 in bf16 equals `blocked_fw_plain` in bf16 bit for bit, on the card
     and on the CPU, on each of 2 calls; 3 N / 128 launches a call (the
@@ -952,6 +989,35 @@ def test_blocked_fw_bf16_kernel_bit_identical(cuda, b, n, density):
         assert torch.equal(out, plain) and torch.equal(out.cpu(), cpu)
     if density == 0.0:
         assert torch.equal(got[0].cpu(), d)
+
+
+@pytest.mark.parametrize("b,n", list(_K2_BF16_PLANS))
+def test_minplus_fp32_kernel_bit_identical_at_the_bf16_shapes(cuda, b, n):
+    """The float32 K2, which shares its body and plans with the bf16 one,
+    stays bit-identical to its plain closure at the bf16 test's shapes, on
+    the same template, and runs the squarings `squarings_run_plain` counts."""
+    name, _ = _K2_BF16_PLANS[(b, n)]
+    plan = tmp.tile_plan(b, n)
+    want = _expected_plan(n, name, 16 if n % 4 == 0 else 4)
+    assert {k: plan[k] for k in want} == want
+    d = _bf16_weights(b, n).float()
+    iters = tmp.squaring_count(n)
+    counter0 = _executed()
+    got = tmp.minplus_closure(d.to(cuda), iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tmp.minplus_closure_plain(d, iters))
+    assert _executed() - counter0 == tmp.squarings_run_plain(d, iters)
+
+
+@pytest.mark.parametrize("b,n,density", [(2, 384, None), (1, 1024, None), (3, 128, None),
+                                         (2, 384, 0.5), (1, 384, 0.0), (2, 512, None)])
+def test_blocked_fw_fp32_kernel_bit_identical_at_the_bf16_shapes(cuda, b, n, density):
+    """The float32 K3, which shares its body with the bf16 one, stays
+    bit-identical to `blocked_fw_plain` at the bf16 test's shapes."""
+    d = _fw_input(b, n, symmetric=n == 1024, density=density)
+    got = tmp.blocked_fw_cuda(d.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tmp.blocked_fw_plain(d))
 
 
 def test_apsp_takes_blocked_fw_bf16_above_256(cuda):
