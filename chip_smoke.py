@@ -98,6 +98,21 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   float32 K3 on the same (1, 1024) matrix beside K3 bf16, with both
   pivots' ns a step; the bars are unchanged (bit for bit against the
   plain versions in bf16).
+- Slice 18, the paper's dataset generator without networkx and
+  `mho-serve`'s process wiring.  `datagen_phase`: `cli.datagen.
+  generate_dataset` writes the ``paper`` (20 cases, n = 20..110) and
+  ``rung256`` (4 x 250) groups on this host, bit for bit with
+  `data/cases.npz` (`pos` within 1e-12 of the committed `.mat` files),
+  `large_scale.build_case()` equals the committed large case, one n = 110
+  case of each `generate` family is timed, and the Evaluator (model of
+  record, dense: K1, K2) over the first 2 regenerated files gives the
+  committed files' rows.  `serve_cli_phase`: `cli.serve.main` with a run
+  log and a Prometheus file, step 1 of the port's checkpoints loaded at
+  start, step 2 hot-reloaded between ticks, a truncated step 3
+  quarantined, then SIGTERM with requests unsubmitted: every admitted
+  request answered once, `shutdown` logged, the log sealed, K1 and K2
+  launched, the answers under step 2 held to a CPU service on step 2;
+  then `prob=True` answers equal alone and among 16.
 
 It
 
@@ -176,7 +191,8 @@ It
    sweeps a slot, its busy share and device records a slot over one
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
-   line, the bf16 training line, the kernels line (with the bf16 rows
+   line, the bf16 training line, the route, datagen and serve CLI lines,
+   the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
    `{"ok": true, ...}` line last.
@@ -2761,6 +2777,347 @@ def bf16_training_phase(dev, card) -> dict:
     return out
 
 
+# ---- slice 18: the dataset generator and mho-serve's process wiring ---------
+
+POS_TOL = 1e-12  # spring layout: the regenerated `pos` against the committed
+DATAGEN_FAMILIES = ("ba", "grp", "ws", "er", "poisson", "grid", "corridor", "two_tier")
+
+
+def datagen_phase(dev, card) -> dict:
+    """Slice 18, the dataset generator without networkx: `cli.datagen.
+    generate_dataset` writes the ``paper`` group (``ba``, size 2, seed 500,
+    n = 20..110) and the ``rung256`` group (size 4, n = 250) into a
+    temporary directory on this host; every case's adjacency, link rates
+    and `nodes_info` equal `data/cases.npz` bit for bit, and the paper
+    files' `pos` is within `POS_TOL` of the committed `.mat` dataset;
+    `large_scale.build_case()` equals the committed ``large`` group field
+    for field.  Then the Evaluator (model of record, dense) runs on the
+    card over the first 2 regenerated files (K1, K2) and its CSV rows
+    equal those of the same Evaluator over the committed files.  Host
+    seconds per case for each group and for one n = 110 case of every
+    `generate` family."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import scipy.io as sio
+
+    from multihop_offload_tpu_torch.cli.datagen import generate_dataset
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import CASES_PATH, load_large_case
+    from multihop_offload_tpu_torch.graphs.matio import (
+        PAPER_DATASET,
+        list_dataset,
+        load_case_mat,
+    )
+    from multihop_offload_tpu_torch.large_scale import build_case
+    from multihop_offload_tpu_torch.models.chebconv import load_weights, params_from_jax
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    t_phase = time.perf_counter()
+    nx_loaded = "networkx" in sys.modules
+    out = {"networkx_importable": importlib.util.find_spec("networkx") is not None}
+    tmp = tempfile.mkdtemp(prefix="mho_datagen_")
+    try:
+        z = np.load(CASES_PATH)
+        for group, kw in (("paper", {}), ("rung256", {"size": 4, "graph_sizes": [250]})):
+            d = os.path.join(tmp, group)
+            t0 = time.perf_counter()
+            generate_dataset(d, "ba", **{"size": 2, "seed0": 500, "verbose": False, **kw})
+            host_s = time.perf_counter() - t0
+            names = list_dataset(d)
+            if names != [str(x) for x in z[f"{group}/names"]]:
+                raise AssertionError(f"datagen {group}: files {names}")
+            pos_err = 0.0
+            for i, name in enumerate(names):
+                rec = load_case_mat(os.path.join(d, name))
+                info = np.stack([rec.roles.astype(np.int64), rec.proc_bws.astype(np.int64)], 1)
+                if not (np.array_equal(rec.topo.adj, z[f"{group}/{i}/adj"])
+                        and np.array_equal(rec.link_rates, z[f"{group}/{i}/link_rates"])
+                        and np.array_equal(info, z[f"{group}/{i}/nodes_info"])):
+                    raise AssertionError(f"datagen {group}: {name} differs from cases.npz")
+                if group == "paper":
+                    got = sio.loadmat(os.path.join(d, name))["pos_c"]
+                    want = sio.loadmat(os.path.join(PAPER_DATASET, name))["pos_c"]
+                    pos_err = max(pos_err, float(np.abs(got - want).max()))
+            if pos_err > POS_TOL:
+                raise AssertionError(f"datagen {group}: pos off by {pos_err}")
+            out[group] = {"cases": len(names), "host_s": host_s,
+                          "host_s_per_case": host_s / len(names), "pos_max_abs_err": pos_err}
+        t0 = time.perf_counter()
+        case = build_case()
+        large_s = time.perf_counter() - t0
+        ref = load_large_case()
+        for k in ("roles", "proc_bws", "link_rates"):
+            if not np.array_equal(getattr(case.rec, k), getattr(ref.rec, k)):
+                raise AssertionError(f"build_case: {k} differs from the committed large case")
+        if not (np.array_equal(case.rec.topo.link_ends, ref.rec.topo.link_ends)
+                and np.array_equal(case.job_src, ref.job_src)
+                and np.array_equal(case.job_rate, ref.job_rate)):
+            raise AssertionError("build_case: links or jobs differ from the committed case")
+        out["large"] = {"n": case.rec.topo.n, "links": case.rec.topo.num_links,
+                        "jobs": int(case.job_src.size), "host_s": large_s}
+        fam = {}
+        for g in DATAGEN_FAMILIES:
+            t0 = time.perf_counter()
+            generate_dataset(os.path.join(tmp, f"fam_{g}"), g, size=1, seed0=500,
+                             graph_sizes=[110], verbose=False)
+            fam[g] = time.perf_counter() - t0
+        out["family_host_s_per_case_n110"] = fam
+        if "networkx" in sys.modules and not nx_loaded:
+            raise AssertionError("datagen: the port's generator imported networkx")
+
+        # the Evaluator on the card over the first 2 regenerated files
+        rows = {}
+        for tag, datapath in (("regenerated", os.path.join(tmp, "paper")),
+                              ("committed", PAPER_DATASET)):
+            ecfg = Config(datapath=datapath, out=os.path.join(tmp, f"eval_{tag}"),
+                          model_root=os.path.join(tmp, "model"), arrival_scale=0.15,
+                          T=1000, num_instances=10)
+            ev = drv.Evaluator(ecfg, device=dev)
+            ev.model.load_state_dict(params_from_jax(load_weights(MODEL_K1)))
+            if tag == "regenerated":
+                reset_counts()
+            rows[tag] = read_csv_rows(ev.run(files_limit=2, verbose=False))
+            if tag == "regenerated":
+                counts = read_counts()
+        if counts["fixed_point"] == 0 or counts["minplus"] == 0:
+            raise AssertionError(f"datagen Evaluator: a kernel did not launch: {counts}")
+        out["eval_rows"] = compare_eval_rows("Evaluator regenerated vs committed (2 files)",
+                                             rows["regenerated"], rows["committed"])
+        out["counts"] = {"datagen_evaluator": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"datagen on this host ({card['smi']}): networkx importable "
+        f"{out['networkx_importable']}; paper {out['paper']['cases']} cases "
+        f"{out['paper']['host_s_per_case']:.4f} s a case, rung256 "
+        f"{out['rung256']['host_s_per_case']:.4f} s a case, both bit for bit with "
+        f"cases.npz, pos max abs err {out['paper']['pos_max_abs_err']:.3e} (bar {POS_TOL}); "
+        f"large case {out['large']['host_s']:.3f} s, equal to the committed one; one n = 110 "
+        f"case a family (s): { {k: round(v, 4) for k, v in fam.items()} }; Evaluator "
+        f"launches {counts}; phase {out['phase_s']:.1f} s")
+    return out
+
+
+def _stage_truncated(directory: str, step: int, state: dict) -> None:
+    """Put step `step` into `directory` with its integrity sidecar and its
+    state file cut to half, renamed into place only once cut (a reader
+    never sees the whole file)."""
+    import shutil
+
+    from multihop_offload_tpu_torch.train import checkpoints as ckpt
+
+    stage = directory + ".stage"
+    ckpt.save_checkpoint(stage, step, state)
+    path = os.path.join(stage, str(step), ckpt.STATE_FILE)
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    os.makedirs(os.path.join(directory, "integrity"), exist_ok=True)
+    shutil.copy(os.path.join(stage, "integrity", f"{step}.json"),
+                os.path.join(directory, "integrity", f"{step}.json"))
+    os.replace(os.path.join(stage, str(step)), os.path.join(directory, str(step)))
+
+
+def serve_cli_phase(dev, card) -> dict:
+    """Slice 18, `mho-serve` as an operator runs it: `cli.serve.main` on
+    the card (in this process, so the kernel counts can be read), the BA
+    pool n = 20, 50, 80, 110 at 16 slots, deadline 60 s, 20,000 requests,
+    with `--obs_log` and `--obs_prom` in a temporary directory and step 1
+    (the model of record) in the model directory's ``torch/``.  An
+    operator thread watches the run log: after 3 ticks it saves step 2
+    (the parameters x 1.25), after its `hot_reload` it renames a truncated
+    step 3 into place, 2 ticks after its quarantine it sends SIGTERM.
+    Bars: `hot_reload` events for steps 1 and 2, step 3 quarantined and
+    step 2 serving to the end, K1 and K2 launched, every admitted request
+    answered exactly once, a `shutdown` event with `unserved` > 0, the run
+    log sealed terminally, the Prometheus file written; the answers served
+    under step 2 (up to 64) against a CPU service built on the same
+    directory (step 2): `compare_responses`, rtol 1e-4.  Then `prob=True`
+    on the card: 16 requests of one bucket served in one tick and each
+    alone give identical answers."""
+    import contextlib
+    import io
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from multihop_offload_tpu_torch.cli import serve as cli_serve
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.obs.events import read_events, segment_paths
+    from multihop_offload_tpu_torch.serve.service import OffloadService
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+    from multihop_offload_tpu_torch.train import checkpoints as ckpt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mho_serve_cli_")
+    out = {}
+    try:
+        root = os.path.join(tmp, "model")
+        directory = os.path.join(Config(model_root=root).model_dir(), "torch")
+        params = {k: v.clone() for k, v in load_model(MODEL_K1, device="cpu")
+                  .state_dict().items()}
+        ckpt.save_checkpoint(directory, 1, {"params": params, "step": 1},
+                             lineage=ckpt.make_lineage("offline"))
+        log_path, prom = os.path.join(tmp, "serve.jsonl"), os.path.join(tmp, "serve.prom")
+        n_req = 20000
+        argv = [f"--device={dev.type}", "--serve_sizes=20,50,80,110", "--serve_slots=16",
+                "--serve_deadline_s=60",
+                f"--serve_requests={n_req}", f"--serve_model={MODEL_K1}",
+                f"--obs_log={log_path}", f"--obs_prom={prom}", f"--model_root={root}"]
+        served, requests = [], {}
+        orig = {"tick": OffloadService.tick, "submit": OffloadService.submit}
+
+        def tick(self, now=None):
+            responses = orig["tick"](self, now)
+            served.extend((r, self.executor.loaded_step) for r in responses)
+            return responses
+
+        def submit(self, req, now=None):
+            requests[req.request_id] = req
+            return orig["submit"](self, req, now)
+
+        def events():
+            return list(read_events(log_path))
+
+        def wait(pred, what, timeout=120.0):
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < timeout:
+                ev = events()
+                if pred(ev):
+                    return ev
+                time.sleep(0.02)
+            raise AssertionError(f"serve CLI: timed out waiting for {what}")
+
+        def ticks_after(ev, kind, step):
+            names = [(e.get("event"), e.get("step")) for e in ev]
+            return names[names.index((kind, step)):].count(("tick", None)) \
+                if (kind, step) in names else -1
+
+        failed = []
+
+        def operator():
+            try:
+                wait(lambda ev: sum(e.get("event") == "tick" for e in ev) >= 3, "3 ticks")
+                ckpt.save_checkpoint(directory, 2, {"params": {k: v * 1.25 for k, v in
+                                                               params.items()}, "step": 2},
+                                     lineage=ckpt.make_lineage("offline"))
+                wait(lambda ev: ticks_after(ev, "hot_reload", 2) >= 0, "step 2's reload")
+                _stage_truncated(directory, 3, {"params": params, "step": 3})
+                wait(lambda ev: ticks_after(ev, "ckpt_quarantine", 3) >= 2,
+                     "2 ticks after step 3's quarantine")
+            except BaseException as e:  # reported by the main thread below
+                failed.append(e)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        OffloadService.tick, OffloadService.submit = tick, submit
+        thread = threading.Thread(target=operator, daemon=True)
+        # a SIGTERM that comes after `main` has restored the handler it
+        # replaced lands here, not in the default action
+        late = []
+        previous = signal.signal(signal.SIGTERM, lambda signum, frame: late.append(signum))
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            thread.start()
+            with contextlib.redirect_stdout(io.StringIO()):
+                summary = cli_serve.main(argv)
+        finally:
+            OffloadService.tick, OffloadService.submit = orig["tick"], orig["submit"]
+            thread.join(timeout=60)
+            signal.signal(signal.SIGTERM, previous)
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        if failed or late:
+            raise AssertionError(f"serve CLI operator: {failed!r}; SIGTERM after the "
+                                 f"serve loop ended: {bool(late)}")
+        ev = list(read_events(log_path))
+        kinds = {e["event"] for e in ev}
+        shutdown = [e for e in ev if e["event"] == "shutdown"]
+        reloads = [e["step"] for e in ev if e["event"] == "hot_reload"]
+        quarantined = [e["step"] for e in ev if e["event"] == "ckpt_quarantine"]
+        ids = [r.request_id for r, _ in served]
+        first2 = next((i for i, (_, s) in enumerate(served) if s == 2), len(served))
+        steps_after = {s for _, s in served[first2:]}
+        log(f"serve CLI ({card['smi']}): {summary['admitted']} admitted of {n_req}, "
+            f"{summary['served']} served in {summary['ticks']} ticks, {wall_s:.2f} s; "
+            f"hot_reload steps {reloads}, quarantined {quarantined}, shutdown {shutdown}; "
+            f"event types {sorted(kinds)}; launches {counts}")
+        if counts["fixed_point"] == 0 or counts["minplus"] == 0:
+            raise AssertionError(f"serve CLI: a kernel did not launch: {counts}")
+        if reloads != [1, 2] or quarantined != [3] or steps_after != {2}:
+            raise AssertionError(f"serve CLI: reloads {reloads}, quarantined {quarantined}, "
+                                 f"steps after the swap {steps_after}")
+        if (len(ids) != len(set(ids)) or len(ids) != summary["admitted"]
+                or summary["served"] != summary["admitted"]):
+            raise AssertionError(f"serve CLI: {len(ids)} answers ({len(set(ids))} distinct) "
+                                 f"for {summary['admitted']} admitted")
+        if (len(shutdown) != 1 or shutdown[0]["signum"] != signal.SIGTERM
+                or not shutdown[0]["unserved"] > 0):
+            raise AssertionError(f"serve CLI: shutdown events {shutdown}")
+        if (os.path.exists(log_path) or not segment_paths(log_path)
+                or ev[-1]["event"] != "summary"):
+            raise AssertionError("serve CLI: the run log is not sealed terminally")
+        prom_text = open(prom).read()
+        if "mho_serve_hot_reloads_total 2" not in prom_text:
+            raise AssertionError("serve CLI: the Prometheus file lacks the reload count")
+        if ckpt.all_steps(directory) != [1, 2] or not os.path.isdir(
+                os.path.join(directory, "quarantine", "3")):
+            raise AssertionError(f"serve CLI: steps {ckpt.all_steps(directory)}")
+        # the answers under step 2 against a CPU service on the same directory
+        under2 = [(r, requests[r.request_id]) for r, s in served if s == 2][:64]
+        ccfg = Config(serve_sizes="20,50,80,110", serve_slots=16, serve_deadline_s=60.0,
+                      serve_model=MODEL_K1, model_root=root)
+        pool = case_pool([20, 50, 80, 110], per_size=2, seed=0)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu_svc, _ = cli_serve.build_service(ccfg, pool=pool, device="cpu")
+        if cpu_svc.executor.loaded_step != 2:
+            raise AssertionError(f"CPU service loaded step {cpu_svc.executor.loaded_step}")
+        cpu = check_conservation("serve CLI step 2 on the CPU", cpu_svc,
+                                 closed_loop(cpu_svc, [q for _, q in under2]))
+        out["step2_vs_cpu"] = compare_responses(
+            "serve CLI step 2: card vs CPU", {r.request_id: r for r, _ in under2}, cpu, 1e-4)
+        out.update(summary={k: summary[k] for k in ("submitted", "admitted", "served",
+                                                    "ticks", "dispatches", "degraded")},
+                   wall_s=wall_s, reloads=reloads, quarantined=quarantined,
+                   unserved=shutdown[0]["unserved"], event_types=sorted(kinds),
+                   served_under_step2=sum(s == 2 for _, s in served))
+
+        # prob=True: one tick of 16 against each request alone
+        pcfg = Config(prob=True, seed=7, serve_slots=16, serve_deadline_s=60.0,
+                      serve_model=MODEL_K1, model_root=os.path.join(tmp, "none"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            psvc, _ = cli_serve.build_service(pcfg, pool=pool, device=dev)
+        reqs = [r for r in request_stream(pool, 400, seed=5, arrival_scale=0.15)
+                if psvc.buckets.bucket_for(*r.sizes) == 1][:16]
+        reset_counts()
+        for r in reqs:
+            psvc.submit(r)
+        together = {r.request_id: r for r in psvc.tick()}
+        prob_counts = read_counts()
+        alone = {}
+        for r in reqs:
+            psvc.submit(r)
+            alone.update({x.request_id: x for x in psvc.tick()})
+        same = len(together) == len(alone) == 16 and all(
+            all(np.array_equal(getattr(together[k], f), getattr(alone[k], f))
+                for f in ("dst", "is_local", "delay_est", "job_total")) for k in together)
+        log(f"serve prob=True on the card: 16 requests of bucket 1 in one tick and each "
+            f"alone: identical {same}; launches of the tick {prob_counts}")
+        if not same or prob_counts["fixed_point"] == 0 or prob_counts["minplus"] == 0:
+            raise AssertionError("serve prob=True: answers depend on batching, or a "
+                                 f"kernel did not launch ({prob_counts})")
+        out["prob_identical_alone_vs_16"] = same
+        out["counts"] = {"serve_cli": counts, "serve_prob_tick": prob_counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve CLI phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -3070,6 +3427,10 @@ def main() -> int:
 
     # ---- slice 15: the Trainer under bf16 ------------------------------------
     train16 = bf16_training_phase(dev, card)
+
+    # ---- slice 18: the dataset generator and mho-serve's process wiring ------
+    dgen = datagen_phase(dev, card)
+    scli = serve_cli_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -3080,7 +3441,7 @@ def main() -> int:
                "driver_train_file": drivers.pop("train_counts_file0"),
                **sim.pop("counts"), **prec.pop("counts"), **train16.pop("counts"),
                "large_bf16_eval_methods": large["bf16"].pop("counts"),
-               **route.pop("counts")}
+               **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -3088,6 +3449,8 @@ def main() -> int:
     print(json.dumps({"precision": prec}), flush=True)
     print(json.dumps({"bf16_training": train16}), flush=True)
     print(json.dumps({"route": route}), flush=True)
+    print(json.dumps({"datagen": dgen}), flush=True)
+    print(json.dumps({"serve_cli": scli}), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

@@ -4,18 +4,31 @@ Port of `multihop_offload_tpu/cli/serve.py` (single device):
 
     python -m multihop_offload_tpu_torch.cli.serve [--device cpu] \\
         --serve_sizes=20,50,80,110 --serve_slots=16 --serve_requests=256 \\
-        --serve_model=SCRATCH800_decay0.99
+        --serve_model=SCRATCH800_decay0.99 [--obs_log run.jsonl] [--obs_prom m.prom]
 
 Builds the bucket ladder from the configured traffic profile, loads the
 committed model `--serve_model` (a seeded fresh init when it is empty),
-drives the closed-loop demo over a synthetic request stream and prints the
-serving summary as JSON.  It runs on CUDA unless `--device cpu` is given,
-and raises when CUDA is absent.  The JAX demo stops ticking once the queue
-is empty, which under `--serve_overlap` leaves the last dispatched batch
-unanswered; here `drain()` settles it, so every admitted request is
-answered.  `--precision bf16` (or `auto` on the card) serves under the
-bf16 policy: the model at its compute dtypes, the requests stored and
-shipped as bf16, the APSP squared in bf16.
+then the newest verified checkpoint of the port's ``torch/`` directory
+under the model directory (`--model_root`, `--training_set`: where
+`cli.train` writes) when there is one, drives the closed-loop demo over a
+synthetic request stream and prints the serving summary as JSON.  It runs
+on CUDA unless `--device cpu` is given, and raises when CUDA is absent.
+
+The process wiring is JAX's (`cli/serve.py:132-188`): `--obs_log` opens
+the JSONL run log (`--obs_log_max_bytes` rotates it, `--obs_prom` writes
+the metric registry as Prometheus text at exit); between ticks the
+service hot-reloads a newer checkpoint (a corrupt one is quarantined and
+the last good step keeps serving); SIGTERM or SIGINT stops the feed, the
+service answers every request it admitted, a `shutdown` event records
+the signal and the requests never submitted, and the run log is sealed
+terminally.  A second signal kills the process.  `--io_retries` and
+`--io_backoff_s` set the bounded retry around checkpoint reads.  The JAX
+demo stops ticking once the queue is empty, which under `--serve_overlap`
+leaves the last dispatched batch unanswered; here `drain()` settles it.
+`--precision bf16` (or `auto` on the card) serves under the bf16 policy;
+`--prob true` samples each request's decision from its own generator,
+seeded from (`--seed`, request id).  `--tb_logdir` is refused (no
+TensorBoard on the card's machine).
 """
 
 from __future__ import annotations
@@ -33,15 +46,19 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
     pool of `cfg.serve_sizes`; `clock` the service's time source; `model`
     the model to serve (default: the committed `cfg.serve_model`, or a fresh
     init seeded by `cfg.seed`, built under `cfg.precision`'s policy; a
-    given model must carry it); `device` where it runs (default CUDA)."""
+    given model must carry it); `device` where it runs (default CUDA).
+    The newest verified step of ``cfg.model_dir()/torch`` then replaces
+    those weights when there is one (JAX `cli/serve.py:125`)."""
     from multihop_offload_tpu_torch.models.chebconv import load_model, make_model
     from multihop_offload_tpu_torch.serve.service import OffloadService
     from multihop_offload_tpu_torch.serve.workload import buckets_for_pool, case_pool
+    from multihop_offload_tpu_torch.utils import durable
 
     if cfg.serve_mesh > 1 or cfg.serve_devices.strip():
         raise NotImplementedError(
             "sharded serving (serve_mesh / serve_devices) is not ported yet; "
             "the port serves on one device")
+    durable.configure(retries=cfg.io_retries, backoff_s=cfg.io_backoff_s)
     if pool is None:
         sizes = [int(s) for s in str(cfg.serve_sizes).split(",") if s.strip()]
         pool = case_pool(sizes, per_size=2, seed=cfg.seed)
@@ -62,7 +79,7 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
     service = OffloadService(
         model, buckets,
         slots=cfg.serve_slots, queue_cap=cfg.serve_queue_cap,
-        deadline_s=cfg.serve_deadline_s, prob=cfg.prob,
+        deadline_s=cfg.serve_deadline_s, seed=cfg.seed, prob=cfg.prob,
         dtype=dtype, precision=policy, layout=cfg.layout, apsp_impl=cfg.apsp_impl,
         trace=cfg.obs_trace,
         ragged=cfg.serve_ragged, overlap=cfg.serve_overlap,
@@ -81,15 +98,27 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
             recorder=FlightRecorder(cfg.obs_flight_capacity),
             flight_dir=cfg.model_root,
         ))
+    loaded = service.hot_reload(cfg.model_dir())
+    if loaded is not None:
+        source = f"checkpoint step {loaded} from {cfg.model_dir()}"
     print(f"serving with {source} on {service.device}")
     return service, pool
 
 
 def main(argv=None):
+    from multihop_offload_tpu_torch import obs
+    from multihop_offload_tpu_torch.obs import events as obs_events
     from multihop_offload_tpu_torch.serve.workload import request_stream
+    from multihop_offload_tpu_torch.utils.signals import GracefulDrain
 
     cfg, device = from_cli(argv, __doc__)
+    if cfg.tb_logdir:
+        raise NotImplementedError(
+            "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 item 3); "
+            "use obs_log for the JSONL run log")
+    runlog = obs.start_run(cfg, role="serve")
     service, pool = build_service(cfg, device=device)
+    drain = GracefulDrain().install()
 
     t0 = time.monotonic()
     stream = request_stream(
@@ -98,10 +127,14 @@ def main(argv=None):
         t_max=float(cfg.T),
     )
     # closed loop: keep the queue full, tick, refill; a refused submit is
-    # retried after the next tick when it was backpressure, dropped otherwise
+    # retried after the next tick when it was backpressure, dropped
+    # otherwise.  SIGTERM/SIGINT stops the feed, finishes what was
+    # admitted, and closes the log terminally.
     pending = list(stream)
     pending.reverse()
     while pending or service.queue_depth:
+        if drain.requested:
+            break
         while pending:
             req = pending.pop()
             if not service.submit(req):
@@ -109,8 +142,17 @@ def main(argv=None):
                     pending.append(req)   # retryable: after the next tick
                 break
         service.tick()
+        # newly trained weights are picked up between ticks, not mid-batch
+        service.hot_reload(cfg.model_dir())
+    # everything already admitted is answered, the in-flight overlap
+    # batches included
     service.drain()
+    if drain.requested:
+        obs_events.emit("shutdown", reason="signal", signum=drain.signum,
+                        unserved=len(pending))
+    drain.uninstall()
     summary = service.stats.summary(wall_s=time.monotonic() - t0)
+    obs.finish_run(runlog, terminal=drain.requested)
     print(json.dumps(summary, indent=2))
     return summary
 

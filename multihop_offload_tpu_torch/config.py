@@ -61,7 +61,21 @@ class Config:
     #                                padded 256); ops.minplus.resolve_apsp
     fp_impl: str = "auto"          # fixed-point route; only auto: the device picks
     tb_logdir: str = ""            # refused when set (no TensorBoard)
-    obs_log: str = ""              # JSONL run log of the drivers ("" = off)
+    obs_log: str = ""              # JSONL run log of the drivers and the
+    #                                service ("" = off)
+    obs_prom: str = ""             # write the final metric-registry snapshot
+    #                                as Prometheus text exposition to this
+    #                                path at loop exit ("" = disabled)
+    obs_log_max_bytes: int = 0     # size-cap per JSONL segment: when the
+    #                                active run log would grow past this, it
+    #                                is rotated to `<path>.NNNN` and a fresh
+    #                                segment opened (0 = never rotate);
+    #                                `obs.events.read_events` spans segments
+    io_retries: int = 3            # bounded-retry attempts around fallible
+    #                                I/O (checkpoint save/restore, event-log
+    #                                writes, journal writes)
+    io_backoff_s: float = 0.05     # initial retry backoff (doubles per
+    #                                attempt)
     # ---- model, workload, training ------------------------------------------
     T: int = 1000                  # congestion-penalty scale t_max
     num_layer: int = 5             # ChebConv layers in the actor

@@ -2,7 +2,9 @@
 
 `data/cases.npz` holds the cases that `cli/datagen.generate_dataset` of the
 JAX package writes (`scripts/export_torch_port_data.py` made the file), so no
-step of the port needs networkx or a download:
+step of the port needs a download; the port's own `cli/datagen` and
+`large_scale.build_case` draw every group again bit for bit, without
+networkx:
 
 * group ``paper``: ``size=2, seed0=500`` over n = 20, 30, ..., 110 (20 cases);
 * group ``rung256``: ``graph_sizes=[250], size=4, seed0=500`` (4 cases).

@@ -17,7 +17,9 @@ that line-graph order without networkx.
 `data/aco_data_ba_paper/` holds the paper dataset in this schema: the 20
 cases of the JAX `cli/datagen.generate_dataset(d, "ba", size=2,
 seed0=500)` (BA m=2, n = 20..110), written by
-`scripts/export_torch_port_data.py --mat`.
+`scripts/export_torch_port_data.py --mat`; the port's own
+`cli/datagen.generate_dataset` writes the same files again (`pos` within
+1e-12, the rest bit for bit).
 """
 
 from __future__ import annotations

@@ -5,7 +5,12 @@
 
 It loads the committed 1,024-node Erdős–Rényi network and its job set
 (`graphs.cases.load_large_case`: 7,694 links, 451 jobs; the demo's pads
-N=1,024, L=7,696, E=8,720; dense layout) and the demo's random K=3 initial
+N=1,024, L=7,696, E=8,720; dense layout), or, given `--n`, `--gtype` or
+`--seed`, draws one as the demo's `build_case` and job draw do
+(`build_case` here: `graphs.generators.generate`, then roles, capacities,
+link rates and jobs from `np.random.default_rng(seed)`; at the demo's
+defaults, `--n 1024 --gtype er --seed 42`, that is the committed case bit
+for bit) and the demo's random K=3 initial
 parameters (`LARGE_K3_init` in `data/weights.npz`), then runs, as the demo
 does, `agent.policy.forward_env` and, under `--backward`,
 `agent.train_step.forward_backward`; besides them it runs
@@ -16,7 +21,7 @@ takes the scan (L > 928, where K1's shared memory ends); the report names
 the paths and counts each kernel's launches per call.
 
     python -m multihop_offload_tpu_torch.large_scale [--device cpu] [--steps 3]
-        [--backward] [--out FILE]
+        [--backward] [--out FILE] [--n 1024] [--gtype er|ba|ws|poisson] [--seed 42]
 
 It runs on CUDA unless `--device cpu` is given, and prints one JSON line
 with the demo's keys, unrounded: `compile_s` is the first `forward_env`
@@ -35,12 +40,20 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from multihop_offload_tpu_torch._device import resolve_device, synchronize
 from multihop_offload_tpu_torch.agent.policy import forward_env
 from multihop_offload_tpu_torch.agent.train_step import forward_backward
-from multihop_offload_tpu_torch.graphs.cases import LargeCase, large_request, load_large_case
+from multihop_offload_tpu_torch.graphs import generators
+from multihop_offload_tpu_torch.graphs.cases import (
+    CaseRecord,
+    LargeCase,
+    large_request,
+    load_large_case,
+)
+from multihop_offload_tpu_torch.graphs.topology import build_topology, sample_link_rates
 from multihop_offload_tpu_torch.models.chebconv import load_model
 from multihop_offload_tpu_torch.ops import chebconv as cc
 from multihop_offload_tpu_torch.ops import fixed_point as fp
@@ -49,6 +62,47 @@ from multihop_offload_tpu_torch.train.driver import eval_methods
 
 MODEL = "LARGE_K3_init"
 LARGE_APSP = "pallas"  # `scripts/large_scale_demo.py --apsp`'s default
+
+
+def build_case(n: int = 1024, gtype: str = "er", seed: int = 42, load: float = 0.15,
+               t_max: float = 1000.0) -> LargeCase:
+    """One network and one job set, drawn as `scripts/large_scale_demo.py`
+    draws them (`build_case`, `:32-60`, and the job draw, `:97-109`): the
+    first connected graph of `generate(gtype, n, seed + attempt)` (Poisson:
+    `connected_poisson_disk`), random roles (10% servers, 2% relays),
+    Pareto capacities and realized link rates, then half the mobile nodes
+    as sources at ``load * U(0.1, 0.5)``, all from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    if gtype == "poisson":
+        adj, pos, _ = generators.connected_poisson_disk(n, seed=seed)
+        topo = build_topology(adj, pos)
+    else:
+        for attempt in range(100):
+            adj, pos = generators.generate(gtype, n, seed + attempt)
+            topo = build_topology(adj, pos)
+            if topo.connected:
+                break
+        else:
+            raise RuntimeError("no connected topology found")
+    roles = np.zeros(n, dtype=np.int32)
+    num_servers = max(1, int(0.10 * n))
+    num_relays = max(1, int(0.02 * n))
+    perm = rng.permutation(n)
+    roles[perm[:num_servers]] = 1
+    roles[perm[num_servers:num_servers + num_relays]] = 2
+    proc_bws = rng.pareto(2.0, n) * 8.0 + 1.0
+    proc_bws[roles == 1] = rng.pareto(2.0, num_servers) * 100.0 + 10.0
+    proc_bws[roles == 2] = 0.0
+    link_rates = sample_link_rates(topo, rng.uniform(30.0, 70.0, topo.num_links), rng=rng)
+    mobile = np.flatnonzero(roles == 0)
+    nj = int(0.5 * mobile.size)
+    job_src = rng.permutation(mobile)[:nj]
+    job_rate = load * rng.uniform(0.1, 0.5, nj)
+    rec = CaseRecord(topo=topo, roles=roles, proc_bws=proc_bws, link_rates=link_rates,
+                     seed=seed, name=f"large_{gtype}_n{n}_seed{seed}")
+    return LargeCase(rec=rec, job_src=job_src.astype(np.int64), job_rate=job_rate,
+                     T=float(t_max), gtype=gtype)
 
 
 def kernel_counts() -> dict:
@@ -182,8 +236,18 @@ def main(argv=None) -> int:
     p.add_argument("--backward", action="store_true",
                    help="also run the actor/critic training step")
     p.add_argument("--out", default=None, help="also write the report here")
+    p.add_argument("--n", type=int, default=None,
+                   help="draw a network of this many nodes (default: the committed 1,024)")
+    p.add_argument("--gtype", default=None, choices=["er", "ba", "ws", "poisson"],
+                   help="graph family of the drawn network (default er)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed of the drawn network and jobs (default 42)")
     args = p.parse_args(argv)
-    report = run(args.device, args.steps, args.backward)
+    case = None
+    if args.n is not None or args.gtype is not None or args.seed is not None:
+        case = build_case(1024 if args.n is None else args.n, args.gtype or "er",
+                          42 if args.seed is None else args.seed)
+    report = run(args.device, args.steps, args.backward, case=case)
     line = json.dumps(report)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:

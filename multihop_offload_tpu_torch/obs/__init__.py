@@ -1,43 +1,58 @@
 """Host-side telemetry of the port: metric registry, run log, spans.
 
 Port of the parts of `multihop_offload_tpu/obs/` the serving path and the
-drivers use: `registry` (counters, gauges, histograms with labels),
-`events` (the JSONL run log), `spans` (nested host spans as profiler
-ranges), `trace` (request-scoped hop events) and `flightrec` (the tick
-ring dumped on a stuck dispatch), `devmetrics` (the simulator's
-accumulators on the card, flushed into the registry), and the drivers'
-`start_run` / `finish_run` (JAX `obs/__init__.py:78-110`; no retrace
-hooks, no device memory gauges, no per-program cost table: `obs/prof` and
-`obs/memwatch` are not ported yet).  Standard library, numpy and torch
-only.
+drivers use: `registry` (counters, gauges, histograms with labels,
+Prometheus text), `events` (the JSONL run log, size-rotated segments),
+`spans` (nested host spans as profiler ranges), `trace` (request-scoped
+hop events) and `flightrec` (the tick ring dumped on a stuck dispatch),
+`devmetrics` (the simulator's accumulators on the card, flushed into the
+registry), and the entry points' `start_run` / `finish_run` (JAX
+`obs/__init__.py:78-119`).  `jaxhooks` (retrace and compile counters,
+device memory gauges), `memwatch` and `prof` (the per-program cost table)
+are not ported yet (ROADMAP.md Queue 1 item 9), so the run log carries no
+`retrace`, `compile`, `memwatch` or `prof` events and its summary no
+program table.  Standard library, numpy and torch only.
 """
 
 from __future__ import annotations
 
 
 def start_run(cfg, role: str):
-    """Open the JSONL run log at ``cfg.obs_log`` (manifest header first)
-    and make it the active sink; None when ``cfg.obs_log`` is empty."""
+    """Open the JSONL run log at ``cfg.obs_log`` (manifest header first,
+    segments rotated at ``cfg.obs_log_max_bytes``), remember
+    ``cfg.obs_prom`` for `finish_run`, and make it the active sink; None
+    when ``cfg.obs_log`` is empty."""
     path = getattr(cfg, "obs_log", "")
     if not path:
         return None
     from multihop_offload_tpu_torch.obs.events import RunLog, run_manifest, set_run_log
 
-    log = RunLog(path, manifest=run_manifest(cfg, role=role))
+    log = RunLog(path, manifest=run_manifest(cfg, role=role),
+                 max_bytes=getattr(cfg, "obs_log_max_bytes", 0) or None)
+    log.prom_path = getattr(cfg, "obs_prom", "") or None
     set_run_log(log)
     return log
 
 
-def finish_run(log) -> None:
+def finish_run(log, registry_=None, terminal: bool = False) -> None:
     """Close an enabled run log: append the summary event (host span
-    table, metric snapshot) and detach the active sink.  No-op on None."""
+    table, metric snapshot), write the Prometheus text exposition when the
+    run asked for it, and detach the active sink.  `terminal=True` (an
+    orderly shutdown: the graceful drain) seals the active segment into
+    the rotated chain, so a process restarted at the same path needs no
+    crash rotate-aside.  No-op on None."""
     if log is None:
         return
     from multihop_offload_tpu_torch.obs.events import get_run_log, set_run_log
     from multihop_offload_tpu_torch.obs.registry import registry
     from multihop_offload_tpu_torch.obs.spans import phase_stats
 
-    log.emit("summary", phases=phase_stats(), metrics=registry().snapshot())
+    reg = registry_ if registry_ is not None else registry()
+    log.emit("summary", phases=phase_stats(), metrics=reg.snapshot())
+    prom = getattr(log, "prom_path", None)
+    if prom:
+        with open(prom, "w") as f:
+            f.write(reg.prometheus_text())
     if get_run_log() is log:
         set_run_log(None)
-    log.close()
+    log.close(terminal=terminal)

@@ -20,15 +20,26 @@ counters and the non-finite sentinel of `observe_decisions` are torch
 reductions on the card that ride the same copy.
 
 Weights: `load_params` swaps a state dict in memory after the structural
-signature check (`param_signature`) and refuses non-finite leaves.  Reading
-a checkpoint from disk (`hot_reload`) waits for `train/checkpoints.py`.
+signature check (`param_signature`) and refuses non-finite leaves.
+`hot_reload` (JAX `executor.py:323-389`) reads the port's own checkpoints,
+the ``torch/`` directory the Trainer writes under the model directory: the
+newest step that passes `train.checkpoints.restore_verified` (a corrupt
+step is quarantined and the lineage walked down), swapped in through
+`load_params`.  The semantic canary that JAX can attach (`loop/`) is not
+ported: `canary` stays None, as in JAX when none is attached, and only the
+non-finite gate refuses weights.
+
+`prob=True` samples each request's decision from its own generator
+(`dispatch(gens=)`: one per batch row, `env.offloading._uniform`), so a
+request's answer does not depend on the rows beside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +53,7 @@ from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
 from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl
 from multihop_offload_tpu_torch.precision import resolve_precision
+from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 
 DM_SERVE_LOCAL = "mho_dev_serve_decisions_total{decision=local}"
 DM_SERVE_OFFLOAD = "mho_dev_serve_decisions_total{decision=offload}"
@@ -84,7 +96,7 @@ class BucketExecutor:
     """Batched decision passes of one model, plus its weight state."""
 
     def __init__(self, model, layout=None, device=None, precision=None,
-                 apsp_impl: str = "xla"):
+                 apsp_impl: str = "xla", prob: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.layout = resolve_layout(layout)
@@ -94,17 +106,23 @@ class BucketExecutor:
         self.precision = resolve_precision(precision)
         check_apsp_impl(apsp_impl)
         self.apsp_impl = apsp_impl
+        self.prob = bool(prob)
         self.dispatch_count = 0
         self.dispatches_by_width: Dict[Tuple[int, int], int] = {}
         self.loaded_step: Optional[int] = None
+        self.loaded_lineage: Optional[dict] = None
+        # the semantic pre-swap probe (`loop/`, not ported): None, as in JAX
+        # when none is attached
+        self.canary = None
+        self._canary_rejected: set = set()
         self.last_devmetrics: Optional[dict] = None
         # host seconds spent inside dispatch (enqueue) and fetch (wait)
         self.host_s = {"dispatch": 0.0, "fetch": 0.0}
 
-    def gnn_step(self, binst, bjobs):
-        outcome, _ = forward_env(self.model, binst, bjobs, device=self.device,
-                                 layout=self.layout, precision=self.precision,
-                                 apsp_impl=self.apsp_impl)
+    def gnn_step(self, binst, bjobs, gens=None):
+        outcome, _ = forward_env(self.model, binst, bjobs, gens, prob=self.prob,
+                                 device=self.device, layout=self.layout,
+                                 precision=self.precision, apsp_impl=self.apsp_impl)
         d = outcome.decision
         return d.dst, d.is_local, d.delay_est, outcome.job_total
 
@@ -116,12 +134,16 @@ class BucketExecutor:
 
     @torch.no_grad()
     def dispatch(self, bucket: int, binst, bjobs, degraded: bool = False,
-                 request_ids=None, width: Optional[int] = None) -> DispatchHandle:
+                 request_ids=None, width: Optional[int] = None,
+                 gens: Optional[List[torch.Generator]] = None) -> DispatchHandle:
         """Enqueue one batched decision pass (the packed batch already on
-        the executor's device) and return without waiting for the card."""
+        the executor's device) and return without waiting for the card.
+        `gens`: one generator per batch row, read by the GNN's sampled
+        decision (`prob=True`)."""
         t0 = time.perf_counter()
         w = int(bjobs.mask.shape[0]) if width is None else int(width)
-        out = (self.baseline_step if degraded else self.gnn_step)(binst, bjobs)
+        out = (self.baseline_step(binst, bjobs) if degraded
+               else self.gnn_step(binst, bjobs, gens))
         counts = observe_decisions(out, bjobs.mask)
         dst, is_local, delay_est, job_total = out
         buf = torch.cat([dst.reshape(-1).double(), is_local.reshape(-1).double(),
@@ -175,30 +197,59 @@ class BucketExecutor:
         return out
 
     @torch.no_grad()
-    def load_params(self, state: dict, step: Optional[int] = None) -> Optional[int]:
+    def load_params(self, state: dict, step: Optional[int] = None,
+                    stage: str = "load_params") -> Optional[int]:
         """Swap in the weights of `state` (a state dict of the serving
         model's architecture) without rebuilding anything.  Raises when the
         signature differs; refuses (returns None, counted and logged) a
-        state with a non-finite leaf, and the current weights keep serving.
-        Returns `step` when the swap happened."""
+        state with a non-finite leaf or one the attached canary refuses,
+        and the current weights keep serving.  Returns `step` when the swap
+        happened."""
         live = self.model.state_dict()
         if param_signature(state) != param_signature(live):
             raise ValueError("params do not match the serving model architecture "
                              "(name/shape/dtype signature)")
+        why = None
         if not all(bool(torch.isfinite(t).all()) for t in state.values()):
+            why = "nonfinite_weights"
+        elif self.canary is not None:
+            why = self.canary.check(state)
+        if why is not None:
             obs_registry().counter(
                 "mho_canary_rejections_total",
                 "candidate weight sets refused by the semantic canary",
-            ).inc(stage="load_params", reason="nonfinite_weights")
-            obs_events.emit("canary_reject", step=step, stage="load_params",
-                            reason="nonfinite_weights")
+            ).inc(stage=stage, reason=why.split(":")[0])
+            obs_events.emit("canary_reject", step=step, stage=stage, reason=why)
             return None
         for name, t in live.items():
             t.copy_(state[name])
         self.loaded_step = step
         return step
 
-    def hot_reload(self, model_dir: str, which: str = "orbax") -> Optional[int]:
-        raise NotImplementedError(
-            "hot_reload from disk needs train/checkpoints.py, which the port has "
-            "not yet; swap weights in memory with load_params")
+    def hot_reload(self, model_dir: str, which: str = "torch") -> Optional[int]:
+        """Swap in the newest verified checkpoint under `model_dir/which`
+        (the port's ``torch/``) when it is newer than what is loaded.
+        Returns the step loaded, or None when already current, when there
+        is no checkpoint, or when the weights were refused (a refused step
+        is not retried).  A truncated or bit-flipped newest step is
+        quarantined and the load falls back down the lineage
+        (`restore_verified`), usually to what already serves, so the swap
+        is a no-op.  A checkpoint of another architecture raises
+        ValueError."""
+        directory = os.path.join(model_dir, which)
+        step = ckpt_lib.latest_step(directory)
+        if (step is None or step == self.loaded_step
+                or step in self._canary_rejected):
+            return None
+        restored, step = ckpt_lib.restore_verified(directory)
+        if (restored is None or step == self.loaded_step
+                or step in self._canary_rejected):
+            return None  # nothing verified newer: keep serving last-good
+        params = restored.get("params") if isinstance(restored, dict) else None
+        if not isinstance(params, dict):
+            raise ValueError(f"checkpoint {directory} step {step} holds no params")
+        if self.load_params(params, step, stage="hot_reload") is None:
+            self._canary_rejected.add(step)
+            return None
+        self.loaded_lineage = ckpt_lib.load_lineage(directory, step)
+        return step

@@ -15,12 +15,19 @@ tick's dispatches on the NEXT tick, after that tick's packs: the host packs
 tick t+1 while the card may still run tick t.  `drain` settles the last
 in-flight batches, so every admitted request is answered exactly once.
 
-Greedy decisions (`prob=False`) read no random key, so batching never
-changes an answer.  Not ported, each refused with an error where asked
-for: the sharded executor and its placement planner (`mesh_devices`),
-experience capture (`capture_sample > 0`), `prob=True` (the JAX keys are
-threefry `fold_in(PRNGKey(seed), request_id)` bits) and `hot_reload` from
-disk.  The bf16 precision policy runs (`precision`, JAX `:107-155`):
+Greedy decisions (`prob=False`) read no random draw, so batching never
+changes an answer.  Under `prob=True` each request samples its decision
+from its own generator on the service's device, seeded from `(seed,
+request_id)` (`request_generator`; a pad slot repeats the last real
+request's), one per batch row: a request's answer does not depend on its
+slot, its bucket's occupancy or the tick it rides, the property JAX's
+`fold_in(PRNGKey(seed), request_id)` keys give (the bits differ: torch
+generators are not threefry).  `hot_reload` (JAX `:642-663`) swaps in the
+newest verified checkpoint of the port's ``torch/`` directory between
+ticks (`executor.hot_reload`), retrying transient I/O with backoff.  Not
+ported, each refused with an error where asked for: the sharded executor
+and its placement planner (`mesh_devices`) and experience capture
+(`capture_sample > 0`).  The bf16 precision policy runs (`precision`, JAX `:107-155`):
 requests are packed at its storage dtype, so the batch crosses to the card
 as bf16 bytes, and each dispatch squares in bf16 (K2 or K6 in bf16); the
 model must carry the policy's dtypes (`cli/serve.py:build_service` builds
@@ -63,6 +70,10 @@ from multihop_offload_tpu_torch.serve.executor import (
 from multihop_offload_tpu_torch.serve.guards import validate_request
 from multihop_offload_tpu_torch.serve.metrics import ServingStats
 from multihop_offload_tpu_torch.serve.request import OffloadRequest, OffloadResponse
+from multihop_offload_tpu_torch.utils.durable import with_backoff
+
+
+_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass
@@ -94,6 +105,7 @@ class OffloadService:
         slots: int = 8,
         queue_cap: int = 64,
         deadline_s: float = 0.5,
+        seed: int = 0,
         prob: bool = False,
         dtype=torch.float32,
         precision: Optional[str] = "fp32",
@@ -115,10 +127,6 @@ class OffloadService:
             raise NotImplementedError(
                 "sharded serving (mesh_devices: serve/placement.py, serve/sharded.py) "
                 "is not ported yet; the port serves on one device")
-        if prob:
-            raise NotImplementedError(
-                "prob=True needs per-request draws independent of batching (the JAX "
-                "service folds each request id into a threefry key); not ported yet")
         if capture_sample > 0.0:
             raise NotImplementedError(
                 "experience capture (capture_sample > 0, loop/) is not ported yet")
@@ -127,7 +135,9 @@ class OffloadService:
         # `dtype` is the base dtype, `precision` the policy over it
         self.precision = resolve_precision(precision, dtype, self.device)
         self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
-                                       precision=self.precision, apsp_impl=apsp_impl)
+                                       precision=self.precision, apsp_impl=apsp_impl,
+                                       prob=prob)
+        self.seed = int(seed)
         self.buckets = buckets
         self.slots = slots
         self.queue_cap = queue_cap
@@ -208,6 +218,17 @@ class OffloadService:
                           queue_depth=self.queue_depth)
         return True
 
+    def request_generator(self, request_id: int) -> torch.Generator:
+        """The draws of one request's sampled decision: a generator on the
+        service's device seeded from (seed, request_id) alone, through a
+        splitmix64 mix (the CPU generator keeps only a seed's low 32 bits)."""
+        z = (self.seed * 0x9E3779B97F4A7C15 + int(request_id) + 1) & _MASK64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        g = torch.Generator(device=self.device)
+        g.manual_seed((z ^ (z >> 31)) >> 1)
+        return g
+
     def _tracing(self) -> bool:
         return self.trace and obs_events.get_run_log() is not None
 
@@ -275,8 +296,13 @@ class OffloadService:
                           width=width)
         if self.ladder is not None:
             self.ladder.observe(b, len(reqs))
+        gens = None
+        if self.executor.prob and not degraded:
+            rids = [r.request_id for r in reqs]
+            gens = [self.request_generator(rid)
+                    for rid in rids + [rids[-1]] * (width - len(rids))]
         handle = self.executor.dispatch(
-            b, binst, bjobs, degraded=degraded, request_ids=ids, width=width,
+            b, binst, bjobs, degraded=degraded, request_ids=ids, width=width, gens=gens,
         )
         return _TickBatch(b, taken, reqs, ids, degraded, pad, width, t_now, handle)
 
@@ -376,8 +402,26 @@ class OffloadService:
             responses.extend(self.tick())
         return responses
 
-    def hot_reload(self, model_dir: str, which: str = "orbax") -> Optional[int]:
-        return self.executor.hot_reload(model_dir, which=which)
+    # ---- weight management -------------------------------------------------
+
+    def hot_reload(self, model_dir: str, which: str = "torch") -> Optional[int]:
+        """Poll the checkpoint directory and swap in a newer policy without
+        restarting.  Transient I/O failures retry with bounded exponential
+        backoff; corruption is handled below this (quarantine and last-good
+        fallback in `executor.hot_reload`).  Returns the step swapped in,
+        or None."""
+        step = with_backoff(lambda: self.executor.hot_reload(model_dir, which=which),
+                            site="hot_reload")
+        if step is not None:
+            obs_registry().counter(
+                "mho_serve_hot_reloads_total", "policy swaps without restart",
+            ).inc()
+            lin = self.executor.loaded_lineage or {}
+            obs_events.emit(
+                "hot_reload", step=step, source=lin.get("source"),
+                git_sha=lin.get("git_sha"), parent_step=lin.get("parent_step"),
+            )
+        return step
 
 
 def demux_responses(

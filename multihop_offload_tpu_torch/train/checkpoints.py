@@ -15,17 +15,26 @@ Retention keeps the newest `MAX_TO_KEEP` steps, as the JAX
 `CheckpointManager(max_to_keep=3)` does.  The drivers keep their states
 in ``torch/`` and ``torch_best/`` of the model directory, beside the JAX
 package's ``orbax/`` and ``orbax_best/``, which the port never reads.
-Quarantine, `restore_verified` and `gc_checkpoints` belong to `loop/` and
-are not ported yet.
+
+The integrity layer of JAX `train/checkpoints.py:199-300`, which the
+service's hot reload runs on: `restore_verified` re-hashes a step against
+its sidecar, moves a truncated, bit-flipped or unreadable step into
+``quarantine/`` (non-numeric, so `all_steps` never lists it again) with a
+typed `ckpt_quarantine` event, and falls back to the next-newest step;
+`has_verified` is the same check without side effects; `gc_checkpoints`
+is bounded retention with a `gc` event per deleted step.  As in JAX, a
+step with no sidecar restores unverified there (`restore_checkpoint_raw`,
+the drivers' restore, refuses it).
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import os
 import shutil
 import time
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,6 +184,26 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def load_integrity(directory: str, step: int) -> Optional[dict]:
+    """The integrity sidecar of `step`, or None when there is none."""
+    return load_json(_integrity_path(directory, step))
+
+
+def _load_state(directory: str, step: int):
+    """The state of `step` as written.  The file is read first, so an
+    `OSError` is the file system's (transient, retried by the callers);
+    bytes that do not unpickle (torch's zip reader raises `OSError` on a
+    torn file too) raise `IntegrityError`."""
+    path = os.path.join(_step_dir(directory, step), STATE_FILE)
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
+    except Exception as e:
+        raise IntegrityError(f"checkpoint step {step} in {directory} does not load: "
+                             f"{e}") from e
+
+
 def restore_checkpoint_raw(directory: str, step: Optional[int] = None):
     """The state of `step` (default latest) exactly as written, after its
     content is checked against the integrity sidecar: a missing,
@@ -183,10 +212,8 @@ def restore_checkpoint_raw(directory: str, step: Optional[int] = None):
     step = latest_step(directory) if step is None else step
     if step is None:
         return None
-    path = os.path.join(_step_dir(directory, step), STATE_FILE)
-    state = with_backoff(lambda: torch.load(path, map_location="cpu", weights_only=True),
-                         site="ckpt:restore")
-    integ = load_json(_integrity_path(directory, step))
+    state = with_backoff(lambda: _load_state(directory, step), site="ckpt:restore")
+    integ = load_integrity(directory, step)
     if integ is None or integ.get("sha256") != tree_checksum(state):
         raise IntegrityError(
             f"checkpoint step {step} in {directory} does not match its integrity "
@@ -216,3 +243,95 @@ def restore_checkpoint(directory: str, template: Any, step: Optional[int] = None
         raise ValueError(f"checkpoint in {directory} does not match the state's "
                          "structure, shapes or dtypes")
     return state
+
+
+# ---- integrity: verified restore, quarantine, retention --------------------
+
+
+def quarantine_step(directory: str, step: int, reason: str) -> Optional[str]:
+    """Move a corrupt step's directory into ``directory/quarantine/`` (a
+    non-numeric directory `all_steps` ignores), count it in
+    `mho_ckpt_quarantined_total` and emit `ckpt_quarantine`.  Returns the
+    quarantine path, or None when the step directory is already gone."""
+    from multihop_offload_tpu_torch.obs import events as obs_events
+    from multihop_offload_tpu_torch.obs.registry import registry
+
+    src = _step_dir(directory, step)
+    dst = None
+    if os.path.exists(src):
+        qdir = os.path.join(os.path.abspath(directory), "quarantine")
+        os.makedirs(qdir, exist_ok=True)
+        dst = os.path.join(qdir, os.path.basename(src))
+        n = 1
+        while os.path.exists(dst):
+            dst = os.path.join(qdir, f"{os.path.basename(src)}.{n}")
+            n += 1
+        os.replace(src, dst)
+    registry().counter("mho_ckpt_quarantined_total", "corrupt checkpoints quarantined"
+                       ).inc(dir=os.path.basename(os.path.abspath(directory)))
+    obs_events.emit("ckpt_quarantine", dir=os.path.abspath(directory), step=int(step),
+                    reason=reason, moved_to=dst)
+    return dst
+
+
+def restore_verified(directory: str, step: Optional[int] = None,
+                     sleep=time.sleep) -> Tuple[Any, Optional[int]]:
+    """Restore `step` (default latest), re-hash it against its integrity
+    sidecar, and on any corruption signal (an unreadable step, a checksum
+    mismatch) quarantine it and try the next-newest.  Transient `OSError`s
+    retry with backoff first and then raise.  Returns ``(state, step)``,
+    or ``(None, None)`` when no verified step survives."""
+    want = step
+    while True:
+        s = want if want is not None else latest_step(directory)
+        if s is None:
+            return None, None
+        want = None  # after the pinned attempt, fall back through latest
+        try:
+            restored = with_backoff(lambda: _load_state(directory, s),
+                                    site="ckpt:restore", sleep=sleep)
+        except FileNotFoundError as e:
+            quarantine_step(directory, s, f"missing data: {e}")
+            continue
+        except OSError:
+            raise  # transient budget exhausted: surface, do not quarantine
+        except Exception as e:  # a torn file fails to unpickle in many ways
+            quarantine_step(directory, s, f"restore failed: {e}")
+            continue
+        integ = load_integrity(directory, s)
+        if integ is not None and tree_checksum(restored) != integ.get("sha256"):
+            quarantine_step(directory, s, "content checksum mismatch")
+            continue
+        return restored, s
+
+
+def has_verified(directory: str, step: int) -> bool:
+    """True when `step` exists, loads, and matches its integrity sidecar."""
+    try:
+        restored = _load_state(directory, step)
+    except Exception:
+        return False
+    integ = load_integrity(directory, step)
+    return integ is not None and tree_checksum(restored) == integ.get("sha256")
+
+
+def gc_checkpoints(directory: str, keep: int, reason: str = "retention") -> List[int]:
+    """Bounded retention: delete all but the newest `keep` steps (step
+    directory and sidecars), with a `gc` event and `mho_ckpt_gc_total` per
+    deletion.  Returns the deleted steps."""
+    from multihop_offload_tpu_torch.obs import events as obs_events
+    from multihop_offload_tpu_torch.obs.registry import registry
+
+    steps = all_steps(directory)
+    removed = []
+    for s in steps[:-int(keep)] if keep > 0 else steps:
+        shutil.rmtree(_step_dir(directory, s), ignore_errors=True)
+        for side in (_integrity_path(directory, s), _lineage_path(directory, s)):
+            if os.path.exists(side):
+                os.remove(side)
+        removed.append(s)
+        registry().counter("mho_ckpt_gc_total", "checkpoints deleted by bounded retention"
+                           ).inc(dir=os.path.basename(os.path.abspath(directory)))
+        obs_events.emit("gc", dir=os.path.abspath(directory), step=int(s), keep=int(keep),
+                        reason=reason)
+    return removed

@@ -1,8 +1,9 @@
 """Crash-safe file primitives: atomic JSON writes and bounded retry.
 
 Port of `multihop_offload_tpu/utils/durable.py` (standard library only).
-Not ported: the chaos fault hooks and `configure()` (`chaos/` is not
-ported yet); the retry defaults are the JAX package's.
+Not ported: the chaos fault hooks (`chaos/` is not ported yet).  The
+retry defaults are the JAX package's; `configure()` installs the entry
+point's `Config.io_retries` / `Config.io_backoff_s` once for the process.
 
 - `atomic_write_json`: the tmp + fsync + `os.replace` dance, so a reader
   (or a process restarted after a kill) sees the old file or the complete
@@ -19,18 +20,30 @@ import os
 import time
 from typing import Any, Callable, Optional
 
-RETRIES = 3
-BACKOFF_S = 0.05
+# module defaults, overridden by configure() from Config knobs
+_DEFAULTS = {"retries": 3, "backoff_s": 0.05}
+
+
+def configure(retries: Optional[int] = None,
+              backoff_s: Optional[float] = None) -> None:
+    """Install process-wide retry defaults (from Config.io_retries /
+    Config.io_backoff_s); None leaves a value unchanged."""
+    if retries is not None:
+        _DEFAULTS["retries"] = max(int(retries), 1)
+    if backoff_s is not None:
+        _DEFAULTS["backoff_s"] = max(float(backoff_s), 0.0)
 
 
 def with_backoff(fn: Callable[[], Any], *, site: str = "",
-                 retries: int = RETRIES, backoff_s: float = BACKOFF_S,
+                 retries: Optional[int] = None, backoff_s: Optional[float] = None,
                  sleep: Callable[[float], None] = time.sleep) -> Any:
-    """Run `fn`, retrying transient `OSError` up to `retries` attempts with
-    backoff (backoff_s, 2*backoff_s, ...).  Other exceptions propagate at
-    once; the final failed attempt re-raises.  Each retry is counted in
-    `mho_io_retries_total` and emitted as an `io_retry` event."""
-    n = max(int(retries), 1)
+    """Run `fn`, retrying transient `OSError` up to `retries` attempts
+    (default: `configure`'s) with backoff (backoff_s, 2*backoff_s, ...).
+    Other exceptions propagate at once; the final failed attempt re-raises.
+    Each retry is counted in `mho_io_retries_total` and emitted as an
+    `io_retry` event."""
+    n = _DEFAULTS["retries"] if retries is None else max(int(retries), 1)
+    backoff_s = _DEFAULTS["backoff_s"] if backoff_s is None else float(backoff_s)
     for attempt in range(n):
         try:
             return fn()

@@ -9,6 +9,7 @@ is not installed:
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -1117,3 +1118,112 @@ def test_bf16_eval_methods_card_matches_cpu(cuda, layout, model):
         close = ((got - want).abs() <= 1e-2 * want.abs()) | ~mask
         share = close.all(dim=1).double().mean().item()
         assert share >= (1.0 if name != "gnn" else 0.99), (name, share)
+
+
+# ---- the dataset generator's files and mho-serve's wiring on the card ---------
+
+
+def _serve_on(device, root, **kw):
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.serve.workload import case_pool
+
+    cfg = Config(serve_slots=16, serve_deadline_s=60.0, serve_model="SCRATCH800_decay0.99",
+                 model_root=str(root), **kw)
+    svc, _ = build_service(cfg, pool=case_pool([20, 50, 80, 110], per_size=2, seed=0),
+                           device=device)
+    return cfg, svc
+
+
+def _answers(svc, reqs, one_by_one=False):
+    out = {}
+    for batch in ([[r] for r in reqs] if one_by_one else [reqs]):
+        for r in batch:
+            assert svc.submit(r)
+        out.update({x.request_id: x for x in svc.drain()})
+    return out
+
+
+def _pool_requests(n, seed):
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+
+    pool = case_pool([20, 50, 80, 110], per_size=2, seed=0)
+    return list(request_stream(pool, n, seed=seed, arrival_scale=0.15))
+
+
+def test_gpu_hot_reload_swaps_like_a_fresh_service(cuda, tmp_path):
+    """A checkpoint swapped in between ticks on the card serves what a
+    fresh card service built on it serves, bit for bit; the CPU service
+    on it agrees (dst >= 0.99, job_total rtol 1e-4 where decisions agree)."""
+    from multihop_offload_tpu_torch.train import checkpoints as ckpt
+
+    cfg, svc = _serve_on(cuda, tmp_path)
+    reqs = _pool_requests(48, seed=3)
+    _answers(svc, reqs[:16])
+    params = {k: v.detach().cpu() * 1.25 for k, v in svc.executor.model.state_dict().items()}
+    ckpt.save_checkpoint(os.path.join(cfg.model_dir(), "torch"), 1,
+                         {"params": params, "step": 1})
+    before = tfp.fixed_point_cuda.launches, tmp.minplus_closure_cuda.launches
+    assert svc.hot_reload(cfg.model_dir()) == 1
+    swapped = _answers(svc, reqs[16:])
+    assert tfp.fixed_point_cuda.launches > before[0]
+    assert tmp.minplus_closure_cuda.launches > before[1]
+    _, fresh = _serve_on(cuda, tmp_path)
+    assert fresh.executor.loaded_step == 1
+    again = _answers(fresh, reqs[16:])
+    _, cpu = _serve_on("cpu", tmp_path)
+    on_cpu = _answers(cpu, reqs[16:])
+    n = agree = 0
+    for rid, r in swapped.items():
+        for f in ("dst", "is_local", "delay_est", "job_total"):
+            assert np.array_equal(getattr(r, f), getattr(again[rid], f))
+        same = np.array_equal(r.dst, on_cpu[rid].dst)
+        n += r.dst.size
+        agree += int((r.dst == on_cpu[rid].dst).sum())
+        if same:
+            np.testing.assert_allclose(r.job_total, on_cpu[rid].job_total, rtol=1e-4)
+    assert agree / n >= 0.99
+
+
+def test_gpu_prob_answers_do_not_depend_on_batching(cuda, tmp_path):
+    """prob=True on the card: each request's answer is the same served
+    among 16 in one tick and served alone."""
+    _, svc = _serve_on(cuda, tmp_path, prob=True, seed=7)
+    reqs = [r for r in _pool_requests(400, seed=5)
+            if svc.buckets.bucket_for(*r.sizes) == 1][:16]
+    together = _answers(svc, reqs)
+    alone = _answers(svc, reqs, one_by_one=True)
+    assert sorted(together) == sorted(alone) and len(together) == 16
+    for rid, r in together.items():
+        for f in ("dst", "is_local", "delay_est", "job_total"):
+            assert np.array_equal(getattr(r, f), getattr(alone[rid], f))
+
+
+def test_gpu_evaluator_on_regenerated_dataset(cuda, tmp_path):
+    """The paper dataset written again on this host (no networkx needed)
+    gives the Evaluator on the card the rows of the committed files."""
+    import csv
+
+    from multihop_offload_tpu_torch.cli.datagen import generate_dataset
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models.chebconv import load_weights, params_from_jax
+    from multihop_offload_tpu_torch.train.driver import Evaluator
+
+    d = str(tmp_path / "paper")
+    generate_dataset(d, "ba", size=2, seed0=500, verbose=False)
+    rows = []
+    for tag, datapath in (("regen", d), ("committed", PAPER_DATASET)):
+        cfg = Config(datapath=datapath, out=str(tmp_path / tag), model_root=str(tmp_path / "m"),
+                     arrival_scale=0.15, T=1000, num_instances=10)
+        ev = Evaluator(cfg, device=cuda)
+        ev.model.load_state_dict(params_from_jax(load_weights("SCRATCH800_decay0.99")))
+        with open(ev.run(files_limit=2, verbose=False), newline="") as f:
+            rows.append(list(csv.DictReader(f)))
+    assert len(rows[0]) == len(rows[1]) == 60
+    floats = ("tau", "gap_2_bl", "gnn_bl_ratio")
+    for a, b in zip(*rows):
+        assert {k: v for k, v in a.items() if k not in floats + ("runtime",)} == \
+            {k: v for k, v in b.items() if k not in floats + ("runtime",)}
+        np.testing.assert_allclose([float(a[k]) for k in floats],
+                                   [float(b[k]) for k in floats], rtol=1e-6)

@@ -294,7 +294,7 @@ def test_workload_draws_equal_jax():
     assert [(p.n, p.l) for p in tb.pads] == [(56, 96), (112, 216)]
 
 
-def test_load_params_checks_signature_and_refuses_nonfinite():
+def test_load_params_checks_signature_and_refuses_nonfinite(tmp_path):
     cfg = Config(seed=SEED, dtype="float64", serve_slots=2)
     svc, pool = tcli.build_service(cfg, pool=twork.case_pool(SIZES, per_size=1, seed=SEED),
                                    device="cpu")
@@ -308,8 +308,9 @@ def test_load_params_checks_signature_and_refuses_nonfinite():
     short = {k: v for k, v in state.items() if k != "layers.0.bias"}
     with pytest.raises(ValueError, match="signature"):
         ex.load_params(short)
-    with pytest.raises(NotImplementedError):
-        svc.hot_reload("model")
+    # no checkpoint under the model directory: nothing to reload
+    # (tests/test_torch_serve_cli.py drives hot_reload from disk)
+    assert svc.hot_reload(str(tmp_path)) is None and ex.loaded_step == 3
 
 
 def test_cli_serves_every_request_on_cpu_and_refuses_unported_options(capsys):
@@ -318,10 +319,15 @@ def test_cli_serves_every_request_on_cpu_and_refuses_unported_options(capsys):
                          "--serve_model=SCRATCH800_decay0.99"])
     assert summary["served"] == summary["admitted"] == 9
     assert "committed model SCRATCH800_decay0.99" in capsys.readouterr().out
-    for bad in (Config(serve_mesh=2), Config(prob=True)):
+    for bad in (Config(serve_mesh=2), Config(serve_devices="0,1")):
         with pytest.raises(NotImplementedError):
             tcli.build_service(bad, pool=twork.case_pool(SIZES, per_size=1, seed=0),
                                device="cpu")
+    # prob=True is served (per-request generators, tests/test_torch_serve_cli.py)
+    svc, _ = tcli.build_service(Config(prob=True),
+                                pool=twork.case_pool(SIZES, per_size=1, seed=0),
+                                device="cpu")
+    assert svc.executor.prob
     # the bf16 precision policy is served (`tests/test_torch_precision.py`)
     svc, _ = tcli.build_service(Config(precision="bf16"),
                                 pool=twork.case_pool(SIZES, per_size=1, seed=0),
