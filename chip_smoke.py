@@ -113,6 +113,18 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   request answered once, `shutdown` logged, the log sealed, K1 and K2
   launched, the answers under step 2 held to a CPU service on step 2;
   then `prob=True` answers equal alone and among 16.
+- Slice 19, the reference's TF checkpoints without TensorFlow
+  (`models/tf_bundle.py`, `models/tf_import.py`) and the paper's tables and
+  figures (`train/analysis.py`, `utils/visualization.py`, `cli/plot.py`).
+  `tf_checkpoint_phase`: the committed TF-format fixture (the model of
+  record) read bit for bit as `weights.npz` and rewritten byte for byte;
+  the Evaluator with `model_root` at the fixture's directory over 2 paper
+  files, no `load_state_dict` (K1 4 and K2 2 APSP calls a file), its
+  parameters bit for bit and its rows (`compare_eval_rows`) those of the
+  `load_state_dict` Evaluator, `summarize_test` logged;
+  `cli.plot.route_sums` on one n = 110 paper case (K1 and K2 launched as
+  the CPU run predicts, routes and `dst` identical to it, sums within rtol
+  1e-5), the figure drawn where matplotlib is installed.
 
 It
 
@@ -191,7 +203,8 @@ It
    sweeps a slot, its busy share and device records a slot over one
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
-   line, the bf16 training line, the route, datagen and serve CLI lines,
+   line, the bf16 training line, the route, datagen, serve CLI and TF
+   checkpoint lines,
    the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
@@ -3118,6 +3131,176 @@ def serve_cli_phase(dev, card) -> dict:
     return out
 
 
+# ---- slice 19: the reference's TF checkpoints and the paper's figures --------
+
+TF_MODEL_SET = "SCRATCH800"  # the fixture's `training_set` tag
+ROUTE_CASE = "aco_case_seed500_m2_n110_s11.mat"
+
+
+def tf_checkpoint_phase(dev, card) -> dict:
+    """Slice 19, the reference's TF checkpoints without TensorFlow and the
+    paper's tables and figures.  The committed fixture
+    (`data/tf_ckpt/model_ChebConv_SCRATCH800_a5_c5_ACO_agent/`, the model of
+    record as a TF-format checkpoint) read by `models.tf_import` equals
+    `weights.npz` bit for bit, and the port's writer rewrites its `.index`
+    and `.data` byte for byte.  The Evaluator with `model_root` at a copy
+    of the fixture's directory (no `load_state_dict`: the driver loads it)
+    over the first 2 paper files (10 job sets a file, pads N=112, L=216):
+    K1 4 launches and K2 2 APSP calls on every file; its parameters equal,
+    bit for bit, those of the same Evaluator whose weights are set by
+    `load_state_dict` as `driver_phase` sets them, and its rows meet
+    `compare_eval_rows` against that Evaluator's (the card's run to run
+    noise; the identical rows counted); `summarize_test` of its CSV
+    logged.  `cli.plot.route_sums` on one paper case (n = 110) on the
+    card: its K1 and K2 launches equal those the same call makes on the
+    CPU (`count_plain`), routes and `dst` identical to that CPU run, the
+    link and node sums within rtol 1e-5; the figure (`route_demo`) drawn
+    when matplotlib is installed, and which case happened logged."""
+    import filecmp
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from multihop_offload_tpu_torch.cli import plot as cli_plot
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET, load_case_mat
+    from multihop_offload_tpu_torch.models.chebconv import load_weights, params_from_jax
+    from multihop_offload_tpu_torch.models.tf_import import (
+        load_reference_checkpoint, save_reference_checkpoint,
+    )
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.train import analysis
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    fixture_root = os.path.join(ROOT, "multihop_offload_tpu_torch", "data", "tf_ckpt")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mho_tf_")
+    out = {}
+    try:
+        # ---- the fixture: read, and rewritten byte for byte ------------------
+        model_root = os.path.join(tmp, "model")
+        shutil.copytree(fixture_root, model_root)
+        cfg = Config(datapath=PAPER_DATASET, out=os.path.join(tmp, "eval_tf"),
+                     model_root=model_root, training_set=TF_MODEL_SET, arrival_scale=0.15,
+                     T=1000, num_instances=10)
+        fixture = cfg.model_dir()
+        t0 = time.perf_counter()
+        tree = load_reference_checkpoint(fixture)
+        out["read_ms"] = (time.perf_counter() - t0) * 1e3
+        want = load_weights(MODEL_K1)["params"]
+        for layer, leaves in want.items():
+            for leaf, value in leaves.items():
+                got = tree["params"][layer][leaf]
+                if got.dtype != value.dtype or got.tobytes() != value.tobytes():
+                    raise AssertionError(f"fixture {layer}/{leaf} is not weights.npz's")
+        t0 = time.perf_counter()
+        prefix = save_reference_checkpoint(os.path.join(tmp, "rewrite", "cp-0000.ckpt"),
+                                           {"params": want})
+        out["write_ms"] = (time.perf_counter() - t0) * 1e3
+        for suffix in (".index", ".data-00000-of-00001"):
+            if not filecmp.cmp(prefix + suffix, os.path.join(fixture, "cp-0000.ckpt" + suffix),
+                               shallow=False):
+                raise AssertionError(f"the port's writer changed {suffix}")
+        out["fixture_bytes"] = sum(os.path.getsize(os.path.join(fixture, f))
+                                   for f in os.listdir(fixture))
+
+        # ---- the Evaluator on the TF-format directory ------------------------
+        ev = drv.Evaluator(cfg, device=dev)
+        per_file = []
+        inner = ev._eval_methods
+
+        def counted(inst, jobs, gen):
+            reset_counts()
+            res = inner(inst, jobs, gen)
+            per_file.append(read_counts())
+            return res
+
+        ev._eval_methods = counted
+        t0 = time.perf_counter()
+        csv_path = ev.run(files_limit=2, verbose=False)
+        out["eval_2_files_ms"] = (time.perf_counter() - t0) * 1e3
+        ev._eval_methods = inner
+        k2_per_file = 2 * mp.squaring_count(ev.data.pad.n)
+        log(f"tf_checkpoint Evaluator from {fixture} (pads {ev.data.pad}): launches per "
+            f"file fixed_point {[c['fixed_point'] for c in per_file]}, minplus "
+            f"{[c['minplus'] for c in per_file]} (2 APSP calls x "
+            f"{mp.squaring_count(ev.data.pad.n)} squarings)")
+        if len(per_file) != 2 or any(c["fixed_point"] != 4 or c["minplus"] != k2_per_file
+                                     for c in per_file):
+            raise AssertionError(f"TF-loaded Evaluator launches per file: {per_file}")
+        out["eval_counts_file0"] = per_file[0]
+        rows = read_csv_rows(csv_path)
+        ref = drv.Evaluator(dataclasses.replace(cfg, out=os.path.join(tmp, "eval_ref"),
+                                                model_root=os.path.join(tmp, "none")),
+                            device=dev)
+        ref.model.load_state_dict(params_from_jax(load_weights(MODEL_K1)))
+        # the same model bit for bit; the rows then within the card's run to
+        # run noise (its scatter-adds are not deterministic: `gap_2_bl` has
+        # moved by a float32 ulp between two runs of one Evaluator)
+        if not all(torch.equal(p, ref.params()[k]) for k, p in ev.params().items()):
+            raise AssertionError("the TF-loaded parameters are not load_state_dict's")
+        ref_rows = read_csv_rows(ref.run(files_limit=2, verbose=False))
+        if len(rows) != 2 * 10 * 3:
+            raise AssertionError(f"TF-loaded Evaluator: {len(rows)} rows")
+        out["eval_vs_load_state_dict"] = compare_eval_rows(
+            "TF-loaded Evaluator vs load_state_dict", rows, ref_rows)
+        out["rows_identical"] = sum(
+            {k: v for k, v in g.items() if k != "runtime"}
+            == {k: v for k, v in w.items() if k != "runtime"} for g, w in zip(rows, ref_rows))
+        table = analysis.summarize_test(analysis.read_csv(csv_path))
+        log(f"tf_checkpoint Evaluator: parameters bit for bit; {out['rows_identical']} of "
+            f"{len(rows)} rows identical (runtime aside) to the load_state_dict "
+            f"Evaluator's; summarize_test:\n{analysis.format_table(table)}")
+        out["summary"] = {k: v.tolist() for k, v in table.items()}
+
+        # ---- the route demo --------------------------------------------------
+        rec = load_case_mat(os.path.join(PAPER_DATASET, ROUTE_CASE))
+        cpu, want_counts = count_plain(lambda: cli_plot.route_sums(rec, device="cpu"))
+        reset_counts()
+        card_sums = cli_plot.route_sums(rec, device=dev)
+        counts = read_counts()
+        out["route_counts"] = counts
+        log(f"route_sums ({ROUTE_CASE}, n={rec.topo.n}, L={rec.topo.num_links}) on the "
+            f"card: launches {counts}; on the CPU, plain versions counted: {want_counts}")
+        for key in ("fixed_point", "minplus"):
+            if counts[key] == 0 or counts[key] != want_counts.get(key, 0):
+                raise AssertionError(f"route_sums {key}: {counts[key]} launches, "
+                                     f"{want_counts.get(key, 0)} predicted")
+        for key in ("dst", "incidence"):
+            if not np.array_equal(card_sums[key], cpu[key]):
+                raise AssertionError(f"route_sums: {key} differs from the CPU run")
+        rel = {}
+        for key in ("link_sums", "node_sums"):
+            a, b = card_sums[key], cpu[key]
+            rel[key] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+            if not np.allclose(a, b, rtol=1e-5, atol=0):
+                raise AssertionError(f"route_sums: {key} beyond rtol 1e-5 ({rel[key]:.3e})")
+        out["route_max_rel_err"] = rel
+        out["route_sums_ms"] = wall_ms(lambda: cli_plot.route_sums(rec, device=dev), 5)
+        t0 = time.perf_counter()
+        cli_plot.route_sums(rec, device="cpu")
+        out["route_sums_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+        if importlib.util.find_spec("matplotlib") is not None:
+            fig = cli_plot.route_demo(os.path.join(PAPER_DATASET, ROUTE_CASE),
+                                      os.path.join(tmp, "fig"), device=dev)
+            out["figure"] = {"drawn": True, "bytes": os.path.getsize(fig)}
+            log(f"route_demo: matplotlib found, figure drawn ({out['figure']['bytes']} "
+                "bytes)")
+        else:
+            out["figure"] = {"drawn": False}
+            log("route_demo: matplotlib not installed, the figure was not drawn")
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"tf_checkpoint timing on {card['smi']}: phase {out['phase_s']:.2f} s; "
+            f"fixture read {out['read_ms']:.2f} ms, "
+            f"rewrite {out['write_ms']:.2f} ms ({out['fixture_bytes']} bytes); Evaluator "
+            f"2 files {out['eval_2_files_ms']:.1f} ms (host clock, first run); route_sums "
+            f"{out['route_sums_ms']:.2f} ms on the card (median of 5), "
+            f"{out['route_sums_cpu_ms']:.2f} ms on the CPU; sums max rel err {rel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -3431,6 +3614,9 @@ def main() -> int:
     # ---- slice 18: the dataset generator and mho-serve's process wiring ------
     dgen = datagen_phase(dev, card)
     scli = serve_cli_phase(dev, card)
+
+    # ---- slice 19: TF checkpoints, the paper's tables and route figure -------
+    tfck = tf_checkpoint_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -3441,7 +3627,9 @@ def main() -> int:
                "driver_train_file": drivers.pop("train_counts_file0"),
                **sim.pop("counts"), **prec.pop("counts"), **train16.pop("counts"),
                "large_bf16_eval_methods": large["bf16"].pop("counts"),
-               **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts")}
+               **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts"),
+               "tf_eval_file": tfck.pop("eval_counts_file0"),
+               "route_demo": tfck.pop("route_counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -3451,6 +3639,7 @@ def main() -> int:
     print(json.dumps({"route": route}), flush=True)
     print(json.dumps({"datagen": dgen}), flush=True)
     print(json.dumps({"serve_cli": scli}), flush=True)
+    print(json.dumps({"tf_checkpoint": tfck}), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

@@ -7,10 +7,10 @@ Port of `multihop_offload_tpu/cli/test.py` (one device):
         --arrival_scale=0.15 --training_set=BAT800 --T=1000
 
 Evaluates the baseline, local and GNN methods on every file and writes the
-test CSV.  As in the JAX package the GNN is a seeded fresh init (the JAX
-entry point would load a TF-format checkpoint from the model directory;
-the port refuses one until `models/tf_import.py` is ported).  It runs on
-CUDA unless `--device cpu` is given, and raises when CUDA is absent.
+test CSV.  As in the JAX package the GNN loads the reference's TF-format
+checkpoint when the model directory (`--model_root`, `--training_set`)
+holds one, and is a seeded fresh init otherwise.  It runs on CUDA unless
+`--device cpu` is given, and raises when CUDA is absent.
 `--precision bf16` (or `auto` on the card) evaluates under the bf16
 policy: the files stored as bf16, the model at its compute dtypes, the
 APSP squared in bf16 (`train.driver.Evaluator`).

@@ -77,3 +77,8 @@ def trace_routes(inst, next_hop: torch.Tensor, jobs, dst: torch.Tensor,
         seq_active=seq_active,
         inc_ext=inc,
     )
+
+
+def link_incidence(routes: RouteSet, num_links: int) -> torch.Tensor:
+    """(..., L, J) real-link incidence slice of the extended incidence."""
+    return routes.inc_ext[..., :num_links, :]

@@ -31,9 +31,13 @@ walk, K6 or K2 in bf16, K1 on fp32 on the card) with parameters, stored
 gradients, Adam moments and checkpoints in fp32 whatever the policy, so a
 bf16 run resumes an fp32 checkpoint and the reverse.
 
+A model directory that holds a `checkpoint` file is read as the
+reference's TF-format weights (`models/tf_import.py`) in place of a fresh
+init, as the JAX harness does (`:65-77`); a load error prints and falls
+back to the fresh init, as there.
+
 Refused, each with the ROADMAP item it waits on: `mesh_data > 1`,
-`dropout > 0`, `tb_logdir`, and a TF checkpoint in the model directory
-(which the JAX harness would load).
+`dropout > 0` and `tb_logdir`.
 """
 
 from __future__ import annotations
@@ -69,7 +73,12 @@ from multihop_offload_tpu_torch.env.policies import baseline_policy, local_polic
 from multihop_offload_tpu_torch.graphs.instance import stack_instances
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.layouts.sparse import SparseSupport
-from multihop_offload_tpu_torch.models.chebconv import ensure_alive_output_multi, make_model
+from multihop_offload_tpu_torch.models.chebconv import (
+    ensure_alive_output_multi,
+    make_model,
+    params_from_jax,
+)
+from multihop_offload_tpu_torch.models.tf_import import load_reference_checkpoint
 from multihop_offload_tpu_torch.ops.minplus import resolve_apsp
 from multihop_offload_tpu_torch.obs.spans import span
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
@@ -218,7 +227,7 @@ def _step_fields(stats: dict) -> dict:
 # ---- the file loops -------------------------------------------------------
 
 
-def _refuse_unported(cfg: Config, model_dir: str) -> None:
+def _refuse_unported(cfg: Config) -> None:
     """Raise for a setting whose code is not ported, naming what it waits
     on, rather than run something else quietly."""
     if cfg.mesh_data > 1:
@@ -233,11 +242,24 @@ def _refuse_unported(cfg: Config, model_dir: str) -> None:
         raise NotImplementedError(
             "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 "
             "item 3); use obs_log for the JSONL run log")
-    if model_dir and os.path.isfile(os.path.join(model_dir, "checkpoint")):
-        raise NotImplementedError(
-            f"{model_dir} holds a TF-format checkpoint, which the JAX drivers "
-            "would load; reading it waits on `models/tf_import.py` (ROADMAP.md "
-            "Queue 1 item 4)")
+
+
+def _load_reference_params(model, model_dir: str, dtype) -> bool:
+    """Load the reference-format TF weights of `model_dir` into `model`,
+    cast to `dtype`, when the directory holds a `checkpoint` file (JAX
+    `_init_params`, `:65-77`: the auto-resume of `AdHoc_train.py:62-65`).
+    A load error is printed and the fresh init kept, as in JAX.  Returns
+    whether weights were loaded."""
+    if not (model_dir and os.path.isfile(os.path.join(model_dir, "checkpoint"))):
+        return False
+    try:
+        tree = load_reference_checkpoint(model_dir, dtype=np.float64)
+        print(f"loaded reference-format weights from {model_dir}")
+    except Exception as e:
+        print(f"unable to load {model_dir}: {e}")
+        return False
+    model.load_state_dict({k: v.to(dtype) for k, v in params_from_jax(tree).items()})
+    return True
 
 
 class _Harness:
@@ -249,16 +271,18 @@ class _Harness:
     of `cfg.apsp_impl` (`self.apsp_path`: the path at the dataset's pad).
 
     `memory_size=0` skips the gradient replay (the Evaluator never
-    replays).  A fresh init is probed with real features from four files
-    spread over the dataset, and its output unit's sign flipped when it is
-    dead (`ensure_alive_output_multi`)."""
+    replays).  The model directory's TF-format weights are loaded when it
+    holds a `checkpoint` file (`_load_reference_params`); otherwise the
+    fresh init is probed with real features from four files spread over
+    the dataset, and its output unit's sign flipped when it is dead
+    (`ensure_alive_output_multi`)."""
 
     def __init__(self, cfg: Config, datapath: Optional[str] = None,
                  memory_size: Optional[int] = None, device=None):
         self.cfg = cfg
         self.model_dir = cfg.model_dir()
         self.precision = cfg.precision_policy("cuda" if device is None else device)
-        _refuse_unported(cfg, self.model_dir)
+        _refuse_unported(cfg)
         self.device = resolve_device(device)
         self.dtype = self.precision.param_dtype       # parameters
         self.store = self.precision.storage_dtype     # instances and job sets
@@ -267,7 +291,8 @@ class _Harness:
         _, self.apsp_path = resolve_apsp(cfg.apsp_impl, self.data.pad.n)
         self.model = make_model(cfg, layout=self.layout, policy=self.precision,
                                 generator=torch.Generator().manual_seed(cfg.seed))
-        if len(self.data):
+        loaded = _load_reference_params(self.model, self.model_dir, self.dtype)
+        if not loaded and len(self.data):
             ensure_alive_output_multi(self.model, self._probes())
         self.model.to(self.device)
         params = self.params()

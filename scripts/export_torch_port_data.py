@@ -26,11 +26,18 @@ two committed `.npz` files instead:
   (`make_model(Config(cheb_k=3)).init(PRNGKey(0), ...)`, `:112-115`; their
   shapes, and so their values, do not depend on E, so they are drawn at a
   small E).
+* `multihop_offload_tpu_torch/data/tf_ckpt/model_ChebConv_SCRATCH800_a5_c5_ACO_agent/`
+  (``--tf``, with TensorFlow installed): the ``SCRATCH800_decay0.99``
+  params of `weights.npz` as the reference ships its trained models, a
+  TF-format checkpoint ``cp-0000.ckpt`` written by the JAX package's
+  `save_reference_checkpoint`, and the ``checkpoint`` file Keras
+  `save_weights` leaves beside it (`tf.train.update_checkpoint_state`).
 
 Run once from the repository root (``--mat`` writes only the `.mat`
-dataset, ``--npz`` only the two `.npz` files):
+dataset, ``--npz`` only the two `.npz` files, ``--tf`` only the TF-format
+checkpoint):
 
-    JAX_PLATFORMS=cpu python scripts/export_torch_port_data.py [--mat | --npz]
+    JAX_PLATFORMS=cpu python scripts/export_torch_port_data.py [--mat | --npz | --tf]
 """
 
 from __future__ import annotations
@@ -52,6 +59,9 @@ CASE_GROUPS = {
     "paper": dict(size=2, graph_sizes=None),
     "rung256": dict(size=4, graph_sizes=[250]),
 }
+TF_MODEL = "SCRATCH800_decay0.99"
+TF_DIR = os.path.join(OUT_DIR, "tf_ckpt", "model_ChebConv_SCRATCH800_a5_c5_ACO_agent")
+TF_PREFIX = "cp-0000.ckpt"
 CHECKPOINTS = {
     "SCRATCH800_decay0.99": "training/runs/SCRATCH800_decay0.99/model/"
     "model_ChebConv_SCRATCH800_decay0.99_a5_c5_ACO_agent/orbax_best",
@@ -155,6 +165,31 @@ def write_paper_mat(out_dir: str = MAT_DIR) -> list:
                             graph_sizes=spec["graph_sizes"], verbose=False)
 
 
+def write_tf_checkpoint(out_dir: str = TF_DIR) -> list:
+    """The ``TF_MODEL`` params of the committed `weights.npz` as a TF-format
+    checkpoint in an emptied `out_dir`: the bundle ``cp-0000.ckpt`` by the
+    JAX package's `save_reference_checkpoint`, then the ``checkpoint``
+    file naming it, as Keras `save_weights` leaves it."""
+    import tensorflow as tf
+
+    from multihop_offload_tpu.models.tf_import import save_reference_checkpoint
+
+    params = {}
+    with np.load(os.path.join(OUT_DIR, "weights.npz")) as z:
+        for key in z.files:
+            model, layer, leaf = key.split("/")
+            if model == TF_MODEL:
+                params.setdefault(layer, {})[leaf] = z[key]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    prefix = save_reference_checkpoint(os.path.join(out_dir, TF_PREFIX), {"params": params})
+    # relative paths in, so the file records the prefix relative to its
+    # directory (as Keras' `save_relative_paths=True` does)
+    tf.compat.v1.train.update_checkpoint_state(os.path.relpath(out_dir),
+                                               os.path.relpath(prefix))
+    return sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir))
+
+
 def main(argv=None) -> None:
     import jax
 
@@ -162,9 +197,16 @@ def main(argv=None) -> None:
     g = p.add_mutually_exclusive_group()
     g.add_argument("--mat", action="store_true", help="only the .mat dataset")
     g.add_argument("--npz", action="store_true", help="only the .npz files")
+    g.add_argument("--tf", action="store_true",
+                   help="only the TF-format checkpoint (needs TensorFlow)")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(OUT_DIR, exist_ok=True)
+    if args.tf:
+        paths = write_tf_checkpoint()
+        print(f"wrote {len(paths)} files into {TF_DIR} "
+              f"({sum(os.path.getsize(q) for q in paths)} bytes)")
+        return
     if not args.npz:
         paths = write_paper_mat()
         print(f"wrote {len(paths)} cases into {MAT_DIR} "

@@ -12,7 +12,8 @@ by the JAX `generate_dataset` (n = 20, 30; two seeds):
   gradients 1e-12), `episode_grad_norms` to float32 rounding (both
   accumulate in float32), `instance_metrics` within 1e-12;
 * every refused setting raises (a route other than `auto` and per-process
-  CSVs already in `Config`, and from the command line); `cli.test.main`
+  CSVs already in `Config`, and from the command line), and a TF-format
+  checkpoint in the model directory is loaded; `cli.test.main`
   runs with `--device cpu` and raises without it on a machine with no
   CUDA.
 """
@@ -43,6 +44,7 @@ from multihop_offload_tpu_torch.cli import test as cli_test
 from multihop_offload_tpu_torch.config import Config
 from multihop_offload_tpu_torch.models.chebconv import ensure_alive_output_multi
 from multihop_offload_tpu_torch.models.chebconv import params_from_jax
+from multihop_offload_tpu_torch.models.tf_import import save_reference_checkpoint
 from multihop_offload_tpu_torch.train import driver as td
 from multihop_offload_tpu_torch.train.metrics import instance_metrics
 from tests.test_torch_layouts import FP_FN, eq, models, paired_batch, synthetic
@@ -257,10 +259,23 @@ def test_instance_metrics_match_jax():
 ])
 def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
     kw = common(tiny, tmp_path)
+    # a TF-format checkpoint in the model directory waited on item 4, which
+    # is done: both drivers load it (its weights, no alive-flip)
     if setting.pop("tf_checkpoint", False):
         model_dir = Config(**kw).model_dir()
-        os.makedirs(model_dir)
-        open(os.path.join(model_dir, "checkpoint"), "w").close()
+        rng = np.random.default_rng(0)
+        dims = [4] + [MODEL["hidden"]] * (MODEL["num_layer"] - 1) + [1]
+        tree = {"params": {f"cheb_{i}": {"kernel": rng.normal(size=(MODEL["cheb_k"], a, b)),
+                                         "bias": rng.normal(size=(b,))}
+                           for i, (a, b) in enumerate(zip(dims, dims[1:]))}}
+        save_reference_checkpoint(os.path.join(model_dir, "cp-0000.ckpt"), tree)
+        with open(os.path.join(model_dir, "checkpoint"), "w") as f:
+            f.write('model_checkpoint_path: "cp-0000.ckpt"\n')
+        for cls in (td.Evaluator, td.Trainer):
+            params = cls(Config(**kw), device="cpu").params()
+            for k, v in params_from_jax(tree).items():
+                assert torch.equal(params[k], v), k
+        return
     # apsp_impl takes JAX's values: xla, JAX's default, squares at every N
     if "apsp_impl" in setting:
         for cls in (td.Evaluator, td.Trainer):

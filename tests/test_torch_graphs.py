@@ -172,7 +172,7 @@ def test_request_batch_follows_bench_workload():
 
 
 _BANNED = ("jax", "flax", "optax", "networkx", "orbax", "multihop_offload_tpu", "pandas",
-           "tensorflow", "ml_dtypes")
+           "tensorflow", "ml_dtypes", "google.protobuf")
 
 
 def _imports(path):
@@ -204,9 +204,10 @@ def test_port_imports_no_jax_side():
                    "sim/__init__.py", "sim/state.py", "sim/step.py", "sim/policies.py",
                    "sim/runner.py", "sim/fidelity.py", "cli/sim.py", "precision.py",
                    "graphs/cuts.py", "cli/datagen.py", "utils/signals.py",
-                   "obs/__init__.py"):
+                   "obs/__init__.py", "models/tf_bundle.py", "models/tf_import.py",
+                   "train/analysis.py", "utils/visualization.py", "cli/plot.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):
-            top = mod.split(".")[0]
-            assert top not in _BANNED, f"{path} imports {mod}"
+            assert not any(mod == b or mod.startswith(b + ".") for b in _BANNED), \
+                f"{path} imports {mod}"

@@ -62,6 +62,7 @@ from multihop_offload_tpu_torch.graphs import instance as tinst
 from multihop_offload_tpu_torch.graphs import topology as ttopo
 from multihop_offload_tpu_torch.layouts import sparse as tsparse
 from multihop_offload_tpu_torch.models import chebconv as tcheb
+from multihop_offload_tpu_torch.models.tf_import import save_reference_checkpoint
 from multihop_offload_tpu_torch.ops import chebconv as tcc
 from multihop_offload_tpu_torch.ops import fixed_point as tfp
 from multihop_offload_tpu_torch.ops import minplus as tmp
@@ -70,7 +71,7 @@ from multihop_offload_tpu_torch.sim import fidelity as tfid
 from multihop_offload_tpu_torch.sim import policies as tpol
 from multihop_offload_tpu_torch.sim import runner as trun
 from multihop_offload_tpu_torch.train import driver as td
-from tests.test_torch_drivers import common, jax_config, read_rows
+from tests.test_torch_drivers import MODEL, common, jax_config, read_rows
 from tests.test_torch_layouts import FP_FN, synthetic
 from tests.test_torch_sim import _case_pair, _eq_state, _run_draws
 
@@ -534,10 +535,11 @@ def test_sim_baseline_bf16_round_bit_for_bit():
 
 def test_bf16_refusals_name_their_roadmap_items(tiny, tmp_path):
     """Under bf16 the drivers still refuse what waits on another ROADMAP
-    item, naming it; the Trainer (item 10), K3 (item 11) and K4's backward
-    in bf16 now run: both drivers build under bf16, `blocked_fw` and the
-    APSP above a padded 256 return bf16, and d x of the bf16 propagate is
-    the transposed walk's plain version."""
+    item, naming it; the Trainer (item 10), K3 (item 11), K4's backward in
+    bf16 and a TF-format checkpoint (item 4) now run: both drivers build
+    under bf16 and load the checkpoint into their fp32 parameters,
+    `blocked_fw` and the APSP above a padded 256 return bf16, and d x of
+    the bf16 propagate is the transposed walk's plain version."""
     kw = {**common(tiny, tmp_path), "dtype": "float32", "precision": "bf16"}
     for setting, waits in (({"mesh_data": 2}, "item 7"), ({"dropout": 0.1}, "item 3"),
                            ({"tb_logdir": "tb"}, "item 3")):
@@ -546,11 +548,19 @@ def test_bf16_refusals_name_their_roadmap_items(tiny, tmp_path):
                 cls(Config(**kw, **setting), device="cpu")
     tf_kw = {**kw, "model_root": str(tmp_path / "tf_model")}
     model_dir = Config(**tf_kw).model_dir()
-    os.makedirs(model_dir)
-    open(os.path.join(model_dir, "checkpoint"), "w").close()
+    rng = np.random.default_rng(1)
+    dims = [4] + [MODEL["hidden"]] * (MODEL["num_layer"] - 1) + [1]
+    tree = {"params": {f"cheb_{i}": {"kernel": rng.normal(size=(MODEL["cheb_k"], a, b)),
+                                     "bias": rng.normal(size=(b,))}
+                       for i, (a, b) in enumerate(zip(dims, dims[1:]))}}
+    save_reference_checkpoint(os.path.join(model_dir, "cp-0000.ckpt"), tree)
+    with open(os.path.join(model_dir, "checkpoint"), "w") as f:
+        f.write('model_checkpoint_path: "cp-0000.ckpt"\n')
     for cls in (td.Evaluator, td.Trainer):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            cls(Config(**tf_kw), device="cpu")
+        params = cls(Config(**tf_kw), device="cpu").params()
+        for k, v in tcheb.params_from_jax(tree).items():
+            assert params[k].dtype == torch.float32, k
+            assert torch.equal(params[k], v.to(torch.float32)), k
     for cls in (td.Evaluator, td.Trainer):
         assert cls(Config(**kw), device="cpu").precision == T16
     d = torch.zeros((1, 384, 384), dtype=torch.bfloat16)
