@@ -125,6 +125,18 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   `cli.plot.route_sums` on one n = 110 paper case (K1 and K2 launched as
   the CPU run predicts, routes and `dst` identical to it, sums within rtol
   1e-5), the figure drawn where matplotlib is installed.
+- Slice 20, `parallel/` on a mesh of torch devices and the drivers' data
+  mesh (`parallel_phase`), on `[cuda:0] * 4` (one card repeated: each
+  shard launches its kernels there, so its times are the sharded path's
+  overhead, not scaling): `sharded_apsp` at (1, 1024) over graph 4 on the
+  large case's weights, bit for bit K2's closure and (its first squaring,
+  and the whole ring at N = 256) the CPU ring; the `mean` and `replay`
+  steps at data 4, graph 2 on the paper batch against the 1 x 1 mesh
+  (K1 4 times one shard's launches, K2 none: the ring squares); the
+  Trainer at `mesh_data = 4` (sparse, K = 2, 2 files, injected replay
+  indices) and the Evaluator at `mesh_data = 2, file_batch = 2` (2 files)
+  against their `mesh_data = 1` runs on the card, K1, K2, K4 and K6 on
+  every file 4 times (the Evaluator: the same as) the one-device run's.
 
 It
 
@@ -203,8 +215,8 @@ It
    sweeps a slot, its busy share and device records a slot over one
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
-   line, the bf16 training line, the route, datagen, serve CLI and TF
-   checkpoint lines,
+   line, the bf16 training line, the route, datagen, serve CLI, TF
+   checkpoint and parallel lines,
    the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
@@ -2615,11 +2627,11 @@ def injected_indices(mem, batch, gen=None):
     return torch.from_numpy(idx).to(mem.loss_critic.device)
 
 
-def compare_train_rows(tag: str, got: list, want: list) -> dict:
+def compare_train_rows(tag: str, got: list, want: list, rtol: float = BF16_CARD_VS_CPU) -> dict:
     """Trainer CSV rows of the same visits: per method the share of rows
-    with identical `congest_jobs` and `tau` within `BF16_CARD_VS_CPU`;
-    every `baseline` and `local` row and >= 99% of the `GNN` and
-    `GNN-test` rows so."""
+    with identical `congest_jobs` and `tau` within `rtol`; every
+    `baseline` and `local` row and >= 99% of the `GNN` and `GNN-test`
+    rows so."""
     if len(got) != len(want) or not got or any(
             (g["fid"], g["method"], g["n_instance"]) != (w["fid"], w["method"], w["n_instance"])
             for g, w in zip(got, want)):
@@ -2629,9 +2641,9 @@ def compare_train_rows(tag: str, got: list, want: list) -> dict:
         pairs = [(g, w) for g, w in zip(got, want) if g["method"] == method]
         same = sum(g["congest_jobs"] == w["congest_jobs"]
                    and abs(float(g["tau"]) - float(w["tau"]))
-                   <= BF16_CARD_VS_CPU * abs(float(w["tau"])) for g, w in pairs)
+                   <= rtol * abs(float(w["tau"])) for g, w in pairs)
         share[method] = same / len(pairs)
-    log(f"{tag}: rows with equal congest_jobs and tau within {BF16_CARD_VS_CPU}: {share}")
+    log(f"{tag}: rows with equal congest_jobs and tau within {rtol}: {share}")
     if share["baseline"] < 1.0 or share["local"] < 1.0 or min(
             share["GNN"], share["GNN-test"]) < 0.99:
         raise AssertionError(f"{tag}: {share}")
@@ -3301,6 +3313,317 @@ def tf_checkpoint_phase(dev, card) -> dict:
     return out
 
 
+# ---- slice 20: parallel/ on a mesh of devices, the drivers' data mesh ----------
+
+MESH_WIDTH = 4       # the repeated card: [cuda:0] * 4 (8 for data 4 x graph 2)
+RING_N = 1024        # the large path's N, ring over graph 4
+RING_CPU_N = 256     # the whole ring on the CPU at this N (1,024 takes ~1 min there)
+PARALLEL_RTOL = 1e-4  # fp32: per-shard batches against one batch
+
+
+def _shard_counts(fn):
+    """`fn()` with every count set to 0 just before and read just after."""
+    reset_counts()
+    res = fn()
+    return res, read_counts()
+
+
+def _scaled(counts: dict, k: int) -> dict:
+    return {key: k * counts.get(key, 0) for key in LAUNCH_KEYS}
+
+
+def compare_params(tag: str, got: dict, want: dict, rtol: float) -> float:
+    """max |got - want| / max |want| over every leaf, held to `rtol`."""
+    err = max(((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30)).item()
+              for k in want)
+    log(f"{tag}: parameters max scaled err {err:.3e} (bar {rtol})")
+    if not err <= rtol:
+        raise AssertionError(f"{tag}: parameters differ by {err:.3e}")
+    return err
+
+
+def compare_totals(tag: str, got, want, mask, share: float = 0.95) -> float:
+    """Per-episode job totals: the share of episodes whose every job is
+    within `PARALLEL_RTOL` (a flipped near-tie decision changes a whole
+    episode), held to `share`."""
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).masked_fill(~mask, 0.0)
+    same = (rel <= PARALLEL_RTOL).all(dim=1).float().mean().item()
+    log(f"{tag}: episodes with every job total within {PARALLEL_RTOL}: {same:.4f} "
+        f"(bar {share}); max rel err {rel.max().item():.3e}")
+    if same < share:
+        raise AssertionError(f"{tag}: {same} of the episodes agree")
+    return same
+
+
+def ring_weights(dev):
+    """The large case's one-hop weights (1, 1024, 1024) (`1 / rate` on its
+    links, +inf off them) on `dev`."""
+    from multihop_offload_tpu_torch.env.apsp import weight_matrix_from_link_delays
+    from multihop_offload_tpu_torch.graphs.cases import large_request, load_large_case
+
+    inst, _, _ = large_request(load_large_case(), device=dev)
+    with torch.no_grad():
+        return weight_matrix_from_link_delays(inst.adj, inst.link_index,
+                                              1.0 / inst.link_rates).contiguous()
+
+
+def parallel_phase(dev, card, paper_batch) -> dict:
+    """Slice 20, `parallel/` and the drivers' data mesh, on `[cuda:0] * 4`
+    (the one card repeated: every shard's kernels queue on it, so the
+    times below are the sharded path's overhead, not scaling).
+
+    - `sharded_apsp` at (1, 1024) over graph 4 on the large case's one-hop
+      weights: equal bit for bit to K2's closure of the same matrix on the
+      card, its first squaring to the CPU ring's first squaring, and the
+      whole ring at N = 256 to the CPU ring; its time beside K2's.
+    - The `mean` and `replay` steps at data 4, graph 2 (`[cuda:0] * 8`) on
+      the paper batch (64 episodes, the model of record, dense): against
+      the 1 x 1 mesh on the card (parameters and buffers within
+      `PARALLEL_RTOL` scaled, >= 95% of the episodes' totals within it);
+      K1 launched 4 times one shard's count and K2 not at all (the ring
+      squares), the 1 x 1 mesh one shard's K1 and K2.
+    - The Trainer at `mesh_data = 4` on two paper files (sparse, K = 2,
+      fresh init, 10 job sets padded to 12, exploration off, replay of 20
+      at the second file with injected indices): rows (`compare_train_rows`
+      at `PARALLEL_RTOL`) and final parameters against its `mesh_data = 1`
+      run on the card; every file's K1, K2, K4 and K6 launches 4 times the
+      one-device run's.
+    - The Evaluator at `mesh_data = 2, file_batch = 2` on two paper files:
+      rows (`compare_eval_rows`) against its `mesh_data = 1` run; launches
+      those of the one-device run over the same files (one file a shard).
+    Each mesh path's host ms per call and the card's busy ms per call
+    (`busy_share`) are logged beside its one-device path."""
+    import shutil
+    import tempfile
+
+    from multihop_offload_tpu_torch.agent import replay as replay_mod
+    from multihop_offload_tpu_torch.agent.train_step import forward_backward
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models.chebconv import load_model, load_weights, params_from_jax
+    from multihop_offload_tpu_torch.ops import minplus as mp
+    from multihop_offload_tpu_torch.parallel import data_parallel as dp
+    from multihop_offload_tpu_torch.parallel import make_mesh
+    from multihop_offload_tpu_torch.parallel import ring
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    cards = lambda k: [dev] * k
+    cpus = lambda k: [torch.device("cpu")] * k
+
+    # ---- the ring at the large path's N -------------------------------------
+    w = ring_weights(dev)
+    n = w.shape[-1]
+    iters = ring.squarings(n)
+    got, counts["parallel_ring"] = _shard_counts(lambda: ring.sharded_apsp(w, cards(4)))
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=dev), 0.0, w).contiguous()
+    k2 = mp.minplus_closure_cuda(d, iters)
+    torch.cuda.synchronize()
+    if not torch.equal(got, k2):
+        raise AssertionError(f"ring (1, {n}) over graph 4: {int((got != k2).sum())} entries "
+                             "differ from K2's closure on the card")
+    check_launches(f"ring (1, {n}) over graph 4", counts["parallel_ring"], {})
+    # the first squaring on the CPU at N = 1,024, the whole ring at N = 256
+    rows = [x.contiguous() for x in ring.ring_apsp_rows(
+        list(w.view(1, 4, n // 4, n).unbind(1)), n, num_iters=1)]
+    t0 = time.perf_counter()
+    rows_cpu = ring.ring_apsp_rows(list(w.cpu().view(1, 4, n // 4, n).unbind(1)), n,
+                                   num_iters=1)
+    cpu_sq_s = time.perf_counter() - t0
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(rows, rows_cpu)):
+        raise AssertionError("ring: the card's first squaring differs from the CPU's")
+    w256 = w[:, :RING_CPU_N, :RING_CPU_N].contiguous()
+    small = ring.sharded_apsp(w256, cards(4))
+    if not torch.equal(small.cpu(), ring.sharded_apsp(w256.cpu(), cpus(4))):
+        raise AssertionError(f"ring (1, {RING_CPU_N}): the card differs from the CPU ring")
+    # a call's time on the host clock (ending in a synchronize) and the
+    # card's busy ms over one call (the union of its kernels' intervals)
+    ring_call = lambda: ring.sharded_apsp(w, cards(4))
+    k2_call = lambda: mp.minplus_closure_cuda(d, iters)
+    ring_t = busy_share(ring_call, wall_ms(ring_call, 5))
+    k2_t = busy_share(k2_call, wall_ms(k2_call, 20))
+    out["ring"] = {"shape": [1, n], "graph": 4, "squarings": iters,
+                   "wall_ms": ring_t["wall_ms"], "busy_ms": ring_t["busy_ms"],
+                   "device_records": ring_t["device_records"],
+                   "k2_wall_ms": k2_t["wall_ms"], "k2_busy_ms": k2_t["busy_ms"],
+                   "cpu_first_squaring_s": cpu_sq_s, "block_elems": ring.BLOCK_ELEMS}
+    log(f"ring sharded_apsp (1, {n}) over graph 4 on [cuda:0] * 4: bit-identical to K2's "
+        f"closure on the card ({int(torch.isinf(got).sum())} entries +inf), its first "
+        f"squaring to the CPU ring's (CPU {cpu_sq_s:.2f} s), the whole ring at N = "
+        f"{RING_CPU_N} to the CPU ring; on {card['smi']}: ring call "
+        f"{ring_t['wall_ms']:.3f} ms, card busy {ring_t['busy_ms']:.3f} ms "
+        f"({ring_t['device_records']} device records, {iters} squarings x 16 block "
+        f"products); K2 (1, {n}) call {k2_t['wall_ms']:.3f} ms, busy "
+        f"{k2_t['busy_ms']:.3f} ms (the shards serialize on one card: overhead, not "
+        f"scaling)")
+
+    # ---- the mean and replay steps at data 4, graph 2 ------------------------
+    inst, jobs = paper_batch
+    b = inst.adj.shape[0]
+    opt = replay_mod.make_optimizer(Config(learning_rate=1e-3))
+    mesh42 = make_mesh(data=4, graph=2, devices=cards(8))
+    mesh11 = make_mesh(data=1, graph=1, devices=cards(1))
+    # one shard's launches: a call launches the same kernels whatever its batch
+    _, one = _shard_counts(lambda: forward_backward(load_model(MODEL_K1, device=dev),
+                                                    inst, jobs, device=dev))
+    steps = {}
+    for tag, mesh in (("4x2", mesh42), ("1x1", mesh11)):
+        model = load_model(MODEL_K1, device=dev)
+        step = dp.make_dp_train_step(model, opt, mesh, mode="mean")
+        state = opt.init({k: p.detach() for k, p in model.named_parameters()})
+        (params, _, metrics), c = _shard_counts(
+            lambda: step(model, state, inst, jobs, None, 0.0))
+        counts[f"parallel_mean_{tag}"] = c
+        rmodel = load_model(MODEL_K1, device=dev)
+        rstep = dp.make_dp_train_step(rmodel, opt, mesh, mode="replay")
+        mem = replay_mod.replay_init({k: p.detach() for k, p in rmodel.named_parameters()}, 128)
+        (mem, rmetrics), rc = _shard_counts(
+            lambda: rstep(rmodel, mem, inst, jobs, None, 0.0))
+        counts[f"parallel_replay_{tag}"] = rc
+        mean_call = lambda: step(model, state, inst, jobs, None, 0.0)
+        mem_t = replay_mod.replay_init({k: p.detach() for k, p in rmodel.named_parameters()},
+                                       10 * b)
+        replay_call = lambda: rstep(rmodel, mem_t, inst, jobs, None, 0.0)
+        steps[tag] = {"params": params, "metrics": metrics, "mem": mem, "rmetrics": rmetrics,
+                      "mean_wall_ms": wall_ms(mean_call, 3),
+                      "replay_wall_ms": wall_ms(replay_call, 3)}
+        steps[tag]["mean_busy"] = busy_share(mean_call, steps[tag]["mean_wall_ms"])
+        steps[tag]["replay_busy"] = busy_share(replay_call, steps[tag]["replay_wall_ms"])
+    want42 = {"fixed_point": 4 * one["fixed_point"]}
+    want11 = {"fixed_point": one["fixed_point"], "minplus": one["minplus"]}
+    for mode in ("mean", "replay"):
+        check_launches(f"{mode} step data 4 x graph 2", counts[f"parallel_{mode}_4x2"], want42)
+        check_launches(f"{mode} step 1 x 1", counts[f"parallel_{mode}_1x1"], want11)
+    a, r = steps["4x2"], steps["1x1"]
+    mask = jobs.mask.to(dev)
+    out["mean"] = {
+        "params_err": compare_params("mean step 4x2 vs 1x1", a["params"], r["params"],
+                                     PARALLEL_RTOL),
+        "loss_critic_rel_err": abs(float(a["metrics"]["loss_critic"])
+                                   - float(r["metrics"]["loss_critic"]))
+        / abs(float(r["metrics"]["loss_critic"])),
+        "job_total_agree": compare_totals("mean step 4x2 vs 1x1", a["metrics"]["job_total"],
+                                          r["metrics"]["job_total"], mask)}
+    if not out["mean"]["loss_critic_rel_err"] <= PARALLEL_RTOL:
+        raise AssertionError(f"mean step: loss_critic {out['mean']}")
+    if not a["mem"].count == r["mem"].count == b:
+        raise AssertionError(f"replay step: counts {a['mem'].count}, {r['mem'].count}")
+    out["replay"] = {
+        "grads_err": compare_params("replay step 4x2 vs 1x1 (buffer)",
+                                    {k: g[:b] for k, g in a["mem"].grads.items()},
+                                    {k: g[:b] for k, g in r["mem"].grads.items()},
+                                    PARALLEL_RTOL),
+        "job_total_agree": compare_totals("replay step 4x2 vs 1x1",
+                                          a["rmetrics"]["job_total"],
+                                          r["rmetrics"]["job_total"], mask)}
+    for tag in ("4x2", "1x1"):
+        s = steps[tag]
+        out[f"step_{tag}"] = {k: s[k] for k in ("mean_wall_ms", "replay_wall_ms")}
+        out[f"step_{tag}"].update(mean_busy_ms=s["mean_busy"]["busy_ms"],
+                                  replay_busy_ms=s["replay_busy"]["busy_ms"])
+    log(f"dp steps on {card['smi']} (B={b}, {MODEL_K1}, dense; data 4 x graph 2 on "
+        f"[cuda:0] * 8 against 1 x 1; the shards serialize on one card, so this is the "
+        f"sharded path's overhead, not scaling): mean step {a['mean_wall_ms']:.2f} ms "
+        f"(card busy {a['mean_busy']['busy_ms']:.2f} ms) against "
+        f"{r['mean_wall_ms']:.2f} ms (busy {r['mean_busy']['busy_ms']:.2f} ms); replay step "
+        f"{a['replay_wall_ms']:.2f} ms (busy {a['replay_busy']['busy_ms']:.2f} ms) against "
+        f"{r['replay_wall_ms']:.2f} ms (busy {r['replay_busy']['busy_ms']:.2f} ms)")
+
+    # ---- the drivers on the data mesh ------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="mho_parallel_")
+    orig_sample = replay_mod.sample_indices
+    try:
+        replay_mod.sample_indices = injected_indices
+        tcfg = dict(datapath=PAPER_DATASET, layout="sparse", cheb_k=2, epochs=1,
+                    files_limit=2, batch=20, memory_size=100, explore=0.0, best_window=0,
+                    num_instances=10, arrival_scale=0.15, T=1000)
+        runs = {}
+        for n_dp in (MESH_WIDTH, 1):
+            tr = drv.Trainer(Config(**tcfg, mesh_data=n_dp, out=os.path.join(tmp, f"t{n_dp}"),
+                                    model_root=os.path.join(tmp, f"m{n_dp}")),
+                             device=dev, devices=cards(MESH_WIDTH))
+            per_file = []
+            names = ("_train_step_dp", "_eval_methods_dp") if n_dp > 1 else (
+                "_train_step", "_eval_methods")
+            inner = {k: getattr(tr, k) for k in names}
+
+            def counted(name):
+                def call(*a, **k):
+                    res, c = _shard_counts(lambda: inner[name](*a, **k))
+                    if name == names[0]:
+                        per_file.append(c)
+                    else:
+                        per_file[-1] = {key: per_file[-1][key] + c[key] for key in c}
+                    return res
+                return call
+
+            for k in names:
+                setattr(tr, k, counted(k))
+            t0 = time.perf_counter()
+            trows = read_csv_rows(tr.run(verbose=False))
+            runs[n_dp] = {"rows": trows, "counts": per_file, "params": tr.params(),
+                          "wall_ms_per_file": (time.perf_counter() - t0) * 1e3 / 2,
+                          "replays": len(tr.replay_losses)}
+        a, r = runs[MESH_WIDTH], runs[1]
+        if len(a["rows"]) != 2 * 10 * 4 or not a["replays"] == r["replays"] == 1:
+            raise AssertionError(f"Trainer mesh_data={MESH_WIDTH}: {len(a['rows'])} rows, "
+                                 f"replays {a['replays']}, {r['replays']}")
+        for f, (ca, cr) in enumerate(zip(a["counts"], r["counts"])):
+            check_launches(f"Trainer mesh_data={MESH_WIDTH} file {f}", ca,
+                           _scaled(cr, MESH_WIDTH))
+        counts["parallel_trainer_file0"] = a["counts"][0]
+        out["trainer"] = {
+            "rows": compare_train_rows(f"Trainer mesh_data={MESH_WIDTH} vs 1 (card)",
+                                       a["rows"], r["rows"], rtol=PARALLEL_RTOL),
+            "params_err": compare_params(f"Trainer mesh_data={MESH_WIDTH} vs 1 after the replay",
+                                         a["params"], r["params"], PARALLEL_RTOL),
+            "ms_per_file": a["wall_ms_per_file"], "ms_per_file_one_device": r["wall_ms_per_file"],
+            "launches_per_file": a["counts"][0]}
+
+        ecfg = dict(datapath=PAPER_DATASET, num_instances=10, arrival_scale=0.15, T=1000)
+        erows = {}
+        for n_dp, fb in ((2, 2), (1, 1)):
+            ev = drv.Evaluator(Config(**ecfg, mesh_data=n_dp, file_batch=fb,
+                                      out=os.path.join(tmp, f"e{n_dp}"),
+                                      model_root=os.path.join(tmp, "em")),
+                               device=dev, devices=cards(MESH_WIDTH))
+            ev.model.load_state_dict(params_from_jax(load_weights(MODEL_K1)))
+            name = "_eval_files_dp" if n_dp > 1 else "_eval_methods"
+            inner_e = getattr(ev, name)
+            total = {}
+
+            def counted_e(*a_, **k_):
+                res, c = _shard_counts(lambda: inner_e(*a_, **k_))
+                for key, v in c.items():
+                    total[key] = total.get(key, 0) + v
+                return res
+
+            setattr(ev, name, counted_e)
+            t0 = time.perf_counter()
+            erows[n_dp] = (read_csv_rows(ev.run(files_limit=2, verbose=False)), total,
+                           (time.perf_counter() - t0) * 1e3)
+        check_launches("Evaluator mesh_data=2, file_batch=2 (2 files)", erows[2][1], erows[1][1])
+        counts["parallel_evaluator"] = erows[2][1]
+        out["evaluator"] = {
+            "rows": compare_eval_rows("Evaluator mesh_data=2, file_batch=2 vs 1 (card)",
+                                      erows[2][0], erows[1][0]),
+            "ms_2_files": erows[2][2], "ms_2_files_one_device": erows[1][2],
+            "launches": erows[2][1]}
+        log(f"drivers on the data mesh on {card['smi']} (shards serialized on one card): "
+            f"Trainer mesh_data={MESH_WIDTH} {a['wall_ms_per_file']:.1f} ms per file "
+            f"against {r['wall_ms_per_file']:.1f} ms at mesh_data=1 (2 files, first calls "
+            f"included); Evaluator mesh_data=2, file_batch=2 {erows[2][2]:.1f} ms for 2 files "
+            f"against {erows[1][2]:.1f} ms")
+    finally:
+        replay_mod.sample_indices = orig_sample
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["counts"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -3617,6 +3940,9 @@ def main() -> int:
 
     # ---- slice 19: TF checkpoints, the paper's tables and route figure -------
     tfck = tf_checkpoint_phase(dev, card)
+
+    # ---- slice 20: parallel/ on [cuda:0] * 4, the drivers' data mesh ---------
+    par = parallel_phase(dev, card, (inst, jobs))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -3629,7 +3955,7 @@ def main() -> int:
                "large_bf16_eval_methods": large["bf16"].pop("counts"),
                **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts"),
                "tf_eval_file": tfck.pop("eval_counts_file0"),
-               "route_demo": tfck.pop("route_counts")}
+               "route_demo": tfck.pop("route_counts"), **par.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -3640,6 +3966,7 @@ def main() -> int:
     print(json.dumps({"datagen": dgen}), flush=True)
     print(json.dumps({"serve_cli": scli}), flush=True)
     print(json.dumps({"tf_checkpoint": tfck}), flush=True)
+    print(json.dumps({"parallel": par}), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

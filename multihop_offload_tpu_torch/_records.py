@@ -1,4 +1,5 @@
-"""Dataclasses of tensors: moving them between devices and stacking them.
+"""Dataclasses of tensors: moving them between devices, stacking and slicing
+them.
 
 The port's counterpart of JAX pytrees.  A record's fields are tensors,
 nested records, None (an absent optional part, such as `Instance.sparse`
@@ -61,3 +62,19 @@ def cat_records(items: Sequence):
         else:
             out[f.name] = value
     return dataclasses.replace(first, **out)
+
+
+def slice_records(item, start: int, stop: int):
+    """Rows [start, stop) of a batched record, tensor or dict of either
+    along its batch axis; nested records recurse, None and static fields
+    are kept."""
+    if isinstance(item, torch.Tensor):
+        return item[start:stop]
+    if isinstance(item, dict):
+        return {k: slice_records(v, start, stop) for k, v in item.items()}
+    out = {}
+    for f in dataclasses.fields(item):
+        value = getattr(item, f.name)
+        if isinstance(value, (torch.Tensor, TensorRecord)):
+            out[f.name] = slice_records(value, start, stop)
+    return dataclasses.replace(item, **out)

@@ -41,6 +41,7 @@ def forward_env(
     layout=None,
     precision=None,
     apsp_impl: str = "xla",
+    apsp_fn=None,
 ) -> tuple[PolicyOutcome, ActorOutput]:
     """Run the GNN policy on a batch on `device` (default CUDA; the model,
     instance and jobs are moved there).  `compat_diagonal_bug=True` feeds
@@ -48,7 +49,9 @@ def forward_env(
     model carries its own compute dtypes (`make_model(policy=)`); the
     `precision` policy (None: fp32) narrows the APSP, which takes the route
     of `apsp_impl` (`ops.minplus.resolve_apsp`; `'xla'`: the squarings at
-    every N, as JAX's `apsp_fn=None`)."""
+    every N, as JAX's `apsp_fn=None`).  `apsp_fn`, a callable of the
+    (B, N, N) weight matrix, replaces that route when given (JAX
+    `policy.py:33`; `env.policies.shortest_paths`)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -64,5 +67,6 @@ def forward_env(
         unit_diag = torch.diagonal(actor.delay_matrix, dim1=1, dim2=2)
     outcome = evaluate_spmatrix_policy(inst, jobs, actor.link_delay, unit_diag,
                                        gen, explore=explore, prob=prob, layout=lay,
-                                       precision=precision, apsp_impl=apsp_impl)
+                                       precision=precision, apsp_impl=apsp_impl,
+                                       apsp_fn=apsp_fn)
     return outcome, actor

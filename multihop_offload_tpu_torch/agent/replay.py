@@ -79,6 +79,13 @@ def replay_remember(mem: GradReplay, grads: dict, loss_critic: torch.Tensor,
     return mem
 
 
+def replay_last(mem: GradReplay, n: int) -> dict:
+    """The last `n` remembered gradients (n <= capacity), oldest first."""
+    capacity = mem.loss_critic.shape[0]
+    slots = (mem.ptr - n + torch.arange(n, device=mem.loss_critic.device)) % capacity
+    return {k: g.index_select(0, slots) for k, g in mem.grads.items()}
+
+
 def adam_init(params: dict) -> AdamState:
     return AdamState(count=0, mu={k: torch.zeros_like(p) for k, p in params.items()},
                      nu={k: torch.zeros_like(p) for k, p in params.items()})
@@ -117,6 +124,37 @@ def adam_step(params: list, grads: list, mu: list, nu: list, count: int, lr: flo
     torch._foreach_add_(den, KERAS_EPS)
     step = torch._foreach_div(mu_hat, den)
     return torch._foreach_add(params, torch._foreach_mul(step, -lr)), mu, nu
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """The optimizer of record as a value (JAX `make_optimizer`, `:108-122`):
+    Keras `clipnorm` per leaf, then Adam with the decayed rate.  `update`
+    takes one gradient per parameter (no batch axis) and returns the new
+    parameters and state; it skips nothing (the replay's non-finite skip is
+    `replay_apply`'s)."""
+
+    lr: float = 1e-4
+    decay: float = 1.0
+    clipnorm: float = 1.0
+
+    def init(self, params: dict) -> AdamState:
+        return adam_init(params)
+
+    def update(self, grads: dict, state: AdamState, params: dict) -> tuple:
+        names = list(params)
+        g = clip_by_leaf_norm([grads[k] for k in names], self.clipnorm)
+        p, mu, nu = adam_step([params[k] for k in names], g, [state.mu[k] for k in names],
+                              [state.nu[k] for k in names], state.count,
+                              decayed_lr(state.count, self.lr, self.decay))
+        return dict(zip(names, p)), AdamState(count=state.count + 1, mu=dict(zip(names, mu)),
+                                              nu=dict(zip(names, nu)))
+
+
+def make_optimizer(cfg) -> Adam:
+    """`Adam` with a Config's `learning_rate`, `learning_decay` and
+    `clipnorm`."""
+    return Adam(lr=cfg.learning_rate, decay=cfg.learning_decay, clipnorm=cfg.clipnorm)
 
 
 def apply_max_norm_constraint(params: dict, max_value: float) -> dict:

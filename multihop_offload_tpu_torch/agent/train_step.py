@@ -216,6 +216,7 @@ def forward_backward(
     compat_diagonal_bug: bool = False,
     precision=None,
     apsp_impl: str = "xla",
+    apsp_fn=None,
 ) -> TrainStepOutput:
     """One training step's gradients for a batch of B episodes on `device`
     (default CUDA).  Under `layout="sparse"` the instance must be built
@@ -227,7 +228,10 @@ def forward_backward(
     harness hands `forward_backward` its `wrap_apsp`-ped APSP, on the route
     of `apsp_impl` (`ops.minplus.resolve_apsp`); the actor runs at the
     model's own dtypes, and the critic, the suffix bias and the MSE term at
-    >= fp32 (the islands)."""
+    >= fp32 (the islands).  `apsp_fn`, a callable of the (B, N, N) weight
+    matrix, replaces the route of `apsp_impl` when given (JAX `:319`; the
+    ring APSP that `parallel.data_parallel` passes when the mesh's `graph`
+    axis is larger than 1)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
@@ -249,7 +253,8 @@ def forward_backward(
         else:
             unit_diag = torch.diagonal(dmtx.detach(), dim1=1, dim2=2)
         with phase("apsp"):
-            sp = shortest_paths(inst, actor.link_delay.detach(), lay, precision, apsp_impl)
+            sp = shortest_paths(inst, actor.link_delay.detach(), lay, precision, apsp_impl,
+                                apsp_fn)
         with phase("offload_decide"):
             dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
         with phase("next_hops"):

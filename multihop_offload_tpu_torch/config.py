@@ -6,14 +6,17 @@ the JAX package.  `serve_model` and `sim_model` are the port's own: the
 JAX service and simulator load their latest orbax checkpoint (or a fresh
 init), the port a committed model by name where it has no checkpoint.
 
-`apsp_impl`, `fp_impl` and `csv_write_all_hosts` keep the JAX names and
-defaults.  `apsp_impl` takes JAX's values (`ops/minplus.py:resolve_apsp`):
-`xla`, the default, squares at every N; `pallas` and `auto` take the
-blocked Floyd-Warshall above a padded N of 256; anything else raises the
-JAX message.  Whichever route, the device picks the code: the kernel for
-CUDA tensors, its plain version for CPU tensors.  `fp_impl` takes only
-`auto` (`ops/fixed_point.py:fixed_point_path`), and `csv_write_all_hosts`
-only False (the port is one process); any other value raises.
+`apsp_impl`, `fp_impl`, `mesh_data`, `mesh_graph` and `csv_write_all_hosts`
+keep the JAX names and defaults.  `apsp_impl` takes JAX's values
+(`ops/minplus.py:resolve_apsp`): `xla`, the default, squares at every N;
+`pallas` and `auto` take the blocked Floyd-Warshall above a padded N of
+256; anything else raises the JAX message.  Whichever route, the device
+picks the code: the kernel for CUDA tensors, its plain version for CPU
+tensors.  `fp_impl` takes only `auto` (`ops/fixed_point.py:
+fixed_point_path`); any other value raises.  `mesh_data` shards the
+drivers' episodes (Trainer) or files (Evaluator) over that many of their
+devices (`train/driver.py`, `parallel/`), and `mesh_graph > 1` is refused
+by the drivers, as in JAX.
 """
 
 from __future__ import annotations
@@ -51,9 +54,15 @@ class Config:
     pad_links: Optional[int] = None
     pad_servers: Optional[int] = None
     pad_jobs: Optional[int] = None
-    mesh_data: int = 0             # data-parallel axis (refused above 1)
-    csv_write_all_hosts: bool = False  # every process writes its shard CSV
-    #                                (multi-process runs; only False)
+    mesh_data: int = 0             # data-parallel mesh axis size: 0 = every
+    #                                device of the drivers (all local CUDA
+    #                                devices; the one CPU device on the CPU),
+    #                                1 = one device, N = explicit axis size
+    mesh_graph: int = 1            # graph-partition (ring APSP) axis size
+    #                                (the drivers refuse > 1, as in JAX)
+    csv_write_all_hosts: bool = False  # multi-process runs: every process
+    #                                writes its own (shard) CSV instead of
+    #                                gating on process index 0
     compat_diagonal_bug: bool = False  # reproduce the reference's cycled
     #                                decision-path diagonal (A/B validation)
     apsp_impl: str = "xla"         # APSP route: xla (the squarings at every N)
@@ -160,10 +169,6 @@ class Config:
         if self.precision not in PRECISION_CHOICES:
             raise ValueError(f"precision must be one of {PRECISION_CHOICES}; "
                              f"got '{self.precision}'")
-        if self.csv_write_all_hosts:
-            raise NotImplementedError(
-                "csv_write_all_hosts: per-process shard CSVs wait on `parallel/` "
-                "(ROADMAP.md Queue 1 item 7); the port is one process")
 
     @property
     def torch_dtype(self):

@@ -34,7 +34,10 @@ from multihop_offload_tpu_torch.env.offloading import OffloadDecision, offload_d
 from multihop_offload_tpu_torch.env.queueing import EmpiricalDelays, run_empirical
 from multihop_offload_tpu_torch.env.routing import RouteSet, trace_routes
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
-from multihop_offload_tpu_torch.layouts.sparse import next_hop_from_edges
+from multihop_offload_tpu_torch.layouts.sparse import (
+    next_hop_from_edges,
+    weight_matrix_from_edges,
+)
 from multihop_offload_tpu_torch.ops.minplus import resolve_apsp, resolve_coo_apsp
 from multihop_offload_tpu_torch.precision import resolve_precision
 
@@ -51,17 +54,28 @@ class PolicyOutcome:
 
 
 def shortest_paths(inst, link_delays: torch.Tensor, layout=None,
-                   precision=None, apsp_impl: str = "xla") -> torch.Tensor:
+                   precision=None, apsp_impl: str = "xla", apsp_fn=None) -> torch.Tensor:
     """(B, N, N) shortest-path delays over per-link delays (B, L) on the
     route of `apsp_impl`: K2 (or K3) on the dense weight matrix, or K6 on
     the link list under the sparse layout.  Under a mixed `precision`
     policy the APSP runs in its compute dtype (`PrecisionPolicy.wrap_apsp`):
     the dense W is narrowed before K2, and K6 takes the narrowed delays,
     which builds the same bf16 W (each entry is one delay, and rounding
-    commutes with the min)."""
+    commutes with the min).  `apsp_fn`, a callable of the (B, N, N) weight
+    matrix (the ring APSP of `parallel.data_parallel` when the mesh's
+    `graph` axis is larger than 1), replaces the route in either layout:
+    the weight matrix is built from the link list under the sparse layout,
+    as JAX's `forward_backward` builds it when `apsp_edges_fn` is None."""
     pol = resolve_precision(precision)
     n = inst.num_pad_nodes
-    if resolve_layout(layout).sparse:
+    sparse = resolve_layout(layout).sparse
+    if apsp_fn is not None:
+        if sparse:
+            w = weight_matrix_from_edges(inst.link_ends, inst.link_mask, link_delays, n)
+        else:
+            w = weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays)
+        return pol.wrap_apsp(apsp_fn)(w)
+    if sparse:
         edges_fn, _ = resolve_coo_apsp(apsp_impl, n)
         return edges_fn(inst.link_ends, inst.link_mask, pol.cast_compute(link_delays), n)
     apsp, _ = resolve_apsp(apsp_impl, n)
@@ -79,13 +93,13 @@ def next_hops(inst, sp: torch.Tensor, layout=None) -> torch.Tensor:
 def evaluate_spmatrix_policy(
     inst, jobs, link_delays: torch.Tensor, unit_diag: torch.Tensor,
     gen: torch.Generator | None = None, explore: float = 0.0, prob: bool = False,
-    layout=None, precision=None, apsp_impl: str = "xla",
+    layout=None, precision=None, apsp_impl: str = "xla", apsp_fn=None,
 ) -> PolicyOutcome:
     """Offload + route + run given per-link unit delays (B, L) and a node
-    diagonal (B, N), the APSP on the route of `apsp_impl` under the
-    `precision` policy (None: fp32)."""
+    diagonal (B, N), the APSP on the route of `apsp_impl` (or `apsp_fn`,
+    see `shortest_paths`) under the `precision` policy (None: fp32)."""
     with phase("apsp"):
-        sp = shortest_paths(inst, link_delays, layout, precision, apsp_impl)
+        sp = shortest_paths(inst, link_delays, layout, precision, apsp_impl, apsp_fn)
     with phase("offload_decide"):
         # hop counts are topology-only and precomputed at Instance build time
         dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)

@@ -1,7 +1,7 @@
 """Training and evaluation drivers.
 
-Port of `multihop_offload_tpu/train/driver.py` (`:53-1035`) on one device:
-the (baseline, local, GNN) evaluation triple, the training step, and the
+Port of `multihop_offload_tpu/train/driver.py` (`:53-1035`): the
+(baseline, local, GNN) evaluation triple, the training step, and the
 Trainer and Evaluator file loops that `cli/train.py` and `cli/test.py` run
 (the reference's `AdHoc_train.py` / `AdHoc_test.py` workflow).  Per network
 file, its `num_instances` job sets go through every method in one batched
@@ -36,8 +36,19 @@ reference's TF-format weights (`models/tf_import.py`) in place of a fresh
 init, as the JAX harness does (`:65-77`); a load error prints and falls
 back to the fresh init, as there.
 
-Refused, each with the ROADMAP item it waits on: `mesh_data > 1`,
-`dropout > 0` and `tb_logdir`.
+Data parallelism (JAX `:165-198`, `parallel/`): the drivers take `devices`
+(None: every local CUDA device, or the one CPU device on the CPU; an
+explicit list may repeat a device) and lay `cfg.mesh_data` of them (0:
+all) out as a `data` mesh.  With more than one, the Trainer pads each
+file's episodes to a multiple of the mesh and shards them, pads kept out
+of the replay by `valid` (`:664-686`), and the Evaluator shards whole
+files, `cfg.file_batch` a device (`:951-1010`).  `mesh_graph > 1` raises,
+as in JAX.  Process 0 (`multihost.runtime.process_index`) writes the CSVs,
+run logs and checkpoints; with `csv_write_all_hosts` every Evaluator
+process writes its own CSV.
+
+Refused, each with the ROADMAP item it waits on: `dropout > 0` and
+`tb_logdir`.
 """
 
 from __future__ import annotations
@@ -56,7 +67,7 @@ import torch
 from multihop_offload_tpu_torch import obs
 from multihop_offload_tpu_torch._device import resolve_device, synchronize
 from multihop_offload_tpu_torch._phases import phase
-from multihop_offload_tpu_torch._records import cat_records
+from multihop_offload_tpu_torch._records import cat_records, slice_records
 from multihop_offload_tpu_torch.agent.actor import build_ext_features
 from multihop_offload_tpu_torch.agent.policy import forward_env
 from multihop_offload_tpu_torch.agent.replay import (
@@ -65,6 +76,7 @@ from multihop_offload_tpu_torch.agent.replay import (
     adam_init,
     replay_apply,
     replay_init,
+    replay_last,
     replay_remember,
 )
 from multihop_offload_tpu_torch.agent.train_step import episode_grad_norms, forward_backward
@@ -79,8 +91,15 @@ from multihop_offload_tpu_torch.models.chebconv import (
     params_from_jax,
 )
 from multihop_offload_tpu_torch.models.tf_import import load_reference_checkpoint
+from multihop_offload_tpu_torch.multihost.runtime import local_devices, process_index
 from multihop_offload_tpu_torch.ops.minplus import resolve_apsp
 from multihop_offload_tpu_torch.obs.spans import span
+from multihop_offload_tpu_torch.parallel.data_parallel import (
+    make_file_dp_train_step,
+    make_files_eval_step,
+    make_sharded_eval_step,
+)
+from multihop_offload_tpu_torch.parallel.mesh import canonical_device, make_mesh
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 from multihop_offload_tpu_torch.train.data import DatasetCache, sample_jobsets
 from multihop_offload_tpu_torch.train.metrics import instance_metrics
@@ -205,14 +224,14 @@ def train_step(model, state: TrainState, inst, jobs, cfg: Config,
                        skipped=skipped)
 
 
-def _step_stats(outs) -> dict:
+def _step_stats(grads: dict, loss_critic, loss_mse) -> dict:
     """The step's per-episode gradient norms and loss moments, device
     tensors until the caller's sync: `grad_norm` (B,) and `moments`
     (critic loss sum, its sum of squares, MSE loss sum, non-finite
     episodes)."""
-    lc = outs.loss_critic.to(torch.float32)
-    lm = outs.loss_mse.to(torch.float32)
-    return {"grad_norm": episode_grad_norms(outs.grads),
+    lc = loss_critic.to(torch.float32)
+    lm = loss_mse.to(torch.float32)
+    return {"grad_norm": episode_grad_norms(grads),
             "moments": torch.stack([lc.sum(), (lc * lc).sum(), lm.sum(),
                                     (~torch.isfinite(lc) | ~torch.isfinite(lm)).sum()])}
 
@@ -230,10 +249,6 @@ def _step_fields(stats: dict) -> dict:
 def _refuse_unported(cfg: Config) -> None:
     """Raise for a setting whose code is not ported, naming what it waits
     on, rather than run something else quietly."""
-    if cfg.mesh_data > 1:
-        raise NotImplementedError(
-            f"mesh_data={cfg.mesh_data}: the data-parallel drivers wait on "
-            "`parallel/` (ROADMAP.md Queue 1 item 7); the port runs on one device")
     if cfg.dropout > 0:
         raise NotImplementedError(
             f"dropout={cfg.dropout} is not ported (ROADMAP.md Queue 1 item 3); "
@@ -242,6 +257,15 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 "
             "item 3); use obs_log for the JSONL run log")
+
+
+def _pad_leading(tree, size: int):
+    """Pad a batched record's leading axis up to `size` by repeating the
+    last row (JAX `:528-539`)."""
+    b = tree.src.shape[0] if hasattr(tree, "src") else tree.adj.shape[0]
+    if b >= size:
+        return tree
+    return cat_records([tree] + [slice_records(tree, b - 1, b)] * (size - b))
 
 
 def _load_reference_params(model, model_dir: str, dtype) -> bool:
@@ -275,12 +299,22 @@ class _Harness:
     holds a `checkpoint` file (`_load_reference_params`); otherwise the
     fresh init is probed with real features from four files spread over
     the dataset, and its output unit's sign flipped when it is dead
-    (`ensure_alive_output_multi`)."""
+    (`ensure_alive_output_multi`).
+
+    The data mesh (JAX `:165-198`): `devices` (None: every local CUDA
+    device, `device` first, or `[device]` on the CPU) holds the
+    candidates; `cfg.mesh_data` of them (0: all) make `n_dp`, an explicit
+    `mesh_data` above their count and `mesh_graph > 1` raise JAX's errors,
+    and `mesh` is the `data` mesh over the first `n_dp` (JAX builds one
+    only where `n_dp` or `eval_chunk` is above 1; a mesh of one device
+    runs the one-device paths' calls)."""
 
     def __init__(self, cfg: Config, datapath: Optional[str] = None,
-                 memory_size: Optional[int] = None, device=None):
+                 memory_size: Optional[int] = None, device=None, devices=None):
         self.cfg = cfg
         self.model_dir = cfg.model_dir()
+        if device is None and devices is not None:
+            device = devices[0]
         self.precision = cfg.precision_policy("cuda" if device is None else device)
         _refuse_unported(cfg)
         self.device = resolve_device(device)
@@ -301,6 +335,62 @@ class _Harness:
         self.rng = np.random.default_rng(cfg.seed)
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._resume_step = self._next_free_step()
+        # multi-process runs share a filesystem: only process 0 writes CSVs,
+        # run logs and checkpoints
+        self.is_host0 = process_index() == 0
+        local = self._mesh_candidates(devices)
+        if cfg.mesh_data > len(local):
+            raise ValueError(
+                f"mesh_data={cfg.mesh_data} exceeds the {len(local)} local "
+                "devices — an explicit request is honored or refused, never "
+                "silently clamped")
+        if cfg.mesh_graph > 1:
+            raise ValueError(
+                "the Trainer/Evaluator drivers shard only the 'data' axis; "
+                "mesh_graph>1 applies to the library paths "
+                "(parallel.make_dp_train_step / parallel.ring)")
+        self.n_dp = max(1, cfg.mesh_data if cfg.mesh_data > 0 else len(local))
+        self.mesh = make_mesh(data=self.n_dp, graph=1, devices=local[: self.n_dp])
+        self._build_dp_steps()
+
+    @property
+    def eval_chunk(self) -> int:
+        """Files per Evaluator call: `cfg.file_batch` a device, times the
+        mesh (read at each run, so a changed `file_batch` applies)."""
+        return self.n_dp * max(1, self.cfg.file_batch)
+
+    def _mesh_candidates(self, devices) -> list:
+        if devices is not None:
+            return [canonical_device(d) for d in devices]
+        if self.device.type == "cpu":
+            return [self.device]
+        home = canonical_device(self.device)
+        return [home] + [d for d in local_devices() if d != home]
+
+    def _build_dp_steps(self) -> None:
+        """The mesh's steps (JAX `_build_dp_steps`, `:321-341`): the
+        Trainer's per-file step over the `data` axis, and the evaluation
+        triple sharded by episodes and by whole files."""
+        cfg = self.cfg
+        self._train_step_dp = make_file_dp_train_step(
+            self.model, self.mesh, prob=cfg.prob, critic_weight=cfg.critic_weight,
+            mse_weight=cfg.mse_weight, layout=cfg.layout, precision=self.precision,
+            compat_diagonal_bug=cfg.compat_diagonal_bug, apsp_impl=cfg.apsp_impl)
+
+        def methods(model, inst, jobs, gen):
+            return eval_methods(model, inst, jobs, gen, device=jobs.src.device,
+                                layout=self.layout, prob=cfg.prob,
+                                compat_diagonal_bug=cfg.compat_diagonal_bug,
+                                precision=self.precision, apsp_impl=cfg.apsp_impl)
+
+        self._eval_methods_dp = make_sharded_eval_step(methods, self.mesh)
+        self._eval_files_dp = make_files_eval_step(methods, self.mesh)
+
+    def _next_seeds(self) -> list:
+        """One generator seed per data shard, drawn from `self.gen` (JAX
+        draws `next_keys(bp)` on this path)."""
+        return torch.randint(0, 2 ** 62, (self.n_dp,), generator=self.gen,
+                             device=self.gen.device).tolist()
 
     def _probes(self) -> list:
         """(features, raw support, mask) of one job set on each of four
@@ -380,13 +470,18 @@ class _Harness:
 
     def save(self, step: int) -> None:
         """The resume checkpoint of file visit `step` (unique per save: the
-        Trainer passes its visit counter)."""
+        Trainer passes its visit counter); process 0 only."""
+        if not self.is_host0:
+            return
         ckpt_lib.save_checkpoint(self._ckpt_dir(), step, self._state(step),
                                  lineage=ckpt_lib.make_lineage("offline", cfg=self.cfg))
 
     def save_best(self, step: int, tau: float) -> None:
         """The best-so-far checkpoint (rolling GNN-test tau), in its own
-        directory so retention of the resume chain never evicts it."""
+        directory so retention of the resume chain never evicts it;
+        process 0 only."""
+        if not self.is_host0:
+            return
         directory = self._ckpt_dir("best")
         ckpt_lib.save_checkpoint(directory, step, self._state(step),
                                  lineage=ckpt_lib.make_lineage(
@@ -539,7 +634,8 @@ def _dataset_tag(cfg: Config) -> str:
 
 
 class Trainer(_Harness):
-    """The `bash/train.sh` -> `AdHoc_train.py` workflow (JAX `:592-806`)."""
+    """The `bash/train.sh` -> `AdHoc_train.py` workflow (JAX `:592-806`):
+    `Trainer(cfg, device=None, devices=None)`."""
 
     def _build_file(self, fid):
         """Host-side file prep; consumes `self.rng` in the sequential
@@ -566,7 +662,7 @@ class Trainer(_Harness):
             out_dir, f"aco_training_data_{_dataset_tag(cfg)}_load_"
                      f"{cfg.arrival_scale:.2f}_T_{cfg.T}.csv")
         rows = []
-        train_csv = _CsvFlusher(csv_path, TRAIN_COLUMNS)
+        train_csv = _CsvFlusher(csv_path, TRAIN_COLUMNS, enabled=self.is_host0)
         explore = cfg.explore
         losses = []
         self.replay_losses = []  # every replay's mean sampled critic loss
@@ -577,8 +673,9 @@ class Trainer(_Harness):
         if best is not None:
             self.best_tau = float(best["rolling_gnn_test_tau"])
         gidx = self._resume_step
-        runlog = obs.start_run(cfg, role="train")
+        runlog = obs.start_run(cfg, role="train") if self.is_host0 else None
         b = cfg.num_instances
+        bp = -(-b // self.n_dp) * self.n_dp  # the episode batch the mesh divides
 
         for epoch in range(epochs if epochs is not None else cfg.epochs):
             order = self.rng.permutation(len(self.data))
@@ -590,9 +687,25 @@ class Trainer(_Harness):
                 t0 = time.perf_counter()
                 with span("train/step"):
                     inst_b, jobs = self._on_device([(rec, inst, jobsets, counts)])
-                    outs = self._train_step(inst_b, jobs, explore)
-                    stats = _step_stats(outs) if runlog is not None else None
-                    bl, loc, gnn_test = self._eval_methods(inst_b, jobs, self.gen)
+                    if self.n_dp > 1:
+                        # pad the episode batch to a mesh-divisible width; the
+                        # valid mask keeps pad episodes out of the replay
+                        inst_p, jobs_p = _pad_leading(inst_b, bp), _pad_leading(jobs, bp)
+                        valid = torch.arange(bp, device=self.device) < b
+                        _, gnn_train, loss_c, loss_m = self._train_step_dp(
+                            self.model, self.state.mem, inst_p, jobs_p, self._next_seeds(),
+                            valid, explore)
+                        bl, loc, gnn_test = self._eval_methods_dp(
+                            self.model, inst_p, jobs_p, self._next_seeds())
+                        gnn_train, loss_c, loss_m, bl, loc, gnn_test = (
+                            x[:b] for x in (gnn_train, loss_c, loss_m, bl, loc, gnn_test))
+                        grads = replay_last(self.state.mem, min(b, cfg.memory_size))
+                    else:
+                        outs = self._train_step(inst_b, jobs, explore)
+                        grads, loss_c, loss_m = outs.grads, outs.loss_critic, outs.loss_mse
+                        gnn_train = outs.delays.job_total
+                        bl, loc, gnn_test = self._eval_methods(inst_b, jobs, self.gen)
+                    stats = _step_stats(grads, loss_c, loss_m) if runlog is not None else None
                     next_build_s = pf.prefetch_next()
                     synchronize(self.device)
                 wall = time.perf_counter() - t0
@@ -600,7 +713,7 @@ class Trainer(_Harness):
 
                 with span("train/metrics"):
                     metrics = _method_metrics(
-                        {"baseline": bl, "local": loc, "GNN": outs.delays.job_total,
+                        {"baseline": bl, "local": loc, "GNN": gnn_train,
                          "GNN-test": gnn_test}, bl, jobs.mask, float(cfg.T))
                 rows += _rows(rec, counts, metrics, runtime, gidx)
 
@@ -658,20 +771,23 @@ class Evaluator(_Harness):
     """The `bash/test.sh` -> `AdHoc_test.py` workflow, no weight updates
     (JAX `:809-1035`)."""
 
-    def __init__(self, cfg: Config, datapath: Optional[str] = None, device=None):
-        super().__init__(cfg, datapath, memory_size=0, device=device)
+    def __init__(self, cfg: Config, datapath: Optional[str] = None, device=None,
+                 devices=None):
+        super().__init__(cfg, datapath, memory_size=0, device=device, devices=devices)
 
     def _file_rng(self, fid: int) -> np.random.Generator:
         """Per-file workload RNG keyed by (seed, fid): the same workloads
         however files are ordered or batched."""
         return np.random.default_rng((self.cfg.seed, fid))
 
+    def _file_seed(self, fid: int) -> int:
+        """Per-file generator seed keyed by (seed, fid), in place of the JAX
+        `_file_keys`: `prob=True` draws do not depend on the file order, on
+        `file_batch` or on the device a file is evaluated on."""
+        return int(np.random.SeedSequence((self.cfg.seed, fid)).generate_state(1)[0])
+
     def _file_gen(self, fid: int) -> torch.Generator:
-        """Per-file generator keyed by (seed, fid), in place of the JAX
-        `_file_keys`: `prob=True` draws do not depend on the file order or
-        on `file_batch`."""
-        seed = int(np.random.SeedSequence((self.cfg.seed, fid)).generate_state(1)[0])
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return torch.Generator(device=self.device).manual_seed(self._file_seed(fid))
 
     def _build_file(self, fid: int):
         """Host-side prep of file `fid`, shared by both loops, so that
@@ -692,8 +808,10 @@ class Evaluator(_Harness):
             verbose: bool = True, file_ids=None) -> str:
         """Evaluate the test set and write the reference-schema CSV.
         `file_ids` picks a subset of files (the sequential loop, as in
-        JAX); otherwise `cfg.file_batch > 1` evaluates same-bucket chunks
-        of files in one stacked call each."""
+        JAX; e.g. ``range(p, n, 2)`` for process p of a two-process file
+        shard); otherwise `eval_chunk > 1` evaluates same-bucket chunks of
+        files, sharded over the mesh.  Process 0 writes the CSV and the run
+        log, and with `csv_write_all_hosts` every process writes its own."""
         cfg = self.cfg
         out_dir = out_dir or cfg.out
         os.makedirs(out_dir, exist_ok=True)
@@ -701,16 +819,17 @@ class Evaluator(_Harness):
             out_dir, f"Adhoc_test_data_{_dataset_tag(cfg)}_load_"
                      f"{cfg.arrival_scale:.2f}_T_{cfg.T}.csv")
         n_files = min(len(self.data), files_limit or len(self.data))
-        runlog = obs.start_run(cfg, role="eval")
-        if file_ids is None and cfg.file_batch > 1:
-            self._run_files_batched(n_files, verbose, csv_path, runlog)
+        write = self.is_host0 or cfg.csv_write_all_hosts
+        runlog = obs.start_run(cfg, role="eval") if write else None
+        if file_ids is None and self.eval_chunk > 1:
+            self._run_files_batched(n_files, verbose, csv_path if write else None, runlog)
         else:
             fids = ([f for f in file_ids if 0 <= f < n_files]
                     if file_ids is not None else list(range(n_files)))
             if file_ids is not None and not fids:
                 raise ValueError(
                     f"file_ids selects no files: every id is outside [0, {n_files})")
-            eval_csv = _CsvFlusher(csv_path, TEST_COLUMNS)
+            eval_csv = _CsvFlusher(csv_path, TEST_COLUMNS, enabled=write)
             rows = []
             b = cfg.num_instances
             pf = _Prefetcher(fids, self._build_file, cfg.prefetch)
@@ -740,16 +859,17 @@ class Evaluator(_Harness):
         obs.finish_run(runlog)
         return csv_path
 
-    def _run_files_batched(self, n_files: int, verbose: bool, csv_path: str, runlog):
-        """`file_batch` same-bucket files per call: their instances and job
-        sets stacked into one batch of `file_batch * num_instances`
-        requests, each file's draws from its own generator (JAX
-        `_run_files_dp`, `:949-1035`, on one device: a bucket's last chunk
-        is simply shorter, with no padding files).  Rows are rewritten in
-        file order after every chunk."""
+    def _run_files_batched(self, n_files: int, verbose: bool, csv_path, runlog):
+        """`eval_chunk` same-bucket files per call, dealt to the mesh's
+        devices `file_batch` a device (`make_files_eval_step`); each
+        device's files are stacked into one batch of requests, each file's
+        draws from its own generator (JAX `_run_files_dp`, `:949-1035`; a
+        bucket's last chunk is simply shorter, with no padding files).
+        Rows are rewritten in file order after every chunk, when
+        `csv_path` is given."""
         cfg = self.cfg
         b = cfg.num_instances
-        chunk_size = cfg.file_batch
+        chunk_size = self.eval_chunk
         by_bucket: dict = {}
         for fid in range(n_files):
             by_bucket.setdefault(self.data.bucket_of[fid], []).append(fid)
@@ -769,27 +889,29 @@ class Evaluator(_Harness):
             builds = pf.current()
             t0 = time.perf_counter()
             with span("eval/step"):
-                inst_b, jobs = self._on_device(builds)
-                bl, loc, gnn = self._eval_methods(inst_b, jobs,
-                                                  [self._file_gen(f) for f in chunk])
+                bl, loc, gnn = self._eval_files_dp(
+                    self.model, [bd[1] for bd in builds], [bd[2] for bd in builds],
+                    [self._file_seed(f) for f in chunk])
                 next_build_s = pf.prefetch_next()
                 synchronize(self.device)
             wall = time.perf_counter() - t0
             runtime = max(wall - next_build_s, 0.0) / (3 * b * len(chunk))
             for d, fid in enumerate(chunk):
                 s = slice(d * b, (d + 1) * b)
+                mask = builds[d][2].mask.to(bl.device)
                 metrics = _method_metrics({"baseline": bl[s], "local": loc[s], "GNN": gnn[s]},
-                                          bl[s], jobs.mask[s], float(cfg.T))
+                                          bl[s], mask, float(cfg.T))
                 rows_by_fid[fid] = _rows(builds[d][0], builds[d][3], metrics, runtime, fid,
                                          algo_col="Algo", fid_col=False)
             done += len(chunk)
             if verbose:
                 print(f"[{done}/{n_files}] bucket {bucket} chunk of {len(chunk)} "
-                      f"({wall:.3f}s)")
+                      f"({wall:.3f}s, chunk {chunk_size} on {self.n_dp} devices)")
             if runlog is not None:
                 runlog.emit("step", bucket=bucket, files=len(chunk), done=done,
                             wall_s=round(wall, 6), build_s=round(next_build_s, 6),
                             runtime=round(runtime, 6))
-            write_csv(csv_path, TEST_COLUMNS,
-                      [r for f in sorted(rows_by_fid) for r in rows_by_fid[f]])
+            if csv_path is not None:
+                write_csv(csv_path, TEST_COLUMNS,
+                          [r for f in sorted(rows_by_fid) for r in rows_by_fid[f]])
             pf.raise_deferred()

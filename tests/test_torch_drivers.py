@@ -11,11 +11,12 @@ by the JAX `generate_dataset` (n = 20, 30; two seeds):
 * `forward_backward(compat_diagonal_bug=True)` equals JAX's (losses and
   gradients 1e-12), `episode_grad_norms` to float32 rounding (both
   accumulate in float32), `instance_metrics` within 1e-12;
-* every refused setting raises (a route other than `auto` and per-process
-  CSVs already in `Config`, and from the command line), and a TF-format
-  checkpoint in the model directory is loaded; `cli.test.main`
-  runs with `--device cpu` and raises without it on a machine with no
-  CUDA.
+* every refused setting raises (a fixed-point route other than `auto`
+  already in `Config`, and from the command line), `mesh_graph > 1` raises
+  JAX's `ValueError`, a TF-format checkpoint in the model directory is
+  loaded, and `mesh_data > 1` and `csv_write_all_hosts` run;
+  `cli.test.main` runs with `--device cpu` and raises without it on a
+  machine with no CUDA.
 """
 
 import csv
@@ -256,6 +257,7 @@ def test_instance_metrics_match_jax():
     ({"tb_logdir": "tb"}, "item 3"), ({"precision": "bf16"}, "item 10"),
     ({"tf_checkpoint": True}, "item 4"), ({"csv_write_all_hosts": True}, "item 7"),
     ({"apsp_impl": "xla"}, "only 'auto'"), ({"fp_impl": "pallas"}, "only 'auto'"),
+    ({"mesh_graph": 2}, "mesh_graph>1"),
 ])
 def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
     kw = common(tiny, tmp_path)
@@ -287,6 +289,24 @@ def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
         for cls in (td.Evaluator, td.Trainer):
             assert cls(Config(**kw, **setting), device="cpu").precision.mixed
         return
+    # the data mesh waited on item 7, which is done for the drivers: both
+    # shard over the devices they are given, and every process may write
+    # its own CSV
+    if "mesh_data" in setting:
+        for cls in (td.Evaluator, td.Trainer):
+            h = cls(Config(**kw, **setting), device="cpu", devices=[torch.device("cpu")] * 2)
+            assert h.n_dp == 2 and h.mesh.shape == {"data": 2, "graph": 1}
+        return
+    if "csv_write_all_hosts" in setting:
+        ev = td.Evaluator(Config(**kw, **setting), device="cpu")
+        assert ev.is_host0 and len(read_rows(ev.run(files_limit=1, verbose=False))) == 4 * 3
+        return
+    # JAX's drivers shard only the data axis
+    if "mesh_graph" in setting:
+        for cls in (td.Evaluator, td.Trainer):
+            with pytest.raises(ValueError, match=waits):
+                cls(Config(**kw, **setting), device="cpu")
+        return
     for cls in (td.Evaluator, td.Trainer):
         with pytest.raises(NotImplementedError, match=waits):
             cls(Config(**kw, **setting), device="cpu")
@@ -302,9 +322,11 @@ def test_cli_test_runs_on_the_cpu_and_refuses_a_missing_card(tiny, tmp_path, cap
     assert "test results written to" in capsys.readouterr().out
     for flag, err in ((["--apsp_impl", "bogus"], ValueError),
                       (["--fp_impl", "pallas"], NotImplementedError),
-                      (["--csv_write_all_hosts", "true"], NotImplementedError)):
+                      (["--mesh_graph", "2"], ValueError)):
         with pytest.raises(err):
             cli_test.main(args + ["--device", "cpu"] + flag)
+    again = cli_test.main(args + ["--device", "cpu", "--csv_write_all_hosts", "true"])
+    assert_rows_equal(read_rows(again), rows)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli_test.main(args)

@@ -205,9 +205,15 @@ def test_port_imports_no_jax_side():
                    "sim/runner.py", "sim/fidelity.py", "cli/sim.py", "precision.py",
                    "graphs/cuts.py", "cli/datagen.py", "utils/signals.py",
                    "obs/__init__.py", "models/tf_bundle.py", "models/tf_import.py",
-                   "train/analysis.py", "utils/visualization.py", "cli/plot.py"):
+                   "train/analysis.py", "utils/visualization.py", "cli/plot.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+                   "parallel/ring.py", "parallel/partition.py", "parallel/data_parallel.py",
+                   "multihost/__init__.py", "multihost/runtime.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):
             assert not any(mod == b or mod.startswith(b + ".") for b in _BANNED), \
                 f"{path} imports {mod}"
+            # the process group is brought up in one place
+            if mod == "torch.distributed" or mod.startswith("torch.distributed."):
+                assert os.path.relpath(path, PORT) == "multihost/runtime.py", path
