@@ -137,6 +137,20 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   indices) and the Evaluator at `mesh_data = 2, file_batch = 2` (2 files)
   against their `mesh_data = 1` runs on the card, K1, K2, K4 and K6 on
   every file 4 times (the Evaluator: the same as) the one-device run's.
+- Slice 21, sharded serving (`sharded_serving_phase`): `cli/serve.py:
+  build_service(devices=[cuda:0] * 4)` with both buckets over all four
+  fleet members, the serving pool's 256 requests dense (K1, K2 per
+  shard) and the first 64 sparse (K1, K4, K6 per shard), each against the one-device
+  service on the card: decisions identical, floats within 1e-4, every
+  request answered once, the last dispatch over 4 devices, the launches
+  the plain versions predict per shard (`count_plain` at the shard's
+  width) and the one-device run's squarings (K2's counter is kept per
+  card and summed); `lose_device(2)` after tick 3 and `restore_device(2)`
+  after tick 6 under the planner's own plans, every admitted request
+  answered once with the one-device decisions; then `mho-mesh --smoke`
+  (`cli/mesh.py`) on the card, two gloo workers each on `[cuda:0] * 2`,
+  every check passing.  One card repeated: the times are the sharded
+  path's overhead, not scaling.
 
 It
 
@@ -216,7 +230,7 @@ It
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
    line, the bf16 training line, the route, datagen, serve CLI, TF
-   checkpoint and parallel lines,
+   checkpoint, parallel and sharded serving lines,
    the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
@@ -591,24 +605,18 @@ def kernel_phase(batches, dev, card) -> tuple:
 
 def reset_counts():
     from multihop_offload_tpu_torch.large_scale import reset_kernel_counts
-    from multihop_offload_tpu_torch.ops import minplus as mp
 
     reset_kernel_counts()
-    for ex in (mp.minplus_closure_cuda.executed, mp.minplus_closure_cuda.executed_bf16):
-        if ex is not None:
-            ex.zero_()
 
 
 def read_counts() -> dict:
     """Every kernel's launches (and the fixed-point scan's runs) since the
-    last `reset_counts`, with K2's executed squarings."""
+    last `reset_counts`, with K2's executed squarings summed over every
+    card (`squarings`, `squarings_bf16`)."""
     from multihop_offload_tpu_torch.large_scale import kernel_counts
-    from multihop_offload_tpu_torch.ops import minplus as mp
 
     torch.cuda.synchronize()
-    ex, ex16 = mp.minplus_closure_cuda.executed, mp.minplus_closure_cuda.executed_bf16
-    return {**kernel_counts(), "squarings": 0 if ex is None else int(ex),
-            "squarings_bf16": 0 if ex16 is None else int(ex16)}
+    return kernel_counts()
 
 
 def scaled_err(got, want) -> float:
@@ -2174,11 +2182,10 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
         b, m, _ = d.shape
         iters = mp.squaring_count(m)
         launches = (mp.minplus_closure_cuda.launches_bf16, mp.minplus_closure_cuda.launches)
-        ex = mp.minplus_closure_cuda.executed_bf16
-        ex0 = 0 if ex is None else int(ex)
+        ex0 = mp.squarings_executed(bf)
         got = mp.minplus_closure_cuda(d, iters)
         torch.cuda.synchronize()
-        ran = int(mp.minplus_closure_cuda.executed_bf16) - ex0
+        ran = mp.squarings_executed(bf) - ex0
         pair = (mp.minplus_closure_cuda.launches_bf16 - launches[0],
                 mp.minplus_closure_cuda.launches - launches[1])
         ref = mp.minplus_closure_plain(d, iters)
@@ -2225,10 +2232,10 @@ def bf16_kernel_phase(dev, card, inst, sp_inst) -> dict:
     delays = (1.0 / sp_inst.link_rates).to(bf).contiguous()
     args6 = (sp_inst.link_ends, sp_inst.link_mask, delays, n6)
     before = (mp.apsp_coo_cuda.launches_bf16, mp.minplus_closure_cuda.launches_bf16)
-    ex0 = int(mp.minplus_closure_cuda.executed_bf16)
+    ex0 = mp.squarings_executed(bf)
     got = mp.apsp_minplus_coo(*args6)
     torch.cuda.synchronize()
-    sq6 = int(mp.minplus_closure_cuda.executed_bf16) - ex0
+    sq6 = mp.squarings_executed(bf) - ex0
     pair = (mp.apsp_coo_cuda.launches_bf16 - before[0],
             mp.minplus_closure_cuda.launches_bf16 - before[1])
     if pair != (1, mp.squaring_count(n6)) or not torch.equal(got, mp.apsp_coo_plain(*args6)):
@@ -3624,6 +3631,198 @@ def parallel_phase(dev, card, paper_batch) -> dict:
     return out
 
 
+SHARD_FLEET = 4      # the repeated card: [cuda:0] * 4
+SHARD_RTOL = 1e-4    # fp32 floats of a 4-slot shard against the 16-slot batch
+
+
+def compare_decisions(tag: str, got: dict, want: dict, rtol: float) -> dict:
+    """The same requests from two services: `dst`, `is_local`, `served_by`
+    and bucket identical for every request (every mismatch logged before
+    the raise), `delay_est` and `job_total` within `rtol` relative."""
+    bad, worst = [], 0.0
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: {len(got)} responses for {len(want)} requests")
+    for rid, w in want.items():
+        g = got[rid]
+        if (g.served_by, g.bucket) != (w.served_by, w.bucket) or not (
+                np.array_equal(g.dst, w.dst) and np.array_equal(g.is_local, w.is_local)):
+            bad.append(rid)
+            log(f"{tag}: request {rid} differs: {g.served_by}/{g.bucket} dst "
+                f"{g.dst.tolist()} vs {w.served_by}/{w.bucket} {w.dst.tolist()}")
+            continue
+        for a, b in ((g.delay_est, w.delay_est), (g.job_total, w.job_total)):
+            rel = np.abs(a.astype(np.float64) - b) / np.abs(b.astype(np.float64))
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    log(f"{tag}: decisions of {len(want)} requests identical: {not bad}; delay_est/"
+        f"job_total max rel err {worst:.3e} (bar {rtol})")
+    if bad or not worst <= rtol:
+        raise AssertionError(f"{tag}: requests {bad} differ, rel err {worst}")
+    return {"requests": len(want), "max_rel_err": worst}
+
+
+def plain_shard_counts(model_name: str, cfg, svc, reqs) -> dict:
+    """Launches the sharded run asks for, from the plain versions: one
+    shard's GNN pass at its block width, counted on the CPU
+    (`count_plain`) per bucket, times the bucket's dispatches and shards."""
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.serve.bucketing import pack_bucket
+    from multihop_offload_tpu_torch.serve.executor import BucketExecutor
+
+    ex = BucketExecutor(load_model(model_name, device="cpu", layout=cfg.layout),
+                        layout=cfg.layout, device="cpu")
+    want: dict = {}
+    for b, stats in svc.stats.buckets.items():
+        if not stats.dispatches:
+            continue
+        shards = len(svc.executor.devices_for(b))
+        per = svc.slots // shards
+        mine = [r for r in reqs if svc.buckets.bucket_for(*r.sizes) == b][:per]
+        binst, bjobs = pack_bucket(mine, svc.buckets[b], per, layout=cfg.layout,
+                                   device="cpu")
+        _, one = count_plain(lambda: ex.gnn_step(binst, bjobs))
+        for k, v in one.items():
+            want[k] = want.get(k, 0) + v * shards * stats.dispatches
+    return want
+
+
+def sharded_serving_phase(dev, card) -> dict:
+    """Slice 21: sharded serving through `cli/serve.py:build_service(devices=
+    [cuda:0] * 4)`, both buckets laid over all four fleet members: the
+    serving pool's 256 requests dense (K1, K2 per shard) and the first 64
+    sparse (K1, K4, K6 per shard), each against the one-device service on the card
+    (decisions identical, floats within 1e-4) with the launches the plain
+    versions predict and the one-device run's squarings; a device lost and
+    restored mid-run (the planner's own plans, every admitted request
+    answered once); `mho-mesh --smoke` on the card (two gloo workers, each
+    on `[cuda:0] * 2`).  On one card the shards queue on the same card: the
+    times are the sharded path's overhead, not scaling."""
+    from multihop_offload_tpu_torch.cli import mesh as mesh_cli
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.serve.placement import PlacementPlan
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+
+    t0 = time.perf_counter()
+    pool = case_pool([20, 50, 80, 110], per_size=2, seed=0)
+    reqs = list(request_stream(pool, 256, seed=1, arrival_scale=0.15))
+    fleet = [dev] * SHARD_FLEET
+    base = dict(serve_slots=16, serve_queue_cap=64, serve_deadline_s=60.0,
+                serve_model=MODEL_K1, serve_replan_ticks=10**9)
+    out, counts, ref_by_id = {}, {}, {}
+    for layout, model, n_req in (("dense", MODEL_K1, 256), ("sparse", MODEL_K2, 64)):
+        cfg = Config(**{**base, "serve_model": model},
+                     **({"layout": "sparse", "cheb_k": 2} if layout == "sparse" else {}))
+        runs = {}
+        for name in ("one", "sharded"):
+            kw = {"device": dev} if name == "one" else {"devices": fleet}
+            for rep in ("warm", "timed"):
+                svc, _ = build_service(cfg, pool=pool, **kw)
+                if name == "sharded":
+                    every = tuple(range(SHARD_FLEET))
+                    svc.executor.set_placement(PlacementPlan((every,) * len(svc.buckets)))
+                stream = reqs[:n_req] if rep == "timed" else reqs[:32]
+                torch.cuda.synchronize()
+                reset_counts()
+                t1 = time.monotonic()
+                got = check_conservation(f"serve {layout} {name}", svc,
+                                         closed_loop(svc, stream))
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t1
+            runs[name] = (svc, got, read_counts(), svc.stats.summary(wall_s=wall))
+        (one, one_by_id, c_one, s_one), (sh, sh_by_id, c_sh, s_sh) = \
+            runs["one"], runs["sharded"]
+        tag = f"sharded serve {layout} ({model}, {n_req} requests, [cuda:0] * {SHARD_FLEET})"
+        if sh.executor.last_devices_used != SHARD_FLEET or s_sh["degraded"]:
+            raise AssertionError(f"{tag}: last dispatch spanned "
+                                 f"{sh.executor.last_devices_used} devices, "
+                                 f"{s_sh['degraded']} degraded")
+        vs = compare_decisions(f"{tag} vs one device", sh_by_id, one_by_id, SHARD_RTOL)
+        check_launches(tag, c_sh, plain_shard_counts(model, cfg, sh, reqs[:n_req]))
+        if c_sh["squarings"] != c_one["squarings"]:
+            raise AssertionError(f"{tag}: {c_sh['squarings']} squarings run, the one-"
+                                 f"device service ran {c_one['squarings']}")
+        ref_by_id[layout] = one_by_id
+        counts[f"sharded_serve_{layout}"] = c_sh
+        counts[f"one_device_serve_{layout}"] = c_one
+        out[layout] = {
+            "requests": n_req, "vs_one_device": vs,
+            "squarings": c_sh["squarings"],
+            "one_device": {k: s_one.get(k) for k in ("requests_per_sec", "ticks")}
+            | {"p50_ms": s_one["latency"]["p50_ms"], "p99_ms": s_one["latency"]["p99_ms"]},
+            "sharded": {k: s_sh.get(k) for k in ("requests_per_sec", "ticks")}
+            | {"p50_ms": s_sh["latency"]["p50_ms"], "p99_ms": s_sh["latency"]["p99_ms"],
+               "shards": s_sh["shards"],
+               "placement_host_ms": {f"{b}:{d}": v * 1e3 for (b, d), v in
+                                     sh.executor.placement_host_s.items()}}}
+        o, s = out[layout]["one_device"], out[layout]["sharded"]
+        log(f"{tag} on {card['smi']}: {s['requests_per_sec']} requests/s, p50 "
+            f"{s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms against one device's "
+            f"{o['requests_per_sec']} requests/s, p50 {o['p50_ms']:.2f}, p99 "
+            f"{o['p99_ms']:.2f} ({s['ticks']} ticks each); the four shards queue on one "
+            f"card, so this is the sharded path's overhead, not scaling")
+
+    # ---- a device lost and restored mid-run, the planner's own plans ---------
+    cfg = Config(**{**base, "serve_replan_ticks": 4})
+    svc, _ = build_service(cfg, pool=pool, devices=fleet)
+    plans, responses = [svc.planner.plan.describe()], []
+    pending = list(reversed(reqs))
+    reset_counts()
+    while pending or svc.queue_depth:
+        while pending:
+            req = pending.pop()
+            if not svc.submit(req):
+                pending.append(req)
+                break
+        responses += svc.tick()
+        if svc.stats.ticks == 3:
+            svc.lose_device(2)
+            plans.append(svc.planner.plan.describe())
+            if svc.planner.plan.uses(2):
+                raise AssertionError(f"device loss: plan {plans[-1]} still uses 2")
+        if svc.stats.ticks == 6:
+            svc.restore_device(2)
+            plans.append(svc.planner.plan.describe())
+    responses += svc.drain()
+    loss_counts = read_counts()
+    loss_by_id = check_conservation("sharded serve, device 2 lost and restored", svc,
+                                    responses)
+    compare_decisions("sharded serve, device 2 lost and restored, vs one device",
+                      loss_by_id, ref_by_id["dense"], SHARD_RTOL)
+    if loss_counts["squarings"] != counts["one_device_serve_dense"]["squarings"]:
+        raise AssertionError(f"device loss: {loss_counts['squarings']} squarings run")
+    counts["sharded_serve_device_loss"] = loss_counts
+    out["device_loss"] = {"plans": plans, "answered": len(loss_by_id),
+                          "admitted": svc.stats.admitted, "ticks": svc.stats.ticks,
+                          "replans": svc.planner.replans}
+    log(f"sharded serve, device 2 lost after tick 3 and restored after tick 6: plans "
+        f"{plans}; {len(loss_by_id)} of {svc.stats.admitted} admitted requests answered "
+        f"once, decisions equal to one device's; launches {loss_counts}")
+
+    # ---- mho-mesh --smoke on the card -----------------------------------------
+    path = os.path.join(ROOT, "build", "mesh_smoke_card.json")
+    reset_counts()
+    t1 = time.perf_counter()
+    rc = mesh_cli.run_smoke(path)
+    mesh_s = time.perf_counter() - t1
+    counts["mesh_smoke_reference"] = read_counts()
+    with open(path) as f:
+        rec = json.load(f)
+    if rc != 0 or not rec["pass"]:
+        raise AssertionError(f"mho-mesh --smoke failed on the card: {rec['checks']}")
+    out["mesh_smoke"] = {"wall_s": mesh_s, "elapsed_s": rec["elapsed_s"],
+                         "sustained_rps": rec["open_loop"]["sustained_rps"],
+                         "fleets": {h: r["fleet"] for h, r in rec["bring_up"].items()},
+                         "checks": {k: v["ok"] for k, v in rec["checks"].items()}}
+    log(f"mho-mesh --smoke on {card['smi']}: every check passed, two gloo workers on "
+        f"{out['mesh_smoke']['fleets']}; sustained {rec['open_loop']['sustained_rps']:.1f} "
+        f"req/s at p99 <= {mesh_cli.OPEN_LOOP_SLO_P99_S} s (virtual clock), wall "
+        f"{mesh_s:.1f} s")
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    log(f"sharded serving phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -3943,6 +4142,9 @@ def main() -> int:
 
     # ---- slice 20: parallel/ on [cuda:0] * 4, the drivers' data mesh ---------
     par = parallel_phase(dev, card, (inst, jobs))
+
+    # ---- slice 21: sharded serving on [cuda:0] * 4, mho-mesh over gloo ------
+    shard = sharded_serving_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -3955,7 +4157,8 @@ def main() -> int:
                "large_bf16_eval_methods": large["bf16"].pop("counts"),
                **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts"),
                "tf_eval_file": tfck.pop("eval_counts_file0"),
-               "route_demo": tfck.pop("route_counts"), **par.pop("counts")}
+               "route_demo": tfck.pop("route_counts"), **par.pop("counts"),
+               **shard.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -3967,6 +4170,7 @@ def main() -> int:
     print(json.dumps({"serve_cli": scli}), flush=True)
     print(json.dumps({"tf_checkpoint": tfck}), flush=True)
     print(json.dumps({"parallel": par}), flush=True)
+    print(json.dumps({"sharded_serving": shard}), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

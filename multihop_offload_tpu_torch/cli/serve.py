@@ -1,6 +1,6 @@
 """Serving entry point — run the offloading-decision service.
 
-Port of `multihop_offload_tpu/cli/serve.py` (single device):
+Port of `multihop_offload_tpu/cli/serve.py`:
 
     python -m multihop_offload_tpu_torch.cli.serve [--device cpu] \\
         --serve_sizes=20,50,80,110 --serve_slots=16 --serve_requests=256 \\
@@ -29,6 +29,13 @@ leaves the last dispatched batch unanswered; here `drain()` settles it.
 `--prob true` samples each request's decision from its own generator,
 seeded from (`--seed`, request id).  `--tb_logdir` is refused (no
 TensorBoard on the card's machine).
+
+Sharded serving (`resolve_serve_devices`): `--serve_devices 0,2` serves on
+those CUDA devices, `--serve_mesh N` on the first N (it raises when fewer
+are present; `build_service(devices=[cuda:0] * N)` lays N shards over one
+card).  With `--device cpu`, `--serve_mesh N` serves on `[cpu] * N`, the
+counterpart of JAX's virtual CPU devices.  `--serve_replan_ticks` sets the
+placement planner's cadence.
 """
 
 from __future__ import annotations
@@ -41,23 +48,64 @@ import torch
 from multihop_offload_tpu_torch.config import Config, from_cli
 
 
-def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
+def resolve_serve_devices(cfg: Config, device=None):
+    """The serving fleet from config (JAX `cli/serve.py:23-58`):
+    `serve_devices` (CUDA ids, e.g. "0,2,5") wins; else `serve_mesh` = N
+    takes the first N local CUDA devices, or `[cpu] * N` when the caller
+    asked for the CPU (`device`).  Returns None for the one-device
+    executor.  Raises when the devices asked for are not present: a fleet
+    never falls back to the CPU on its own."""
+    spec = str(cfg.serve_devices or "").strip()
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if spec:
+        try:
+            ids = [int(s) for s in spec.split(",") if s.strip()]
+        except ValueError as e:
+            raise ValueError(f"serve_devices must be int ids: {spec!r}") from e
+        have = list(range(torch.cuda.device_count()))
+        missing = [i for i in ids if i not in have]
+        if missing:
+            raise ValueError(
+                f"serve_devices {missing} not present (have {have}); on the CPU "
+                "set serve_mesh=N with device='cpu'")
+        if cpu:
+            raise ValueError("serve_devices names CUDA devices, but the CPU was asked "
+                             "for; set serve_mesh=N to serve on [cpu] * N")
+        return [torch.device("cuda", i) for i in ids]
+    mesh = int(cfg.serve_mesh or 0)
+    if mesh <= 1:
+        return None
+    if cpu:
+        return [torch.device("cpu")] * mesh
+    have = torch.cuda.device_count()
+    if mesh > have:
+        raise ValueError(
+            f"serve_mesh={mesh} but only {have} CUDA devices present; pass "
+            f"devices=[torch.device('cuda', 0)] * {mesh} to build_service for "
+            f"{mesh} shards on one card")
+    return [torch.device("cuda", i) for i in range(mesh)]
+
+
+def build_service(cfg: Config, pool=None, clock=None, model=None, device=None,
+                  devices=None, load_checkpoint: bool = True):
     """Construct (service, pool) from config.  `pool` overrides the traffic
     pool of `cfg.serve_sizes`; `clock` the service's time source; `model`
     the model to serve (default: the committed `cfg.serve_model`, or a fresh
-    init seeded by `cfg.seed`, built under `cfg.precision`'s policy; a
-    given model must carry it); `device` where it runs (default CUDA).
-    The newest verified step of ``cfg.model_dir()/torch`` then replaces
-    those weights when there is one (JAX `cli/serve.py:125`)."""
+    init seeded by `cfg.seed` on a CPU generator, built under
+    `cfg.precision`'s policy; a given model must carry it); `device` where
+    it runs (default CUDA).  `devices` is the serving fleet outright (JAX
+    `:106`; repeats honoured), else `resolve_serve_devices`; a fleet shards
+    every bucket's batch over it.  The newest verified step of
+    ``cfg.model_dir()/torch`` then replaces those weights when there is one
+    and `load_checkpoint` (JAX `cli/serve.py:125`)."""
     from multihop_offload_tpu_torch.models.chebconv import load_model, make_model
     from multihop_offload_tpu_torch.serve.service import OffloadService
     from multihop_offload_tpu_torch.serve.workload import buckets_for_pool, case_pool
     from multihop_offload_tpu_torch.utils import durable
 
-    if cfg.serve_mesh > 1 or cfg.serve_devices.strip():
-        raise NotImplementedError(
-            "sharded serving (serve_mesh / serve_devices) is not ported yet; "
-            "the port serves on one device")
+    fleet = list(devices) if devices is not None else resolve_serve_devices(cfg, device)
+    if fleet:
+        device = fleet[0]
     durable.configure(retries=cfg.io_retries, backoff_s=cfg.io_backoff_s)
     if pool is None:
         sizes = [int(s) for s in str(cfg.serve_sizes).split(",") if s.strip()]
@@ -85,7 +133,8 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
         ragged=cfg.serve_ragged, overlap=cfg.serve_overlap,
         ladder_alpha=cfg.serve_ladder_alpha,
         ladder_hysteresis=cfg.serve_ladder_hysteresis,
-        device=device,
+        device=device, mesh_devices=fleet or None,
+        replan_every=max(1, int(cfg.serve_replan_ticks)),
         **({"clock": clock} if clock is not None else {}),
     )
     if cfg.health_watchdog_s > 0:
@@ -98,10 +147,12 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None):
             recorder=FlightRecorder(cfg.obs_flight_capacity),
             flight_dir=cfg.model_root,
         ))
-    loaded = service.hot_reload(cfg.model_dir())
+    loaded = service.hot_reload(cfg.model_dir()) if load_checkpoint else None
     if loaded is not None:
         source = f"checkpoint step {loaded} from {cfg.model_dir()}"
-    print(f"serving with {source} on {service.device}")
+    where = ([str(d) for d in service.executor.fleet] if service.planner is not None
+             else service.device)
+    print(f"serving with {source} on {where}")
     return service, pool
 
 

@@ -118,8 +118,11 @@ class Config:
     serve_buckets: int = 2         # shape buckets in the serving ladder
     serve_sizes: str = "16,24"     # node sizes of the demo traffic pool
     serve_requests: int = 64       # demo request count
-    serve_mesh: int = 0            # sharded serving over N devices (not ported)
-    serve_devices: str = ""        # explicit serving fleet (not ported)
+    serve_mesh: int = 0            # sharded serving: lay each bucket's batch
+    #                                over N devices (cli/serve.py)
+    serve_devices: str = ""        # explicit CUDA ids "0,2,5" for the
+    #                                serving fleet (overrides serve_mesh)
+    serve_replan_ticks: int = 16   # placement re-plan cadence (ticks)
     serve_ragged: bool = False     # occupancy ladder: cold buckets tick narrower
     serve_overlap: bool = False    # settle each tick's dispatches on the next
     serve_ladder_alpha: float = 0.5       # EWMA weight of the occupancy ladder

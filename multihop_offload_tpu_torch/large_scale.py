@@ -106,7 +106,9 @@ def build_case(n: int = 1024, gtype: str = "er", seed: int = 42, load: float = 0
 
 
 def kernel_counts() -> dict:
-    """Every kernel wrapper's launch count, and the fixed-point scan's runs."""
+    """Every kernel wrapper's launch count, the fixed-point scan's runs, and
+    K2's squarings that ran (`squarings`, `squarings_bf16`: summed over
+    every card, which waits for them)."""
     return {"fixed_point": fp.fixed_point_cuda.launches,
             "fixed_point_scan": fp.fixed_point_scan.runs,
             "minplus": mp.minplus_closure_cuda.launches,
@@ -118,7 +120,9 @@ def kernel_counts() -> dict:
             "coo_apsp_bf16": mp.apsp_coo_cuda.launches_bf16,
             "chebconv_bf16": cc.chebconv_propagate_cuda.launches_bf16,
             "chebconv_bf16_t": cc.chebconv_propagate_cuda.launches_bf16_t,
-            "blocked_fw_bf16": mp.blocked_fw_cuda.launches_bf16}
+            "blocked_fw_bf16": mp.blocked_fw_cuda.launches_bf16,
+            "squarings": mp.squarings_executed(torch.float32),
+            "squarings_bf16": mp.squarings_executed(torch.bfloat16)}
 
 
 def reset_kernel_counts() -> None:
@@ -134,6 +138,7 @@ def reset_kernel_counts() -> None:
     cc.chebconv_propagate_cuda.launches_bf16 = 0
     cc.chebconv_propagate_cuda.launches_bf16_t = 0
     mp.blocked_fw_cuda.launches_bf16 = 0
+    mp.reset_squarings()
 
 
 def _timed(dev, fn, counts: dict | None = None, name: str = ""):

@@ -25,7 +25,10 @@ Two entry points:
     local CUDA devices.
 
 Two local CPU processes form a real group on localhost: `free_port` and
-`worker_env` build the child environment.
+`worker_env` build the child environment.  `exchange` gathers one Python
+object from every process (`mho-mesh`'s fleet sizes), and `shutdown`
+leaves the group within a time limit, so a process whose peer was killed
+does not wait on it.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import dataclasses
 import datetime
 import os
 import socket
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -236,6 +240,33 @@ def bootstrap(
                      device_counts=_exchange_device_counts())
     obs_events.emit("mesh_bootstrap", **rt.describe(), attempts=attempt)
     return rt
+
+
+def exchange(obj) -> list:
+    """Every process's `obj`, in process order (one `all_gather_object`
+    over the group, bounded by the group's timeout); `[obj]` outside a
+    group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return [obj]
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def shutdown(timeout_s: float = 10.0) -> bool:
+    """Leave the group without waiting on a dead peer: `destroy_process_group`
+    runs in a daemon thread joined for at most `timeout_s`.  Returns
+    whether it finished (a no-op outside a group)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return True
+    done = threading.Event()
+
+    def _destroy():
+        dist.destroy_process_group()
+        done.set()
+
+    threading.Thread(target=_destroy, name="mho-mesh-shutdown", daemon=True).start()
+    return done.wait(timeout_s)
 
 
 def _spec_from_env() -> Tuple[str, int, int]:

@@ -5,8 +5,8 @@ port keeps its own copy).  Every method holds the registry lock, so the
 serving tick and a main thread may share it.  Snapshots are plain nested
 dicts; `prometheus_text()` renders the standard text exposition.
 `Histogram.observe_bucketed` takes the device-metric flush
-(`obs/devmetrics.py`).  Not ported: `le_total`, whose caller (the SLO
-engine) is not ported yet.
+(`obs/devmetrics.py`) and the federation's merge (`multihost/
+federation.py`); `Histogram.le_total` feeds the SLO engine (`obs/slo.py`).
 """
 
 from __future__ import annotations
@@ -269,6 +269,20 @@ class Histogram(_Metric):
                 for i, c in enumerate(s.bucket_counts):
                     merged[i] += c
         return merged
+
+    def le_total(self, le: float, **labels) -> Tuple[int, int]:
+        """(observations <= le, total observations) across every label set,
+        or the subset matching `labels` (per-shard SLO burn rates): the
+        good/total pair the SLO engine samples.  `le` snaps down to the
+        nearest bucket boundary (an observation that might exceed the
+        objective never counts as good)."""
+        merged = self._merged_counts(labels)
+        good = 0
+        for b, c in zip(self.buckets, merged):
+            if b > float(le):
+                break
+            good += c
+        return good, sum(merged)
 
     def quantile(self, q: float) -> Optional[float]:
         """Histogram-interpolated quantile over all label sets (linear

@@ -17,8 +17,9 @@ every squaring after a matrix's fixed point exit at once (see the source
 note).  The result is identical to the full schedule, as the JAX
 `apsp_minplus` early stop is.  `minplus_closure_cuda.launches` counts
 kernel launches (one per squaring of the schedule);
-`minplus_closure_cuda.executed` is a device counter of the matrix
-squarings that actually ran; `squarings_run_plain` counts the same
+`minplus_closure_cuda.executed` holds a device counter of the matrix
+squarings that actually ran on each card (keyed by its `torch.device`), and
+`squarings_executed` sums them; `squarings_run_plain` counts the same
 squarings with plain PyTorch.
 
 `minplus_closure` dispatches on the device: plain PyTorch for CPU tensors,
@@ -182,10 +183,11 @@ def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
         raise ValueError(f"batch {b} exceeds the kernel grid's z limit 65535")
     sfx = _SUFFIX[first.dtype]
     fn = _build.kernel("minplus" + sfx)
-    counter = getattr(minplus_closure_cuda, "executed" + sfx)
-    if counter is None or counter.device != first.device:
-        counter = torch.zeros((), dtype=torch.int64, device=first.device)
-        setattr(minplus_closure_cuda, "executed" + sfx, counter)
+    counters = getattr(minplus_closure_cuda, "executed" + sfx)
+    counter = counters.get(first.device)
+    if counter is None:
+        counter = counters[first.device] = torch.zeros((), dtype=torch.int64,
+                                                       device=first.device)
     flags = torch.zeros((iters, b), dtype=torch.int32, device=first.device)
     bufs = (first, torch.empty_like(first))
     with torch.cuda.device(first.device):
@@ -203,9 +205,25 @@ def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 minplus_closure_cuda.launches = 0
-minplus_closure_cuda.executed = None  # int64 device tensor, made at first use
+# one int64 counter per card K2 ran on, keyed by its `torch.device`, made
+# at the card's first launch
+minplus_closure_cuda.executed = {}
 minplus_closure_cuda.launches_bf16 = 0
-minplus_closure_cuda.executed_bf16 = None
+minplus_closure_cuda.executed_bf16 = {}
+
+
+def squarings_executed(dtype: torch.dtype = torch.float32) -> int:
+    """K2's squarings that actually ran in `dtype` (float32 or bfloat16),
+    summed over every card's counter (reading them waits for each card)."""
+    counters = getattr(minplus_closure_cuda, "executed" + _SUFFIX[dtype])
+    return sum(int(c) for c in counters.values())
+
+
+def reset_squarings() -> None:
+    """Set every card's squaring counters to 0."""
+    for counters in (minplus_closure_cuda.executed, minplus_closure_cuda.executed_bf16):
+        for c in counters.values():
+            c.zero_()
 
 PLAN_FIELDS = ("tile_rows", "tile_cols", "threads", "k_groups", "slice", "stages",
                "smem_bytes", "blocks", "copy_bytes", "tensor_copies")

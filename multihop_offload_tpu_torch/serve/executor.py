@@ -72,6 +72,23 @@ def observe_decisions(out, mask: torch.Tensor) -> torch.Tensor:
                         (nonfinite & mask).sum()])
 
 
+def pack_outputs(out) -> torch.Tensor:
+    """The four decision outputs (dst, is_local, delay_est, job_total), each
+    (width, J), flattened into one float64 buffer on their device."""
+    return torch.cat([t.reshape(-1).double() for t in out])
+
+
+def unpack_outputs(flat: np.ndarray, width: int, out_dtype: torch.dtype) -> tuple:
+    """`pack_outputs`' buffer back on the host: numpy (dst int32, is_local
+    bool, delay_est, job_total), each (width, J); the floats at float32 when
+    the pass ran in float32, else float64."""
+    j = flat.shape[0] // (4 * width)
+    parts = flat.reshape(4, width, j)
+    ftype = np.float32 if out_dtype == torch.float32 else np.float64
+    return (parts[0].astype(np.int32), parts[1].astype(bool),
+            parts[2].astype(ftype), parts[3].astype(ftype))
+
+
 def param_signature(state: dict) -> list:
     """Structural signature of a state dict: (name, shape, dtype) per leaf.
     Two state dicts with equal signatures can be swapped in place."""
@@ -119,10 +136,14 @@ class BucketExecutor:
         # host seconds spent inside dispatch (enqueue) and fetch (wait)
         self.host_s = {"dispatch": 0.0, "fetch": 0.0}
 
-    def gnn_step(self, binst, bjobs, gens=None):
-        outcome, _ = forward_env(self.model, binst, bjobs, gens, prob=self.prob,
-                                 device=self.device, layout=self.layout,
-                                 precision=self.precision, apsp_impl=self.apsp_impl)
+    def gnn_step(self, binst, bjobs, gens=None, model=None, device=None):
+        """The GNN decision pass; `model` and `device` default to the
+        executor's (the sharded executor passes a shard's replica)."""
+        outcome, _ = forward_env(self.model if model is None else model, binst, bjobs,
+                                 gens, prob=self.prob,
+                                 device=self.device if device is None else device,
+                                 layout=self.layout, precision=self.precision,
+                                 apsp_impl=self.apsp_impl)
         d = outcome.decision
         return d.dst, d.is_local, d.delay_est, outcome.job_total
 
@@ -145,10 +166,7 @@ class BucketExecutor:
         out = (self.baseline_step(binst, bjobs) if degraded
                else self.gnn_step(binst, bjobs, gens))
         counts = observe_decisions(out, bjobs.mask)
-        dst, is_local, delay_est, job_total = out
-        buf = torch.cat([dst.reshape(-1).double(), is_local.reshape(-1).double(),
-                         delay_est.reshape(-1).double(), job_total.reshape(-1).double(),
-                         counts.double()])
+        buf = torch.cat([pack_outputs(out), counts.double()])
         if buf.device.type == "cuda":
             host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
             host.copy_(buf, non_blocking=True)
@@ -168,7 +186,7 @@ class BucketExecutor:
             )
         self.host_s["dispatch"] += time.perf_counter() - t0
         return DispatchHandle(bucket=bucket, width=w, host=host, event=event,
-                              device_buf=buf, out_dtype=delay_est.dtype)
+                              device_buf=buf, out_dtype=out[2].dtype)
 
     def fetch(self, handle: DispatchHandle):
         """Resolve one dispatch: host numpy (dst, is_local, delay_est,
@@ -177,24 +195,25 @@ class BucketExecutor:
         if handle.event is not None:
             handle.event.synchronize()
         flat = handle.host.numpy()
-        w = handle.width
-        j = (flat.shape[0] - len(_DM_KEYS)) // (4 * w)
-        parts = flat[:-len(_DM_KEYS)].reshape(4, w, j)
-        ftype = np.float32 if handle.out_dtype == torch.float32 else np.float64
-        out = (parts[0].astype(np.int32), parts[1].astype(bool),
-               parts[2].astype(ftype), parts[3].astype(ftype))
-        counts = [int(c) for c in flat[-len(_DM_KEYS):]]
+        out = unpack_outputs(flat[:-len(_DM_KEYS)], handle.width, handle.out_dtype)
+        self.record_decisions(flat[-len(_DM_KEYS):], bucket=str(handle.bucket))
+        self.host_s["fetch"] += time.perf_counter() - t0
+        return out
+
+    def record_decisions(self, counts, **labels) -> None:
+        """One dispatch's device-counted decisions (`observe_decisions`'s
+        three counts) into `last_devmetrics` and the registry, with
+        `labels` (the bucket; the sharded executor adds its placement)."""
+        counts = [int(c) for c in counts]
         self.last_devmetrics = dict(zip(_DM_KEYS, counts))
         reg = obs_registry()
         for decision, c in (("local", counts[0]), ("offload", counts[1])):
             reg.counter("mho_dev_serve_decisions_total",
                         "offloading decisions, counted on the device per dispatch"
-                        ).inc(c, decision=decision, bucket=str(handle.bucket))
+                        ).inc(c, decision=decision, **labels)
         reg.counter(DM_SERVE_NONFINITE,
                     "live decision outputs that were NaN/Inf, counted on the device"
-                    ).inc(counts[2], bucket=str(handle.bucket))
-        self.host_s["fetch"] += time.perf_counter() - t0
-        return out
+                    ).inc(counts[2], **labels)
 
     @torch.no_grad()
     def load_params(self, state: dict, step: Optional[int] = None,

@@ -3,10 +3,10 @@
 Port of `multihop_offload_tpu/serve/metrics.py`: the counters and samples
 an `OffloadService` accumulates, reduced by `summary()` to the operator's
 numbers (requests/s, p50/p99 latency, per-bucket occupancy, padding waste,
-dispatches per request).  Every mutation also mirrors into the process-wide
+dispatches per request, and under the sharded executor the per-shard
+`shards` block).  Every mutation also mirrors into the process-wide
 `obs.registry` under `mho_serve_*`.  Not ported: `log_tb` (TensorBoard is
-not installed beside the card) and the per-shard block of the sharded
-executor.
+not installed beside the card).
 """
 
 from __future__ import annotations
@@ -52,6 +52,8 @@ class ServingStats:
     ticks: int = 0
     latencies_s: List[float] = dataclasses.field(default_factory=list)
     buckets: Dict[int, _BucketStats] = dataclasses.field(default_factory=dict)
+    # per-shard (fleet index) served counts, sharded executor only
+    shard_served: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def bucket(self, b: int) -> _BucketStats:
         return self.buckets.setdefault(b, _BucketStats())
@@ -119,9 +121,13 @@ class ServingStats:
         ).inc(bucket=str(b), direction="widen" if new > old else "narrow")
 
     def record_batch(self, n_real: int, decisions: int, degraded: bool,
-                     latencies_s: List[float]) -> None:
+                     latencies_s: List[float],
+                     shards: Optional[List[str]] = None) -> None:
         """One served batch's responses: counts plus per-request queue+serve
-        latencies (mirrored into `mho_serve_latency_seconds`)."""
+        latencies (mirrored into `mho_serve_latency_seconds`).  `shards[i]`
+        (sharded executor: the fleet index that computed slot i) labels each
+        latency observation, so the per-shard SLO burn rates
+        (`obs.slo.sharded_serving_slos`) see only their own device's tail."""
         self.served += n_real
         self.degraded += n_real if degraded else 0
         self.decisions += decisions
@@ -140,8 +146,13 @@ class ServingStats:
             "mho_serve_latency_seconds", "request queue+serve latency",
             buckets=LATENCY_BUCKETS,
         )
-        for x in latencies_s:
-            lat.observe(x)
+        if shards:
+            for x, s in zip(latencies_s, shards):
+                lat.observe(x, shard=s)
+                self.shard_served[s] = self.shard_served.get(s, 0) + 1
+        else:
+            for x in latencies_s:
+                lat.observe(x)
 
     @property
     def dispatches(self) -> int:
@@ -189,6 +200,14 @@ class ServingStats:
             buckets_block[str(b)] = entry
         if buckets_block:
             out["buckets"] = buckets_block
+        if self.shard_served:
+            shards_block = {}
+            for dev, n in sorted(self.shard_served.items()):
+                entry = {"served": n}
+                if wall_s > 0:
+                    entry["served_per_sec"] = round(n / wall_s, 2)
+                shards_block[dev] = entry
+            out["shards"] = shards_block
         if wall_s > 0:
             out["wall_s"] = round(wall_s, 3)
             out["requests_per_sec"] = round(self.served / wall_s, 2)

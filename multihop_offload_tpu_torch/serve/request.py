@@ -62,3 +62,4 @@ class OffloadResponse:
     served_by: str           # "gnn" | "baseline" (degraded path)
     bucket: int              # bucket index that served the request
     latency_s: float         # admission -> response wall seconds
+    shard: str = ""          # fleet index that computed the slot (sharded only)

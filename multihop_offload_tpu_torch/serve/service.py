@@ -24,18 +24,27 @@ slot, its bucket's occupancy or the tick it rides, the property JAX's
 `fold_in(PRNGKey(seed), request_id)` keys give (the bits differ: torch
 generators are not threefry).  `hot_reload` (JAX `:642-663`) swaps in the
 newest verified checkpoint of the port's ``torch/`` directory between
-ticks (`executor.hot_reload`), retrying transient I/O with backoff.  Not
-ported, each refused with an error where asked for: the sharded executor
-and its placement planner (`mesh_devices`) and experience capture
-(`capture_sample > 0`).  The bf16 precision policy runs (`precision`, JAX `:107-155`):
+ticks (`executor.hot_reload`), retrying transient I/O with backoff.
+
+`mesh_devices` selects the sharded tick (JAX `:119-150`, `:288-345`): each
+bucket's batch is laid over a subset of that fleet
+(`serve.sharded.ShardedBucketExecutor`), chosen by the placement planner
+(`serve.placement`) from the per-bucket admitted arrivals and re-planned
+every `replan_every` ticks, between ticks only (`_between_ticks`).  The
+planner works on fleet indices; `lose_device(i)` and `restore_device(i)`
+take one, and a stuck device (the watchdog's per-device verdict) degrades
+only the buckets placed on it.  The occupancy ladder is for the
+one-device executor only, as in JAX.  `attach_health` wires an SLO engine
+(`obs.slo`, observed once per tick on the service clock) and a flight
+recorder (one row per tick).  Not ported, refused with an error where
+asked for: experience capture (`capture_sample > 0`).  The bf16 precision
+policy runs (`precision`, JAX `:107-155`):
 requests are packed at its storage dtype, so the batch crosses to the card
 as bf16 bytes, and each dispatch squares in bf16 (K2 or K6 in bf16); the
 model must carry the policy's dtypes (`cli/serve.py:build_service` builds
 it so).  Each dispatch's APSP takes the route of `apsp_impl` (JAX `:90`,
 `ops.minplus.resolve_apsp`): `'xla'`, the default, squares at every N;
-`'pallas'` and `'auto'` take K3 above a padded N of 256.  The health wiring
-(`attach_health`: the SLO engine and a per-tick flight-recorder row) waits
-for `obs/slo.py`; the watchdog's flight recorder is wired.
+`'pallas'` and `'auto'` take K3 above a padded N of 256.
 """
 
 from __future__ import annotations
@@ -89,14 +98,18 @@ class _TickBatch:
     pad: object
     width: int
     t_start: float
-    handle: DispatchHandle
+    placed: tuple                           # fleet indices (sharded only)
+    handle: Optional[DispatchHandle] = None  # the one-device executor's
+    out: Optional[tuple] = None             # host arrays (sharded path)
 
 
 class OffloadService:
-    """Single-device serving loop over a `BucketExecutor`.
+    """Serving loop over a `BucketExecutor`, or over a
+    `ShardedBucketExecutor` when `mesh_devices` names a fleet.
 
     `clock` is injectable (tests drive deterministic time); `device` is
-    where the decision passes run (default CUDA)."""
+    where the decision passes run (default CUDA; with `mesh_devices`, the
+    fleet's first member)."""
 
     def __init__(
         self,
@@ -115,6 +128,8 @@ class OffloadService:
         capture_sample: float = 0.0,
         trace: bool = True,
         mesh_devices: Optional[List] = None,
+        replan_every: int = 16,
+        placement_hysteresis: float = 0.2,
         ragged: bool = False,
         overlap: bool = False,
         ladder_alpha: float = 0.5,
@@ -123,20 +138,38 @@ class OffloadService:
     ):
         if slots < 1 or queue_cap < 1:
             raise ValueError("slots and queue_cap must be >= 1")
-        if mesh_devices:
-            raise NotImplementedError(
-                "sharded serving (mesh_devices: serve/placement.py, serve/sharded.py) "
-                "is not ported yet; the port serves on one device")
         if capture_sample > 0.0:
             raise NotImplementedError(
                 "experience capture (capture_sample > 0, loop/) is not ported yet")
         self.layout = resolve_layout(layout)
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh_devices[0] if mesh_devices else device)
         # `dtype` is the base dtype, `precision` the policy over it
         self.precision = resolve_precision(precision, dtype, self.device)
-        self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
-                                       precision=self.precision, apsp_impl=apsp_impl,
-                                       prob=prob)
+        # `mesh_devices` selects the sharded tick: each bucket's batch is laid
+        # over a subset of the fleet, chosen by the placement planner from
+        # the per-bucket admitted arrivals, re-planned every `replan_every`
+        # ticks, between ticks only
+        self.planner = None
+        if mesh_devices:
+            from multihop_offload_tpu_torch.serve.placement import PlacementPlanner
+            from multihop_offload_tpu_torch.serve.sharded import ShardedBucketExecutor
+
+            self.executor = ShardedBucketExecutor(
+                model, buckets, devices=mesh_devices, slots=slots, layout=self.layout,
+                precision=self.precision, apsp_impl=apsp_impl, prob=prob)
+            self.planner = PlacementPlanner(
+                len(buckets.pads), range(len(self.executor.fleet)), slots,
+                hysteresis=placement_hysteresis)
+            self.executor.set_placement(self.planner.plan)
+        else:
+            self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
+                                           precision=self.precision, apsp_impl=apsp_impl,
+                                           prob=prob)
+        self.replan_every = max(1, int(replan_every))
+        # per-bucket admitted arrivals in the current planning window (the
+        # planner's rate signal) and per-device stuck-until deadlines
+        self._arrivals: List[int] = [0] * len(buckets.pads)
+        self._stuck_devices: dict = {}
         self.seed = int(seed)
         self.buckets = buckets
         self.slots = slots
@@ -147,6 +180,10 @@ class OffloadService:
         # request-scoped tracing (obs.trace): batched hop events through the
         # active run log; with no log installed it costs one check
         self.trace = bool(trace)
+        # health hook (attach_health): an SLO engine observed once per tick
+        # and a flight recorder fed one row per tick
+        self.slo = None
+        self.recorder = None
         # tick watchdog (attach_watchdog): a "stuck" verdict forces the bucket
         # onto the greedy baseline until `_degraded_until` passes
         self.watchdog = None
@@ -158,7 +195,9 @@ class OffloadService:
         self._hop_cache: dict = {}
         self.overlap = bool(overlap)
         self.ladder: Optional[OccupancyLadder] = None
-        if ragged:
+        # the ladder is the one-device executor's (a placement spreads the
+        # sharded executor's batch already)
+        if ragged and self.planner is None:
             self.ladder = OccupancyLadder(
                 len(buckets.pads), slots,
                 alpha=ladder_alpha, hysteresis=ladder_hysteresis,
@@ -210,6 +249,7 @@ class OffloadService:
         self._queues[b].append((req, self.clock() if now is None else now))
         self.stats.record_submit("admitted", bucket=b)
         self.last_submit_outcome = "admitted"
+        self._arrivals[b] += 1
         obs_registry().gauge(
             "mho_serve_queue_depth", "pending admitted requests"
         ).set(self.queue_depth)
@@ -218,25 +258,89 @@ class OffloadService:
                           queue_depth=self.queue_depth)
         return True
 
-    def request_generator(self, request_id: int) -> torch.Generator:
-        """The draws of one request's sampled decision: a generator on the
-        service's device seeded from (seed, request_id) alone, through a
-        splitmix64 mix (the CPU generator keeps only a seed's low 32 bits)."""
+    def request_generator(self, request_id: int, device=None) -> torch.Generator:
+        """The draws of one request's sampled decision: a generator on
+        `device` (default the service's) seeded from (seed, request_id)
+        alone, through a splitmix64 mix (the CPU generator keeps only a
+        seed's low 32 bits)."""
         z = (self.seed * 0x9E3779B97F4A7C15 + int(request_id) + 1) & _MASK64
         z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
         z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-        g = torch.Generator(device=self.device)
+        g = torch.Generator(device=self.device if device is None else device)
         g.manual_seed((z ^ (z >> 31)) >> 1)
         return g
 
     def _tracing(self) -> bool:
         return self.trace and obs_events.get_run_log() is not None
 
+    def attach_health(self, slo=None, recorder=None) -> None:
+        """Wire the health subsystem into the tick: `slo` (an
+        `obs.slo.SLOEngine`) is observed once per tick on the service
+        clock; `recorder` (an `obs.flightrec.FlightRecorder`) receives one
+        row per tick.  Either may be None."""
+        self.slo = slo
+        self.recorder = recorder
+
     def attach_watchdog(self, watchdog) -> None:
         """Wire a `serve.watchdog.TickWatchdog`: each bucket dispatch is
-        timed on the service clock; a stuck verdict degrades that bucket to
-        the baseline until the watchdog's recovery window passes."""
+        timed on the service clock; a stuck verdict degrades that bucket
+        (sharded: the buckets on its devices) to the baseline until the
+        watchdog's recovery window passes."""
         self.watchdog = watchdog
+
+    # ---- sharded placement / per-device health -----------------------------
+
+    def _between_ticks(self, now: Optional[float]) -> None:
+        """Sharded housekeeping, run before any dispatch of the tick: expire
+        per-device stuck windows, and every `replan_every` ticks feed the
+        arrival window to the planner and adopt its plan.  Placement
+        therefore only changes between dispatches."""
+        t_now = self.clock() if now is None else now
+        for d, until in list(self._stuck_devices.items()):
+            if t_now >= until:
+                del self._stuck_devices[d]
+                obs_registry().counter(
+                    "mho_watchdog_device_recoveries_total",
+                    "devices restored after a stuck window",
+                ).inc(device=str(d))
+                obs_events.emit("watchdog_device_recovered", device=str(d))
+        if self.stats.ticks % self.replan_every == 0:
+            self.planner.observe(self._arrivals)
+            self._arrivals = [0] * len(self._queues)
+            plan = self.planner.replan()
+            if plan.assignments != self.executor.plan.assignments:
+                self.executor.set_placement(plan)
+
+    def _devices_stuck(self, devices, t_now: float) -> bool:
+        return any(self._stuck_devices.get(d, -float("inf")) > t_now
+                   for d in devices)
+
+    def lose_device(self, device: int) -> None:
+        """Drop fleet member `device` (an index) from the serving fleet
+        (chaos drill or operator action).  Forces an immediate re-plan onto
+        the survivors; the next tick's dispatches leave it out."""
+        if self.planner is None:
+            raise RuntimeError("lose_device requires a sharded service "
+                               "(mesh_devices)")
+        self.planner.remove_device(device)
+        self.executor.set_placement(self.planner.plan)
+        self._stuck_devices.pop(device, None)
+        obs_registry().counter(
+            "mho_serve_devices_lost_total", "devices dropped from the fleet"
+        ).inc(device=str(device))
+        obs_events.emit("device_lost", device=str(device),
+                        fleet=len(self.planner.devices))
+
+    def restore_device(self, device: int) -> None:
+        """Return a lost fleet member to the fleet; the planner may adopt it
+        at the next forced or rate-driven re-plan."""
+        if self.planner is None:
+            raise RuntimeError("restore_device requires a sharded service "
+                               "(mesh_devices)")
+        self.planner.add_device(device)
+        self.executor.set_placement(self.planner.plan)
+        obs_events.emit("device_restored", device=str(device),
+                        fleet=len(self.planner.devices))
 
     def _sparse_fit(self, req: OffloadRequest, b: int) -> Optional[int]:
         """The first bucket from `b` up whose static nnz pads also hold this
@@ -270,7 +374,11 @@ class OffloadService:
                 "buckets restored to the GNN program",
             ).inc(bucket=b)
             obs_events.emit("watchdog_recovered", bucket=b)
-        degraded = (t_now - q[0][1]) > self.deadline_s or held is not None
+        placed = self.executor.devices_for(b) if self.planner is not None else ()
+        # a stuck device degrades only the buckets placed on it
+        dev_stuck = bool(placed) and self._devices_stuck(placed, t_now)
+        degraded = ((t_now - q[0][1]) > self.deadline_s
+                    or held is not None or dev_stuck)
         width = self.slots
         if self.ladder is not None:
             width = self.ladder.select(b, len(q))
@@ -299,27 +407,52 @@ class OffloadService:
         gens = None
         if self.executor.prob and not degraded:
             rids = [r.request_id for r in reqs]
-            gens = [self.request_generator(rid)
-                    for rid in rids + [rids[-1]] * (width - len(rids))]
+            rids += [rids[-1]] * (width - len(rids))
+            # each slot's generator lives on the device its shard runs on
+            gens = [self.request_generator(
+                        rid, None if self.planner is None
+                        else self.executor.fleet[self.executor.shard_of_slot(b, i)])
+                    for i, rid in enumerate(rids)]
+        if self.planner is not None:
+            # the sharded executor gathers its shards' outputs itself:
+            # phase B only demuxes
+            out = self.executor.run(b, binst, bjobs, degraded=degraded,
+                                    request_ids=ids, gens=gens)
+            return _TickBatch(b, taken, reqs, ids, degraded, pad, width, t_now,
+                              placed, out=out)
         handle = self.executor.dispatch(
             b, binst, bjobs, degraded=degraded, request_ids=ids, width=width, gens=gens,
         )
-        return _TickBatch(b, taken, reqs, ids, degraded, pad, width, t_now, handle)
+        return _TickBatch(b, taken, reqs, ids, degraded, pad, width, t_now, placed,
+                          handle=handle)
 
     def _settle_batch(self, batch: _TickBatch,
                       now: Optional[float]) -> List[OffloadResponse]:
         """Phase B for one dispatched batch: the device-to-host fetch,
         watchdog verdict, demux, and accounting."""
         b = batch.bucket
-        out = self.executor.fetch(batch.handle)
+        out = batch.out if batch.handle is None else self.executor.fetch(batch.handle)
         t_done = self.clock() if now is None else now
         if self.watchdog is not None:
             # clamp at zero: backward clock skew must not trip it
-            verdict = self.watchdog.observe(b, max(t_done - batch.t_start, 0.0))
+            verdict = self.watchdog.observe(b, max(t_done - batch.t_start, 0.0),
+                                            now=t_done, devices=batch.placed or None)
             if verdict == "stuck" and self.watchdog.recovery_s > 0:
-                self._degraded_until[b] = t_done + self.watchdog.recovery_s
+                until = t_done + self.watchdog.recovery_s
+                if batch.placed:
+                    # per shard: the stuck window pins the devices this
+                    # bucket ran on; buckets on other devices keep the GNN
+                    for d in batch.placed:
+                        self._stuck_devices[d] = until
+                else:
+                    self._degraded_until[b] = until
+        shards = None
+        if batch.placed:
+            shards = [str(self.executor.shard_of_slot(b, i))
+                      for i in range(len(batch.taken))]
         batch_responses = demux_responses(
             batch.taken, out, "baseline" if batch.degraded else "gnn", b, t_done,
+            shards=shards,
         )
         if batch.ids is not None:
             obs_trace.hop(
@@ -336,6 +469,7 @@ class OffloadService:
             len(batch.reqs), sum(r.num_jobs for r in batch.reqs),
             batch.degraded,
             [max(t_done - t_enq, 0.0) for _, t_enq in batch.taken],
+            shards=shards,
         )
         self._check_nonfinite(b, batch.ids or [r.request_id for r in batch.reqs])
         return batch_responses
@@ -347,6 +481,8 @@ class OffloadService:
         any.  With `overlap=True` this tick settles the PREVIOUS tick's
         dispatches after issuing its own, and returns their responses."""
         self.stats.ticks += 1
+        if self.planner is not None:
+            self._between_ticks(now)
         responses: List[OffloadResponse] = []
         degraded_batches = 0
         with span("serve/tick"):
@@ -374,6 +510,15 @@ class OffloadService:
                 "tick", n=self.stats.ticks, served=len(responses),
                 degraded_batches=degraded_batches, queue_depth=depth,
             )
+        if self.recorder is not None:
+            lat = [r.latency_s for r in responses]
+            self.recorder.record(
+                "tick", tick=self.stats.ticks, served=len(responses),
+                degraded_batches=degraded_batches, queue_depth=depth,
+                latency_max_s=round(max(lat), 6) if lat else 0.0,
+            )
+        if self.slo is not None:
+            self.slo.observe(self.clock() if now is None else now)
         return responses
 
     def _check_nonfinite(self, bucket: int, request_ids: List[int]) -> None:
@@ -391,6 +536,12 @@ class OffloadService:
             "nonfinite_detected", surface="serve", bucket=bucket,
             count=int(hits), request_ids=request_ids,
         )
+        if self.recorder is not None:
+            self.recorder.record(
+                "nonfinite", surface="serve", bucket=bucket,
+                count=int(hits), request_ids=request_ids,
+                tick=self.stats.ticks,
+            )
 
     def drain(self, max_ticks: int = 1000) -> List[OffloadResponse]:
         """Tick until every admitted request is answered (bounded), the
@@ -430,9 +581,12 @@ def demux_responses(
     served_by: str,
     bucket: int,
     t_done: float,
+    shards: Optional[List[str]] = None,
 ) -> List[OffloadResponse]:
     """Slice each real slot's padded decision arrays down to the request's
-    true job count; pad slots and pad jobs never reach a client."""
+    true job count; pad slots and pad jobs never reach a client.  Under the
+    sharded executor `shards[i]` names the fleet index that computed slot
+    i's decision."""
     dst, is_local, delay_est, job_total = out
     responses = []
     for i, (req, t_enq) in enumerate(taken):
@@ -446,5 +600,6 @@ def demux_responses(
             served_by=served_by,
             bucket=bucket,
             latency_s=max(t_done - t_enq, 0.0),
+            shard=shards[i] if shards else "",
         ))
     return responses

@@ -39,8 +39,7 @@ def _weights(rng, b, n, p):
 
 
 def _executed():
-    ex = tmp.minplus_closure_cuda.executed
-    return 0 if ex is None else int(ex)
+    return tmp.squarings_executed(torch.float32)
 
 
 # (16, 56) and (64, 112): the service's small bucket and the paper batch;
@@ -98,6 +97,25 @@ def test_minplus_kernel_executed_equals_plain_count(cuda, b, n):
     torch.cuda.synchronize()
     assert _executed() - counter0 == tmp.squarings_run_plain(d, iters)
     assert torch.equal(out, tmp.minplus_closure_plain(d, iters))
+
+
+def test_minplus_squarings_counted_on_every_card(cuda):
+    """K2 on two cards in turn, back and forth: each card keeps its own
+    counter, and the squarings summed over them equal the plain count of
+    every call (a counter kept for one card only would count the last)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    counter0, want = _executed(), 0
+    for i, (b, n) in enumerate([(16, 56), (64, 112), (16, 56), (5, 37)]):
+        w = _weights(np.random.default_rng(100 + i), b, n, 3.0 / n)
+        d = torch.where(torch.eye(n, dtype=torch.bool), 0.0, w)
+        iters = tmp.squaring_count(n)
+        out = tmp.minplus_closure_cuda(d.to(cards[i % 2]), iters)
+        assert torch.equal(out.cpu(), tmp.minplus_closure_plain(d, iters))
+        want += tmp.squarings_run_plain(d, iters)
+    assert set(cards) <= set(tmp.minplus_closure_cuda.executed)
+    assert _executed() - counter0 == want
 
 
 @pytest.mark.parametrize("b,n", [(64, 112), (4, 256), (16, 56), (16, 112), (1, 1024),
@@ -676,6 +694,7 @@ def test_service_card_matches_cpu(cuda):
     from multihop_offload_tpu_torch.cli.serve import build_service
     from multihop_offload_tpu_torch.config import Config
     from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.serve.placement import PlacementPlan
     from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
 
     cfg = Config(serve_slots=4, serve_queue_cap=64, serve_deadline_s=60.0,
@@ -837,8 +856,7 @@ def test_minplus_bf16_kernel_bit_identical(cuda, b, n):
     d = _bf16_weights(b, n)
     iters = tmp.squaring_count(n)
     launches = (tmp.minplus_closure_cuda.launches_bf16, tmp.minplus_closure_cuda.launches)
-    ex = tmp.minplus_closure_cuda.executed_bf16
-    ex0 = 0 if ex is None else int(ex)
+    ex0 = tmp.squarings_executed(torch.bfloat16)
     got = tmp.minplus_closure(d.to(cuda), iters)
     torch.cuda.synchronize()
     assert (tmp.minplus_closure_cuda.launches_bf16 - launches[0],
@@ -846,7 +864,7 @@ def test_minplus_bf16_kernel_bit_identical(cuda, b, n):
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.cpu(), tmp.minplus_closure_plain(d, iters))
     assert torch.equal(got, tmp.minplus_closure_plain(d.to(cuda), iters))
-    ran = int(tmp.minplus_closure_cuda.executed_bf16) - ex0
+    ran = tmp.squarings_executed(torch.bfloat16) - ex0
     assert ran == tmp.squarings_run_plain(d, iters)
 
 
@@ -1227,3 +1245,60 @@ def test_gpu_evaluator_on_regenerated_dataset(cuda, tmp_path):
             {k: v for k, v in b.items() if k not in floats + ("runtime",)}
         np.testing.assert_allclose([float(a[k]) for k in floats],
                                    [float(b[k]) for k in floats], rtol=1e-6)
+
+
+def test_serve_devices_two_ids_on_one_card_raise(cuda):
+    """`serve_devices = "0,1"` on a machine with one card raises JAX's
+    "not present" error instead of falling back; `serve_mesh = 2` likewise
+    (two shards on one card take `devices=[cuda:0] * 2`)."""
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.serve.workload import case_pool
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs exactly one CUDA card")
+    pool = case_pool([10, 16], per_size=1, seed=0)
+    with pytest.raises(ValueError, match=r"serve_devices \[1\] not present"):
+        build_service(Config(serve_devices="0,1"), pool=pool)
+    with pytest.raises(ValueError, match="CUDA devices present"):
+        build_service(Config(serve_mesh=2), pool=pool)
+
+
+def test_sharded_service_on_the_card_decides_as_one_device(cuda):
+    """The service over `[cuda:0] * 2` against the one-device service on
+    the card: every request answered once, identical decisions, floats
+    within 1e-4, K1 and K2 launched twice as often (once per shard), the
+    same squarings."""
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.serve.placement import PlacementPlan
+    from multihop_offload_tpu_torch.serve.workload import case_pool, request_stream
+
+    cfg = Config(serve_slots=4, serve_queue_cap=64, serve_deadline_s=60.0,
+                 serve_model="SCRATCH800_decay0.99", serve_replan_ticks=10**9)
+    pool = case_pool([20, 50], per_size=2, seed=0)
+    reqs = list(request_stream(pool, 12, seed=1))
+    out, counts = {}, {}
+    for tag, kw in (("one", {"device": cuda}), ("sharded", {"devices": [cuda] * 2})):
+        svc, _ = build_service(cfg, pool=pool, **kw)
+        if tag == "sharded":  # both buckets over both fleet members
+            svc.executor.set_placement(PlacementPlan(((0, 1),) * len(svc.buckets)))
+        reset_kernel_counts()
+        for r in reqs:
+            assert svc.submit(r)
+        res = svc.drain()
+        torch.cuda.synchronize()
+        counts[tag] = kernel_counts()
+        out[tag] = {r.request_id: r for r in res}
+        assert sorted(out[tag]) == list(range(12))
+    assert svc.executor.last_devices_used == 2
+    for k in ("fixed_point", "minplus"):
+        assert counts["sharded"][k] == 2 * counts["one"][k] > 0
+    assert counts["sharded"]["squarings"] == counts["one"]["squarings"] > 0
+    for rid, a in out["sharded"].items():
+        b = out["one"][rid]
+        np.testing.assert_array_equal(a.dst, b.dst)
+        np.testing.assert_array_equal(a.is_local, b.is_local)
+        assert (a.served_by, a.bucket) == (b.served_by, b.bucket) and a.shard in ("0", "1")
+        np.testing.assert_allclose(a.job_total, b.job_total, rtol=1e-4)

@@ -208,7 +208,11 @@ def test_port_imports_no_jax_side():
                    "train/analysis.py", "utils/visualization.py", "cli/plot.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
                    "parallel/ring.py", "parallel/partition.py", "parallel/data_parallel.py",
-                   "multihost/__init__.py", "multihost/runtime.py"):
+                   "multihost/__init__.py", "multihost/runtime.py",
+                   "serve/placement.py", "serve/sharded.py", "obs/slo.py",
+                   "multihost/plan.py", "multihost/federation.py", "loadgen/__init__.py",
+                   "loadgen/arrivals.py", "loadgen/driver.py", "loadgen/search.py",
+                   "cli/mesh.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):

@@ -319,10 +319,22 @@ def test_cli_serves_every_request_on_cpu_and_refuses_unported_options(capsys):
                          "--serve_model=SCRATCH800_decay0.99"])
     assert summary["served"] == summary["admitted"] == 9
     assert "committed model SCRATCH800_decay0.99" in capsys.readouterr().out
-    for bad in (Config(serve_mesh=2), Config(serve_devices="0,1")):
-        with pytest.raises(NotImplementedError):
-            tcli.build_service(bad, pool=twork.case_pool(SIZES, per_size=1, seed=0),
-                               device="cpu")
+    # serve_mesh = 2 with the CPU asked for serves on [cpu] * 2
+    # (tests/test_torch_serve_sharded.py holds it against JAX's sharded service)
+    svc, pool = tcli.build_service(Config(serve_mesh=2, serve_slots=2),
+                                   pool=twork.case_pool(SIZES, per_size=1, seed=0),
+                                   device="cpu")
+    assert svc.planner is not None and svc.executor.fleet == [torch.device("cpu")] * 2
+    for req in twork.request_stream(pool, 4, seed=3):
+        assert svc.submit(req)
+    res = svc.drain()
+    assert sorted(r.request_id for r in res) == [0, 1, 2, 3]
+    assert {r.shard for r in res} <= {"0", "1"} and all(r.shard for r in res)
+    # CUDA ids that are not present raise JAX's error, never a CPU fall back
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="not present"):
+        tcli.build_service(Config(serve_devices=f"{n},{n + 1}"),
+                           pool=twork.case_pool(SIZES, per_size=1, seed=0))
     # prob=True is served (per-request generators, tests/test_torch_serve_cli.py)
     svc, _ = tcli.build_service(Config(prob=True),
                                 pool=twork.case_pool(SIZES, per_size=1, seed=0),
