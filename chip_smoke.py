@@ -151,6 +151,30 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   (`cli/mesh.py`) on the card, two gloo workers each on `[cuda:0] * 2`,
   every check passing.  One card repeated: the times are the sharded
   path's overhead, not scaling.
+- Slice 22, training across processes (`multiprocess_phase`): two local
+  processes join one gloo group, each on card `i % device_count` with
+  two shards of its own 32 of the paper batch's 64 episodes (a 4-slot
+  `data` axis over both processes, `make_mesh(runtime=)`, `global_batch`),
+  and run one `make_dp_train_step(mode="mean")` step with the model of
+  record: both report the same losses and new parameters bit for bit,
+  equal to one process's four-shard step on the whole batch within
+  `PARALLEL_RTOL`, each process's K1 and K2 launches the plain versions'
+  count for its two shards.  The continual-learning loop (`loop_phase`):
+  the `mho-loop` smoke (`cli/loop.py:run_loop`) on the card with the
+  model of record and the serving pool's sizes (20, 50, 80, 110; two
+  buckets, 4 slots): capture over >= 2 rotated log segments, refit,
+  validate in the simulator, canary, promote, the injected regression,
+  rollback; the run's K1 and K2 launches equal to the plain versions'
+  count over the same run on the CPU, which ends in the same terminal
+  state; the candidate's update (candidate minus champion) against the
+  CPU's refit of the same outcomes (`compare_params` on the deltas), the
+  promoted weights' decisions against the CPU service's
+  (`compare_decisions`); a kill at `promote:post_save` and a restart
+  reaching the same terminal state and lineage; a NaN-poisoned candidate
+  refused at promotion and at hot reload (one
+  `mho_canary_rejections_total` each); K1, K4 and K6 launches of one
+  sparse refit equal to the plain count; one refit timed at the loop's
+  default 4 slots a step.
 
 It
 
@@ -230,7 +254,7 @@ It
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
    line, the bf16 training line, the route, datagen, serve CLI, TF
-   checkpoint, parallel and sharded serving lines,
+   checkpoint, parallel, sharded serving, multiprocess and loop lines,
    the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
@@ -3349,6 +3373,26 @@ def compare_params(tag: str, got: dict, want: dict, rtol: float) -> float:
     return err
 
 
+def compare_updates(tag: str, got: dict, want: dict, base: dict, rtol: float) -> float:
+    """The update `got - base` against `want - base`: per leaf, the largest
+    difference less one float32 rounding of the parameter (eps times its
+    magnitude) over max |want - base|, held to `rtol`.  An update that was
+    skipped is off by 1, one whose sign flipped by about 2."""
+    err = 0.0
+    for k in want:
+        d_want = (want[k] - base[k]).double()
+        if not d_want.abs().max() > 0:
+            raise AssertionError(f"{tag}: the reference moved no element of {k}")
+        ulp = torch.finfo(torch.float32).eps * torch.maximum(want[k].abs(),
+                                                             base[k].abs()).double()
+        diff = ((got[k] - base[k]).double() - d_want).abs()
+        err = max(err, ((diff - ulp).clamp_min(0.0).max() / d_want.abs().max()).item())
+    log(f"{tag}: updates max scaled err {err:.3e} past one float32 rounding (bar {rtol})")
+    if not err <= rtol:
+        raise AssertionError(f"{tag}: updates differ by {err:.3e}")
+    return err
+
+
 def compare_totals(tag: str, got, want, mask, share: float = 0.95) -> float:
     """Per-episode job totals: the share of episodes whose every job is
     within `PARALLEL_RTOL` (a flipped near-tie decision changes a whole
@@ -3823,6 +3867,366 @@ def sharded_serving_phase(dev, card) -> dict:
     return out
 
 
+MP_PROCESSES = 2     # local gloo processes of the cross-process step
+MP_DIR = os.path.join(ROOT, "build", "multiprocess")
+
+
+def multiprocess_worker() -> int:
+    """One process of `multiprocess_phase` (`python3 chip_smoke.py
+    --multiprocess-worker`): joins the group from `worker_env`'s
+    environment, takes card `process_id % device_count`,
+    lays its own half of the paper batch over its two slots of the 4-slot
+    data axis, runs one mean step with its launches counted, then three
+    timed steps; writes its results to `MP_DIR/out<process_id>.pt`."""
+    from multihop_offload_tpu_torch._records import slice_records
+    from multihop_offload_tpu_torch.agent.replay import make_optimizer
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.multihost.runtime import bootstrap, shutdown
+    from multihop_offload_tpu_torch.parallel import global_batch, make_mesh
+    from multihop_offload_tpu_torch.parallel.data_parallel import make_dp_train_step
+
+    rt = bootstrap(timeout_s=120)
+    pid = rt.process_id
+    dev = torch.device(f"cuda:{pid % torch.cuda.device_count()}")
+    torch.cuda.set_device(dev)
+    inst, jobs, _ = request_batch(load_cases("paper")[:16], 4, seed=0,
+                                  cfg=Config(arrival_scale=0.15), device="cpu")
+    per = inst.adj.shape[0] // rt.num_processes
+    inst = slice_records(inst, pid * per, (pid + 1) * per).to(dev)
+    jobs = slice_records(jobs, pid * per, (pid + 1) * per).to(dev)
+    mesh = make_mesh(data=2 * rt.num_processes, devices=[dev] * 2, runtime=rt)
+    if not mesh.spans_processes or len(global_batch(mesh, jobs)) != 2:
+        raise AssertionError(f"process {pid}: mesh {mesh} does not span the group")
+    model = load_model(MODEL_K1, device=dev)
+    opt = make_optimizer(Config())
+    state = opt.init({k: p.detach() for k, p in model.named_parameters()})
+    step = make_dp_train_step(model, opt, mesh, mode="mean")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, state, metrics = step(model, state, inst, jobs, None, 0.0)
+    counts = read_counts()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    out = {"params": {k: v.cpu() for k, v in params.items()},
+           "metrics": {k: v.cpu() for k, v in metrics.items()},
+           "counts": counts, "first_ms": first_ms, "device": str(dev),
+           "mesh": repr(mesh), "local_rows": mesh.local_rows}
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(model, state, inst, jobs, None, 0.0)
+        read_counts()  # waits for the card
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = step_ms
+    torch.save(out, os.path.join(MP_DIR, f"out{pid}.pt"))
+    log(f"process {pid} on {dev}: one mean step {first_ms:.1f} ms (first), then "
+        f"{[round(t, 2) for t in step_ms]} ms; launches {counts}")
+    shutdown()
+    return 0
+
+
+def multiprocess_phase(dev, card) -> dict:
+    """Slice 22: one `mean` step over a data mesh that spans two processes
+    (see the module docstring)."""
+    import shutil
+
+    from multihop_offload_tpu_torch.agent.replay import make_optimizer
+    from multihop_offload_tpu_torch.agent.train_step import forward_backward
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.multihost.runtime import free_port, worker_env
+    from multihop_offload_tpu_torch.parallel import make_mesh
+    from multihop_offload_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from multihop_offload_tpu_torch._records import slice_records
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    os.makedirs(MP_DIR)
+    coord = f"127.0.0.1:{free_port()}"
+    argv = [sys.executable, os.path.abspath(__file__), "--multiprocess-worker"]
+    procs = [subprocess.Popen(argv, env=worker_env(coord, MP_PROCESSES, i), cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(MP_PROCESSES)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for i, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            log(f"[process {i}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"multiprocess worker {i} exited {p.returncode}")
+    res = [torch.load(os.path.join(MP_DIR, f"out{i}.pt"), weights_only=False)
+           for i in range(MP_PROCESSES)]
+    spawn_s = time.perf_counter() - t0
+
+    # the same update and metrics on both processes, bit for bit
+    a, b = res
+    for k in a["params"]:
+        if not torch.equal(a["params"][k], b["params"][k]):
+            raise AssertionError(f"multiprocess: parameter {k} differs between processes")
+    for k in ("loss_critic", "loss_mse", "job_total"):
+        if not torch.equal(a["metrics"][k], b["metrics"][k]):
+            raise AssertionError(f"multiprocess: {k} differs between processes")
+
+    # one process, four shards on this card, the whole batch
+    inst, jobs, _ = request_batch(load_cases("paper")[:16], 4, seed=0,
+                                  cfg=Config(arrival_scale=0.15), device="cpu")
+    model = load_model(MODEL_K1, device=dev)
+    opt = make_optimizer(Config())
+    state = opt.init({k: p.detach() for k, p in model.named_parameters()})
+    one = make_dp_train_step(model, opt, make_mesh(data=4, devices=[dev] * 4))
+    params, _, metrics = one(model, state, inst.to(dev), jobs.to(dev), None, 0.0)
+    err = compare_params("cross-process mean step vs one process's four shards",
+                         a["params"], {k: v.cpu() for k, v in params.items()},
+                         PARALLEL_RTOL)
+    for k in ("loss_critic", "loss_mse"):
+        rel = abs(float(a["metrics"][k]) - float(metrics[k])) / abs(float(metrics[k]))
+        if not rel <= PARALLEL_RTOL:
+            raise AssertionError(f"multiprocess: {k} rel err {rel} vs one process")
+
+    # each process's launches: its two shards' forward_backward, counted on
+    # the CPU from the plain versions (one shard's count, twice)
+    shard = inst.adj.shape[0] // (2 * MP_PROCESSES)
+    cpu_model = load_model(MODEL_K1, device="cpu")
+    _, one_shard = count_plain(lambda: forward_backward(
+        cpu_model, slice_records(inst, 0, shard), slice_records(jobs, 0, shard),
+        device="cpu"))
+    want = _scaled(one_shard, 2)
+    for i, r in enumerate(res):
+        check_launches(f"multiprocess: process {i} ({r['device']})", r["counts"], want)
+    out = {"processes": MP_PROCESSES, "devices": [r["device"] for r in res],
+           "episodes_per_process": inst.adj.shape[0] // MP_PROCESSES,
+           "loss_critic": float(a["metrics"]["loss_critic"]),
+           "params_vs_one_process": err,
+           "first_step_ms": [r["first_ms"] for r in res],
+           "step_ms": [r["step_ms"] for r in res],
+           "launches_per_process": {k: want.get(k, 0) for k in ("fixed_point", "minplus")},
+           "counts": {f"multiprocess_step_p{i}": r["counts"] for i, r in enumerate(res)},
+           "seconds": time.perf_counter() - t0, "spawn_s": spawn_s}
+    log(f"cross-process mean step on {card['smi']}: {MP_PROCESSES} processes on "
+        f"{out['devices']}, losses and parameters equal bit for bit, within "
+        f"{err:.3e} of one process's four shards; step "
+        f"{[round(min(t), 2) for t in out['step_ms']]} ms (min of 3 per process); "
+        f"phase {out['seconds']:.1f} s")
+    return out
+
+
+LOOP_SIZES = "20,50,80,110"  # the serving phase's pool
+# the refit's update, card against CPU, past one float32 rounding of the
+# parameter: 5.651e-08 and 2.660e-08 on an H100 (smoke lr 1e-6; 4 slots,
+# lr 1e-4); a skipped update is off by 1
+REFIT_UPDATE_RTOL = 1e-6
+
+
+def loop_phase(dev, card) -> dict:
+    """Slice 22: the continual-learning loop on the card (see the module
+    docstring)."""
+    import shutil
+
+    from multihop_offload_tpu_torch import obs
+    from multihop_offload_tpu_torch.chaos import faults
+    from multihop_offload_tpu_torch.cli import loop as loop_cli
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.loop.canary import CheckpointCanary
+    from multihop_offload_tpu_torch.loop.experience import read_outcomes, split_holdout
+    from multihop_offload_tpu_torch.loop.promote import PromotionController
+    from multihop_offload_tpu_torch.loop.refit import candidate_dir, refit
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.obs.registry import registry
+    from multihop_offload_tpu_torch.serve.workload import request_stream
+    from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "loop_card")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def config(name: str) -> Config:
+        # the sim phase's ring capacity: the process's metric registry keeps
+        # a histogram's first bucket boundaries (`mho_dev_sim_queue_depth`),
+        # as JAX's does, so one process simulates at one cap
+        base = Config(serve_model=MODEL_K1, seed=0)
+        return dataclasses.replace(loop_cli.smoke_config(base, os.path.join(root, name)),
+                                   serve_sizes=LOOP_SIZES, serve_buckets=2,
+                                   sim_cap=SIM_FULL["sim_cap"])
+
+    def run(cfg, plan=None, device=dev):
+        faults.install(plan)
+        runlog = obs.start_run(cfg, role="loop")
+        try:
+            return loop_cli.run_loop(cfg, inject_regression=True, device=device), None
+        except faults.SimulatedCrash as c:
+            return None, c.site
+        finally:
+            faults.clear()
+            obs.finish_run(runlog)
+
+    def terminal(o):
+        lin = o["final_lineage"] or {}
+        return (o["final_state"], o["final_loaded_step"], lin.get("source"),
+                lin.get("parent_step"))
+
+    # ---- the mho-loop smoke on the card ---------------------------------------
+    cfg = config("smoke")
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    out, _ = run(cfg)
+    smoke_counts = read_counts()
+    smoke_s = time.perf_counter() - t1
+    checks = loop_cli.smoke_checks(out)
+    if not all(checks.values()):
+        raise AssertionError(f"loop smoke on the card: {checks}")
+    cyc = out["cycles"][0]
+    log(f"mho-loop smoke on {card['smi']} ({MODEL_K1}, sizes {LOOP_SIZES}): "
+        f"{out['log_segments']} log segments, promoted step {cyc['promoted_step']}, "
+        f"rolled back to {cyc['rollback_step']}, states {out['states']}; refit steps "
+        f"{[round(t, 2) for t in cyc['refit']['step_ms']]} ms; the cycle "
+        f"{cyc['wall_s']:.2f} s wall, the run {smoke_s:.2f} s")
+
+    # the same run on the CPU: the plain versions' launches, the same end
+    (cpu_out, _), want_smoke = count_plain(lambda: run(config("smoke_cpu"), device="cpu"))
+    check_launches("loop smoke (capture, refit, validation, canary, monitor)",
+                   smoke_counts, want_smoke)
+    for key in ("fixed_point", "minplus"):
+        if smoke_counts[key] == 0:
+            raise AssertionError(f"loop smoke: {key} never launched: {smoke_counts}")
+    if terminal(cpu_out) != terminal(out):
+        raise AssertionError(f"loop: the CPU run ends at {terminal(cpu_out)}, the "
+                             f"card's at {terminal(out)}")
+
+    # the candidate's update against the same outcomes refit on the CPU: at
+    # the smoke's lr 1e-6 a parameter moves ~1e-6, under the parameters'
+    # own bar, so the updates are held and the refit's losses
+    outcomes = [o for o in read_outcomes(cfg.obs_log)
+                if o.request.request_id < cfg.loop_capture_requests]
+    train, _ = split_holdout(outcomes, cfg.loop_holdout_frac)
+    champion = {k: v.detach().clone()
+                for k, v in load_model(MODEL_K1, device="cpu").state_dict().items()}
+    card_cand = ckpt_lib.restore_checkpoint_raw(candidate_dir(cfg.model_dir()),
+                                                cyc["candidate_step"])["params"]
+
+    def cpu_refit(rcfg):
+        return refit(load_model(MODEL_K1, device="cpu"), {"params": champion}, train, rcfg,
+                     seed=cfg.seed, device="cpu")
+
+    cpu_cand, cpu_info = cpu_refit(cfg)
+    refit_err = compare_updates("loop refit: the card candidate's update vs the CPU's",
+                                {k: v.cpu() for k, v in card_cand.items()},
+                                cpu_cand["params"], champion, REFIT_UPDATE_RTOL)
+    for key in ("loss_critic_first", "loss_critic_last", "loss_mse_last"):
+        rel = abs(cyc["refit"][key] - cpu_info[key]) / abs(cpu_info[key])
+        if not rel <= PARALLEL_RTOL:
+            raise AssertionError(f"loop refit: {key} rel err {rel} vs the CPU's")
+    # the loop's default slots a step and learning rate (the smoke's 2 and
+    # 1e-6), timed, its update held the same way
+    dflt = Config()
+    cfg4 = dataclasses.replace(cfg, loop_refit_slots=dflt.loop_refit_slots,
+                               learning_rate=dflt.learning_rate)
+    cand4, refit4 = refit(load_model(MODEL_K1, device=dev), {"params": champion}, train,
+                          cfg4, seed=cfg.seed, device=dev)
+    refit4_err = compare_updates(
+        f"loop refit at {cfg4.loop_refit_slots} slots, lr {cfg4.learning_rate}: card vs CPU",
+        {k: v.cpu() for k, v in cand4["params"].items()}, cpu_refit(cfg4)[0]["params"],
+        champion, REFIT_UPDATE_RTOL)
+    log(f"loop refit at {cfg4.loop_refit_slots} slots a step on {card['smi']}: steps "
+        f"{[round(t, 2) for t in refit4['step_ms']]} ms")
+
+    # the promoted weights' decisions: a card service and a CPU service
+    svc_card, pool = build_service(cfg, device=dev, load_checkpoint=False)
+    svc_cpu, _ = build_service(cfg, pool=pool, device="cpu", load_checkpoint=False)
+    for svc in (svc_card, svc_cpu):
+        if svc.executor.load_params(card_cand, step=cyc["promoted_step"]) is None:
+            raise AssertionError("loop: the promoted weights were refused")
+    pool_reqs = list(request_stream(pool, 32, seed=5, arrival_scale=cfg.arrival_scale))
+    got = check_conservation("loop promoted, card", svc_card, closed_loop(svc_card, pool_reqs))
+    want = check_conservation("loop promoted, CPU", svc_cpu, closed_loop(svc_cpu, pool_reqs))
+    promoted_vs_cpu = compare_decisions("loop: promoted weights, card vs CPU service", got,
+                                        want, SHARD_RTOL)
+
+    # one sparse-layout refit: K1, K4 (both walks) and K6
+    sp_cfg = dataclasses.replace(cfg, layout="sparse", cheb_k=2)
+    sp_state = load_model(MODEL_K2, device="cpu", layout="sparse").state_dict()
+    reset_counts()
+    refit(load_model(MODEL_K2, device=dev, layout="sparse"), {"params": sp_state}, train,
+          sp_cfg, seed=cfg.seed, device=dev)
+    counts = {"loop_refit_sparse": read_counts()}
+    _, want_sparse = count_plain(lambda: refit(
+        load_model(MODEL_K2, device="cpu", layout="sparse"), {"params": sp_state}, train,
+        sp_cfg, seed=cfg.seed, device="cpu"))
+    check_launches(f"loop sparse refit ({len(train)} train outcomes)",
+                   counts["loop_refit_sparse"], want_sparse)
+    for key in ("chebconv", "coo_apsp", "fixed_point"):
+        if counts["loop_refit_sparse"][key] == 0:
+            raise AssertionError(f"sparse refit: {key} never launched")
+
+    # ---- a kill at promote:post_save, then a restart -------------------------
+    kcfg = config("kill")
+    dead, site = run(kcfg, faults.FaultPlan(crash_at={"promote:post_save": 1}))
+    if dead is not None or site != "promote:post_save":
+        raise AssertionError(f"loop: the crash at promote:post_save never fired ({site})")
+    resumed, site = run(kcfg)
+    if site is not None or resumed["cycles"][0].get("resumed_from") != "promoting":
+        raise AssertionError(f"loop: the restart did not resume from the journal: "
+                             f"{resumed['cycles'][0]}")
+    if terminal(resumed) != terminal(out):
+        raise AssertionError(f"loop: resumed terminal {terminal(resumed)} != "
+                             f"uninterrupted {terminal(out)}")
+    log(f"loop: killed at promote:post_save, resumed from 'promoting' to "
+        f"{terminal(resumed)}, the uninterrupted run's terminal state and lineage")
+
+    # ---- a NaN-poisoned candidate: refused at promotion and at hot reload ------
+    pcfg = config("poison")
+    svc, ppool = build_service(pcfg, device=dev)
+    loop_cli._bootstrap_champion(pcfg, svc)
+    ctl = PromotionController(pcfg.model_dir())
+    guard = CheckpointCanary(svc, ppool, count=8, seed=pcfg.seed + 1234)
+    guard.record_champion()
+    svc.executor.canary = guard
+    rejections = registry().counter("mho_canary_rejections_total")
+    before = {st: rejections.total(stage=st) for st in ("promote", "hot_reload")}
+    nan = {k: torch.full_like(v, float("nan")) for k, v in champion.items()}
+    if ctl.promote(svc, {"params": nan}, candidate_step=1, canary=guard) is not None:
+        raise AssertionError("loop: the NaN candidate was promoted")
+    faults.poison_checkpoint(ctl.directory, mode="nan", seed=0)
+    reloads = [svc.hot_reload(pcfg.model_dir()) for _ in range(2)]
+    refused = {st: rejections.total(stage=st) - before[st] for st in before}
+    if reloads != [None, None] or refused != {"promote": 1, "hot_reload": 1} \
+            or svc.executor.loaded_step != 1:
+        raise AssertionError(f"loop canary: reloads {reloads}, refusals {refused}, "
+                             f"serving step {svc.executor.loaded_step}")
+    log(f"loop canary: the NaN candidate refused at promotion and the NaN-poisoned "
+        f"checkpoint at hot reload (twice polled), {refused}; step 1 keeps serving")
+
+    result = {"smoke": {"checks": checks, "states": out["states"],
+                        "log_segments": out["log_segments"],
+                        "promoted_step": cyc["promoted_step"],
+                        "rollback_step": cyc["rollback_step"],
+                        "refit_step_ms": cyc["refit"]["step_ms"],
+                        "cycle_wall_s": cyc["wall_s"], "run_s": smoke_s,
+                        "ab": cyc["ab"], "outcomes": cyc["outcomes"]},
+              "refit_delta_vs_cpu": refit_err, "promoted_vs_cpu": promoted_vs_cpu,
+              "refit_default": {"slots": cfg4.loop_refit_slots, "lr": cfg4.learning_rate,
+                                "step_ms": refit4["step_ms"], "delta_vs_cpu": refit4_err},
+              "resume": {"killed_at": "promote:post_save",
+                         "terminal": list(terminal(resumed))},
+              "canary_refusals": refused,
+              "counts": {"loop_smoke": smoke_counts, **counts},
+              "plain_counts": {"loop_smoke": want_smoke, "loop_refit_sparse": want_sparse},
+              "seconds": time.perf_counter() - t0}
+    log(f"loop phase {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -4145,6 +4549,10 @@ def main() -> int:
 
     # ---- slice 21: sharded serving on [cuda:0] * 4, mho-mesh over gloo ------
     shard = sharded_serving_phase(dev, card)
+
+    # ---- slice 22: training across processes, the continual-learning loop ---
+    mproc = multiprocess_phase(dev, card)
+    loopr = loop_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -4158,7 +4566,7 @@ def main() -> int:
                **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts"),
                "tf_eval_file": tfck.pop("eval_counts_file0"),
                "route_demo": tfck.pop("route_counts"), **par.pop("counts"),
-               **shard.pop("counts")}
+               **shard.pop("counts"), **mproc.pop("counts"), **loopr.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -4171,6 +4579,8 @@ def main() -> int:
     print(json.dumps({"tf_checkpoint": tfck}), flush=True)
     print(json.dumps({"parallel": par}), flush=True)
     print(json.dumps({"sharded_serving": shard}), flush=True)
+    print(json.dumps({"multiprocess": mproc}), flush=True)
+    print(json.dumps({"loop": loopr}, default=str), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]
@@ -4321,4 +4731,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multiprocess-worker"]:
+        sys.exit(multiprocess_worker())
     sys.exit(main())

@@ -129,6 +129,7 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None,
         slots=cfg.serve_slots, queue_cap=cfg.serve_queue_cap,
         deadline_s=cfg.serve_deadline_s, seed=cfg.seed, prob=cfg.prob,
         dtype=dtype, precision=policy, layout=cfg.layout, apsp_impl=cfg.apsp_impl,
+        capture_sample=cfg.loop_capture_sample,
         trace=cfg.obs_trace,
         ragged=cfg.serve_ragged, overlap=cfg.serve_overlap,
         ladder_alpha=cfg.serve_ladder_alpha,

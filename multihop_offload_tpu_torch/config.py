@@ -16,7 +16,10 @@ tensors.  `fp_impl` takes only `auto` (`ops/fixed_point.py:
 fixed_point_path`); any other value raises.  `mesh_data` shards the
 drivers' episodes (Trainer) or files (Evaluator) over that many of their
 devices (`train/driver.py`, `parallel/`), and `mesh_graph > 1` is refused
-by the drivers, as in JAX.
+by the drivers, as in JAX.  The `loop_*` settings of the
+continual-learning loop (`cli/loop.py`, `loop/`) keep JAX's names,
+defaults and help; `loop_capture_sample` also sets the service's capture
+(`cli/serve.py`).
 """
 
 from __future__ import annotations
@@ -156,6 +159,41 @@ class Config:
     sim_fail_links: int = 0        # random links to fail at mid-horizon
     sim_fail_nodes: int = 0        # random non-server nodes to fail likewise
     sim_out: str = ""              # write the run / fidelity JSON record here
+    # ---- continual learning (loop/ subsystem; cli.loop) --------------------
+    loop_capture_sample: float = 0.0   # fraction of served requests emitted
+    #                                as `outcome` experience events through
+    #                                the active run log (0 = capture off);
+    #                                sampling is deterministic by request id
+    loop_capture_requests: int = 48    # requests per capture window (cli.loop
+    #                                drives its own synthetic traffic)
+    loop_refit_steps: int = 20     # fine-tuning steps per background re-fit
+    loop_refit_slots: int = 4      # experience outcomes batched per refit step
+    loop_holdout_frac: float = 0.25    # outcome fraction held out of the
+    #                                refit and replayed in sim for the A/B
+    loop_gate_delivered_drop: float = 0.02  # promotion gate: candidate sim
+    #                                delivered ratio may trail the champion
+    #                                by at most this (absolute)
+    loop_gate_tau_ratio: float = 1.10  # promotion gate: candidate mean sim
+    #                                packet delay at most champion * this
+    loop_monitor_regression: float = 1.5   # post-promotion watchdog: measured
+    #                                tau beyond pre-promotion * this triggers
+    #                                automatic rollback
+    loop_cycles: int = 1           # flywheel cycles for `mho-loop run`
+    loop_sim_rounds: int = 2       # A/B validation sim: policy rounds
+    loop_sim_slots: int = 200      # A/B validation sim: slots per round
+    loop_out: str = ""             # write the cycle/smoke JSON record here
+    loop_drift: bool = False       # gate flywheel capture on obs.drift: a
+    #                                cycle only enters `capturing` when a
+    #                                detector trips on the outcome stream
+    #                                (`drift_triggered` transitions)
+    loop_candidate_keep: int = 2   # bounded retention in torch_candidate/:
+    #                                after a reject/rollback keep only the
+    #                                newest K candidate checkpoints, delete
+    #                                older ones with a typed `gc` event
+    loop_cooldown_s: float = 0.0   # post-rollback cool-down: no new flywheel
+    #                                cycle starts until this many seconds
+    #                                after the rollback (journaled, so it
+    #                                survives a process restart; 0 = off)
 
     def __post_init__(self):
         from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl

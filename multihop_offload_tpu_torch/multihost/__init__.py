@@ -3,7 +3,8 @@
 Port of `multihop_offload_tpu/multihost/`, three layers, each usable alone:
 
   * `runtime`    -- the process-group bring-up over `torch.distributed`
-    (gloo, TCP rendezvous) with coordinator retry, timeout and backoff;
+    (gloo, TCP rendezvous) with coordinator retry, timeout and backoff,
+    and `all_reduce`, the sum a data mesh across processes reduces with;
   * `plan`       -- the two-level placement planner: buckets -> hosts
     (level 1, weights replicated per host), each bucket's batch -> devices
     within its host (level 2, `serve.placement`'s divisor ladder).  A
@@ -31,6 +32,7 @@ from multihop_offload_tpu_torch.multihost.plan import (  # noqa: F401
 )
 from multihop_offload_tpu_torch.multihost.runtime import (  # noqa: F401
     MeshRuntime,
+    all_reduce,
     bootstrap,
     init_distributed,
 )
@@ -46,6 +48,7 @@ __all__ = [
     "plan_two_level",
     "validate_plan",
     "MeshRuntime",
+    "all_reduce",
     "bootstrap",
     "init_distributed",
 ]

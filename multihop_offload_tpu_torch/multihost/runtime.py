@@ -9,8 +9,9 @@ The group runs on the gloo backend over a TCP rendezvous
 (`tcp://host:port`; process 0 hosts the store).  It does what
 `jax.distributed` does in the JAX package: it names this process's index
 and the process count (host 0 writes the CSVs, run logs and checkpoints).
-It does not carry a mesh's collectives: `parallel/` drives the devices of
-one process, with copies between them (`parallel/collectives.py`).
+Within a process `parallel/` drives that process's devices, with copies
+between them (`parallel/collectives.py`); across processes the group
+carries the one collective a data mesh needs, `all_reduce`.
 
 Two entry points:
 
@@ -26,7 +27,9 @@ Two entry points:
 
 Two local CPU processes form a real group on localhost: `free_port` and
 `worker_env` build the child environment.  `exchange` gathers one Python
-object from every process (`mho-mesh`'s fleet sizes), and `shutdown`
+object from every process (`mho-mesh`'s fleet sizes), `all_reduce` sums a
+tensor over the group (the gradients and metrics of a data mesh that spans
+processes, `parallel/data_parallel.py`), and `shutdown`
 leaves the group within a time limit, so a process whose peer was killed
 does not wait on it.
 """
@@ -251,6 +254,20 @@ def exchange(obj) -> list:
     out = [None] * process_count()
     dist.all_gather_object(out, obj)
     return out
+
+
+def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum of `tensor` over every process of the group, as
+    a new tensor on `tensor`'s device and in its dtype (`tensor` itself
+    outside a group).  Every process gets the same bits: gloo reduces each
+    chunk in one order and hands the result to all.  The group is gloo, so
+    a CUDA tensor is staged through host memory: one copy to the host, the
+    reduction there, one copy back."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return tensor
+    host = tensor.detach().to("cpu", copy=True).contiguous()
+    dist.all_reduce(host, op=dist.ReduceOp.SUM)
+    return host.to(tensor.device)
 
 
 def shutdown(timeout_s: float = 10.0) -> bool:

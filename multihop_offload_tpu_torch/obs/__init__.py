@@ -7,11 +7,13 @@ Prometheus text), `events` (the JSONL run log, size-rotated segments),
 hop events) and `flightrec` (the tick ring dumped on a stuck dispatch),
 `devmetrics` (the simulator's accumulators on the card, flushed into the
 registry), and the entry points' `start_run` / `finish_run` (JAX
-`obs/__init__.py:78-119`).  `jaxhooks` (retrace and compile counters,
-device memory gauges), `memwatch` and `prof` (the per-program cost table)
-are not ported yet (ROADMAP.md Queue 1 item 9), so the run log carries no
-`retrace`, `compile`, `memwatch` or `prof` events and its summary no
-program table.  Standard library, numpy and torch only.
+`obs/__init__.py:78-119`), and `drift` (the flywheel's change detectors
+over captured outcomes).  Of ROADMAP.md Queue 1 item 9, `memwatch` and
+`prof` (the per-program cost table, and with it the refit step's
+`loop/refit_step` label) are still to port, so the run log carries no
+`memwatch` or `prof` events and its summary no program table; `jaxhooks`
+(retrace and compile counters) has no counterpart in eager torch, so no
+`retrace` or `compile` events either.  Standard library, numpy and torch only.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Structured JSONL run log: manifest header + typed event rows.
 
 Port of `multihop_offload_tpu/obs/events.py` (standard library and torch
-only).  Not ported: the chaos fault hook on every write (`chaos/` is not
-ported yet); the manifest names the torch version and CUDA device instead
-of JAX's.
+only).  Every row write passes the chaos hook `io_gate("events:write")`
+(`chaos.faults`) under a bounded retry of its own; the manifest names the
+torch version and CUDA device instead of JAX's.
 
 One `run.jsonl` per instrumented run.  Line 1 is the run manifest (git sha,
 torch version, device kind, platform, config hash, ...); every later line is
@@ -33,6 +33,8 @@ import re
 import threading
 import time
 from typing import Iterator, List, Optional
+
+from multihop_offload_tpu_torch.chaos import faults
 
 SCHEMA_VERSION = 1
 
@@ -160,7 +162,23 @@ class RunLog:
             if (self.max_bytes and self._bytes
                     and self._bytes + len(line) > self.max_bytes):
                 self._rotate_locked()
-            self._f.write(line)
+            # bounded retry, hand-rolled: with_backoff's retry event would
+            # re-enter this very log (the lock is held), so only the
+            # registry counter records the retries here
+            for attempt in range(3):
+                try:
+                    faults.io_gate("events:write")
+                    self._f.write(line)
+                    break
+                except OSError:
+                    if attempt == 2:
+                        raise
+                    from multihop_offload_tpu_torch.obs.registry import registry as _reg
+
+                    _reg().counter(
+                        "mho_io_retries_total",
+                        "transient I/O failures retried",
+                    ).inc(site="events:write")
             self._bytes += len(line)
 
     def emit(self, event: str, **fields) -> None:

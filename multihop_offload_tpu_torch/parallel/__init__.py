@@ -1,6 +1,7 @@
-"""Sharding over a mesh of torch devices driven by one process.
+"""Sharding over a mesh of torch devices.
 
-Port of `multihop_offload_tpu/parallel/` (`mesh`, `ring`, `partition`,
+Each process drives its own devices of the mesh; a data axis may span the
+processes of a `torch.distributed` group (`make_mesh(..., runtime=)`).  Port of `multihop_offload_tpu/parallel/` (`mesh`, `ring`, `partition`,
 `data_parallel`), plus `collectives`, the counterparts of the `lax`
 collectives JAX runs inside `shard_map`.  `parallel/compat.py` is a JAX
 version shim and has no counterpart.

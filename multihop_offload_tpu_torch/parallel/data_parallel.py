@@ -5,7 +5,8 @@ Port of `multihop_offload_tpu/parallel/data_parallel.py`.  Episodes
 distance-matrix work can shard over that shard's `graph` row through the
 ring APSP (`parallel.ring.sharded_apsp`).
 
-One process drives the mesh (`parallel/collectives.py`).  The factories
+Each process drives its own data shards of the mesh
+(`parallel/collectives.py`; a mesh may span processes, below).  The factories
 take JAX's arguments and return steps with JAX's signatures, the port's
 model in place of JAX's `variables`: a step reads its parameters from the
 model it is given.  Each data shard runs on its device (the first of its
@@ -30,6 +31,16 @@ Two update rules:
     remembered in that order (`valid` keeps pad episodes out); the replay
     update itself (`agent.replay.replay_apply`) stays a separate call.
 
+A mesh may span processes (`parallel.mesh.make_mesh(..., runtime=)`):
+each process then drives the data shards it owns, on the batch it passes
+(`global_batch`), and the `mean` step reduces across processes after the
+local mean: each process's shard mean, weighted by its shard count, summed
+over the group (`multihost.runtime.all_reduce`, one call a step for the
+gradients, both losses and the gathered job totals) and divided by the
+data-axis size.  Every process then applies the same update and reports
+the same metrics.  The steps that gather over `data` (`replay`, the eval
+steps, the file step) refuse such a mesh.
+
 The JAX steps take per-episode PRNG keys.  The port's take `seeds`: one
 int per data shard (per file for `make_files_eval_step`), from which the
 shard makes its generator on its device; None draws from the device's
@@ -52,6 +63,7 @@ from multihop_offload_tpu_torch.agent.replay import (
 )
 from multihop_offload_tpu_torch.agent.train_step import forward_backward
 from multihop_offload_tpu_torch.graphs.instance import stack_instances
+from multihop_offload_tpu_torch.multihost.runtime import all_reduce
 from multihop_offload_tpu_torch.parallel.collectives import copy_to, gather, mean_to
 from multihop_offload_tpu_torch.parallel.mesh import Mesh, shard_batch
 from multihop_offload_tpu_torch.parallel.ring import sharded_apsp
@@ -63,6 +75,35 @@ def _graph_apsp_fn(mesh: Mesh, d: int):
         devices = mesh.graph_devices(d)
         return lambda w: sharded_apsp(w, devices)
     return None
+
+
+def _local_only(mesh: Mesh, what: str) -> None:
+    if mesh.spans_processes:
+        raise ValueError(f"{what} gathers over 'data' within one process; over a mesh "
+                         "that spans processes use make_dp_train_step(mode='mean')")
+
+
+def _reduce_processes(mesh: Mesh, means: dict, totals: torch.Tensor) -> tuple:
+    """The data-axis means and the gathered job totals over every process:
+    each process's local means weighted by its shard count and its totals
+    placed at its rows of the global batch, summed over the group in one
+    `all_reduce`, the means then divided by the data-axis size.  Returns
+    (means, totals) at global width."""
+    k, n = len(mesh.local_rows), mesh.shape["data"]
+    per = totals.shape[0] // k
+    names = list(means)
+    dt = means[names[0]].dtype
+    glob = totals.new_zeros((n * per,) + tuple(totals.shape[1:]), dtype=dt)
+    r0 = mesh.local_rows[0] * per
+    glob[r0:r0 + k * per] = totals.to(dt)
+    flat = all_reduce(torch.cat([means[m].reshape(-1).to(dt) * k for m in names]
+                                + [glob.reshape(-1)]))
+    out, at = {}, 0
+    for m in names:
+        size = means[m].numel()
+        out[m] = (flat[at:at + size] / n).reshape(means[m].shape).to(means[m].dtype)
+        at += size
+    return out, flat[at:].reshape(glob.shape).to(totals.dtype)
 
 
 def _refuse_dropout(dropout: bool) -> None:
@@ -167,6 +208,7 @@ def make_file_dp_train_step(model, mesh: Mesh, dropout: bool = False, **fb_kwarg
     -> (mem, job_totals, loss_critic, loss_mse), all at full batch width.
     """
     _refuse_dropout(dropout)
+    _local_only(mesh, "the file step")
     per_device = _per_device(mesh, _Replicas(mesh, model), fb_kwargs)
 
     def step(model, mem, inst, jobs, seeds, valid, explore):
@@ -179,6 +221,7 @@ def _sharded_eval(eval_fn, mesh: Mesh, deal, template=None):
     """A step(model, *args) calling `eval_fn(replica, *shard)` for each
     shard `deal(devices, *args)` yields (None: no work for that shard),
     its output tuples gathered in shard order on the model's device."""
+    _local_only(mesh, "an eval step")
     replicas = _Replicas(mesh, template)
     devices = mesh.data_devices()
 
@@ -254,24 +297,28 @@ def make_dp_train_step(model, optimizer, mesh: Mesh, mode: str = "mean",
             outs = per_device(model, insts, jobs, seeds, explore)
             home = next(model.parameters()).device
             params = {k: p.detach() for k, p in model.named_parameters()}
-            grads = {k: mean_to([o.grads[k].mean(0) for o in outs], home) for k in params}
+            means = {k: mean_to([o.grads[k].mean(0) for o in outs], home) for k in params}
+            means["loss_critic"] = mean_to([o.loss_critic.mean() for o in outs], home)
+            means["loss_mse"] = mean_to([o.loss_mse.mean() for o in outs], home)
+            totals = gather([o.delays.job_total for o in outs], home, tiled=True)
+            if mesh.spans_processes:
+                means, totals = _reduce_processes(mesh, means, totals)
+            grads = {k: means[k] for k in params}
             params, opt_state = optimizer.update(grads, opt_state, params)
             params = apply_max_norm_constraint(params, 1.0)
             with torch.no_grad():
                 for k, p in model.named_parameters():
                     p.copy_(params[k])
             replicas.sync(model)
-            metrics = {
-                "loss_critic": mean_to([o.loss_critic.mean() for o in outs], home),
-                "loss_mse": mean_to([o.loss_mse.mean() for o in outs], home),
-                "job_total": gather([o.delays.job_total for o in outs], home, tiled=True),
-            }
+            metrics = {"loss_critic": means["loss_critic"], "loss_mse": means["loss_mse"],
+                       "job_total": totals}
             return params, opt_state, metrics
 
         step.replicas = replicas  # the copies on the mesh's other devices
         return step
 
     if mode == "replay":
+        _local_only(mesh, "the replay step")
 
         def step(model, mem, insts, jobs, seeds, explore):
             outs = per_device(model, insts, jobs, seeds, explore)

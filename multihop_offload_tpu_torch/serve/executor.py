@@ -25,9 +25,10 @@ signature check (`param_signature`) and refuses non-finite leaves.
 the ``torch/`` directory the Trainer writes under the model directory: the
 newest step that passes `train.checkpoints.restore_verified` (a corrupt
 step is quarantined and the lineage walked down), swapped in through
-`load_params`.  The semantic canary that JAX can attach (`loop/`) is not
-ported: `canary` stays None, as in JAX when none is attached, and only the
-non-finite gate refuses weights.
+`load_params`.  Every swap first passes the non-finite gate and then, when
+one is attached as `executor.canary` (`loop.canary.CheckpointCanary`, as
+`cli.loop` attaches it), the semantic canary's probe decisions; a refused
+step is remembered and not retried.
 
 `prob=True` samples each request's decision from its own generator
 (`dispatch(gens=)`: one per batch row, `env.offloading._uniform`), so a
@@ -128,8 +129,8 @@ class BucketExecutor:
         self.dispatches_by_width: Dict[Tuple[int, int], int] = {}
         self.loaded_step: Optional[int] = None
         self.loaded_lineage: Optional[dict] = None
-        # the semantic pre-swap probe (`loop/`, not ported): None, as in JAX
-        # when none is attached
+        # semantic pre-swap gate (loop.canary.CheckpointCanary), attached by
+        # cli.loop; None: only the non-finite gate refuses weights
         self.canary = None
         self._canary_rejected: set = set()
         self.last_devmetrics: Optional[dict] = None
@@ -232,7 +233,7 @@ class BucketExecutor:
         if not all(bool(torch.isfinite(t).all()) for t in state.values()):
             why = "nonfinite_weights"
         elif self.canary is not None:
-            why = self.canary.check(state)
+            why = self.canary.check({"params": state})
         if why is not None:
             obs_registry().counter(
                 "mho_canary_rejections_total",

@@ -36,8 +36,9 @@ take one, and a stuck device (the watchdog's per-device verdict) degrades
 only the buckets placed on it.  The occupancy ladder is for the
 one-device executor only, as in JAX.  `attach_health` wires an SLO engine
 (`obs.slo`, observed once per tick on the service clock) and a flight
-recorder (one row per tick).  Not ported, refused with an error where
-asked for: experience capture (`capture_sample > 0`).  The bf16 precision
+recorder (one row per tick).  `capture_sample` logs a deterministic
+sample of the answered requests as "outcome" events through the active
+run log (JAX `:602-626`, `loop.experience`), the flywheel's input.  The bf16 precision
 policy runs (`precision`, JAX `:107-155`):
 requests are packed at its storage dtype, so the batch crosses to the card
 as bf16 bytes, and each dispatch squares in bf16 (K2 or K6 in bf16); the
@@ -138,9 +139,6 @@ class OffloadService:
     ):
         if slots < 1 or queue_cap < 1:
             raise ValueError("slots and queue_cap must be >= 1")
-        if capture_sample > 0.0:
-            raise NotImplementedError(
-                "experience capture (capture_sample > 0, loop/) is not ported yet")
         self.layout = resolve_layout(layout)
         self.device = resolve_device(mesh_devices[0] if mesh_devices else device)
         # `dtype` is the base dtype, `precision` the policy over it
@@ -171,6 +169,10 @@ class OffloadService:
         self._arrivals: List[int] = [0] * len(buckets.pads)
         self._stuck_devices: dict = {}
         self.seed = int(seed)
+        # experience capture: fraction of answered requests logged as
+        # "outcome" events through the active run log (the continual-
+        # learning flywheel's input, `loop/`); 0 = off
+        self.capture_sample = float(capture_sample)
         self.buckets = buckets
         self.slots = slots
         self.queue_cap = queue_cap
@@ -460,6 +462,7 @@ class OffloadService:
                 served_by="baseline" if batch.degraded else "gnn",
                 latency_s=[round(r.latency_s, 6) for r in batch_responses],
             )
+        self._capture_outcomes(batch.reqs, batch_responses)
         waste = padding_waste(batch.reqs, batch.pad, batch.width)
         self.stats.record_dispatch(
             b, len(batch.reqs), self.slots, waste, batch.degraded,
@@ -542,6 +545,27 @@ class OffloadService:
                 count=int(hits), request_ids=request_ids,
                 tick=self.stats.ticks,
             )
+
+    def _capture_outcomes(self, reqs, batch_responses) -> None:
+        """Emit sampled per-request "outcome" events (experience capture for
+        the loop/ flywheel).  No-op without an active run log or with the
+        sampling knob at 0 -- the hot path pays one float compare."""
+        if self.capture_sample <= 0.0 or obs_events.get_run_log() is None:
+            return
+        from multihop_offload_tpu_torch.loop import experience
+
+        captured_ids = []
+        for req, resp in zip(reqs, batch_responses):
+            if experience.sampled(req.request_id, self.capture_sample):
+                obs_events.emit("outcome", **experience.outcome_record(req, resp))
+                captured_ids.append(req.request_id)
+        if captured_ids and self.trace:
+            obs_trace.hop("capture", captured_ids, sample=self.capture_sample)
+        if captured_ids:
+            obs_registry().counter(
+                "mho_serve_outcomes_captured_total",
+                "answered requests logged as experience",
+            ).inc(len(captured_ids))
 
     def drain(self, max_ticks: int = 1000) -> List[OffloadResponse]:
         """Tick until every admitted request is answered (bounded), the

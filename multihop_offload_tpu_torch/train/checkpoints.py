@@ -24,7 +24,9 @@ typed `ckpt_quarantine` event, and falls back to the next-newest step;
 `has_verified` is the same check without side effects; `gc_checkpoints`
 is bounded retention with a `gc` event per deleted step.  As in JAX, a
 step with no sidecar restores unverified there (`restore_checkpoint_raw`,
-the drivers' restore, refuses it).
+the drivers' restore, refuses it).  The chaos hooks sit where JAX has
+them (`chaos.faults.io_gate`): ``ckpt:save`` in every save attempt,
+``ckpt:restore`` in every attempt of `restore_verified`.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from multihop_offload_tpu_torch.chaos import faults
 from multihop_offload_tpu_torch.utils.durable import (
     atomic_write_json,
     load_json,
@@ -122,6 +125,7 @@ def save_checkpoint(directory: str, step: int, state: Any,
     tmp = final + ".tmp"
 
     def _save() -> None:
+        faults.io_gate("ckpt:save")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         torch.save(cpu, os.path.join(tmp, STATE_FILE))
@@ -287,9 +291,12 @@ def restore_verified(directory: str, step: Optional[int] = None,
         if s is None:
             return None, None
         want = None  # after the pinned attempt, fall back through latest
+        def _restore():
+            faults.io_gate("ckpt:restore")
+            return _load_state(directory, s)
+
         try:
-            restored = with_backoff(lambda: _load_state(directory, s),
-                                    site="ckpt:restore", sleep=sleep)
+            restored = with_backoff(_restore, site="ckpt:restore", sleep=sleep)
         except FileNotFoundError as e:
             quarantine_step(directory, s, f"missing data: {e}")
             continue

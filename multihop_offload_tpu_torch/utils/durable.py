@@ -1,8 +1,8 @@
 """Crash-safe file primitives: atomic JSON writes and bounded retry.
 
 Port of `multihop_offload_tpu/utils/durable.py` (standard library only).
-Not ported: the chaos fault hooks (`chaos/` is not ported yet).  The
-retry defaults are the JAX package's; `configure()` installs the entry
+The chaos fault hooks (`chaos.faults.io_gate`) sit in the callers, inside
+the functions retried here, as in JAX.  The retry defaults are the JAX package's; `configure()` installs the entry
 point's `Config.io_retries` / `Config.io_backoff_s` once for the process.
 
 - `atomic_write_json`: the tmp + fsync + `os.replace` dance, so a reader

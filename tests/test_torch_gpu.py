@@ -1302,3 +1302,56 @@ def test_sharded_service_on_the_card_decides_as_one_device(cuda):
         np.testing.assert_array_equal(a.is_local, b.is_local)
         assert (a.served_by, a.bucket) == (b.served_by, b.bucket) and a.shard in ("0", "1")
         np.testing.assert_allclose(a.job_total, b.job_total, rtol=1e-4)
+
+
+def test_gpu_loop_smoke_promotes_and_rolls_back(cuda, tmp_path):
+    """`mho-loop --smoke` on the card: capture over rotated segments,
+    refit (K1, K2), validate, canary, promote, the injected regression,
+    rollback; the run's launches include K1 and K2."""
+    from multihop_offload_tpu_torch.cli import loop as loop_cli
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+
+    reset_kernel_counts()
+    out = loop_cli.run_smoke(Config(seed=0), device=cuda, tmp=str(tmp_path))
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    assert out["ok"] and out["device"].startswith("cuda")
+    assert out["cycles"][0]["promoted_step"] == 2 and out["cycles"][0]["rollback_step"] == 3
+    assert counts["fixed_point"] > 0 and counts["minplus"] > 0
+
+
+def test_gpu_refit_matches_cpu(cuda, tmp_path):
+    """Two refit steps on the card from captured outcomes: the candidate
+    within 1e-4 (scaled) of the same refit on the CPU, K1 and K2 launched."""
+    import dataclasses
+
+    from multihop_offload_tpu_torch import obs
+    from multihop_offload_tpu_torch.cli import loop as loop_cli
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.loop.experience import read_outcomes
+    from multihop_offload_tpu_torch.loop.refit import refit
+
+    cfg = dataclasses.replace(loop_cli.smoke_config(Config(seed=0), str(tmp_path)),
+                              learning_rate=1e-3, serve_model="SCRATCH800_decay0.99")
+    runlog = obs.start_run(cfg, role="loop")
+    try:
+        svc, pool = build_service(cfg, device=cuda)
+        loop_cli._capture_window(cfg, svc, pool, 8, 0)
+    finally:
+        obs.finish_run(runlog)
+    outcomes = read_outcomes(cfg.obs_log)
+    assert len(outcomes) == 8
+    champion = {k: v.detach().clone() for k, v in svc.executor.model.state_dict().items()}
+    reset_kernel_counts()
+    card, info = refit(svc.executor.model, {"params": champion}, outcomes, cfg, device=cuda)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    cpu, _ = refit(svc.executor.model.cpu(), {"params": champion}, outcomes, cfg,
+                   device="cpu")
+    assert counts["fixed_point"] > 0 and counts["minplus"] > 0 and info["skipped_updates"] == 0
+    for k, v in cpu["params"].items():
+        err = float((card["params"][k].cpu() - v).abs().max() / v.abs().max().clamp_min(1e-30))
+        assert err <= 1e-4, (k, err)

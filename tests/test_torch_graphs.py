@@ -212,7 +212,9 @@ def test_port_imports_no_jax_side():
                    "serve/placement.py", "serve/sharded.py", "obs/slo.py",
                    "multihost/plan.py", "multihost/federation.py", "loadgen/__init__.py",
                    "loadgen/arrivals.py", "loadgen/driver.py", "loadgen/search.py",
-                   "cli/mesh.py"):
+                   "cli/mesh.py", "chaos/__init__.py", "chaos/faults.py", "obs/drift.py",
+                   "loop/__init__.py", "loop/experience.py", "loop/refit.py",
+                   "loop/validate.py", "loop/canary.py", "loop/promote.py", "cli/loop.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):
