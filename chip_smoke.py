@@ -39,7 +39,8 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
 - Slice 13, the closed-loop packet simulator (`cli/sim.py`, `sim/`) at
   the paper's largest network size: 16 BA networks n = 110 (pads N=112,
   L=216, J=100), 100 jobs each at utilization 0.7, margin 5, cap 128, 4
-  policy rounds x 500 slots, under `gnn` with the model of record (dense:
+  policy rounds x 125 slots (500 until slice 22; cut in slice 23 to fit
+  the RL phase in the smoke's time), under `gnn` with the model of record (dense:
   K1, K2), `gnn` with SPECTRAL_K2 (sparse: K4, K1, K2), `baseline` (K2),
   `local` (no kernel) and `baseline` with 2 links and 1 node failing at
   mid-horizon; then 4 of the networks, 2 rounds x 200 slots, on the card
@@ -175,6 +176,33 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   `mho_canary_rejections_total` each); K1, K4 and K6 launches of one
   sparse refit equal to the plain count; one refit timed at the loop's
   default 4 slots a step.
+- Slice 23, closed-loop RL (`rl/`, `cli/rl.py`) and K2's backward
+  (`csrc/minplus_bwd.cu`), `rl_phase`: K2's backward through the
+  autograd wrapper the RL path calls against autograd through the plain
+  squarings on the card at (4, 16), (4, 112), (16, 112) and a tie-heavy
+  (4, 112) hop matrix (distances bit for bit, the gradient within 1e-5 of
+  its largest entry, 2 launches a squaring, two calls bit-identical; the
+  backward alone timed on the device clock beside the plain backward and
+  its bound); `mho-rl --smoke` on the card in its own process (JAX's
+  smoke configuration, cap 64; conservation exact, no skipped update, the
+  same launches every step, K1, K2 and K2's backward among them; the
+  improvement gate's verdict logged, ROADMAP.md Queue 3); the smoke's 20
+  steps on the card (another process) and on the CPU under the same
+  injected draws (no skipped step, `dst` identical in >= 99% of (step,
+  lane, round, job), the output unit dying at the same step on both
+  sides or on neither; the delivered ratios logged); one `RLTrainer` step
+  with the model of record (dense: K1, K2, K2's backward) and one with
+  SPECTRAL_K2 (sparse: K4 forward and transposed too) on 4 BA networks of
+  n = 110 (pads N 112, L 216), 100 jobs at utilization 0.7, 2 rounds x
+  100 slots, cap 128, at temperature 1000, where the gradient flows, each
+  against the same step on the CPU under the same injected draws:
+  launches equal to the plain versions' count of the CPU step, the CPU
+  step offloading and every lane's gradient nonzero, `dst` identical in
+  >= 99% of (lane, round, job), on lanes whose choices all agree the
+  packet counters equal, the loss within 1e-4 and the lane's gradient
+  within 1e-3 of its norm, Adam's update within 0.05 of its norm; then
+  the same steps at the default temperature 0.5 (launches equal to the
+  same count; the dense step's wall ms and the card's busy share).
 
 It
 
@@ -254,10 +282,11 @@ It
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
    line, the bf16 training line, the route, datagen, serve CLI, TF
-   checkpoint, parallel, sharded serving, multiprocess and loop lines,
-   the kernels line (with the bf16 rows
+   checkpoint, parallel, sharded serving, multiprocess, loop and rl
+   lines, the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
-   `chebconv_transpose_bf16` and `blocked_fw_bf16`), then the
+   `chebconv_transpose_bf16` and `blocked_fw_bf16`, and K2's backward
+   `minplus_backward`), then the
    `{"ok": true, ...}` line last.
 
 Any failure raises, so the exit code is not 0 and no result line appears.
@@ -317,19 +346,22 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(fn, reps: int, warmup: int = 3, kernels_per_call: int | None = None) -> float:
+def device_us(fn, reps: int, warmup: int = 3, kernels_per_call: int | None = None,
+              per_call: dict | None = None) -> float:
     """Mean device microseconds per call of `fn`, on the card's own clock,
     from `torch.profiler`'s CUDA trace of `reps` calls: for each kernel,
     copy or memset, the mean duration of its records times its launches
     per call, summed.  For a library call that is every kernel it launches.
-    Every call launches the same kernels, but the trace can lose records
-    (from 2 of 1,250 to nearly all of a window, in runs on an H100): a
-    kernel's launches per call are its records over `reps`, rounded, and
-    the window is traced again, up to 4 more times, when it holds no
-    launch, a count is off a whole multiple by more than a tenth of
-    `reps`, or the launches per call are not `kernels_per_call` (where
-    given); then this raises.  `device_us.last` keeps the kernels per call,
-    the records lost, their names and the device us per call of each name
+    The trace can lose records (from 2 of 1,250 to nearly all of a window,
+    in runs on an H100); a kernel's mean is still its mean.  Its launches
+    per call are known where `per_call` maps a substring of each kernel's
+    name to them (the window is traced again, up to 4 more times, while a
+    named kernel has no record); else they are its records over `reps`,
+    rounded, and the window is traced again when it holds no launch, a
+    count is off a whole multiple by more than a tenth of `reps`, or the
+    launches per call are not `kernels_per_call` (where given).  Then this
+    raises.  `device_us.last` keeps the kernels per call, the records seen
+    and lost, their names and the device us per call of each name
     (`by_name`), for the log."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,23 +376,31 @@ def device_us(fn, reps: int, warmup: int = 3, kernels_per_call: int | None = Non
         counts, times = {}, {}
         for e in prof.key_averages():
             if "CUDA" in str(getattr(e, "device_type", "")) and e.self_device_time_total > 0:
-                counts[e.key] = counts.get(e.key, 0) + e.count
-                times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total
-        per_call = {k: round(c / reps) for k, c in counts.items()}
-        launches = sum(per_call.values())
-        if launches and all(abs(c - per_call[k] * reps) <= reps // 10
+                key = e.key if per_call is None else next(
+                    (k for k in per_call if k in e.key), None)
+                if key is not None:
+                    counts[key] = counts.get(key, 0) + e.count
+                    times[key] = times.get(key, 0.0) + e.self_device_time_total
+        if per_call is not None:
+            launches_per = dict(per_call)
+            if all(counts.get(k) for k in per_call):
+                break
+            continue
+        launches_per = {k: round(c / reps) for k, c in counts.items()}
+        launches = sum(launches_per.values())
+        if launches and all(abs(c - launches_per[k] * reps) <= reps // 10
                             for k, c in counts.items()) and (
                 kernels_per_call is None or launches == kernels_per_call):
             break
     else:
         raise AssertionError(f"device_us: 5 traces lost kernel records or held none "
-                             f"({sum(counts.values())} for {reps} calls)")
-    by_name = {k: times[k] / counts[k] * n for k, n in per_call.items() if n}
-    total = sum(by_name.values())
-    device_us.last = {"kernels_per_call": launches,
+                             f"({counts} for {reps} calls)")
+    by_name = {k: times[k] / counts[k] * n for k, n in launches_per.items() if n}
+    launches = sum(launches_per.values())
+    device_us.last = {"kernels_per_call": launches, "records": counts,
                       "lost_records": launches * reps - sum(counts.values()),
                       "names": sorted({k[:60] for k in by_name}), "by_name": by_name}
-    return total
+    return sum(by_name.values())
 
 
 device_us.last = {}
@@ -1752,7 +1792,7 @@ def driver_phase(dev, card) -> dict:
 # `cli/sim.py`'s main path at the paper's largest network size: 16 BA(110,
 # m=2) networks (graph seeds seed + 100 i; pads N 112, L 216, J 100)
 SIM_FULL = dict(sim_fleet=16, sim_nodes=110, sim_jobs=100, sim_util=0.7, sim_margin=5.0,
-                sim_cap=128, sim_rounds=4, sim_slots=500)
+                sim_cap=128, sim_rounds=4, sim_slots=125)
 SIM_RUNS = (
     ("gnn_dense", dict(sim_policy="gnn", sim_model=MODEL_K1)),
     ("gnn_sparse", dict(sim_policy="gnn", sim_model=MODEL_K2, layout="sparse")),
@@ -1784,7 +1824,9 @@ def count_plain(fn):
     launches their kernels make for them, by the dtype they receive: K1 one
     a forward call of its autograd Function (and only on float32 or
     wider), K2 one a squaring of the schedule (`minplus` or
-    `minplus_bf16`), K3 3 N / 128 a call (1 at N = 128;
+    `minplus_bf16`; on the tape, `minplus_closure_diff_plain`, also K2's
+    backward, `minplus_bwd`, two a squaring: the RL step runs the backward
+    of every APSP it takes), K3 3 N / 128 a call (1 at N = 128;
     `blocked_fw` or `blocked_fw_bf16`), K6 one a call plus its squarings
     (or K3's launches on the `pallas` route's blocked FW), K4 one a call (`chebconv` or
     `chebconv_bf16`; the bf16 transposed walk `chebconv_bf16_t`).  Runs on
@@ -1830,12 +1872,18 @@ def count_plain(fn):
         add("chebconv_bf16_t", 1)
         return orig["chebconv_transpose_bf16_plain"](rows, cols, vals, diag, g)
 
+    def k2d(d, iters):
+        add("minplus", iters)
+        add("minplus_bwd", 2 * iters)
+        return orig["minplus_closure_diff_plain"](d, iters)
+
     # K1: its autograd Function's forward (the backward recomputes the
     # plain scan on the card too, and the scan path launches no K1)
     wraps = {"_forward": (fp, k1), "minplus_closure": (mp, k2),
              "blocked_fw_plain": (mp, k3), "apsp_coo_plain": (mp, k6),
              "chebconv_propagate_plain": (cc, k4),
-             "chebconv_transpose_bf16_plain": (cc, k4t)}
+             "chebconv_transpose_bf16_plain": (cc, k4t),
+             "minplus_closure_diff_plain": (mp, k2d)}
     orig = {name: getattr(mod, name) for name, (mod, _) in wraps.items()}
     for name, (mod, fn_) in wraps.items():
         setattr(mod, name, fn_)
@@ -2080,7 +2128,7 @@ SIM_BF16 = dict(sim_policy="baseline", sim_rounds=2, sim_slots=250, precision="b
 WINDOW = 500
 LAUNCH_KEYS = ("fixed_point", "minplus", "minplus_bf16", "coo_apsp", "coo_apsp_bf16",
                "chebconv", "chebconv_bf16", "chebconv_bf16_t", "blocked_fw",
-               "blocked_fw_bf16")
+               "blocked_fw_bf16", "minplus_bwd")
 
 
 def check_launches(tag, counts: dict, want: dict) -> None:
@@ -4227,6 +4275,471 @@ def loop_phase(dev, card) -> dict:
     return result
 
 
+
+# ---- slice 23: closed-loop RL and K2's backward ------------------------------
+
+# K2's backward at the RL path's shapes (4 lanes at the smoke's N = 16 and
+# at n = 110's N = 112, the serving bucket's 16 x 112) and on hop weights
+# (every edge 1: ties at nearly every k)
+K2B_SHAPES = ((4, 16), (4, 112), (16, 112))
+K2B_TOL = 1e-5      # of max |gradient|: float32 sums in another order
+# one train step at full width: 4 BA networks of n = 110 (pads N 112, L
+# 216), 100 jobs at utilization 0.7, 2 rounds x 100 slots; the sim phase's
+# ring capacity (one histogram boundary set a process, `loop_phase`)
+RL_FULL = dict(sim_nodes=110, sim_jobs=100, rl_util=0.7, rl_fleet=4, rl_rounds=2,
+               rl_slots=100, sim_cap=SIM_FULL["sim_cap"])
+RL_LOSS_RTOL = 1e-4    # a lane's loss, card against CPU, where its choices agree
+RL_GRAD_RTOL = 1e-3    # a lane's gradient, card against CPU, of its norm, likewise
+RL_DELTA_TOL = 0.05    # the update, card against CPU, of its norm
+# the compared steps' temperature: on the cost table's scale (a job's
+# local cost ~16 against ~1,600 a server), where the committed models
+# sample offloads and every lane's gradient flows; at the default 0.5
+# every job stays local at n = 110 and every gradient is exactly 0
+RL_CMP_TEMP = 1000.0
+RL_WITNESS_EVALS = 4   # fixed-draw evaluation batches a contender, as the smoke's
+RL_DIR = os.path.join(ROOT, "build", "rl_card")
+
+
+def hop_weights(b: int, n: int, seed: int):
+    """(b, n, n) float32 on the CPU: weight 1 on a ring and on chords drawn
+    with probability 2 / n from `default_rng(seed)`, +inf elsewhere."""
+    rng = np.random.default_rng(seed)
+    w = np.full((b, n, n), np.inf, dtype=np.float32)
+    for k in range(b):
+        iu, ju = np.where(np.triu(rng.uniform(size=(n, n)) < 2.0 / n, 2))
+        for i, j in list(zip(iu, ju)) + [(i, (i + 1) % n) for i in range(n)]:
+            w[k, i, j] = w[k, j, i] = 1.0
+    return torch.from_numpy(w)
+
+
+def k2_backward_phase(dev, card) -> dict:
+    """K2's backward through the autograd wrapper the RL path calls
+    (`minplus_closure_diff`, `_MinplusClosure`) against autograd through
+    the plain squarings on the same card tensors: the distances bit for
+    bit, the input's gradient within `K2B_TOL` of its largest entry, 2
+    launches a squaring, the same bits on a second call; then the backward
+    alone (`minplus_closure_bwd_cuda` on the saved squarings) on the device
+    clock, its call time, the plain backward's, and its bound by
+    operations (6 N^3 a squaring and matrix: the split pass's add and min,
+    the gather's add and compare for each operand)."""
+    from multihop_offload_tpu_torch.ops import minplus as mp
+
+    cases = {f"{b}x{n}": minplus_input(b, n) for b, n in K2B_SHAPES}
+    cases["4x112_hops"] = hop_weights(4, 112, 23)
+    out = {}
+    for tag, w in cases.items():
+        b, n, _ = w.shape
+        iters = mp.squaring_count(n)
+        d = w.to(dev)
+        d = torch.where(torch.eye(n, dtype=torch.bool, device=dev), 0.0, d).contiguous()
+        c = torch.from_numpy(np.random.default_rng(n).uniform(0.5, 1.5, (b, n, n))
+                             .astype(np.float32)).to(dev)
+
+        def wrapped():
+            xk = d.clone().requires_grad_()
+            fwd = mp.minplus_closure_diff(xk, iters)
+            ct = torch.where(torch.isfinite(fwd), c, 0.0)
+            return fwd.detach(), ct, torch.autograd.grad(fwd, xk, grad_outputs=ct)[0]
+
+        launches0 = mp.minplus_closure_bwd_cuda.launches
+        fwd, ct, got = wrapped()
+        launched = mp.minplus_closure_bwd_cuda.launches - launches0
+        again = wrapped()[2]
+        x = d.clone().requires_grad_()
+        sp = mp.minplus_closure_diff_plain(x, iters)
+        (want,) = torch.autograd.grad(sp, x, grad_outputs=ct, retain_graph=True)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not torch.equal(fwd, sp.detach()):
+            raise AssertionError(f"K2 backward {tag}: the forward differs from plain")
+        if launched != 2 * iters:
+            raise AssertionError(f"K2 backward {tag}: {launched} launches through the "
+                                 f"autograd wrapper, not {2 * iters}")
+        if not err <= K2B_TOL * scale:
+            raise AssertionError(f"K2 backward {tag}: max |err| {err:.3e} > {K2B_TOL} x "
+                                 f"{scale:.3e}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 backward {tag}: two calls differ")
+        _, stack, step_elems, lead = mp._minplus_closure_saved(d, iters)
+        bwd = lambda: mp.minplus_closure_bwd_cuda(stack, step_elems, lead, ct, iters)
+        t = {"ms": cuda_ms(bwd, 20),
+             "device_ms": device_us(bwd, 20, per_call={"bwd_split_kernel": iters,
+                                                       "bwd_gather_kernel": iters}) / 1e3,
+             "host_us": host_us(bwd, 20), "kernels_per_call": 2 * iters,
+             "records": device_us.last["records"]}
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(sp, x, grad_outputs=ct,
+                                                       retain_graph=True), 3)
+        ops_ms = 6.0 * b * n ** 3 * iters / PEAK_FP32_INSTR_PER_S * 1e3
+        bytes_ms = (iters + 4) * b * n * n * 4 / PEAK_BYTES_PER_S * 1e3
+        out[tag] = {"shape": [b, n], "iters": iters, "leading_changes": lead.tolist(),
+                    "max_abs_err": err, "max_abs_grad": scale,
+                    "device_ms": t["device_ms"], "ms": t["ms"], "host_us": t["host_us"],
+                    "kernels_per_call": t["kernels_per_call"], "records": t["records"],
+                    "plain_ms": plain_ms,
+                    "bound_ms": max(ops_ms, bytes_ms),
+                    "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                    "library_ms": None}
+        device = (f"{t['device_ms'] * 1e3:.2f} us ({t['kernels_per_call']} kernels; records "
+                  f"{t['records']} of {20 * iters} each)")
+        log(f"K2 backward {tag} B,N={(b, n)} iters={iters} (leading changes "
+            f"{lead.tolist()}), through the autograd wrapper ({launched} launches): "
+            f"distances bit-identical to plain, gradient max |err| "
+            f"{err:.3e} of max {scale:.3e} (bar {K2B_TOL} of it), two calls bit-identical; "
+            f"on {card['smi']}: device {device}, call {t['ms'] * 1e3:.2f} us, host "
+            f"{t['host_us']:.2f} us; plain backward {plain_ms:.4f} ms; bound "
+            f"{out[tag]['bound_ms'] * 1e3:.2f} us ({out[tag]['bound_by']})")
+    return out
+
+
+def rl_step_setup(cfg) -> dict:
+    """The full-width step's fleet (`cli.rl.build_fleet` on the CPU), its
+    slot draws (seed 23) and Gumbel decision noise (seed 29), on the CPU."""
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.cli.sim import uniform_draws
+    from multihop_offload_tpu_torch.rl.rollout import gumbel_noise
+
+    insts, jobss, paramss, spec, _ = rl_cli.build_fleet(cfg, "cpu")
+    shape = (cfg.rl_fleet, cfg.rl_rounds, spec.num_jobs, insts.servers.shape[1] + 1)
+    return {"cfg": cfg, "fleet": (insts, jobss, paramss), "spec": spec,
+            "draws": uniform_draws(spec, cfg.rl_fleet, cfg.rl_rounds, cfg.rl_slots, seed=23),
+            "gumbel": gumbel_noise([torch.Generator().manual_seed(29)], shape, torch.float32,
+                                   "cpu")}
+
+
+def rl_step_run(setup: dict, model_name: str, where, plain: bool = False) -> dict:
+    """One `RLTrainer` step of `setup` on `where` from the committed weights
+    `model_name`: with `plain` (on the CPU) under `count_plain`, the
+    launches the card's kernels make for the same step; else between
+    `reset_counts` and `read_counts`, the step's wall ms beside them."""
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.rl import RLTrainer
+    from multihop_offload_tpu_torch.sim.runner import InjectedDraws
+
+    cfg = setup["cfg"]
+    tr = RLTrainer(cfg, load_model(model_name, device=where, layout=cfg.layout), setup["spec"])
+    before = {k: v.clone() for k, v in tr.params.items()}
+    args = tuple(x.to(where) for x in setup["fleet"])
+    draws = InjectedDraws(*[x.to(where) for x in setup["draws"]])
+    gumbel = setup["gumbel"].to(where)
+    if plain:
+        out, counts = count_plain(lambda: tr.train_step(*args, draws, gumbel=gumbel))
+        run = {}
+    else:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = tr.train_step(*args, draws, gumbel=gumbel)
+        counts = read_counts()
+        run = {"first_ms": (time.perf_counter() - t0) * 1e3}
+    # the update of this step (later timing steps move the trainer on)
+    update = {k: v - before[k] for k, v in tr.params.items()}
+    return run | {"tr": tr, "out": out, "counts": counts, "update": update, "args": args}
+
+
+def rl_compare(tag: str, model_name: str, setup: dict, card_run: dict, cpu_run: dict) -> dict:
+    """The card's step against the CPU's: launches equal to the plain
+    versions' count of the CPU step (K1, K2 and K2's backward; under the
+    sparse layout K4 forward and transposed too); the CPU step must offload
+    and every lane's gradient be nonzero; `dst` identical in >= 99% of
+    (lane, round, job), on lanes whose choices all agree the packet
+    counters equal, the loss within `RL_LOSS_RTOL` and the lane's gradient
+    within `RL_GRAD_RTOL` of its norm; the update Adam makes of the mean
+    gradient within `RL_DELTA_TOL` of its norm."""
+    from multihop_offload_tpu_torch.cli.sim import fields_that_differ
+    from multihop_offload_tpu_torch._records import slice_records
+
+    cfg = setup["cfg"]
+    jobss = setup["fleet"][1]
+    got, cpu = card_run["out"], cpu_run["out"]
+    counts = card_run["counts"]
+    check_launches(f"rl {tag} train step", counts, cpu_run["counts"])
+    for k in ("fixed_point", "minplus", "minplus_bwd"):
+        if counts[k] == 0:
+            raise AssertionError(f"rl {tag}: kernel {k} did not launch: {counts}")
+    mask = jobss.mask.unsqueeze(1).expand(-1, cfg.rl_rounds, -1)
+
+    def offload_share(dsts):
+        return float(((dsts.cpu() != jobss.src.unsqueeze(1)) & mask).double().sum() / mask.sum())
+
+    offload, cpu_offload = offload_share(got.dsts), offload_share(cpu.dsts)
+    if not (cpu_offload > 0 and float(cpu.grad_norms.min()) > 0):
+        raise AssertionError(f"rl {tag}: the CPU step holds no gradient to compare (offload "
+                             f"share {cpu_offload}, lane gradient norms "
+                             f"{cpu.grad_norms.tolist()})")
+    same = (got.dsts.cpu() == cpu.dsts) | ~mask
+    agree = float(same[mask].double().mean())
+    lanes = same.flatten(1).all(dim=1)
+    loss_rel, grad_rel, differ = [], [], {}
+    for i in torch.nonzero(lanes).flatten().tolist():
+        a, b = slice_records(got.state.to("cpu"), i, i + 1), slice_records(cpu.state, i, i + 1)
+        differ[i] = fields_that_differ(a, b)
+        for f in ("generated", "delivered", "dropped"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"rl {tag}: lane {i}'s {f} counter differs from the CPU")
+        loss_rel.append(abs(float(got.losses[i]) - float(cpu.losses[i]))
+                        / max(abs(float(cpu.losses[i])), 1e-30))
+        num = sum(float((got.grads[k][i].cpu() - g[i]).pow(2).sum())
+                  for k, g in cpu.grads.items())
+        den = sum(float(g[i].pow(2).sum()) for g in cpu.grads.values())
+        grad_rel.append(math.sqrt(num / den))
+    if agree < 0.99 or not lanes.any() or not max(loss_rel) <= RL_LOSS_RTOL:
+        raise AssertionError(f"rl {tag}: dst agreement {agree}, agreeing lanes "
+                             f"{lanes.tolist()}, loss rel err {loss_rel}")
+    if not max(grad_rel) <= RL_GRAD_RTOL:
+        raise AssertionError(f"rl {tag}: a lane's gradient differs from the CPU's by "
+                             f"{grad_rel} of its norm")
+    upd, cpu_upd = card_run["update"], cpu_run["update"]
+    num = sum(float((upd[k].cpu() - cpu_upd[k]).pow(2).sum()) for k in upd)
+    den = sum(float(cpu_upd[k].pow(2).sum()) for k in upd)
+    if not den > 0:
+        raise AssertionError(f"rl {tag}: the CPU step made no update")
+    delta_rel = math.sqrt(num / den)
+    if not delta_rel <= RL_DELTA_TOL:
+        raise AssertionError(f"rl {tag}: the update differs from the CPU's by {delta_rel:.3e} "
+                             f"of its norm")
+    res = {"counts": counts, "temperature": cfg.rl_temp, "dst_agreement": agree,
+           "lanes_agreeing": int(lanes.sum()), "loss_rel_err": max(loss_rel),
+           "grad_rel_err": grad_rel, "grad_norms_cpu": cpu.grad_norms.tolist(),
+           "state_fields_differ": differ, "update_rel_err": delta_rel,
+           "update_norm_cpu": math.sqrt(den), "offload_share": offload,
+           "offload_share_cpu": cpu_offload, "skipped": got.skipped}
+    log(f"rl {tag} train step ({model_name}, {cfg.layout}, fleet {cfg.rl_fleet}, n "
+        f"{cfg.sim_nodes}, J {cfg.sim_jobs}, {cfg.rl_rounds} x {cfg.rl_slots} slots, "
+        f"temperature {cfg.rl_temp}): launches {counts} = the CPU step's plain count; "
+        f"offload share {offload:.4f} (CPU {cpu_offload:.4f}), lane gradient norms (CPU) "
+        f"{[f'{x:.3e}' for x in cpu.grad_norms.tolist()]}; dst agreement {agree:.4f} (bar "
+        f"0.99); {int(lanes.sum())} lanes agree: loss rel err {max(loss_rel):.3e} (bar "
+        f"{RL_LOSS_RTOL}), gradient rel err {[f'{x:.3e}' for x in grad_rel]} (bar "
+        f"{RL_GRAD_RTOL}), fields that differ {differ}; update {delta_rel:.3e} of its norm "
+        f"{math.sqrt(den):.3e} (bar {RL_DELTA_TOL})")
+    return res
+
+
+def rl_witness_setup() -> dict:
+    """The smoke's run (`cli.rl.SMOKE` at seed 0: its fleet and its fresh
+    init, `make_rl_model`) on the CPU, with injected draws for each of its
+    steps (slot draws seed 1000 + s, Gumbel noise 2000 + s) and for each
+    evaluation batch (3000 + e, 4000 + e)."""
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.cli.sim import uniform_draws
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.rl.rollout import gumbel_noise
+
+    cfg = dataclasses.replace(Config(seed=0), **rl_cli.SMOKE)
+    insts, jobss, paramss, spec, _ = rl_cli.build_fleet(cfg, "cpu")
+    shape = (cfg.rl_fleet, cfg.rl_rounds, spec.num_jobs, insts.servers.shape[1] + 1)
+
+    def draws(a: int, b: int):
+        return (uniform_draws(spec, cfg.rl_fleet, cfg.rl_rounds, cfg.rl_slots, seed=a),
+                gumbel_noise([torch.Generator().manual_seed(b)], shape, torch.float32, "cpu"))
+
+    return {"cfg": cfg, "fleet": (insts, jobss, paramss), "spec": spec,
+            "model": rl_cli.make_rl_model(cfg, insts, jobss),
+            "train": [draws(1000 + s, 2000 + s) for s in range(cfg.rl_steps)],
+            "eval": [draws(3000 + e, 4000 + e) for e in range(RL_WITNESS_EVALS)]}
+
+
+def rl_witness_run(w: dict, where) -> dict:
+    """The smoke's steps of `w` on `where` under its injected draws, with
+    no devmetrics: each step's loss, lane gradient norms, `dst`, and the
+    probes (`make_rl_model`'s, one a lane) on which the output unit is
+    alive after its update; then the sampling policy's delivered ratio
+    of the init and of the trained parameters over the injected
+    evaluation batches."""
+    import copy
+
+    from multihop_offload_tpu_torch._records import slice_records
+    from multihop_offload_tpu_torch.agent.actor import build_ext_features, default_support
+    from multihop_offload_tpu_torch.rl import RLTrainer, delivered_ratio, make_eval
+    from multihop_offload_tpu_torch.sim.runner import InjectedDraws
+
+    cfg, spec = w["cfg"], w["spec"]
+    model = copy.deepcopy(w["model"]).to(where)
+    probe = copy.deepcopy(model)
+    insts, jobss, paramss = (x.to(where) for x in w["fleet"])
+    probes = []
+    for i in range(cfg.rl_fleet):
+        inst, jobs = slice_records(insts, i, i + 1), slice_records(jobss, i, i + 1)
+        feats = build_ext_features(inst, jobs)
+        mask = inst.ext_mask if inst.ext_mask is not None else torch.ones(
+            feats.shape[:-1], dtype=torch.bool, device=feats.device)
+        probes.append((feats, default_support(probe, inst, cfg.layout), mask))
+
+    def alive(params) -> int:
+        with torch.no_grad():
+            for k, p in probe.named_parameters():
+                p.copy_(params[k])
+            return sum(bool(((probe(f, s)[..., 0] > 0) & m).any()) for f, s, m in probes)
+
+    def injected(pair):
+        return InjectedDraws(*[x.to(where) for x in pair[0]]), pair[1].to(where)
+
+    tr = RLTrainer(cfg, model, spec, devmetrics=False, sim_dtype=cfg.torch_dtype)
+    init = {k: v.clone() for k, v in tr.params.items()}
+    steps = []
+    for pair in w["train"]:
+        draws, gumbel = injected(pair)
+        out = tr.train_step(insts, jobss, paramss, draws, gumbel=gumbel)
+        steps.append({"loss": float(out.loss), "grad_norms": out.grad_norms.tolist(),
+                      "skipped": out.skipped, "alive": alive(tr.params), "dsts": out.dsts.cpu()})
+    ev = make_eval(cfg, model, spec)
+    states0 = tr.init_states(cfg.rl_fleet, where)
+    rates0 = torch.zeros((cfg.rl_fleet, spec.num_jobs), dtype=cfg.torch_dtype, device=where)
+
+    def ratio(params) -> float:
+        return sum(delivered_ratio(ev(params, insts, jobss, paramss, states0, rates0,
+                                      *injected(pair)))
+                   for pair in w["eval"]) / len(w["eval"])
+
+    return {"alive_init": alive(init), "steps": steps, "ratio_init": ratio(init),
+            "ratio_trained": ratio(tr.params)}
+
+
+def rl_witness_worker(path: str) -> int:
+    """`python3 chip_smoke.py --rl-witness-worker PATH`: `rl_witness_run`
+    of the smoke's steps on the card, saved to PATH with `torch.save`."""
+    torch.save(rl_witness_run(rl_witness_setup(), torch.device("cuda")), path)
+    return 0
+
+
+def rl_witness_compare(w: dict, card: dict, cpu: dict) -> dict:
+    """The smoke's steps on the card against the CPU under the same
+    injected draws: no skipped step, `dst` identical in >= 99% of (step,
+    lane, round, job) over the steps, and the output unit dies (is alive on no probe) at
+    the same step on both sides, or on neither."""
+    cfg, jobss = w["cfg"], w["fleet"][1]
+    mask = jobss.mask.unsqueeze(1).expand(-1, cfg.rl_rounds, -1)
+    same = torch.stack([(a["dsts"] == b["dsts"])[mask]
+                        for a, b in zip(card["steps"], cpu["steps"])])
+    agree = [float(x) for x in same.double().mean(dim=1)]
+    dies = {side: next((s for s, st in enumerate(r["steps"]) if st["alive"] == 0), None)
+            for side, r in (("card", card), ("cpu", cpu))}
+    zero = {side: next((s for s, st in enumerate(r["steps"]) if max(st["grad_norms"]) == 0),
+                       None) for side, r in (("card", card), ("cpu", cpu))}
+    res = {"dst_agreement": float(same.double().mean()), "dst_agreement_by_step": agree,
+           "dies_after_step": dies, "first_zero_gradient_step": zero,
+           "alive_init": {"card": card["alive_init"], "cpu": cpu["alive_init"]},
+           "losses": {"card": [st["loss"] for st in card["steps"]],
+                      "cpu": [st["loss"] for st in cpu["steps"]]},
+           "grad_norm_max": {"card": [max(st["grad_norms"]) for st in card["steps"]],
+                             "cpu": [max(st["grad_norms"]) for st in cpu["steps"]]},
+           "delivered_ratio": {side: {"init": r["ratio_init"], "trained": r["ratio_trained"]}
+                               for side, r in (("card", card), ("cpu", cpu))}}
+    log(f"rl smoke witness ({cfg.rl_steps} steps of the smoke's run, injected draws, card "
+        f"against CPU): dst agreement {res['dst_agreement']:.4f} (bar 0.99), a step "
+        f"{[round(x, 4) for x in agree]}; the output unit "
+        f"alive on {res['alive_init']} probes at init, dies after step {dies}; first step "
+        f"with every gradient 0 {zero}; largest gradient norm a step card "
+        f"{[f'{x:.2e}' for x in res['grad_norm_max']['card']]}, CPU "
+        f"{[f'{x:.2e}' for x in res['grad_norm_max']['cpu']]}; delivered ratio "
+        f"{res['delivered_ratio']}")
+    if any(st["skipped"] for r in (card, cpu) for st in r["steps"]):
+        raise AssertionError("rl smoke witness: a step was skipped")
+    if res["dst_agreement"] < 0.99 or dies["card"] != dies["cpu"]:
+        raise AssertionError(f"rl smoke witness: the card's run departs from the CPU's: {res}")
+    return res
+
+
+RL_STEPS = (("dense", MODEL_K1, {}), ("sparse", MODEL_K2, dict(layout="sparse", cheb_k=2)))
+
+
+def rl_phase(dev, card) -> dict:
+    """Slice 23: `mho-rl --smoke` on the card in its own process, and the
+    smoke's run on the card under injected draws in another
+    (`--rl-witness-worker`), while the full-width steps' fleets and the
+    witness are built and stepped on the CPU; then K2's backward, the
+    compared steps on the card held to the CPU's, and the model of
+    record's steps at the default temperature for their launches and
+    times (see the module docstring)."""
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    # the smoke in its own process: it flushes the sim's queue-depth
+    # histogram at its capacity 64, and a process keeps one boundary set
+    os.makedirs(RL_DIR, exist_ok=True)
+    record = os.path.join(RL_DIR, "smoke.json")
+    witness_file = os.path.join(RL_DIR, "witness_card.pt")
+    procs = {"mho-rl --smoke": [sys.executable, "-m", "multihop_offload_tpu_torch.cli.rl",
+                                "--smoke", "--rl_out", record],
+             "witness": [sys.executable, os.path.abspath(__file__), "--rl-witness-worker",
+                         witness_file]}
+    procs = {k: subprocess.Popen(v, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, v in procs.items()}
+    try:
+        setups, cpus = {}, {}
+        for tag, model_name, kw in RL_STEPS:
+            setups[tag] = rl_step_setup(dataclasses.replace(
+                Config(seed=0), **RL_FULL, **kw, rl_temp=RL_CMP_TEMP))
+            cpus[tag] = rl_step_run(setups[tag], model_name, "cpu", plain=True)
+        witness = rl_witness_setup()
+        witness_cpu = rl_witness_run(witness, "cpu")
+        texts = {k: p.communicate(timeout=300)[0] for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    smoke_s = time.perf_counter() - t0
+    for k, p in procs.items():
+        for line in texts[k].splitlines():
+            if not line.startswith((" ", "{", "}")) and "ptxas" not in line:
+                log(f"[{k}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{k} exited {p.returncode}")
+    with open(record) as f:
+        smoke = json.load(f)
+    per_step = smoke["launches_per_step"]
+    if not (smoke["conservation"]["exact"] and smoke["skipped_updates"] == 0
+            and smoke["steady_launches"] and smoke["platform"] == "cuda"
+            and all(per_step.get(k, 0) > 0 for k in ("fixed_point", "minplus", "minplus_bwd"))):
+        raise AssertionError(f"mho-rl --smoke on the card: a gate failed: {smoke}")
+    log(f"mho-rl --smoke on the card: {smoke_s:.1f} s (beside the witness and the CPU's "
+        f"steps); conservation exact {smoke['conservation']['device']}, skipped 0, the same "
+        f"launches every step after the first {per_step}; delivered ratio init "
+        f"{smoke['delivered_ratio_init']:.4f}, trained {smoke['delivered_ratio_trained']:.4f} "
+        f"(improved: {smoke['improved']}; ROADMAP.md Queue 3), last step's largest "
+        f"gradient norm {smoke['grad_norm_last']:.3e}; {smoke['episodes_per_s']:.2f} "
+        f"episodes/s")
+    wit = rl_witness_compare(witness, torch.load(witness_file, weights_only=False), witness_cpu)
+    k2b = k2_backward_phase(dev, card)
+    steps, counts = {}, {}
+    default_temp = Config().rl_temp
+    for tag, model_name, _ in RL_STEPS:
+        setup = setups[tag]
+        steps[tag] = rl_compare(tag, model_name, setup, rl_step_run(setup, model_name, dev),
+                                cpus[tag])
+        # the model of record's step at the default temperature: its
+        # launches (the schedule's, whatever the temperature samples) and
+        # its times
+        plain = dict(setup, cfg=dataclasses.replace(setup["cfg"], rl_temp=default_temp))
+        run = rl_step_run(plain, model_name, dev)
+        check_launches(f"rl {tag} train step at temperature {default_temp}", run["counts"],
+                       cpus[tag]["counts"])
+        counts[tag] = run["counts"]
+        run["step_ms"] = run["busy"] = None
+        if tag == "dense":  # the next step's wall ms, and the card's busy share over one
+            step = lambda: run["tr"].train_step(*run["args"], rl_cli.train_seeds(plain["cfg"], 1))
+            run["step_ms"] = wall_ms(step, 1, warmup=0)
+            run["busy"] = busy_share(step, run["step_ms"])
+        log(f"rl {tag} train step at temperature {default_temp} on {card['smi']}: launches "
+            f"{run['counts']}, {run['first_ms']:.2f} ms (the first step)"
+            + (f", {run['step_ms']:.2f} ms (the next); card busy {run['busy']['busy_ms']:.2f} "
+               f"ms ({run['busy']['share']:.3f}, {run['busy']['device_records']} device "
+               f"records)" if run["busy"] else ""))
+        steps[tag].update({k: run[k] for k in ("first_ms", "step_ms", "busy")})
+    out = {"k2_backward": k2b, "smoke": {k: smoke[k] for k in (
+               "delivered_ratio_init", "delivered_ratio_trained", "improved", "grad_norm_last",
+               "episodes_per_s", "launches_per_step", "conservation", "loss_first",
+               "loss_last")} | {"seconds": smoke_s},
+           "witness": wit,
+           "steps": {k: {f: v for f, v in r.items() if f != "counts"} for k, r in steps.items()},
+           "counts": {f"rl_train_step_{k}": c for k, c in counts.items()},
+           "seconds": time.perf_counter() - t0}
+    log(f"rl phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -4553,6 +5066,8 @@ def main() -> int:
     # ---- slice 22: training across processes, the continual-learning loop ---
     mproc = multiprocess_phase(dev, card)
     loopr = loop_phase(dev, card)
+
+    rl = rl_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -4566,7 +5081,8 @@ def main() -> int:
                **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts"),
                "tf_eval_file": tfck.pop("eval_counts_file0"),
                "route_demo": tfck.pop("route_counts"), **par.pop("counts"),
-               **shard.pop("counts"), **mproc.pop("counts"), **loopr.pop("counts")}
+               **shard.pop("counts"), **mproc.pop("counts"), **loopr.pop("counts"),
+               **rl.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -4581,6 +5097,7 @@ def main() -> int:
     print(json.dumps({"sharded_serving": shard}), flush=True)
     print(json.dumps({"multiprocess": mproc}), flush=True)
     print(json.dumps({"loop": loopr}, default=str), flush=True)
+    print(json.dumps({"rl": rl}, default=str), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]
@@ -4723,6 +5240,17 @@ def main() -> int:
          "fp32_device_ms": large["device_ms"],
          "launches_by_path": {k: v["blocked_fw_bf16"] for k, v in by_path.items()}},
     ]
+    kb = rl["k2_backward"]["4x112"]
+    kernels.append(
+        {"name": "minplus_backward", "route": "cuda",
+         "source": "multihop_offload_tpu_torch/csrc/minplus_bwd.cu",
+         "replaces": "multihop_offload_tpu/env/apsp.py:24",
+         "launches": by_path["rl_train_step_dense"]["minplus_bwd"],
+         "max_abs_err": kb["max_abs_err"], "ms": kb["ms"], "device_ms": kb["device_ms"],
+         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
+         "bound_by": kb["bound_by"], "library_ms": None, "shape": kb["shape"],
+         "launches_per_squaring": 2, "shapes": rl["k2_backward"],
+         "launches_by_path": {k: v.get("minplus_bwd", 0) for k, v in by_path.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],
@@ -4733,4 +5261,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multiprocess-worker"]:
         sys.exit(multiprocess_worker())
+    if sys.argv[1:2] == ["--rl-witness-worker"]:
+        sys.exit(rl_witness_worker(sys.argv[2]))
     sys.exit(main())

@@ -19,7 +19,11 @@ devices (`train/driver.py`, `parallel/`), and `mesh_graph > 1` is refused
 by the drivers, as in JAX.  The `loop_*` settings of the
 continual-learning loop (`cli/loop.py`, `loop/`) keep JAX's names,
 defaults and help; `loop_capture_sample` also sets the service's capture
-(`cli/serve.py`).
+(`cli/serve.py`).  The `rl_*` settings of the closed-loop RL trainer
+(`cli/rl.py`, `rl/`) keep JAX's names and defaults, except that `rl_out`
+"" writes no record in any mode (JAX's smoke default is a file of the JAX
+package's benchmark folder); `check_rl` refuses what the port's RL path
+does not run.
 """
 
 from __future__ import annotations
@@ -159,6 +163,32 @@ class Config:
     sim_fail_links: int = 0        # random links to fail at mid-horizon
     sim_fail_nodes: int = 0        # random non-server nodes to fail likewise
     sim_out: str = ""              # write the run / fidelity JSON record here
+    # ---- closed-loop RL (rl/ subsystem; cli.rl) -----------------------------
+    rl_steps: int = 30             # train steps per `cli.rl` run
+    rl_fleet: int = 4              # episodes (instances) per train step -- the
+    #                                batched (or sharded) lane axis
+    rl_rounds: int = 3             # policy re-decisions per episode (scenario
+    #                                shape comes from the sim_* knobs)
+    rl_slots: int = 120            # sim slots per policy round
+    rl_temp: float = 0.5           # categorical temperature over the offload
+    #                                cost table (higher = more exploration)
+    rl_delay_weight: float = 0.05  # reward = delivered_ratio - weight *
+    #                                mean delivered delay (model-time units)
+    rl_ent: float = 0.05           # entropy-bonus weight in the surrogate
+    #                                loss (guards against premature
+    #                                deterministic collapse of REINFORCE)
+    rl_buffer: int = 64            # on-device reward ring capacity backing
+    #                                the REINFORCE running-mean baseline
+    rl_util: float = 0.7           # analytic bottleneck-utilization target
+    #                                (rho) the RL scenarios are rescaled to
+    rl_lr: float = 2e-3            # Adam learning rate of the RL update (the
+    #                                offline `learning_rate` is tuned for file
+    #                                visits, not episodes)
+    rl_mesh: int = 1               # fleet mesh axis size: 1 = one device, N =
+    #                                the fleet sharded over N devices (the
+    #                                gradient is the mean of the shard means)
+    rl_out: str = ""               # write the smoke/train JSON record here
+    #                                ("" = print only, in every mode)
     # ---- continual learning (loop/ subsystem; cli.loop) --------------------
     loop_capture_sample: float = 0.0   # fraction of served requests emitted
     #                                as `outcome` experience events through
@@ -227,6 +257,17 @@ class Config:
         point running on `device` (`auto`: bf16 on CUDA, fp32 on the CPU).
         Every entry point that takes a Config resolves its policy here."""
         return resolve_precision(self.precision, self.torch_dtype, device)
+
+    def check_rl(self, device) -> None:
+        """Refuse what JAX's RL path runs and the port's does not (ROADMAP.md
+        Queue 1 item 9): a mixed precision policy on `device` (JAX's
+        `make_model(cfg)` takes `cfg.precision`, `auto` included) and bf16
+        storage; the port's rollout and K2's backward run float32 or
+        float64."""
+        if self.precision_policy(device).mixed or self.dtype == "bfloat16":
+            raise NotImplementedError(
+                f"precision={self.precision!r}, dtype={self.dtype!r}: the port's RL path "
+                "runs fp32 (or float64) only; bf16 RL waits in ROADMAP.md Queue 1 item 9")
 
     def model_dir(self, root: Optional[str] = None) -> str:
         """Checkpoint directory; naming mirrors `AdHoc_train.py:59`."""

@@ -112,6 +112,7 @@ def kernel_counts() -> dict:
     return {"fixed_point": fp.fixed_point_cuda.launches,
             "fixed_point_scan": fp.fixed_point_scan.runs,
             "minplus": mp.minplus_closure_cuda.launches,
+            "minplus_bwd": mp.minplus_closure_bwd_cuda.launches,
             "blocked_fw": mp.blocked_fw_cuda.launches,
             "coo_apsp": mp.apsp_coo_cuda.launches,
             "chebconv": cc.chebconv_propagate_cuda.launches,
@@ -129,6 +130,7 @@ def reset_kernel_counts() -> None:
     fp.fixed_point_cuda.launches = 0
     fp.fixed_point_scan.runs = 0
     mp.minplus_closure_cuda.launches = 0
+    mp.minplus_closure_bwd_cuda.launches = 0
     mp.blocked_fw_cuda.launches = 0
     mp.apsp_coo_cuda.launches = 0
     cc.chebconv_propagate_cuda.launches = 0

@@ -44,6 +44,11 @@ SIGNATURES = {
     "coo_apsp": ("mho_coo_weights_f32",
                  [_c_void_p] * 4 + [_c_int] * 3 + [_c_void_p]),
     "blocked_fw": ("mho_blocked_fw_f32", [_c_void_p] + [_c_int] * 2 + [_c_void_p]),
+    # K2's backward: the VJP of one squaring (stack, slice, lead, s, g, gd,
+    # m, w, B, N, stream)
+    "minplus_bwd": ("mho_minplus_square_bwd_f32",
+                    [_c_void_p, ctypes.c_longlong, _c_void_p, _c_int] + [_c_void_p] * 4
+                    + [_c_int] * 2 + [_c_void_p]),
     # the bf16 leg of the precision policy (K2, K6's build, K4's forward; K4's
     # transposed walk is `mho_chebconv_transpose_bf16` of the same library;
     # K3); K2's and K3's bf16 sources instantiate the float32 kernels' bodies

@@ -22,6 +22,14 @@ squarings that actually ran on each card (keyed by its `torch.device`), and
 `squarings_executed` sums them; `squarings_run_plain` counts the same
 squarings with plain PyTorch.
 
+K2's backward (`csrc/minplus_bwd.cu`) puts the squarings on the autograd
+tape, where JAX differentiates them (`apsp_minplus(early_stop=False)`, the
+RL rollout's APSP): `minplus_closure_diff` runs K2 forward keeping each
+squaring's input, then the VJP of every squaring of the schedule in
+reverse, with JAX's tie split; its plain version is autograd through
+`minplus_square_plain` (`minplus_closure_diff_plain`).
+`minplus_closure_bwd_cuda.launches` counts its launches, two a squaring.
+
 `minplus_closure` dispatches on the device: plain PyTorch for CPU tensors,
 the CUDA kernel for CUDA tensors, an error for anything else.  On CUDA it
 copies its input unless the caller hands it over (`owned=True`, as
@@ -171,13 +179,17 @@ def minplus_closure_cuda(d: torch.Tensor, iters: int, owned: bool = False) -> to
     b, n, _ = d.shape
     if b == 0 or n == 0 or iters <= 0:
         return d if owned else d.clone()
-    return _minplus_closure_owned(d if owned else d.clone(), iters)
+    return _minplus_pingpong(d if owned else d.clone(), iters)
 
 
-def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
-    """K2's launches on (B, N, N) float32 or bfloat16 contiguous CUDA
-    `first` (B, N, iters > 0), which it takes as the first ping-pong buffer
-    and may overwrite.  Returns the buffer that holds the result."""
+def _minplus_closure_owned(bufs, iters: int) -> torch.Tensor:
+    """K2's `iters` (> 0) launches over `bufs`, (B, N, N) float32 or
+    bfloat16 contiguous CUDA buffers of one shape that it may overwrite: squaring s reads `bufs[s % len(bufs)]` and writes the next
+    one (two ping-pong buffers, or the `iters + 1` slices of a stack that
+    keeps every squaring's input).  Returns K2's flags, (iters, B) int32:
+    nonzero where squaring s changed matrix b (a squaring after one that
+    changed nothing is skipped and writes nothing)."""
+    first = bufs[0]
     b, n, _ = first.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel grid's z limit 65535")
@@ -189,11 +201,10 @@ def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
         counter = counters[first.device] = torch.zeros((), dtype=torch.int64,
                                                        device=first.device)
     flags = torch.zeros((iters, b), dtype=torch.int32, device=first.device)
-    bufs = (first, torch.empty_like(first))
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream().cuda_stream
         for step in range(iters):
-            src, dst = bufs[step % 2], bufs[(step + 1) % 2]
+            src, dst = bufs[step % len(bufs)], bufs[(step + 1) % len(bufs)]
             err = fn(src.data_ptr(), dst.data_ptr(), flags.data_ptr(),
                      counter.data_ptr(), b, n, step, stream)
             if sfx:
@@ -201,6 +212,14 @@ def _minplus_closure_owned(first: torch.Tensor, iters: int) -> torch.Tensor:
             else:
                 minplus_closure_cuda.launches += 1
             _build.check_launch("minplus" + sfx, err)
+    return flags
+
+
+def _minplus_pingpong(first: torch.Tensor, iters: int) -> torch.Tensor:
+    """K2's launches with `first` (which it may overwrite) as the first of
+    two ping-pong buffers.  Returns the buffer that holds the result."""
+    bufs = (first, torch.empty_like(first))
+    _minplus_closure_owned(bufs, iters)
     return bufs[iters % 2]
 
 
@@ -269,6 +288,131 @@ def minplus_closure(d: torch.Tensor, iters: int, owned: bool = False) -> torch.T
 def squaring_count(num_nodes: int) -> int:
     """ceil(log2(N - 1)) squarings reach every simple path of N nodes."""
     return max(1, math.ceil(math.log2(max(num_nodes - 1, 2))))
+
+
+# ---- K2 on the autograd tape, with its backward ------------------------------
+
+
+def minplus_closure_diff_plain(d: torch.Tensor, iters: int) -> torch.Tensor:
+    """`iters` squarings of (B, N, N) `d` on the autograd tape: the full
+    schedule, no early stop.  The plain version of K2's backward: torch's
+    `minimum` gives half of a tie's cotangent to each side and `amin`
+    splits its share evenly among the tied k, as the VJPs of `lax.minimum`
+    and `jnp.min` do, so the gradient is `jax.grad`'s through
+    `env/apsp.py:apsp_minplus(early_stop=False)`, schedule and ties
+    included."""
+    for _ in range(iters):
+        d = minplus_square_plain(d)
+    return d
+
+
+def _slice_elems(b: int, n: int) -> int:
+    """Elements between two slices of K2's saved stack: B N^2 rounded up to
+    64 (256 bytes), so that every slice is as aligned as an allocation."""
+    return -(-b * n * n // 64) * 64
+
+
+def _minplus_closure_saved(d: torch.Tensor, iters: int) -> tuple:
+    """K2's `iters` launches on (B, N, N) float32 contiguous CUDA `d`, with
+    the input of every squaring kept for the backward: squaring s reads
+    slice s of one stack and writes slice s + 1, and skips, as K2's device
+    early stop does, a matrix that squaring s - 1 left unchanged (it then
+    writes no slice).  Returns (result, stack, slice elements, lead): lead
+    (B,) int32 counts the leading squarings that changed each matrix, so
+    slice min(s, lead[b]) holds squaring s's input and slice lead[b] the
+    result."""
+    b, n, _ = d.shape
+    step_elems = _slice_elems(b, n)
+    stack = torch.empty((iters + 1) * step_elems, dtype=torch.float32, device=d.device)
+    mats = stack.view(iters + 1, step_elems)[:, :b * n * n].unflatten(1, (b, n, n))
+    mats[0].copy_(d)
+    flags = _minplus_closure_owned(mats, iters)
+    lead = flags.ne(0).to(torch.int32).cumprod(0).sum(0, dtype=torch.int32)
+    out = mats[lead.long(), torch.arange(b, device=d.device)]
+    return out, stack, step_elems, lead
+
+
+def minplus_closure_bwd_cuda(stack: torch.Tensor, step_elems: int, lead: torch.Tensor,
+                             g: torch.Tensor, iters: int) -> torch.Tensor:
+    """K2's backward (`csrc/minplus_bwd.cu`): the cotangent of the input of
+    `_minplus_closure_saved`'s schedule from `g`, the cotangent of its
+    result, (B, N, N) float32 on the stack's card.  Every squaring's VJP in
+    reverse, skipped squarings included (their input is the fixed point),
+    two launches each (the tie count and split, then the gather).  The
+    same bits on every call."""
+    g = g.to(torch.float32).contiguous()
+    if g.dim() != 3 or g.shape[1] != g.shape[2] or g.device != stack.device:
+        raise ValueError(f"g must be (B, N, N) on the stack's card, got {tuple(g.shape)} on "
+                         f"{g.device}")
+    b, n, _ = g.shape
+    if (tuple(lead.shape) != (b,) or lead.dtype != torch.int32 or step_elems < b * n * n
+            or stack.numel() < (iters + 1) * step_elems):
+        raise ValueError("minplus_closure_bwd_cuda: the stack and lead do not match g")
+    if iters <= 0 or g.numel() == 0:
+        return g.clone()
+    fn = _build.kernel("minplus_bwd")
+    m, w = torch.empty_like(g), torch.empty_like(g)
+    bufs = (torch.empty_like(g), torch.empty_like(g))
+    cur = g
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i, s in enumerate(reversed(range(iters))):
+            out = bufs[i % 2]
+            err = fn(stack.data_ptr(), step_elems, lead.data_ptr(), s, cur.data_ptr(),
+                     out.data_ptr(), m.data_ptr(), w.data_ptr(), b, n, stream)
+            minplus_closure_bwd_cuda.launches += 2
+            _build.check_launch("minplus_bwd", err)
+            cur = out
+    return cur
+
+
+minplus_closure_bwd_cuda.launches = 0
+
+
+class _MinplusClosure(torch.autograd.Function):
+    """K2's squarings with K2's backward, on float32 CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, d, iters):
+        out, stack, step_elems, lead = _minplus_closure_saved(d.contiguous(), iters)
+        ctx.saved = (stack, step_elems, lead, iters)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        stack, step_elems, lead, iters = ctx.saved
+        return minplus_closure_bwd_cuda(stack, step_elems, lead, g, iters), None
+
+
+def minplus_closure_diff(d: torch.Tensor, iters: int) -> torch.Tensor:
+    """`iters` squarings of (B, N, N) `d` (zero diagonal, +inf for
+    non-edges) that reverse mode differentiates: the plain version on the
+    tape on the CPU; on CUDA, float32 only, K2 forward (with its device
+    early stop, the same result as the full schedule) and K2's backward
+    (`minplus_closure_bwd_cuda`), which takes every squaring's VJP."""
+    if d.device.type == "cpu":
+        return minplus_closure_diff_plain(d, iters)
+    if d.device.type == "cuda":
+        if d.dtype != torch.float32:
+            raise TypeError(f"K2's backward takes float32, got {d.dtype}")
+        if iters <= 0 or d.numel() == 0:
+            return d.clone()
+        return _MinplusClosure.apply(d, iters)
+    raise ValueError(f"minplus_closure_diff: unsupported device {d.device}")
+
+
+class _NoReverse(torch.autograd.Function):
+    """An early-stopped closure on the tape: reverse mode raises, as JAX's
+    `lax.while_loop` cannot be reverse-differentiated."""
+
+    @staticmethod
+    def forward(ctx, weights, sp):
+        return sp.view_as(sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("apsp_minplus(early_stop=True) cannot be reverse-differentiated "
+                           "(JAX's while_loop early exit); pass early_stop=False")
 
 
 # ---- K3: blocked Floyd-Warshall ---------------------------------------------
@@ -415,15 +559,27 @@ def _zero_diagonal(weights: torch.Tensor) -> torch.Tensor:
                        weights)
 
 
-def apsp_minplus(weights: torch.Tensor) -> torch.Tensor:
+def apsp_minplus(weights: torch.Tensor, num_iters: int | None = None,
+                 early_stop: bool = True) -> torch.Tensor:
     """Shortest-path distances (B, N, N) from one-hop weights (inf where no
-    edge; the diagonal is forced to 0) by squarings at every N, with the
-    early stop of the JAX `env/apsp.py:apsp_minplus` (identical to the
-    full ceil(log2(N-1)) schedule): the `'xla'` route.  The zeroed matrix
-    is a fresh temporary, so on the card K2 takes it as its first buffer
-    with no copy."""
+    edge; the diagonal is forced to 0) by `num_iters` squarings (None:
+    ceil(log2(N-1)), every simple path), as the JAX `env/apsp.py:
+    apsp_minplus`: the `'xla'` route.  `early_stop` (default) stops once a
+    squaring changes nothing, identical to the full schedule; the zeroed
+    matrix is a fresh temporary, so on the card K2 takes it as its first
+    buffer with no copy, and reverse mode through it raises, as through
+    JAX's `while_loop`.  `early_stop=False` puts the squarings on the
+    autograd tape (`minplus_closure_diff`: K2 and K2's backward on the
+    card), with the gradient of JAX's fixed schedule."""
     d = _zero_diagonal(weights)
-    return minplus_closure(d.contiguous(), squaring_count(weights.shape[-1]), owned=True)
+    iters = squaring_count(weights.shape[-1]) if num_iters is None else num_iters
+    if not early_stop:
+        return minplus_closure_diff(d.contiguous(), iters)
+    if torch.is_grad_enabled() and weights.requires_grad:
+        with torch.no_grad():
+            sp = minplus_closure(d.detach().contiguous(), iters, owned=True)
+        return _NoReverse.apply(weights, sp)
+    return minplus_closure(d.contiguous(), iters, owned=True)
 
 
 def apsp_minplus_pallas(weights: torch.Tensor) -> torch.Tensor:
@@ -537,7 +693,7 @@ def apsp_coo_cuda(link_ends, link_mask, link_delays, num_nodes: int,
         out = blocked_fw_cuda(w)
         return out if n_w == n else out[:, :n, :n].contiguous()
     # W is a fresh temporary: K2 takes it as its first buffer, with no copy
-    return _minplus_closure_owned(w, squaring_count(n))
+    return _minplus_pingpong(w, squaring_count(n))
 
 
 apsp_coo_cuda.launches = 0

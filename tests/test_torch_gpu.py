@@ -1355,3 +1355,134 @@ def test_gpu_refit_matches_cpu(cuda, tmp_path):
     for k, v in cpu["params"].items():
         err = float((card["params"][k].cpu() - v).abs().max() / v.abs().max().clamp_min(1e-30))
         assert err <= 1e-4, (k, err)
+
+
+# ---- K2's backward (csrc/minplus_bwd.cu) -------------------------------------
+
+
+def _diff_grads(w, c, iters, fn):
+    """d/dW of sum(sp * c) over the finite entries, sp = `fn(zeroed W)`."""
+    x = w.clone().requires_grad_()
+    d = torch.where(torch.eye(w.shape[-1], dtype=torch.bool, device=w.device), 0.0, x)
+    sp = fn(d.contiguous(), iters)
+    ct = torch.where(torch.isfinite(sp), c, 0.0)
+    (g,) = torch.autograd.grad(sp, x, grad_outputs=ct)
+    return sp.detach(), g
+
+
+def _hops(b, n, seed):
+    """A tie-heavy matrix: hop weights 1 on a ring plus random chords."""
+    rng = np.random.default_rng(seed)
+    w = np.full((b, n, n), np.inf, dtype=np.float32)
+    for k in range(b):
+        pairs = [(i, (i + 1) % n) for i in range(n)]
+        iu, ju = np.where(np.triu(rng.uniform(size=(n, n)) < 2.0 / n, 2))
+        for i, j in list(zip(iu, ju)) + pairs:
+            w[k, i, j] = w[k, j, i] = 1.0
+    return torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("b,n,ties", [(4, 16, False), (4, 112, False), (16, 112, False),
+                                      (4, 112, True), (3, 7, False), (5, 37, False),
+                                      (2, 256, False), (4, 64, True)])
+def test_minplus_backward_kernel_matches_plain(cuda, b, n, ties):
+    """K2 forward and K2's backward (the autograd Function of
+    `minplus_closure_diff`) against autograd through the plain squarings
+    on the same card tensors: the distances bit for bit, the gradient
+    within 1e-5 of its largest entry, the same bits on a second call, two
+    launches a squaring."""
+    w = (_hops(b, n, n) if ties else _weights(np.random.default_rng(n), b, n, 3.0 / n))
+    w = w.to(cuda)
+    c = torch.from_numpy(np.random.default_rng(n + 1).uniform(0.5, 1.5, (b, n, n))
+                         .astype(np.float32)).to(cuda)
+    iters = tmp.squaring_count(n)
+    before = tmp.minplus_closure_bwd_cuda.launches
+    sp, g = _diff_grads(w, c, iters, tmp.minplus_closure_diff)
+    assert tmp.minplus_closure_bwd_cuda.launches == before + 2 * iters
+    _, again = _diff_grads(w, c, iters, tmp.minplus_closure_diff)
+    sp_ref, g_ref = _diff_grads(w, c, iters, tmp.minplus_closure_diff_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(sp, sp_ref)
+    assert torch.equal(g, again)
+    assert torch.isfinite(g).all()
+    scale = float(g_ref.abs().max())
+    assert float((g - g_ref).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+def test_minplus_backward_through_skipped_squarings(cuda):
+    """A schedule far past the fixed point (12 squarings of 10-node rings
+    with weights in {1, 2}, fixed after 3): K2 skips the squarings after
+    it, and the backward still takes every squaring's VJP at the fixed
+    point, as the plain version does (and 4 squarings give another
+    gradient)."""
+    rng = np.random.default_rng(0)
+    n = 10
+    w = np.full((3, n, n), np.inf, dtype=np.float32)
+    for k in range(3):
+        for i in range(n):
+            w[k, i, (i + 1) % n] = w[k, (i + 1) % n, i] = float(rng.integers(1, 3))
+    w = torch.from_numpy(w).to(cuda)
+    c = torch.from_numpy(rng.uniform(0.5, 1.5, (3, n, n)).astype(np.float32)).to(cuda)
+    ex0 = _executed()
+    sp, g = _diff_grads(w, c, 12, tmp.minplus_closure_diff)
+    assert _executed() - ex0 == 3 * 4  # squarings 4-11 of every matrix ran no tile
+    sp_ref, g_ref = _diff_grads(w, c, 12, tmp.minplus_closure_diff_plain)
+    _, g4 = _diff_grads(w, c, 4, tmp.minplus_closure_diff_plain)
+    assert torch.equal(sp, sp_ref)
+    assert float((g - g_ref).abs().max()) <= 1e-5 * float(g_ref.abs().max())
+    assert not torch.allclose(g_ref, g4)  # the VJP at the fixed point is not the identity
+
+
+def test_gpu_rl_train_step_launches_k2_backward(cuda):
+    """One `RLTrainer` step on the card and on the CPU (the CPU smoke's
+    fleet, fleet 2, at a temperature on the cost table's scale, where the
+    gradient flows) under the same injected draws: K1, K2 and K2's
+    backward launch, the gradient is nonzero, each lane whose choices all
+    agree has the CPU's gradient within 1e-3 of its norm, and the update
+    is applied and finite."""
+    import dataclasses
+
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.cli.sim import uniform_draws
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.rl import RLTrainer
+    from multihop_offload_tpu_torch.rl.rollout import gumbel_noise
+    from multihop_offload_tpu_torch.sim.runner import InjectedDraws
+
+    cfg = dataclasses.replace(Config(), **{**rl_cli.SMOKE, "rl_fleet": 2, "rl_slots": 20,
+                                           "rl_temp": 1000.0})
+    fleet = rl_cli.build_fleet(cfg, "cpu")
+    insts, jobss, paramss, spec, _ = fleet
+    model = rl_cli.make_rl_model(cfg, insts, jobss)
+    draws = uniform_draws(spec, cfg.rl_fleet, cfg.rl_rounds, cfg.rl_slots, seed=5)
+    gumbel = gumbel_noise([torch.Generator().manual_seed(6)],
+                          (cfg.rl_fleet, cfg.rl_rounds, spec.num_jobs,
+                           insts.servers.shape[1] + 1), torch.float32, "cpu")
+
+    def step(where):
+        import copy
+
+        tr = RLTrainer(cfg, copy.deepcopy(model).to(where), spec, devmetrics=False)
+        before = {k: v.clone() for k, v in tr.params.items()}
+        reset_kernel_counts()
+        out = tr.train_step(*(x.to(where) for x in fleet[:3]),
+                            InjectedDraws(*[x.to(where) for x in draws]),
+                            gumbel=gumbel.to(where))
+        return tr, before, out, kernel_counts()
+
+    _, _, ref, _ = step("cpu")
+    tr, before, out, counts = step(cuda)
+    assert counts["fixed_point"] == cfg.rl_rounds
+    assert counts["minplus"] == cfg.rl_rounds * tmp.squaring_count(spec.num_nodes)
+    assert counts["minplus_bwd"] == 2 * counts["minplus"]
+    assert float(ref.grad_norms.min()) > 0
+    agree = (out.dsts.cpu() == ref.dsts).flatten(1).all(dim=1)
+    assert agree.any()
+    for i in torch.nonzero(agree).flatten().tolist():
+        diff = sum(float((out.grads[k][i].cpu() - g[i]).pow(2).sum())
+                   for k, g in ref.grads.items())
+        norm = sum(float(g[i].pow(2).sum()) for g in ref.grads.values())
+        assert diff ** 0.5 <= 1e-3 * norm ** 0.5
+    assert out.skipped == 0 and all(torch.isfinite(v).all() for v in tr.params.values())
+    assert any(not torch.equal(before[k], v) for k, v in tr.params.items())
