@@ -181,8 +181,10 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   autograd wrapper the RL path calls against autograd through the plain
   squarings on the card at (4, 16), (4, 112), (16, 112) and a tie-heavy
   (4, 112) hop matrix (distances bit for bit, the gradient within 1e-5 of
-  its largest entry, 2 launches a squaring, two calls bit-identical; the
-  backward alone timed on the device clock beside the plain backward and
+  its largest entry, `bwd_launches(iters)` launches, two calls
+  bit-identical; slice 24's redesign: the backward alone within 1e-5 of
+  its passes in plain torch, `minplus_closure_bwd_plain`, and timed by a
+  CUDA graph replay and on the device clock beside the plain backward and
   its bound); `mho-rl --smoke` on the card in its own process (JAX's
   smoke configuration, cap 64; conservation exact, no skipped update, the
   same launches every step, K1, K2 and K2's backward among them; the
@@ -404,6 +406,73 @@ def device_us(fn, reps: int, warmup: int = 3, kernels_per_call: int | None = Non
 
 
 device_us.last = {}
+
+
+def device_span_us(fn, reps: int, kernels_per_call: int, names: tuple,
+                   warmup: int = 3) -> float | None:
+    """Mean device microseconds per call of `fn` from the start of its first
+    kernel to the end of its last, on the card's own clock
+    (`torch.profiler`'s CUDA trace of `reps` calls of `kernels_per_call`
+    kernels each, those whose names hold one of `names`): the time of a
+    chain whose kernels overlap (a programmatic dependent launch starts
+    before the kernel it waits for ends, so the sum of their durations
+    counts the overlap twice).  The calls must not overlap each other.  A
+    trace that lost records is taken again, up to 4 more times; then None
+    (not measured).  `device_span_us.last` keeps the spans' range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if "CUDA" in str(getattr(e, "device_type", ""))
+                       and any(n in e.name for n in names))
+        if len(spans) == reps * kernels_per_call:
+            k = kernels_per_call
+            per = [max(end for _, end in spans[i:i + k]) - spans[i][0]
+                   for i in range(0, len(spans), k)]
+            device_span_us.last = {"min": min(per), "max": max(per)}
+            return sum(per) / len(per)
+    device_span_us.last = {}
+
+
+def graph_us(fn, reps: int) -> float | None:
+    """Device microseconds a call of `fn` with no host in the way: one call
+    captured in a CUDA graph (programmatic dependent launches become
+    programmatic edges), the graph replayed `reps` times between CUDA
+    events.  None (not measured) where `fn` cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps * 1e3
+    except RuntimeError as exc:
+        log(f"graph capture failed: {exc}")
+        return None
+    return None
+
+
+device_span_us.last = {}
 
 K3_PHASES = ("pivot", "panels", "outer")
 
@@ -1825,8 +1894,8 @@ def count_plain(fn):
     a forward call of its autograd Function (and only on float32 or
     wider), K2 one a squaring of the schedule (`minplus` or
     `minplus_bf16`; on the tape, `minplus_closure_diff_plain`, also K2's
-    backward, `minplus_bwd`, two a squaring: the RL step runs the backward
-    of every APSP it takes), K3 3 N / 128 a call (1 at N = 128;
+    backward, `minplus_bwd`, `bwd_launches(iters)` a backward: the RL step
+    runs the backward of every APSP it takes), K3 3 N / 128 a call (1 at N = 128;
     `blocked_fw` or `blocked_fw_bf16`), K6 one a call plus its squarings
     (or K3's launches on the `pallas` route's blocked FW), K4 one a call (`chebconv` or
     `chebconv_bf16`; the bf16 transposed walk `chebconv_bf16_t`).  Runs on
@@ -1874,7 +1943,7 @@ def count_plain(fn):
 
     def k2d(d, iters):
         add("minplus", iters)
-        add("minplus_bwd", 2 * iters)
+        add("minplus_bwd", mp.bwd_launches(iters))
         return orig["minplus_closure_diff_plain"](d, iters)
 
     # K1: its autograd Function's forward (the backward recomputes the
@@ -4316,12 +4385,17 @@ def k2_backward_phase(dev, card) -> dict:
     """K2's backward through the autograd wrapper the RL path calls
     (`minplus_closure_diff`, `_MinplusClosure`) against autograd through
     the plain squarings on the same card tensors: the distances bit for
-    bit, the input's gradient within `K2B_TOL` of its largest entry, 2
-    launches a squaring, the same bits on a second call; then the backward
-    alone (`minplus_closure_bwd_cuda` on the saved squarings) on the device
-    clock, its call time, the plain backward's, and its bound by
-    operations (6 N^3 a squaring and matrix: the split pass's add and min,
-    the gather's add and compare for each operand)."""
+    bit, the input's gradient within `K2B_TOL` of its largest entry,
+    `bwd_launches(iters)` launches (the first squaring's tie pass, then one
+    fused split-and-gather a squaring), the same bits on a second call; then the
+    backward alone (`minplus_closure_bwd_cuda` on the saved squarings)
+    within `K2B_TOL` of the kernel's passes in plain torch on the same
+    stack (`minplus_closure_bwd_plain`): its device time a CUDA graph
+    replay (`graph_us`: the launches overlap under programmatic dependent
+    launch, which the profiler curbs), its span and kernels under the
+    profiler, its call and host time, the plain backward's, and its bound
+    by operations (6 N^3 a squaring and matrix: the tie pass's add and
+    min, the gather's add and compare for each operand)."""
     from multihop_offload_tpu_torch.ops import minplus as mp
 
     cases = {f"{b}x{n}": minplus_input(b, n) for b, n in K2B_SHAPES}
@@ -4353,9 +4427,9 @@ def k2_backward_phase(dev, card) -> dict:
         scale = want.abs().max().item()
         if not torch.equal(fwd, sp.detach()):
             raise AssertionError(f"K2 backward {tag}: the forward differs from plain")
-        if launched != 2 * iters:
+        if launched != mp.bwd_launches(iters):
             raise AssertionError(f"K2 backward {tag}: {launched} launches through the "
-                                 f"autograd wrapper, not {2 * iters}")
+                                 f"autograd wrapper, not {mp.bwd_launches(iters)}")
         if not err <= K2B_TOL * scale:
             raise AssertionError(f"K2 backward {tag}: max |err| {err:.3e} > {K2B_TOL} x "
                                  f"{scale:.3e}")
@@ -4363,29 +4437,49 @@ def k2_backward_phase(dev, card) -> dict:
             raise AssertionError(f"K2 backward {tag}: two calls differ")
         _, stack, step_elems, lead = mp._minplus_closure_saved(d, iters)
         bwd = lambda: mp.minplus_closure_bwd_cuda(stack, step_elems, lead, ct, iters)
+        passes = mp.minplus_closure_bwd_plain(stack, step_elems, lead, ct, iters)
+        err_passes = (bwd() - passes).abs().max().item()
+        if not err_passes <= K2B_TOL * scale:
+            raise AssertionError(f"K2 backward {tag}: max |err| {err_passes:.3e} against the "
+                                 f"plain passes > {K2B_TOL} x {scale:.3e}")
+        kernels = {"bwd_ties_kernel": 1, "bwd_gather_kernel": iters}
         t = {"ms": cuda_ms(bwd, 20),
-             "device_ms": device_us(bwd, 20, per_call={"bwd_split_kernel": iters,
-                                                       "bwd_gather_kernel": iters}) / 1e3,
-             "host_us": host_us(bwd, 20), "kernels_per_call": 2 * iters,
-             "records": device_us.last["records"]}
+             "kernel_sum_ms": device_us(bwd, 20, per_call=kernels) / 1e3,
+             "tie_pass_ms": device_us.last["by_name"]["bwd_ties_kernel"] / 1e3,
+             "records": device_us.last["records"],
+             "host_us": host_us(bwd, 20), "kernels_per_call": mp.bwd_launches(iters)}
+        span = device_span_us(bwd, 20, mp.bwd_launches(iters), tuple(kernels))
+        t["span_ms"] = None if span is None else span / 1e3
+        graph = graph_us(bwd, 20)
+        t["device_ms"] = None if graph is None else graph / 1e3
         plain_ms = cuda_ms(lambda: torch.autograd.grad(sp, x, grad_outputs=ct,
                                                        retain_graph=True), 3)
         ops_ms = 6.0 * b * n ** 3 * iters / PEAK_FP32_INSTR_PER_S * 1e3
         bytes_ms = (iters + 4) * b * n * n * 4 / PEAK_BYTES_PER_S * 1e3
         out[tag] = {"shape": [b, n], "iters": iters, "leading_changes": lead.tolist(),
                     "max_abs_err": err, "max_abs_grad": scale,
-                    "device_ms": t["device_ms"], "ms": t["ms"], "host_us": t["host_us"],
+                    "max_abs_err_vs_plain_passes": err_passes,
+                    "device_ms": t["device_ms"], "span_ms": t["span_ms"],
+                    "kernel_sum_ms": t["kernel_sum_ms"],
+                    "tie_pass_ms": t["tie_pass_ms"], "ms": t["ms"], "host_us": t["host_us"],
                     "kernels_per_call": t["kernels_per_call"], "records": t["records"],
                     "plain_ms": plain_ms,
                     "bound_ms": max(ops_ms, bytes_ms),
                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                     "library_ms": None}
-        device = (f"{t['device_ms'] * 1e3:.2f} us ({t['kernels_per_call']} kernels; records "
-                  f"{t['records']} of {20 * iters} each)")
+        graph = "not measured" if t["device_ms"] is None else f"{t['device_ms'] * 1e3:.2f} us"
+        span = "not measured" if t["span_ms"] is None else f"{t['span_ms'] * 1e3:.2f} us"
+        device = (f"{graph} a CUDA graph replay, {span} from the first kernel's start to "
+                  f"the last one's end under the profiler "
+                  f"({t['kernels_per_call']} kernels; their durations sum to "
+                  f"{t['kernel_sum_ms'] * 1e3:.2f} us, the tie pass "
+                  f"{t['tie_pass_ms'] * 1e3:.2f}; records {t['records']} of 20 and "
+                  f"{20 * iters})")
         log(f"K2 backward {tag} B,N={(b, n)} iters={iters} (leading changes "
             f"{lead.tolist()}), through the autograd wrapper ({launched} launches): "
             f"distances bit-identical to plain, gradient max |err| "
             f"{err:.3e} of max {scale:.3e} (bar {K2B_TOL} of it), two calls bit-identical; "
+            f"against the plain passes {err_passes:.3e}; "
             f"on {card['smi']}: device {device}, call {t['ms'] * 1e3:.2f} us, host "
             f"{t['host_us']:.2f} us; plain backward {plain_ms:.4f} ms; bound "
             f"{out[tag]['bound_ms'] * 1e3:.2f} us ({out[tag]['bound_by']})")
@@ -5247,9 +5341,13 @@ def main() -> int:
          "replaces": "multihop_offload_tpu/env/apsp.py:24",
          "launches": by_path["rl_train_step_dense"]["minplus_bwd"],
          "max_abs_err": kb["max_abs_err"], "ms": kb["ms"], "device_ms": kb["device_ms"],
+         "span_ms": kb["span_ms"],
          "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"],
          "bound_by": kb["bound_by"], "library_ms": None, "shape": kb["shape"],
-         "launches_per_squaring": 2, "shapes": rl["k2_backward"],
+         "launches_per_backward": "1 + iters (the first squaring's tie pass, one fused "
+                                  "split-and-gather a squaring)",
+         "launches_per_call": {k: v["kernels_per_call"] for k, v in rl["k2_backward"].items()},
+         "shapes": rl["k2_backward"],
          "launches_by_path": {k: v.get("minplus_bwd", 0) for k, v in by_path.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

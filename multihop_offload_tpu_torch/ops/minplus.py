@@ -26,9 +26,15 @@ K2's backward (`csrc/minplus_bwd.cu`) puts the squarings on the autograd
 tape, where JAX differentiates them (`apsp_minplus(early_stop=False)`, the
 RL rollout's APSP): `minplus_closure_diff` runs K2 forward keeping each
 squaring's input, then the VJP of every squaring of the schedule in
-reverse, with JAX's tie split; its plain version is autograd through
-`minplus_square_plain` (`minplus_closure_diff_plain`).
-`minplus_closure_bwd_cuda.launches` counts its launches, two a squaring.
+reverse, with JAX's tie split, in one host call: the tie data (the
+minimum and the count of its ties) of the first squaring's input, then one
+fused split-and-gather launch a squaring, which also takes the next
+squaring's tie data.  Its plain versions are autograd through `minplus_square_plain`
+(`minplus_closure_diff_plain`) and the kernel's passes in plain torch on
+the same saved stack (`minplus_closure_bwd_plain`, with
+`_minplus_closure_saved_plain` building that stack on the CPU).
+`minplus_closure_bwd_cuda.launches` counts its launches, `bwd_launches(iters)`
+a backward.
 
 `minplus_closure` dispatches on the device: plain PyTorch for CPU tensors,
 the CUDA kernel for CUDA tensors, an error for anything else.  On CUDA it
@@ -324,7 +330,7 @@ def _minplus_closure_saved(d: torch.Tensor, iters: int) -> tuple:
     b, n, _ = d.shape
     step_elems = _slice_elems(b, n)
     stack = torch.empty((iters + 1) * step_elems, dtype=torch.float32, device=d.device)
-    mats = stack.view(iters + 1, step_elems)[:, :b * n * n].unflatten(1, (b, n, n))
+    mats = _stack_mats(stack, step_elems, b, n)
     mats[0].copy_(d)
     flags = _minplus_closure_owned(mats, iters)
     lead = flags.ne(0).to(torch.int32).cumprod(0).sum(0, dtype=torch.int32)
@@ -332,38 +338,119 @@ def _minplus_closure_saved(d: torch.Tensor, iters: int) -> tuple:
     return out, stack, step_elems, lead
 
 
+def _stack_mats(stack: torch.Tensor, step_elems: int, b: int, n: int) -> torch.Tensor:
+    """The (slices, B, N, N) view of a saved stack's slices."""
+    return stack.view(-1, step_elems)[:, :b * n * n].unflatten(1, (b, n, n))
+
+
+def _minplus_closure_saved_plain(d: torch.Tensor, iters: int) -> tuple:
+    """`_minplus_closure_saved` in plain torch on any device and dtype: the
+    same stack layout, early stop and `lead` (from K2's flags: squaring s
+    runs on matrix b while squaring s - 1 changed it, and writes slice
+    s + 1 only then).  The slices no squaring writes hold NaN, so that a
+    backward reading one shows it."""
+    b, n, _ = d.shape
+    step_elems = _slice_elems(b, n)
+    stack = torch.full(((iters + 1) * step_elems,), float("nan"), dtype=d.dtype,
+                       device=d.device)
+    mats = _stack_mats(stack, step_elems, b, n)
+    mats[0].copy_(d)
+    live = torch.ones(b, dtype=torch.bool, device=d.device)
+    flags = torch.zeros((iters, b), dtype=torch.int32, device=d.device)
+    for s in range(iters):
+        src = mats[s][live]
+        nxt = minplus_square_plain(src)
+        mats[s + 1][live] = nxt
+        flags[s][live] = (nxt != src).flatten(1).any(dim=1).to(torch.int32)
+        live = flags[s].ne(0)
+    lead = flags.ne(0).to(torch.int32).cumprod(0).sum(0, dtype=torch.int32)
+    out = mats[lead.long(), torch.arange(b, device=d.device)]
+    return out, stack, step_elems, lead
+
+
+def minplus_closure_bwd_plain(stack: torch.Tensor, step_elems: int, lead: torch.Tensor,
+                              g: torch.Tensor, iters: int) -> torch.Tensor:
+    """K2's backward in plain torch, pass for pass as `csrc/minplus_bwd.cu`
+    takes it, with no autograd: the tie data (M, and f = 0, -1/2 or 1 over
+    the count of tied k, as D <, ==, > M) of slice t of matrix b for
+    t <= lead[b] only, then for every squaring s in reverse the split of
+    the cotangent G (the direct share G x (1, 1/2, 0), w = G |f|) and the
+    gather of the candidates an entry is an operand of, on the tie data of
+    slice min(s, lead[b]).  `stack`, `step_elems`, `lead` as
+    `_minplus_closure_saved` (or its plain builder) gives them, `g` (B, N,
+    N) the cotangent of the result, in the stack's dtype and device.  f and
+    w are the kernel's bits; the result equals autograd through
+    `minplus_closure_diff_plain` up to the order of the float sums."""
+    b, n, _ = g.shape
+    if iters <= 0 or g.numel() == 0:
+        return g.clone()
+    with torch.no_grad():
+        mats = _stack_mats(stack, step_elems, b, n)
+        lead_l = lead.long()
+        rows = torch.arange(b, device=g.device)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        # the tie data: slices past lead[b] stay NaN (never read)
+        tie_m = torch.full((iters, b, n, n), float("nan"), dtype=g.dtype, device=g.device)
+        tie_f = torch.full((iters, b, n, n), float("nan"), dtype=g.dtype, device=g.device)
+        for t in range(iters):
+            live = lead_l >= t
+            d = mats[t][live]
+            cand = d.unsqueeze(-1) + d.unsqueeze(-3)  # (b, i, k, j)
+            m = cand.amin(dim=-2)
+            rcp = 1.0 / (cand == m.unsqueeze(-2)).sum(dim=-2).to(g.dtype)
+            tie_m[t][live] = m
+            tie_f[t][live] = torch.where(d < m, zero, torch.where(d == m, -0.5 * rcp, rcp))
+        cur = g
+        for s in reversed(range(iters)):
+            t = torch.clamp(lead_l, max=s)
+            d, m, f = mats[t, rows], tie_m[t, rows], tie_f[t, rows]
+            direct = torch.where(f == 0, cur, torch.where(f < 0, 0.5 * cur, zero))
+            w = cur * f.abs()
+            # T[b, i, k, j] = [D[i, k] + D[k, j] == M[i, j]] w[i, j]
+            tied = torch.where((d.unsqueeze(-1) + d.unsqueeze(-3)) == m.unsqueeze(-2),
+                               w.unsqueeze(-2), zero)
+            cur = direct + (tied.sum(dim=-1) + tied.sum(dim=-3))
+        return cur
+
+
+def bwd_launches(iters: int) -> int:
+    """The kernels one K2 backward of `iters` squarings launches: the first
+    squaring's tie pass, then one fused split-and-gather a squaring."""
+    return 1 + iters if iters > 0 else 0
+
+
 def minplus_closure_bwd_cuda(stack: torch.Tensor, step_elems: int, lead: torch.Tensor,
                              g: torch.Tensor, iters: int) -> torch.Tensor:
     """K2's backward (`csrc/minplus_bwd.cu`): the cotangent of the input of
     `_minplus_closure_saved`'s schedule from `g`, the cotangent of its
     result, (B, N, N) float32 on the stack's card.  Every squaring's VJP in
-    reverse, skipped squarings included (their input is the fixed point),
-    two launches each (the tie count and split, then the gather).  The
+    reverse, skipped squarings included (their input is the fixed point):
+    one host call enqueues the first squaring's tie pass, then one fused
+    split-and-gather launch a squaring, chained by programmatic dependent
+    launch (`bwd_launches(iters)` in all).  Raises if a launch fails.  The
     same bits on every call."""
     g = g.to(torch.float32).contiguous()
     if g.dim() != 3 or g.shape[1] != g.shape[2] or g.device != stack.device:
         raise ValueError(f"g must be (B, N, N) on the stack's card, got {tuple(g.shape)} on "
                          f"{g.device}")
     b, n, _ = g.shape
-    if (tuple(lead.shape) != (b,) or lead.dtype != torch.int32 or step_elems < b * n * n
+    if (tuple(lead.shape) != (b,) or lead.dtype != torch.int32 or lead.device != g.device
+            or not lead.is_contiguous() or stack.dtype != torch.float32
+            or not stack.is_contiguous() or step_elems < b * n * n
             or stack.numel() < (iters + 1) * step_elems):
         raise ValueError("minplus_closure_bwd_cuda: the stack and lead do not match g")
     if iters <= 0 or g.numel() == 0:
         return g.clone()
     fn = _build.kernel("minplus_bwd")
-    m, w = torch.empty_like(g), torch.empty_like(g)
-    bufs = (torch.empty_like(g), torch.empty_like(g))
-    cur = g
+    out, tmp = torch.empty_like(g), torch.empty_like(g)
+    tie = torch.empty((2, iters, b, n, n), dtype=torch.float32, device=g.device)  # M, f
     with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for i, s in enumerate(reversed(range(iters))):
-            out = bufs[i % 2]
-            err = fn(stack.data_ptr(), step_elems, lead.data_ptr(), s, cur.data_ptr(),
-                     out.data_ptr(), m.data_ptr(), w.data_ptr(), b, n, stream)
-            minplus_closure_bwd_cuda.launches += 2
-            _build.check_launch("minplus_bwd", err)
-            cur = out
-    return cur
+        err = fn(stack.data_ptr(), step_elems, lead.data_ptr(), iters, g.data_ptr(),
+                 out.data_ptr(), tmp.data_ptr(), tie[0].data_ptr(), tie[1].data_ptr(), b, n,
+                 torch.cuda.current_stream().cuda_stream)
+    minplus_closure_bwd_cuda.launches += bwd_launches(iters)
+    _build.check_launch("minplus_bwd", err)
+    return out
 
 
 minplus_closure_bwd_cuda.launches = 0

@@ -1389,8 +1389,9 @@ def test_minplus_backward_kernel_matches_plain(cuda, b, n, ties):
     """K2 forward and K2's backward (the autograd Function of
     `minplus_closure_diff`) against autograd through the plain squarings
     on the same card tensors: the distances bit for bit, the gradient
-    within 1e-5 of its largest entry, the same bits on a second call, two
-    launches a squaring."""
+    within 1e-5 of its largest entry, the same bits on a second call,
+    `bwd_launches(iters)` launches (the first squaring's tie pass, one fused
+    split-and-gather a squaring)."""
     w = (_hops(b, n, n) if ties else _weights(np.random.default_rng(n), b, n, 3.0 / n))
     w = w.to(cuda)
     c = torch.from_numpy(np.random.default_rng(n + 1).uniform(0.5, 1.5, (b, n, n))
@@ -1398,7 +1399,7 @@ def test_minplus_backward_kernel_matches_plain(cuda, b, n, ties):
     iters = tmp.squaring_count(n)
     before = tmp.minplus_closure_bwd_cuda.launches
     sp, g = _diff_grads(w, c, iters, tmp.minplus_closure_diff)
-    assert tmp.minplus_closure_bwd_cuda.launches == before + 2 * iters
+    assert tmp.minplus_closure_bwd_cuda.launches == before + tmp.bwd_launches(iters)
     _, again = _diff_grads(w, c, iters, tmp.minplus_closure_diff)
     sp_ref, g_ref = _diff_grads(w, c, iters, tmp.minplus_closure_diff_plain)
     torch.cuda.synchronize()
@@ -1431,6 +1432,34 @@ def test_minplus_backward_through_skipped_squarings(cuda):
     assert torch.equal(sp, sp_ref)
     assert float((g - g_ref).abs().max()) <= 1e-5 * float(g_ref.abs().max())
     assert not torch.allclose(g_ref, g4)  # the VJP at the fixed point is not the identity
+
+
+@pytest.mark.parametrize("b,n,ties,extra,diag", [(4, 16, False, 0, 0.0), (4, 112, False, 0, 0.0),
+                                                 (16, 112, False, 0, 0.0), (4, 112, True, 0, 0.0),
+                                                 (5, 37, False, 3, 0.0), (3, 10, True, 8, 0.0),
+                                                 (4, 112, True, 0, 0.25), (3, 37, False, 2, 0.5)])
+def test_minplus_backward_kernel_matches_plain_passes(cuda, b, n, ties, extra, diag):
+    """K2's backward alone on the stack K2 forward saves, against the same
+    passes in plain torch (`minplus_closure_bwd_plain`: the tie data, then
+    the fused split and gather a squaring, on the tie data of slice
+    min(s, lead[b])) on the same card tensors, within 1e-5 of the largest entry,
+    also `extra` squarings past the default schedule, and with a positive
+    diagonal `diag` (M may exceed D there: the tie pass takes its general
+    form, and G's direct share its D < M side)."""
+    w = (_hops(b, n, n) if ties else _weights(np.random.default_rng(n), b, n, 3.0 / n))
+    d = torch.where(torch.eye(n, dtype=torch.bool), diag, w).contiguous().to(cuda)
+    iters = tmp.squaring_count(n) + extra
+    out, stack, step_elems, lead = tmp._minplus_closure_saved(d, iters)
+    c = torch.from_numpy(np.random.default_rng(n + 2).uniform(0.5, 1.5, (b, n, n))
+                         .astype(np.float32)).to(cuda)
+    ct = torch.where(torch.isfinite(out), c, 0.0)
+    before = tmp.minplus_closure_bwd_cuda.launches
+    g = tmp.minplus_closure_bwd_cuda(stack, step_elems, lead, ct, iters)
+    assert tmp.minplus_closure_bwd_cuda.launches == before + tmp.bwd_launches(iters)
+    want = tmp.minplus_closure_bwd_plain(stack, step_elems, lead, ct, iters)
+    torch.cuda.synchronize()
+    assert torch.isfinite(g).all()
+    assert float((g - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1e-30)
 
 
 def test_gpu_rl_train_step_launches_k2_backward(cuda):
@@ -1475,7 +1504,8 @@ def test_gpu_rl_train_step_launches_k2_backward(cuda):
     tr, before, out, counts = step(cuda)
     assert counts["fixed_point"] == cfg.rl_rounds
     assert counts["minplus"] == cfg.rl_rounds * tmp.squaring_count(spec.num_nodes)
-    assert counts["minplus_bwd"] == 2 * counts["minplus"]
+    assert counts["minplus_bwd"] == cfg.rl_rounds * tmp.bwd_launches(
+        tmp.squaring_count(spec.num_nodes))
     assert float(ref.grad_norms.min()) > 0
     agree = (out.dsts.cpu() == ref.dsts).flatten(1).all(dim=1)
     assert agree.any()
