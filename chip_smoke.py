@@ -205,6 +205,21 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   within 1e-3 of its norm, Adam's update within 0.05 of its norm; then
   the same steps at the default temperature 0.5 (launches equal to the
   same count; the dense step's wall ms and the card's busy share).
+- Slice 26, the scenario matrix (`scenarios/`, `cli/scenarios.py`) and the
+  health drill (`cli/health.py`): `scenario_phase` runs `run_matrix` (the
+  smoke's checks) over JAX's five smoke presets plus `grid_energy` (the
+  energy-weighted objective), 4 lanes, 2 segments x 120 slots, the model
+  of record, on the card and on the CPU under the same injected uniforms:
+  K1 and K2 launches equal to the plain count of the CPU run,
+  conservation exact on every lane, `baseline` and `local` lanes' counts
+  and `dst` equal, `gnn` `dst` agreement >= 0.99 with equal counts on
+  lanes whose decisions all agree, analytic taus within 1e-4, and
+  `grid_energy`'s decisions different from `grid_poisson`'s; each leg's
+  wall s, ms a slot and busy share (over one segment of 20 slots, a
+  profiled pass beside an unprofiled one).  `health_phase`
+  runs the drill on the card (every JAX check but the retrace one, not
+  applicable), renders its run log with `obs/report.py`, and holds its
+  K1 and K2 launches to the plain count of the CPU drill.
 
 It
 
@@ -284,8 +299,8 @@ It
    segment, and K1 and K2 at its own operands;
 7. prints the serving line, the drivers line, the sim line, the precision
    line, the bf16 training line, the route, datagen, serve CLI, TF
-   checkpoint, parallel, sharded serving, multiprocess, loop and rl
-   lines, the kernels line (with the bf16 rows
+   checkpoint, parallel, sharded serving, multiprocess, loop, rl,
+   scenarios and health lines, the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`, and K2's backward
    `minplus_backward`), then the
@@ -4834,6 +4849,232 @@ def rl_phase(dev, card) -> dict:
     return out
 
 
+# ---- slice 26: the scenario matrix and the health drill -----------------------
+
+# JAX's smoke subset plus `grid_energy` (the energy-weighted objective), 4
+# lanes, 2 segments of 1 round x 120 slots (JAX's cap 64 and margin 5)
+SCEN_NAMES = ("ba_poisson", "grid_poisson", "corridor_links_fail", "two_tier_poisson",
+              "poisson_mobility", "grid_energy")
+SCEN_SHAPES = dict(scenario_fleet=4, scenario_segments=2, scenario_rounds=1,
+                   scenario_slots=120)
+SCEN_BUSY_SHAPES = dict(scenario_segments=1, scenario_slots=20)
+SCEN_SEED = 21          # the injected uniforms (`scenarios.matrix.uniform_draws`)
+SCEN_TAU_RTOL = 1e-4    # analytic taus, card vs CPU (K1 within 1e-5 of its plain version)
+SCEN_DST_AGREE = 0.99   # gnn decisions, card vs CPU, as `sim_pair_phase`
+
+
+def range_busy_ms(fn, prefix: str) -> dict:
+    """One call of `fn` under `torch.profiler`: for each range whose name
+    starts with `prefix` (a `span`), the card's busy ms inside it: the
+    union of its kernel, copy and memset intervals within the range's own
+    record on the device timeline (a `record_function` range shows there
+    too).  Reads the profiler's raw records: building its Python events
+    costs ~70 us a record, minutes at a matrix's millions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges, device = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if not e.is_user_annotation():
+            device.append((e.start_ns(), e.end_ns()))
+        elif e.name().startswith(prefix):
+            ranges.append((e.name()[len(prefix):], e.start_ns(), e.end_ns()))
+    device.sort()
+    out = {}
+    for name, lo, hi in ranges:
+        busy, end = 0, -math.inf
+        for a, b in device:
+            a, b = max(a, lo), min(b, hi)
+            if b > a and b > end:
+                busy += b - max(a, end)
+                end = b
+        out[name] = busy / 1e6
+    return out
+
+
+def scenario_phase(dev, card) -> dict:
+    """Slice 26: `run_matrix` (`--matrix --smoke`'s checks) over
+    `SCEN_NAMES` with the model of record on the card and on the CPU under
+    the same injected uniforms: launches equal to the plain count of the
+    CPU run; conservation exact on every lane; `baseline` and `local`
+    lanes' counts and `dst` equal, `gnn` `dst` agreement >= 0.99 and equal
+    counts on lanes whose decisions all agree; `grid_energy`'s decisions
+    differ from `grid_poisson`'s (the same lanes under the null
+    objective); then a profiled pass for each leg's busy share."""
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.obs.registry import registry
+    from multihop_offload_tpu_torch.scenarios.matrix import (
+        POLICY_KINDS,
+        run_matrix,
+        uniform_draws,
+    )
+
+    t0 = time.perf_counter()
+    # the matrix flushes the sim's queue-depth histogram at cap 64 (the sim
+    # phase's at 128): a process keeps one boundary set
+    registry().reset()
+    cfg = Config(seed=0)
+
+    def run(d):
+        return run_matrix(cfg, True, device=d, names=SCEN_NAMES, shapes=SCEN_SHAPES,
+                          draws=uniform_draws(SCEN_SEED, d))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    card_rec = run(dev)
+    counts = read_counts()
+    card_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    cpu_rec, plain = count_plain(lambda: run("cpu"))
+    cpu_s = time.perf_counter() - t2
+    check_launches(f"scenario matrix smoke ({len(SCEN_NAMES)} legs x 3 policies, both "
+                   "evaluators)", counts, plain)
+    for key in ("fixed_point", "minplus"):
+        if counts[key] == 0:
+            raise AssertionError(f"scenario matrix: {key} never launched: {counts}")
+
+    legs = {}
+    rows = {r["name"]: r for r in card_rec["scenarios"]}
+    for got, want in zip(card_rec["scenarios"], cpu_rec["scenarios"]):
+        name = got["name"]
+        leg = {"wall_s": got["wall_s"], "slots": got["slots"], "policies": {}}
+        for kind in POLICY_KINDS:
+            g, w = got["sim"][kind]["per_lane"], want["sim"][kind]["per_lane"]
+            if any(g["conservation_gap"]) or any(w["conservation_gap"]):
+                raise AssertionError(f"scenario {name}/{kind}: packets not conserved")
+            dg = np.asarray(g["dst_per_segment"])      # (segments, lanes, J)
+            dw = np.asarray(w["dst_per_segment"])
+            agree = float((dg == dw).mean())
+            same = (dg == dw).all(axis=(0, 2))
+            counts_eq = all(np.array_equal(np.asarray(g[k])[same], np.asarray(w[k])[same])
+                            for k in ("generated", "delivered", "dropped"))
+            ta, tw = got["analytic"][kind]["tau"], want["analytic"][kind]["tau"]
+            tau_rel = abs(ta - tw) / abs(tw)
+            if kind != "gnn" and (g != w or not tau_rel <= SCEN_TAU_RTOL):
+                raise AssertionError(f"scenario {name}/{kind}: card differs from the CPU: "
+                                     f"{g} vs {w}; tau {ta} vs {tw}")
+            if kind == "gnn" and (agree < SCEN_DST_AGREE or not counts_eq):
+                raise AssertionError(f"scenario {name}/gnn: dst agreement {agree}, lanes "
+                                     f"{same.tolist()} equal counts {counts_eq}")
+            srow = got["sim"][kind]
+            leg["policies"][kind] = {
+                "sim_wall_s": srow["sim_wall_s"],
+                "ms_a_slot": srow["sim_wall_s"] * 1e3 / got["slots"],
+                "dst_agreement": agree, "lanes_equal": int(same.sum()),
+                "tau_rel_err": tau_rel, "delivered_ratio": srow["delivered_ratio"],
+                "tau": ta}
+        legs[name] = leg
+    energy, null = rows["grid_energy"], rows["grid_poisson"]
+    moved = {k: int((np.asarray(energy["sim"][k]["per_lane"]["dst_per_segment"])
+                     != np.asarray(null["sim"][k]["per_lane"]["dst_per_segment"])).sum())
+             for k in ("gnn", "baseline")}
+    if not any(moved.values()):
+        raise AssertionError("grid_energy: the energy weights changed no decision")
+
+    # each leg's busy share over one segment of 20 slots (the profiler slows
+    # this path ~10x: the whole run would cost minutes): the card's busy ms
+    # of the profiled pass over the wall of the same pass unprofiled
+    def short():
+        return run_matrix(cfg, False, device=dev, names=SCEN_NAMES,
+                          shapes={**SCEN_SHAPES, **SCEN_BUSY_SHAPES},
+                          draws=uniform_draws(SCEN_SEED, dev))
+    t3 = time.perf_counter()
+    short_wall = {r["name"]: r["wall_s"] for r in short()["scenarios"]}
+    busy = range_busy_ms(short, "scenarios/")
+    busy_s = time.perf_counter() - t3
+    for name, leg in legs.items():
+        leg["busy_ms"] = busy[name]
+        leg["busy_wall_ms"] = short_wall[name] * 1e3
+        leg["busy_share"] = busy[name] / leg["busy_wall_ms"]
+        pol = ", ".join(f"{k} {v['ms_a_slot']:.3f} ms/slot" for k, v in leg["policies"].items())
+        log(f"scenario leg {name} on {card['smi']}: {leg['wall_s']:.2f} s wall ({pol}); "
+            f"busy share {leg['busy_share']:.4f} over one segment of "
+            f"{SCEN_BUSY_SHAPES['scenario_slots']} slots ({leg['busy_ms']:.1f} of "
+            f"{leg['busy_wall_ms']:.1f} ms); gnn dst agreement "
+            f"{leg['policies']['gnn']['dst_agreement']}")
+    if not all(leg["busy_ms"] > 0 for leg in legs.values()):
+        raise AssertionError("scenario matrix: a leg's profile holds no device work")
+    log(f"scenario matrix smoke: card run {card_s:.2f} s, CPU run {cpu_s:.2f} s, "
+        f"busy-share passes {busy_s:.2f} s; "
+        f"grid_energy decisions that differ from grid_poisson's {moved}; checks "
+        f"{card_rec['checks']}; pad {card_rec['config']['pad']}")
+    result = {"legs": legs, "checks": card_rec["checks"], "card_s": card_s, "cpu_s": cpu_s,
+              "busy_s": busy_s,
+              "energy_moved": moved, "pad": card_rec["config"]["pad"],
+              "shift_drift": [{k: r[k] for k in ("from", "to", "tripped_at", "detected")}
+                              for r in card_rec["shift_drift"]],
+              "counts": {"scenario_matrix_smoke": counts},
+              "plain_counts": {"scenario_matrix_smoke": plain},
+              "seconds": time.perf_counter() - t0}
+    log(f"scenario phase {result['seconds']:.1f} s")
+    return result
+
+
+def health_phase(dev, card) -> dict:
+    """Slice 26: `cli.health.run_smoke` on the card (every JAX check but the
+    retrace one, which is not applicable), its run log rendered by
+    `obs.report.render_report`, its launches equal to the plain count of
+    the same drill on the CPU."""
+    import shutil
+
+    from multihop_offload_tpu_torch.cli import health
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.obs.registry import registry
+    from multihop_offload_tpu_torch.obs.report import render_report
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "health_card")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = Config(seed=0)
+    # the drill reads its SLOs from the process's registry: a fresh one,
+    # as its own process would have
+    registry().reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    rec = health.run_smoke(cfg, device=dev, tmp=os.path.join(root, "card"))
+    counts = read_counts()
+    drill_s = time.perf_counter() - t1
+    checks = rec["checks"]
+    failed = [k for k, v in checks.items()
+              if v is not True and not (isinstance(v, dict) and v.get("not_applicable"))]
+    if failed or not rec["ok"]:
+        raise AssertionError(f"health drill on the card: {failed} failed: {checks}")
+    log_path = health.smoke_config(cfg, os.path.join(root, "card")).obs_log
+    text = render_report(log_path)
+    for part in ("alerts & drift", "serving", "continual learning"):
+        if part not in text:
+            raise AssertionError(f"health drill: the report has no '{part}' section")
+    registry().reset()
+    cpu_rec, plain = count_plain(lambda: health.run_smoke(
+        cfg, device="cpu", tmp=os.path.join(root, "cpu")))
+    check_launches("health drill (serve, refit, promote)", counts, plain)
+    for key in ("fixed_point", "minplus"):
+        if counts[key] == 0:
+            raise AssertionError(f"health drill: {key} never launched: {counts}")
+    log(f"health drill on {card['smi']}: {drill_s:.2f} s; phases {rec['phases']}; alerts "
+        f"{[(a['name'], a['state']) for a in rec['alerts']]}; trace of request "
+        f"{rec['trace']['request_id']}: {rec['trace']['hops']}; {rec['log_segments']} log "
+        f"segments; promoted step {rec['promoted_step']}; the CPU drill's alerts "
+        f"{[(a['name'], a['state']) for a in cpu_rec['alerts']]}; report "
+        f"{len(text.splitlines())} lines")
+    result = {"checks": checks, "drill_s": drill_s, "phases": rec["phases"],
+              "trace": rec["trace"], "log_segments": rec["log_segments"],
+              "alerts": rec["alerts"], "promoted_step": rec["promoted_step"],
+              "report_lines": len(text.splitlines()),
+              "counts": {"health_drill": counts}, "plain_counts": {"health_drill": plain},
+              "seconds": time.perf_counter() - t0}
+    log(f"health phase {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -5162,6 +5403,10 @@ def main() -> int:
     loopr = loop_phase(dev, card)
 
     rl = rl_phase(dev, card)
+
+    # ---- slice 26: the scenario matrix and the health drill -------------------
+    scen = scenario_phase(dev, card)
+    hlth = health_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -5176,7 +5421,7 @@ def main() -> int:
                "tf_eval_file": tfck.pop("eval_counts_file0"),
                "route_demo": tfck.pop("route_counts"), **par.pop("counts"),
                **shard.pop("counts"), **mproc.pop("counts"), **loopr.pop("counts"),
-               **rl.pop("counts")}
+               **rl.pop("counts"), **scen.pop("counts"), **hlth.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -5192,6 +5437,8 @@ def main() -> int:
     print(json.dumps({"multiprocess": mproc}), flush=True)
     print(json.dumps({"loop": loopr}, default=str), flush=True)
     print(json.dumps({"rl": rl}, default=str), flush=True)
+    print(json.dumps({"scenarios": scen}, default=str), flush=True)
+    print(json.dumps({"health": hlth}, default=str), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

@@ -23,7 +23,10 @@ defaults and help; `loop_capture_sample` also sets the service's capture
 (`cli/rl.py`, `rl/`) keep JAX's names and defaults, except that `rl_out`
 "" writes no record in any mode (JAX's smoke default is a file of the JAX
 package's benchmark folder); `check_rl` refuses what the port's RL path
-does not run.
+does not run.  The `scenario_*` settings (`cli/scenarios.py`,
+`scenarios/`) and `health_short_s` / `health_long_s` keep JAX's names and
+defaults; `scenario_out` and `health_out` "" write no record (JAX's
+defaults are files of its benchmark folder).
 """
 
 from __future__ import annotations
@@ -140,6 +143,10 @@ class Config:
     #                                stuck-tick flight record is dumped
     obs_trace: bool = True         # request-scoped trace hops in the run log
     obs_flight_capacity: int = 256  # flight-recorder ring size (ticks)
+    health_short_s: float = 60.0   # SLO burn-rate short window (seconds)
+    health_long_s: float = 300.0   # SLO burn-rate long window (seconds)
+    health_out: str = ""           # write the health-smoke record here
+    #                                ("" = none)
     health_watchdog_s: float = 0.0  # a bucket dispatch slower than this is
     #                                 slow, 10x slower stuck (0 = off)
     health_watchdog_recovery_s: float = 0.0  # how long a stuck bucket stays
@@ -163,6 +170,18 @@ class Config:
     sim_fail_links: int = 0        # random links to fail at mid-horizon
     sim_fail_nodes: int = 0        # random non-server nodes to fail likewise
     sim_out: str = ""              # write the run / fidelity JSON record here
+    # ---- scenario matrix (scenarios/, cli/scenarios.py) ---------------------
+    scenario_fleet: int = 4        # lanes (seeded draws) per scenario preset
+    scenario_segments: int = 4     # sim segments per scenario: the traffic
+    #                                profile, failure and mobility schedules
+    #                                act at segment boundaries
+    scenario_rounds: int = 2       # policy re-decisions per segment
+    scenario_slots: int = 300      # slots per policy round
+    scenario_cap: int = 64         # per-queue ring-buffer capacity
+    scenario_margin: float = 5.0   # slot sizing, as sim_margin
+    scenario_names: str = ""       # comma list restricting the matrix to
+    #                                these presets ("" = all)
+    scenario_out: str = ""         # write the matrix record here ("" = none)
     # ---- closed-loop RL (rl/ subsystem; cli.rl) -----------------------------
     rl_steps: int = 30             # train steps per `cli.rl` run
     rl_fleet: int = 4              # episodes (instances) per train step -- the

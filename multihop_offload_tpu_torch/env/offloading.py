@@ -21,8 +21,17 @@ from multihop_offload_tpu_torch.precision import island_dtype
 
 @dataclasses.dataclass(frozen=True)
 class ObjectiveWeights:
-    """Energy/cost weights of the JAX objective.  Only the null default
-    (the unweighted objective) is ported; `offload_decide` refuses others."""
+    """Energy/cost weights folded into the offloading cost table.
+
+    They bias only the decision; delay scoring downstream stays physical:
+
+      transport_energy  cost per hop per unit of data shipped, charged to
+                        the server options as ``w * (hop_ul * ul + hop_dl * dl)``
+      compute_energy    remote-compute premium per unit of uplink data,
+                        charged flat to every server
+
+    Local compute is the zero-cost reference point.  The default (all-zero)
+    is bit-identical to the unweighted objective."""
 
     transport_energy: float = 0.0
     compute_energy: float = 0.0
@@ -78,8 +87,6 @@ def offload_decide(
     list of them over equal shares of the batch, `_uniform`) feeds the
     exploration and sampling draws; it is not read at ``explore=0,
     prob=False``."""
-    if objective is not None and not objective.is_null:
-        raise NotImplementedError("only the null ObjectiveWeights is ported")
     servers = inst.servers                          # (B, S) ascending
     smask = inst.server_mask
     src = jobs.src
@@ -98,6 +105,15 @@ def offload_decide(
     dl = torch.maximum(dl, _pairs(hop.transpose(1, 2), src, servers).to(dt))
     proc = torch.clamp(proc, min=1.0)
     server_delays = ul + dl + proc
+    if objective is not None and not objective.is_null:
+        # penalize the server options by shipped data x hop distance and a
+        # flat remote-compute premium; local stays unpenalized
+        hop_ul = _pairs(hop, src, servers).to(dt)
+        hop_dl = _pairs(hop.transpose(1, 2), src, servers).to(dt)
+        server_delays = server_delays + (
+            objective.transport_energy
+            * (hop_ul * ul_d.unsqueeze(2) + hop_dl * dl_d.unsqueeze(2))
+            + objective.compute_energy * ul_d.unsqueeze(2))
 
     inf = torch.full((), float("inf"), dtype=dt, device=sp.device)
     server_delays = torch.where(smask.unsqueeze(1), server_delays, inf)

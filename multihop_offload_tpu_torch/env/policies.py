@@ -94,15 +94,19 @@ def evaluate_spmatrix_policy(
     inst, jobs, link_delays: torch.Tensor, unit_diag: torch.Tensor,
     gen: torch.Generator | None = None, explore: float = 0.0, prob: bool = False,
     layout=None, precision=None, apsp_impl: str = "xla", apsp_fn=None,
+    objective=None,
 ) -> PolicyOutcome:
     """Offload + route + run given per-link unit delays (B, L) and a node
     diagonal (B, N), the APSP on the route of `apsp_impl` (or `apsp_fn`,
-    see `shortest_paths`) under the `precision` policy (None: fp32)."""
+    see `shortest_paths`) under the `precision` policy (None: fp32).
+    `objective` (`env.offloading.ObjectiveWeights` | None) biases the
+    decision only; the scoring stays physical."""
     with phase("apsp"):
         sp = shortest_paths(inst, link_delays, layout, precision, apsp_impl, apsp_fn)
     with phase("offload_decide"):
         # hop counts are topology-only and precomputed at Instance build time
-        dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob)
+        dec = offload_decide(inst, jobs, sp, inst.hop, unit_diag, gen, explore, prob,
+                             objective=objective)
     with phase("next_hops"):
         nh = next_hops(inst, sp, layout)
     with phase("trace_routes"):
@@ -114,11 +118,12 @@ def evaluate_spmatrix_policy(
 
 def baseline_policy(inst, jobs, gen: torch.Generator | None = None,
                     explore: float = 0.0, prob: bool = False,
-                    layout=None, precision=None, apsp_impl: str = "xla") -> PolicyOutcome:
-    """Congestion-agnostic greedy offloading."""
+                    layout=None, precision=None, apsp_impl: str = "xla",
+                    objective=None) -> PolicyOutcome:
+    """Congestion-agnostic greedy offloading (under `objective`'s weights)."""
     link_d, node_d = baseline_unit_delays(inst)
     return evaluate_spmatrix_policy(inst, jobs, link_d, node_d, gen, explore, prob,
-                                    layout, precision, apsp_impl)
+                                    layout, precision, apsp_impl, objective=objective)
 
 
 def local_policy(inst, jobs, layout=None) -> PolicyOutcome:

@@ -8,8 +8,8 @@ logged workload through the packet simulator for champion vs candidate;
 `canary` probes a candidate's decisions before any swap; `promote` drives
 the state machine capture -> refit -> validate -> promote-via-hot-reload ->
 monitor, with automatic rollback.  Entry point: `cli.loop`.
-`loop/drift.py` (`shift_campaign`) waits for `scenarios/` (ROADMAP.md
-Queue 1 item 9).
+`drift.shift_campaign` measures the drift detectors against a known
+`scenarios.shift` schedule.
 
 Deliberately import-light: submodules import serve/sim/train/agent pieces
 directly, and serve.service imports `loop.experience` -- keeping this

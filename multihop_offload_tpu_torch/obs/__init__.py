@@ -7,8 +7,9 @@ Prometheus text), `events` (the JSONL run log, size-rotated segments),
 hop events) and `flightrec` (the tick ring dumped on a stuck dispatch),
 `devmetrics` (the simulator's accumulators on the card, flushed into the
 registry), and the entry points' `start_run` / `finish_run` (JAX
-`obs/__init__.py:78-119`), and `drift` (the flywheel's change detectors
-over captured outcomes).  Of ROADMAP.md Queue 1 item 9, `memwatch` and
+`obs/__init__.py:78-119`), `drift` (the flywheel's change detectors
+over captured outcomes) and `report` (a run log rendered as the operator
+view, `cli/obs.py`).  Of ROADMAP.md Queue 1 item 9, `memwatch` and
 `prof` (the per-program cost table, and with it the refit step's
 `loop/refit_step` label) are still to port, so the run log carries no
 `memwatch` or `prof` events and its summary no program table; `jaxhooks`
@@ -17,6 +18,10 @@ over captured outcomes).  Of ROADMAP.md Queue 1 item 9, `memwatch` and
 """
 
 from __future__ import annotations
+
+# what the records say of JAX's zero-unexpected-retrace checks
+NOT_APPLICABLE_RETRACES = ("a JAX compile property (obs/jaxhooks.py); the port "
+                           "runs eagerly and compiles nothing")
 
 
 def start_run(cfg, role: str):

@@ -18,13 +18,13 @@ by position, so a hop event stores N scalars once instead of N events.
 `reconstruct(path, request_id)` walks the rotated run-log chain through
 `obs.events.read_events` (segment boundaries are transparent) and returns
 the request's hops in emission order.  Emission is a no-op without an
-active run log — the hot path pays one `is None` check.  Not ported:
-`render_trace`, the `mho-obs --trace` view.
+active run log — the hot path pays one `is None` check.  `render_trace`
+is the `cli/obs.py --trace` view.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 from multihop_offload_tpu_torch.obs import events as obs_events
 from multihop_offload_tpu_torch.obs import spans as obs_spans
@@ -75,3 +75,35 @@ def reconstruct(path: str, request_id: int) -> List[dict]:
                 rec[k] = v
         out.append(rec)
     return out
+
+
+def render_trace(path: str, request_id: int) -> str:
+    """The `cli/obs.py --trace` view: relative-time hop table for one request."""
+    hops = reconstruct(path, request_id)
+    lines = [f"trace — request {int(request_id)} ({path})"]
+    if not hops:
+        lines.append("  no trace events for this request "
+                     "(tracing off, or the log rotated past them)")
+        return "\n".join(lines) + "\n"
+    t0: Optional[float] = None
+    for h in hops:
+        if isinstance(h.get("ts"), (int, float)):
+            t0 = h["ts"] if t0 is None else min(t0, h["ts"])
+    trace_ids = {h.get("trace_id") for h in hops if h.get("trace_id")}
+    lines.append(f"  {len(hops)} hops, {len(trace_ids)} span trace id(s)")
+    for h in hops:
+        ts = h.get("ts")
+        rel = (f"+{ts - t0:9.3f}s" if isinstance(ts, (int, float))
+               and t0 is not None else " " * 11)
+        detail = ", ".join(
+            f"{k}={_fmt(v)}" for k, v in h.items()
+            if k not in ("hop", "ts", "trace_id") and v is not None
+        )
+        lines.append(f"  {rel}  {h['hop']:<12} {detail}")
+    return "\n".join(lines) + "\n"
+
+
+def _fmt(v) -> str:
+    if isinstance(v, float):
+        return f"{v:.6g}"
+    return str(v)

@@ -12,8 +12,10 @@ arrivals are drawn from.  Down links and nodes are priced at +inf before
 the shortest paths (K2 on the card under both layouts: the sparse layout
 builds W from the link list, then squares it), so a policy round re-routes
 around a failure.  Every policy decides greedily (`offload_decide` at
-``explore=0, prob=False``, the null objective, as `cli/sim.py` runs it), so
-`gen`, the round's policy draws, is not read.
+``explore=0, prob=False``, as `cli/sim.py` runs it), so `gen`, the round's
+policy draws, is not read.  `objective` (`env.offloading.ObjectiveWeights`)
+folds the energy weights into the `gnn` and `baseline` decisions; None or
+the null weights decide as the unweighted objective, bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ def decide_routes(
     link_up: torch.Tensor,
     layout=None,
     apsp_fn=None,
+    objective=None,
 ) -> SimRoutes:
     """The decision skeleton on per-link delays (B, L) and a node diagonal
     (B, N), returning the forwarding table (int16 under every layout).
@@ -64,7 +67,7 @@ def decide_routes(
     else:
         w = weight_matrix_from_link_delays(inst.adj, inst.link_index, link_delays)
     sp = (apsp_fn or apsp_minplus)(w)
-    dec = offload_decide(inst, jobs_est, sp, inst.hop, unit_diag)
+    dec = offload_decide(inst, jobs_est, sp, inst.hop, unit_diag, objective=objective)
     # a destination cut off by a failure degrades to local compute: packets
     # must never chase an infinite-cost route
     b, n, _ = sp.shape
@@ -84,6 +87,7 @@ def make_policy(
     model=None,
     precision=None,
     layout=None,
+    objective=None,
 ):
     """The per-round policy function of `sim.runner.simulate`.
 
@@ -92,7 +96,8 @@ def make_policy(
     `precision` (str | `PrecisionPolicy` | None) narrows the APSP to its
     compute dtype (JAX `:105-125`: W is squared in bf16, K2 on the card);
     the decision read-back stays an fp32 island.  The instances fed to the
-    returned function must be built with `layout`."""
+    returned function must be built with `layout`.  `objective` weights
+    the `gnn` and `baseline` decisions (`decide_routes`)."""
     if kind not in POLICY_KINDS:
         raise ValueError(f"unknown sim policy '{kind}'; one of {POLICY_KINDS}")
     apsp_fn = resolve_precision(precision).wrap_apsp(None)
@@ -117,7 +122,7 @@ def make_policy(
         def baseline_fn(inst, jobs_est, node_up, link_up, gen=None):
             link_d, node_d = baseline_unit_delays(inst)
             return decide_routes(inst, jobs_est, link_d, node_d, node_up, link_up,
-                                 layout=lay, apsp_fn=apsp_fn)
+                                 layout=lay, apsp_fn=apsp_fn, objective=objective)
 
         return baseline_fn
 
@@ -139,6 +144,7 @@ def make_policy(
         else:
             unit_diag = torch.diagonal(actor.delay_matrix, dim1=1, dim2=2)
         return decide_routes(inst, jobs_est, actor.link_delay, unit_diag,
-                             node_up, link_up, layout=lay, apsp_fn=apsp_fn)
+                             node_up, link_up, layout=lay, apsp_fn=apsp_fn,
+                             objective=objective)
 
     return gnn_fn

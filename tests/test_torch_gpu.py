@@ -1516,3 +1516,37 @@ def test_gpu_rl_train_step_launches_k2_backward(cuda):
         assert diff ** 0.5 <= 1e-3 * norm ** 0.5
     assert out.skipped == 0 and all(torch.isfinite(v).all() for v in tr.params.values())
     assert any(not torch.equal(before[k], v) for k, v in tr.params.items())
+
+
+# ---- the scenario matrix (scenarios/) ----------------------------------------
+
+
+def test_gpu_energy_matrix_leg_matches_cpu(cuda):
+    """One matrix leg under the energy objective (`grid_energy`, 2 lanes, 2
+    segments of 80 slots) on the card and on the CPU under the same
+    injected uniforms: conservation exact, K1 and K2 launched as often as
+    the plain versions are called on the CPU, and every lane's counts and
+    `dst` equal the CPU's."""
+    import chip_smoke
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.obs.registry import registry
+    from multihop_offload_tpu_torch.scenarios.matrix import run_matrix, uniform_draws
+
+    registry().reset()  # one queue-depth histogram cap a process
+    shapes = dict(scenario_fleet=2, scenario_segments=2, scenario_rounds=1,
+                  scenario_slots=80)
+
+    def run(dev):
+        return run_matrix(Config(), False, device=dev, names=["grid_energy"], shapes=shapes,
+                          draws=uniform_draws(3, dev))["scenarios"][0]
+
+    reset_kernel_counts()
+    card = run(cuda)
+    counts = kernel_counts()
+    cpu, plain = chip_smoke.count_plain(lambda: run("cpu"))
+    assert card["conservation_ok"] and cpu["conservation_ok"]
+    for key in ("fixed_point", "minplus"):
+        assert counts[key] == plain[key] > 0, (key, counts, plain)
+    for kind, row in card["sim"].items():
+        assert row["per_lane"] == cpu["sim"][kind]["per_lane"], kind
