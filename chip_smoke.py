@@ -220,6 +220,18 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   runs the drill on the card (every JAX check but the retrace one, not
   applicable), renders its run log with `obs/report.py`, and holds its
   K1 and K2 launches to the plain count of the CPU drill.
+- The prof layer (`obs/prof.py`, `obs/memwatch.py`, `cli/prof.py`), the
+  chaos drill matrix (`chaos/drills.py`) and the input fuzzer
+  (`chaos/fuzz.py`): `prof_phase` runs `mho-prof`'s smoke on the paper
+  batch at full width with the peak table's row for the card, drives every
+  wired program at least twice, holds the bench step's count on the card
+  (flops, bytes, kernel calls) to the CPU's at 16 x 4 and its flops to a
+  reckoning apart from the count, each program's MFU and HBM fraction to
+  the phase's own roofline (within 1%, in (0, 1.05]: the plumbing), the
+  bench step's K1 and K2 launches through the wrapper to the plain count;
+  `chaos_phase` runs JAX's drill matrix (every drill ok, the golden
+  decisions equal the CPU's); `fuzz_phase` refuses every mutation with its
+  reason and serves the valid traffic as the CPU does.
 
 It
 
@@ -300,7 +312,7 @@ It
 7. prints the serving line, the drivers line, the sim line, the precision
    line, the bf16 training line, the route, datagen, serve CLI, TF
    checkpoint, parallel, sharded serving, multiprocess, loop, rl,
-   scenarios and health lines, the kernels line (with the bf16 rows
+   scenarios, health, prof, chaos and fuzz lines, the kernels line (with the bf16 rows
    `minplus_squaring_bf16`, `chebconv_propagate_bf16`, `coo_apsp_bf16`,
    `chebconv_transpose_bf16` and `blocked_fw_bf16`, and K2's backward
    `minplus_backward`), then the
@@ -5075,6 +5087,404 @@ def health_phase(dev, card) -> dict:
     return result
 
 
+# ---- the prof layer, the chaos drill matrix, the input fuzzer ----------------
+
+# the wired programs whose gauges the prof phase reads; `train/eval` is
+# accounted calls-only, as in JAX (`train/driver.py:699-707`), so it has none
+PROF_PROGRAMS = ("bench/step", "serve/bucket0/gnn", "serve/bucket0/baseline", "sim/scan",
+                 "train/step", "train/replay", "loop/refit_step", "rl/train_step")
+PROF_SIM = dict(sim_policy="baseline", sim_fleet=4, sim_nodes=110, sim_jobs=100,
+                sim_util=0.7, sim_rounds=2, sim_slots=50, sim_cap=64)  # the loop's cap
+# programs whose count holds no matmul-class flop and no kernel: the replay's
+# Adam update is elementwise (`torch._foreach_*`), so it has no MFU gauge
+PROF_NO_FLOPS = ("train/replay",)
+PROF_RTOL = 0.01         # a gauge against the phase's own roofline
+# the dense bench step's kernel calls (`forward_backward`, model of record):
+# K1 in the actor, the critic and its recompute, K1's backward twice, K2 once
+BENCH_KERNELS = {"fixed_point": 3, "fixed_point_bwd": 2, "minplus": 1}
+PROF_MAX_SHARE = 1.05    # an MFU or HBM fraction above this is a broken window
+
+
+def _prog_gauge(metric: str, name: str, labelled: bool = False):
+    """The value of `metric`'s series of program `name` (the one with the
+    sharded executor's `shard` label, or the one without)."""
+    from multihop_offload_tpu_torch.obs.registry import registry
+
+    series = (registry().snapshot().get(metric) or {}).get("series") or {}
+    for key, v in series.items():
+        if f'program="{name}"' in key and ("shard=" in key) == labelled:
+            return v
+    return None
+
+
+def dense_step_flops(model, batch: int, pad, kernels: dict) -> float:
+    """The dense `forward_backward`'s flops reckoned apart from the count
+    (`obs.prof.extract_cost`): 2·m·n·k over the model's matmuls (each
+    layer's x @ W forward and weight gradient, and its input gradient past
+    the first layer, over the N + L extended nodes), the critic's two
+    incidence products and the VJP of the first, and the correction terms
+    at the counted kernel calls: ceil(log2(N - 1)) squarings of 2·B·N³ a
+    K2 call, 10 passes of 2·B·L² a K1 forward and twice that a backward.
+    `tests/test_torch_prof.py` holds it to its own reckoning and to the
+    count at a small size."""
+    if any(layer.kernel.shape[0] != 1 for layer in model.layers):
+        raise ValueError("dense_step_flops reckons a model of Chebyshev order 1")
+    n, l, j = pad.n, pad.l, pad.j
+    e = n + l
+    widths = [tuple(layer.kernel.shape[1:]) for layer in model.layers]
+    model_flops = sum(2.0 * batch * e * fi * fo * (2 if i == 0 else 3)
+                      for i, (fi, fo) in enumerate(widths))
+    critic_flops = 2 * (2.0 * batch * e * j) + 2.0 * batch * l * j
+    squarings = math.ceil(math.log2(n - 1))
+    fp_pass = 10 * 2.0 * batch * l * l
+    return (model_flops + critic_flops
+            + kernels.get("minplus", 0) * squarings * 2.0 * batch * n ** 3
+            + kernels.get("fixed_point", 0) * fp_pass
+            + kernels.get("fixed_point_bwd", 0) * 2 * fp_pass)
+
+
+def _prog_roofline(name: str, labelled: bool = False) -> dict:
+    """A program's MFU and HBM fraction computed here from its record's
+    facts and accounted windows, beside the live gauges; raises unless
+    both gauges are read, lie in (0, 1.05] and agree within 1%.  The
+    agreement is a check of the plumbing (the gauge is set from the same
+    record and windows by the same arithmetic); the counted facts are
+    checked apart, in `prof_phase`."""
+    from multihop_offload_tpu_torch.obs.prof import prof_registry
+
+    reg = prof_registry()
+    rec = reg.get(name)
+    peak_tf, peak_bw = reg._peaks()
+    if rec is None or rec.device_s <= 0 or not rec.calls:
+        raise AssertionError(f"prof: program {name} has no accounted window: "
+                             f"{rec.to_json() if rec else None}")
+    rate = rec.calls / rec.device_s
+    out = {"calls": rec.calls, "device_s": rec.device_s, "flops": rec.flops_corrected,
+           "bytes": rec.bytes_accessed,
+           "mfu_roofline": (rec.flops_corrected * rate / (peak_tf * 1e12)
+                            if rec.flops_corrected else None),
+           "hbm_roofline": rec.bytes_accessed * rate / (peak_bw * 1e9),
+           "mfu": _prog_gauge("mho_program_mfu", name, labelled),
+           "hbm_frac": _prog_gauge("mho_program_hbm_frac", name, labelled)}
+    shares = (("mfu", "mfu_roofline"), ("hbm_frac", "hbm_roofline"))
+    if name in PROF_NO_FLOPS:
+        if rec.flops_corrected is not None or out["mfu"] is not None:
+            raise AssertionError(f"prof: {name} counted flops {rec.flops_corrected}")
+        shares = shares[1:]
+    for key, roof in shares:
+        v = out[key]
+        if v is None or not 0.0 < v <= PROF_MAX_SHARE \
+                or abs(v - out[roof]) > PROF_RTOL * out[roof]:
+            raise AssertionError(f"prof: {name} {key} gauge {v} against its roofline "
+                                 f"{out[roof]} (bound (0, {PROF_MAX_SHARE}], within "
+                                 f"{PROF_RTOL:.0%}): {out}")
+    return out
+
+
+def _serve_window(svc, pool, count: int, id_offset: int) -> list:
+    from multihop_offload_tpu_torch.serve.workload import request_stream
+
+    return closed_loop(svc, list(request_stream(pool, count, seed=1, id_offset=id_offset)))
+
+
+def same_decision(got, want) -> bool:
+    """One response's decisions (`dst`, `is_local`, who served it) equal."""
+    return (got.served_by == want.served_by and np.array_equal(got.dst, want.dst)
+            and np.array_equal(got.is_local, want.is_local))
+
+
+def prof_phase(dev, card) -> dict:
+    """The prof layer on the card (`obs/prof.py` with the H100 row
+    of its peak table, `obs/memwatch.py`, `cli/prof.py`).  `mho-prof`'s
+    smoke at full width (the paper batch, 16 x 4, model of record, dense:
+    K1, K2) with the table's peaks: the bench step's gauges against the
+    smoke's own roofline, the serve leg, a breach capture written beside
+    the flight dump, what the layer adds to a step under 2% of it.  The
+    bench step's count on the card (flops, bytes, kernel calls) equals
+    the CPU's at 16 x 4, and its flops the reckoning apart from the count
+    (`dense_step_flops`).  Then every wired program driven at least twice:
+    the serve buckets' gnn and (degraded) baseline programs, the sharded
+    executor's (labelled), the simulator's run, the sparse Trainer on two
+    paper files (K4 and K6 in `train/step`'s count, the `ops/chebconv` and
+    `ops/coo_apsp` records registered), the loop's refit step (`mho-loop
+    --smoke`) and the RL step (2 steps of `mho-rl`'s smoke preset); each
+    program's MFU and HBM fraction read, in (0, 1.05] and within 1% of the
+    phase's roofline from its record (the plumbing).  The allocator's
+    watermark on cuda:0 is nonzero, and the bench step's K1 and K2
+    launches through the wrapper, on its counted call and on a later one,
+    equal the CPU run's plain count."""
+    import dataclasses as dc
+    import shutil
+
+    from multihop_offload_tpu_torch.cli import loop as loop_cli
+    from multihop_offload_tpu_torch.cli import prof as prof_cli
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.cli.serve import build_service
+    from multihop_offload_tpu_torch.cli.sim import build_scenarios
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+    from multihop_offload_tpu_torch.obs import prof
+    from multihop_offload_tpu_torch.obs.memwatch import memwatch
+    from multihop_offload_tpu_torch.obs.registry import registry
+    from multihop_offload_tpu_torch.rl import RLTrainer
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "prof_card")
+    shutil.rmtree(root, ignore_errors=True)
+    preg = prof.prof_registry()
+    registry().reset()
+    preg.reset()
+    preg.reset_peaks()
+    peaks = preg._peaks()
+    if peaks != (prof.peak_tflops(card["name"]), prof.peak_hbm_gbps(card["name"])) \
+            or None in peaks:
+        raise AssertionError(f"prof: peaks {peaks} are not the table's row for {card['name']}")
+    secs = {}
+
+    # ---- mho-prof --smoke at full width, the table's peaks ------------------
+    t1 = time.perf_counter()
+    smoke = prof_cli.run_smoke(Config(seed=0), device=dev, tmp=os.path.join(root, "smoke"))
+    secs["smoke"] = time.perf_counter() - t1
+    bench = _prog_roofline("bench/step")
+
+    # ---- the bench step's launches through the wrapper = the plain count ----
+    step, args, _, _ = prof_cli.bench_step(dev, *prof_cli.BENCH_FULL)
+    wrapped = prof.wrap("prof_phase/bench_launches", step)
+    launches = {}
+    for tag in ("counted_call", "later_call"):
+        torch.cuda.synchronize()
+        reset_counts()
+        wrapped(*args)
+        launches[tag] = read_counts()
+    cstep, cargs, cpad, cbatch = prof_cli.bench_step("cpu", *prof_cli.BENCH_FULL)
+    _, plain = count_plain(lambda: cstep(*cargs))
+    for tag, counts in launches.items():
+        check_launches(f"prof bench step through the wrapper, {tag}", counts, plain)
+
+    # ---- the bench step's count on the card = the CPU's, at 16 x 4, and its
+    # flops = the reckoning apart from the count -------------------------------
+    t1 = time.perf_counter()
+    _, cfacts = prof.extract_cost(cstep, *cargs)
+    keys = ("flops", "bytes_accessed", "kernels")
+    card_facts = dict(zip(keys, (smoke["bench"]["flops"], smoke["bench"]["bytes_accessed"],
+                                 smoke["bench"]["kernels_counted"])))
+    cpu_facts = {k: cfacts[k] for k in keys}
+    reckoned = dense_step_flops(load_model(prof_cli.MODEL_OF_RECORD, device="cpu"), cbatch,
+                                cpad, BENCH_KERNELS)
+    secs["cpu_count"] = time.perf_counter() - t1
+    log(f"prof bench step count (16 x 4, B={cbatch}, {cpad}): card {card_facts}, CPU "
+        f"{cpu_facts}; flops reckoned apart {reckoned}")
+    if card_facts != cpu_facts:
+        raise AssertionError(f"prof: the bench step's count on the card {card_facts} is not "
+                             f"the CPU's {cpu_facts}")
+    if card_facts["kernels"] != BENCH_KERNELS or card_facts["flops"] != reckoned:
+        raise AssertionError(f"prof: the bench step counted {card_facts}, reckoned flops "
+                             f"{reckoned} over {BENCH_KERNELS}")
+
+    # ---- the serve programs: sharded (labelled), then gnn and baseline --------
+    t1 = time.perf_counter()
+    scfg = Config(seed=0, serve_sizes="10", serve_buckets=1, serve_slots=4,
+                  serve_queue_cap=64, serve_deadline_s=600.0,
+                  model_root=os.path.join(root, "serve_model"))
+    sharded, pool = build_service(scfg, device=dev, devices=[dev] * 2)
+    _serve_window(sharded, pool, 8, 0)
+    sharded_row = _prog_roofline("serve/bucket0/gnn", labelled=True)
+    svc, pool = build_service(scfg, device=dev)
+    _serve_window(svc, pool, 8, 100)
+    svc._degraded_until[0] = float("inf")     # the bucket on its baseline
+    degraded = _serve_window(svc, pool, 8, 200)
+    if len(degraded) != 8 or not all(r.served_by == "baseline" for r in degraded):
+        raise AssertionError("prof: the degraded window was not served by the baseline")
+    secs["serve"] = time.perf_counter() - t1
+
+    # ---- the simulator: one FleetSim, two runs -------------------------------
+    t1 = time.perf_counter()
+    scen = build_scenarios(dc.replace(Config(seed=0), **PROF_SIM), dev)
+    for _ in range(2):
+        scen["sim"].run(scen["insts"], scen["jobss"], scen["paramss"], scen["seeds"])
+    secs["sim"] = time.perf_counter() - t1
+
+    # ---- the sparse Trainer on two paper files (replay from the first) --------
+    t1 = time.perf_counter()
+    tcfg = Config(datapath=PAPER_DATASET, out=os.path.join(root, "train"),
+                  model_root=os.path.join(root, "train_model"), layout="sparse", cheb_k=2,
+                  epochs=1, batch=8, memory_size=100, arrival_scale=0.15, T=1000,
+                  num_instances=10)
+    trainer = drv.Trainer(tcfg, device=dev)
+    trainer.run(epochs=1, files_limit=2, verbose=False)
+    secs["trainer"] = time.perf_counter() - t1
+    step_rec = preg.get("train/step")
+    step_kernels = trainer._step_program.facts["kernels"]
+    if not (step_kernels.get("chebconv") and step_kernels.get("coo_apsp")):
+        raise AssertionError(f"prof: the sparse train/step counted no K4 or K6: {step_kernels}")
+    kernel_recs = {k: preg.get(k) for k in ("ops/chebconv", "ops/coo_apsp")}
+    if not all(r is not None and r.flops and r.bytes_accessed for r in kernel_recs.values()):
+        raise AssertionError(f"prof: the sparse train/step registered no kernel record: "
+                             f"{ {k: r and r.to_json() for k, r in kernel_recs.items()} }")
+    eval_rec = preg.get("train/eval")
+    if eval_rec is None or eval_rec.calls < 2 or eval_rec.device_s != 0.0 \
+            or _prog_gauge("mho_program_mfu", "train/eval") is not None:
+        raise AssertionError(f"prof: train/eval is not the calls-only program JAX keeps: "
+                             f"{eval_rec and eval_rec.to_json()}")
+
+    # ---- the loop's refit step and the RL step --------------------------------
+    t1 = time.perf_counter()
+    loop_cli.run_smoke(Config(seed=0), device=dev, tmp=os.path.join(root, "loop"))
+    secs["loop"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rcfg = dc.replace(Config(seed=0), **rl_cli.SMOKE)
+    insts, jobss, paramss, spec, _ = rl_cli.build_fleet(rcfg, dev)
+    rl = RLTrainer(rcfg, rl_cli.make_rl_model(rcfg, insts, jobss), spec,
+                   sim_dtype=rcfg.torch_dtype)
+    for step in range(2):
+        rl.train_step(insts, jobss, paramss, rl_cli.train_seeds(rcfg, step))
+    secs["rl"] = time.perf_counter() - t1
+
+    # ---- every program's gauges against the phase's roofline ------------------
+    rows = {name: _prog_roofline(name) for name in PROF_PROGRAMS}
+    rows["serve/bucket0/gnn{shard=2}"] = sharded_row
+    rows["bench/step (smoke window)"] = bench
+    memwatch().snapshot("prof_phase")
+    marks = memwatch().watermarks()
+    if not marks.get("cuda:0"):
+        raise AssertionError(f"prof: no allocator watermark on cuda:0: {marks}")
+    snap = preg.snapshot()
+    for name in PROF_PROGRAMS:
+        log(f"prof {name}: mfu {rows[name]['mfu']} (roofline "
+            f"{rows[name]['mfu_roofline']}), hbm_frac {rows[name]['hbm_frac']:.3e}, "
+            f"{rows[name]['calls']} calls over {rows[name]['device_s']:.4f} s, flops "
+            f"{rows[name]['flops']}, bytes {rows[name]['bytes']:.4e}; {card['smi']}")
+    result = {
+        "peaks": {"tflops": peaks[0], "hbm_gbps": peaks[1], "kind": card["name"]},
+        "smoke_checks": smoke["checks"], "bench": smoke["bench"],
+        "overhead": smoke["overhead"], "captures": smoke["breach"]["captures"],
+        "programs": rows, "records": {k: snap[k] for k in (*PROF_PROGRAMS, "train/eval")},
+        "train_step_record": step_rec.to_json(), "train_step_kernels": step_kernels,
+        "bench_count": {"card": card_facts, "cpu": cpu_facts, "flops_reckoned": reckoned},
+        "kernel_records": {k: r.to_json() for k, r in kernel_recs.items()},
+        "watermarks": marks,
+        "launches_plain": plain, "seconds_by_part": secs,
+        "counts": {"prof_bench_step": launches["later_call"]},
+        "seconds": time.perf_counter() - t0,
+    }
+    ovh = smoke["overhead"]
+    log(f"prof phase {result['seconds']:.1f} s ({secs}); overhead "
+        f"{ovh['overhead_frac']:.2e} of a {ovh['step_s'] * 1e3:.2f} ms step (wrapper "
+        f"{ovh['wrapper_call_s'] * 1e6:.2f} us, {ovh['kernel_calls_per_step']} dispatches x "
+        f"{ovh['dispatch_call_s'] * 1e6:.3f} us; JAX's interleaved legs "
+        f"{ovh['interleaved_frac']:+.4f}); watermark cuda:0 {marks['cuda:0']} bytes")
+    return result
+
+
+def chaos_phase(dev, card) -> dict:
+    """The chaos drill matrix on the card (`chaos/drills.py`:
+    JAX's `run_all`, one service of one dense bucket, K1 and K2): every
+    drill ok (JAX's retrace checks reported as not applicable), its
+    golden decisions equal the CPU run's baseline drill's at the same
+    seed, and K1 and K2 launched."""
+    import shutil
+
+    from multihop_offload_tpu_torch.chaos import drills
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.obs.registry import registry
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chaos_card")
+    shutil.rmtree(root, ignore_errors=True)
+    registry().reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    harness = drills.ChaosSmoke(Config(seed=0), os.path.join(root, "card"), device=dev)
+    rec = harness.run_all()
+    counts = read_counts()
+    matrix_s = time.perf_counter() - t1
+    failed = [d["name"] for d in rec["drills"] if not d["ok"]]
+    if failed or not rec["ok"]:
+        raise AssertionError(f"chaos matrix on the card: {failed} failed: {rec['checks']}")
+    t1 = time.perf_counter()
+    cpu = drills.ChaosSmoke(Config(seed=0), os.path.join(root, "cpu"), device="cpu")
+    cpu.run_baseline()
+    cpu_s = time.perf_counter() - t1
+    if set(harness.golden) != set(cpu.golden) or not harness.golden:
+        raise AssertionError(f"chaos: golden ids {sorted(harness.golden)} against the "
+                             f"CPU's {sorted(cpu.golden)}")
+    differ = [rid for rid, want in cpu.golden.items()
+              if not same_decision(harness.golden[rid], want)]
+    if differ:
+        raise AssertionError(f"chaos: golden decisions differ from the CPU's on {differ}")
+    for key in ("fixed_point", "minplus"):
+        if counts[key] == 0:
+            raise AssertionError(f"chaos matrix: {key} never launched: {counts}")
+    na = {d["name"]: d["not_applicable"] for d in rec["drills"] if d["not_applicable"]}
+    log(f"chaos matrix on {card['smi']}: {len(rec['drills'])} drills ok in {matrix_s:.2f} s "
+        f"(the CPU baseline drill {cpu_s:.2f} s); not applicable {na}; counters "
+        f"{rec['counters']}; golden {len(harness.golden)} requests equal the CPU's")
+    result = {"drills": {d["name"]: d["ok"] for d in rec["drills"]},
+              "not_applicable": na, "counters": rec["counters"], "checks": rec["checks"],
+              "matrix_s": matrix_s, "cpu_baseline_s": cpu_s,
+              "golden_requests": len(harness.golden),
+              "counts": {"chaos_matrix": counts}, "seconds": time.perf_counter() - t0}
+    log(f"chaos phase {result['seconds']:.1f} s")
+    return result
+
+
+def fuzz_phase(dev, card) -> dict:
+    """The input fuzzer on the card (`chaos/fuzz.py`: two dense
+    buckets, K1 and K2): every mutation of the catalogue refused with its
+    typed reason, every leg ok, and the valid traffic served before and
+    among the garbage identical to the same matrix on the CPU."""
+    import shutil
+
+    from multihop_offload_tpu_torch.chaos import fuzz
+    from multihop_offload_tpu_torch.config import Config
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "fuzz_card")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    harness = fuzz.FuzzSmoke(Config(seed=0), os.path.join(root, "card"), device=dev)
+    rec = harness.run_all()
+    counts = read_counts()
+    fuzz_s = time.perf_counter() - t1
+    failed = [leg["name"] for leg in rec["legs"] if not leg["ok"]]
+    if failed or not rec["ok"]:
+        raise AssertionError(f"fuzz matrix on the card: {failed} failed: {rec['checks']}")
+    typed = next(leg for leg in rec["legs"] if leg["name"] == "typed_rejections")
+    wrong = [c for c in typed["cases"] if c.get("got") != c.get("want")
+             or not c.get("submit_refused")]
+    if wrong:
+        raise AssertionError(f"fuzz: mutations not refused with their reason: {wrong}")
+    t1 = time.perf_counter()
+    cpu = fuzz.FuzzSmoke(Config(seed=0), os.path.join(root, "cpu"), device="cpu")
+    cpu_rec = cpu.run_all()
+    cpu_s = time.perf_counter() - t1
+    if not cpu_rec["ok"]:
+        raise AssertionError(f"fuzz matrix on the CPU: {cpu_rec['checks']}")
+    for leg in ("warmup", "valid_bit_parity"):
+        got, want = harness.served[leg], cpu.served[leg]
+        differ = [rid for rid in want if rid not in got
+                  or not same_decision(got[rid], want[rid])]
+        if set(got) != set(want) or differ:
+            raise AssertionError(f"fuzz: {leg} decisions differ from the CPU's on {differ}")
+    for key in ("fixed_point", "minplus"):
+        if counts[key] == 0:
+            raise AssertionError(f"fuzz matrix: {key} never launched: {counts}")
+    log(f"fuzz matrix on {card['smi']}: {len(typed['cases'])} mutations refused with their "
+        f"reasons, {len(rec['legs'])} legs ok in {fuzz_s:.2f} s (the CPU's {cpu_s:.2f} s); "
+        f"valid traffic equal to the CPU's; counters {rec['counters']}")
+    result = {"legs": {leg["name"]: leg["ok"] for leg in rec["legs"]},
+              "mutations": len(typed["cases"]), "checks": rec["checks"],
+              "counters": rec["counters"], "fuzz_s": fuzz_s, "cpu_s": cpu_s,
+              "counts": {"fuzz_matrix": counts}, "seconds": time.perf_counter() - t0}
+    log(f"fuzz phase {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA card",
@@ -5407,6 +5817,11 @@ def main() -> int:
     # ---- slice 26: the scenario matrix and the health drill -------------------
     scen = scenario_phase(dev, card)
     hlth = health_phase(dev, card)
+
+    # ---- the prof layer, the chaos drill matrix, the input fuzzer -------------
+    profr = prof_phase(dev, card)
+    chaos = chaos_phase(dev, card)
+    fuzzr = fuzz_phase(dev, card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"eval_methods": counts, "train_step": train_counts,
@@ -5421,7 +5836,8 @@ def main() -> int:
                "tf_eval_file": tfck.pop("eval_counts_file0"),
                "route_demo": tfck.pop("route_counts"), **par.pop("counts"),
                **shard.pop("counts"), **mproc.pop("counts"), **loopr.pop("counts"),
-               **rl.pop("counts"), **scen.pop("counts"), **hlth.pop("counts")}
+               **rl.pop("counts"), **scen.pop("counts"), **hlth.pop("counts"),
+               **profr.pop("counts"), **chaos.pop("counts"), **fuzzr.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
@@ -5439,6 +5855,9 @@ def main() -> int:
     print(json.dumps({"rl": rl}, default=str), flush=True)
     print(json.dumps({"scenarios": scen}, default=str), flush=True)
     print(json.dumps({"health": hlth}, default=str), flush=True)
+    print(json.dumps({"prof": profr}, default=str), flush=True)
+    print(json.dumps({"chaos": chaos}, default=str), flush=True)
+    print(json.dumps({"fuzz": fuzzr}, default=str), flush=True)
     k2b, k6b = pk["minplus_bf16"]["paper"], pk["coo_apsp_bf16"]["paper"]
     k4b, k4t = pk["chebconv_bf16"]["F32"], pk["chebconv_bf16_t"]["F32"]
     k3b = large["bf16"]

@@ -25,8 +25,9 @@ defaults and help; `loop_capture_sample` also sets the service's capture
 package's benchmark folder); `check_rl` refuses what the port's RL path
 does not run.  The `scenario_*` settings (`cli/scenarios.py`,
 `scenarios/`) and `health_short_s` / `health_long_s` keep JAX's names and
-defaults; `scenario_out` and `health_out` "" write no record (JAX's
-defaults are files of its benchmark folder).
+defaults; `scenario_out`, `health_out`, `chaos_out` and `prof_out` (for
+`--smoke`) "" write no record (JAX's defaults are files of its benchmark
+folder).
 """
 
 from __future__ import annotations
@@ -95,6 +96,14 @@ class Config:
     #                                writes, journal writes)
     io_backoff_s: float = 0.05     # initial retry backoff (doubles per
     #                                attempt)
+    chaos_out: str = ""            # write the chaos-smoke record here
+    #                                ("" = none)
+    # ---- performance observability (obs/prof, mho-prof) ---------------------
+    prof_seconds: float = 1.0      # mho-prof capture: seconds of bench-step
+    #                                work to run under the profiler trace
+    prof_out: str = ""             # mho-prof: capture trace dir (default
+    #                                prof_trace/) or smoke record path
+    #                                ("" = no record)
     # ---- model, workload, training ------------------------------------------
     T: int = 1000                  # congestion-penalty scale t_max
     num_layer: int = 5             # ChebConv layers in the actor

@@ -17,11 +17,10 @@ Parameters travel as `{"params": state_dict}` (the JAX `variables`
 shape), the state dict of the serving `ChebNet`.  The candidate is written
 to its own checkpoint directory (`<model_dir>/torch_candidate`) with
 `source="refit"` lineage; it never touches the serving ``torch/`` tree --
-only `loop.promote` moves weights there, after the sim gate passes.  JAX
-wraps the step in `obs.prof` (`loop/refit_step`); `obs/prof` is not
-ported yet (ROADMAP.md Queue 1 item 9), and `info["step_ms"]` keeps each
-step's host-clock time instead (each step ends at the host read of its
-losses).
+only `loop.promote` moves weights there, after the sim gate passes.  The
+step is the prof-layer program `loop/refit_step` (JAX `:114`), accounted
+at the host read of its losses (JAX `:132`), which also closes each
+step's host-clock time in `info["step_ms"]`.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from multihop_offload_tpu_torch._device import resolve_device
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.agent.replay import (
     apply_max_norm_constraint,
     make_optimizer,
@@ -116,6 +116,20 @@ def refit(
     optimizer = make_optimizer(cfg)
     opt_state = optimizer.init(params)
 
+    def step_fn(params, opt_state, binst, bjobs, gen):
+        with torch.no_grad():
+            for k, p in work.named_parameters():
+                p.copy_(params[k])
+        out = forward_backward(work, binst, bjobs, gen, prob=cfg.prob, layout=layout,
+                               device=dev, apsp_impl=cfg.apsp_impl)
+        g = {k: out.grads[k].mean(0) for k in names}
+        lc, lm = out.loss_critic.mean(), out.loss_mse.mean()
+        ok = _all_finite([lc, lm, *g.values()])
+        p_new, opt_new = optimizer.update(g, opt_state, params)
+        p_new = apply_max_norm_constraint(p_new, 1.0)
+        return p_new, opt_new, torch.stack([lc.double(), lm.double(), ok.double()])
+
+    step_fn = obs_prof.wrap("loop/refit_step", step_fn)
     losses, step_ms = [], []
     skipped = 0
     with span("loop/refit", steps=steps, batches=len(batches)):
@@ -123,25 +137,16 @@ def refit(
             faults.crashpoint("refit:mid")
             binst, bjobs = batches[s % len(batches)]
             t0 = time.perf_counter()
-            with torch.no_grad():
-                for k, p in work.named_parameters():
-                    p.copy_(params[k])
-            out = forward_backward(work, binst, bjobs, step_generator(seed, s, dev),
-                                   prob=cfg.prob, layout=layout, device=dev,
-                                   apsp_impl=cfg.apsp_impl)
-            g = {k: out.grads[k].mean(0) for k in names}
-            lc, lm = out.loss_critic.mean(), out.loss_mse.mean()
-            ok = _all_finite([lc, lm, *g.values()])
-            p_new, opt_new = optimizer.update(g, opt_state, params)
-            p_new = apply_max_norm_constraint(p_new, 1.0)
+            p_new, opt_new, read = step_fn(params, opt_state, binst, bjobs,
+                                           step_generator(seed, s, dev))
             # the step's one host read: both losses and the skip flag
-            lc_f, lm_f, good = torch.stack([lc.double(), lm.double(),
-                                            ok.double()]).tolist()
+            lc_f, lm_f, good = read.tolist()
             if good:
                 params, opt_state = p_new, opt_new
             else:
                 skipped += 1  # params and optimizer state pass through
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_fn.account(step_ms[-1] / 1e3)
             losses.append((lc_f, lm_f))
     obs_registry().counter(
         "mho_loop_refit_steps_total", "experience fine-tuning steps run"

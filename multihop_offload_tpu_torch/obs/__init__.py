@@ -8,13 +8,14 @@ hop events) and `flightrec` (the tick ring dumped on a stuck dispatch),
 `devmetrics` (the simulator's accumulators on the card, flushed into the
 registry), and the entry points' `start_run` / `finish_run` (JAX
 `obs/__init__.py:78-119`), `drift` (the flywheel's change detectors
-over captured outcomes) and `report` (a run log rendered as the operator
-view, `cli/obs.py`).  Of ROADMAP.md Queue 1 item 9, `memwatch` and
-`prof` (the per-program cost table, and with it the refit step's
-`loop/refit_step` label) are still to port, so the run log carries no
-`memwatch` or `prof` events and its summary no program table; `jaxhooks`
-(retrace and compile counters) has no counterpart in eager torch, so no
-`retrace` or `compile` events either.  Standard library, numpy and torch only.
+over captured outcomes), `report` (a run log rendered as the operator
+view, `cli/obs.py`), `prof` (per-program cost facts, the MFU and
+HBM-fraction gauges against an H100 peak table, `program` and
+`prof_capture` events, the summary's `programs=` table) and `memwatch`
+(allocator watermarks, `watermark` events, a `finish` snapshot).
+`jaxhooks` (retrace and compile counters) has no counterpart in eager
+torch, so no `retrace` or `compile` events.  Standard library, numpy and
+torch only.
 """
 
 from __future__ import annotations
@@ -42,20 +43,25 @@ def start_run(cfg, role: str):
 
 
 def finish_run(log, registry_=None, terminal: bool = False) -> None:
-    """Close an enabled run log: append the summary event (host span
-    table, metric snapshot), write the Prometheus text exposition when the
-    run asked for it, and detach the active sink.  `terminal=True` (an
+    """Close an enabled run log: take a final memwatch snapshot, append
+    the summary event (host span table, metric snapshot, the prof
+    layer's per-program table), write the Prometheus text exposition when
+    the run asked for it, and detach the active sink.  `terminal=True` (an
     orderly shutdown: the graceful drain) seals the active segment into
     the rotated chain, so a process restarted at the same path needs no
     crash rotate-aside.  No-op on None."""
     if log is None:
         return
     from multihop_offload_tpu_torch.obs.events import get_run_log, set_run_log
+    from multihop_offload_tpu_torch.obs.memwatch import memwatch
+    from multihop_offload_tpu_torch.obs.prof import prof_registry
     from multihop_offload_tpu_torch.obs.registry import registry
     from multihop_offload_tpu_torch.obs.spans import phase_stats
 
+    memwatch().snapshot("finish")
     reg = registry_ if registry_ is not None else registry()
-    log.emit("summary", phases=phase_stats(), metrics=reg.snapshot())
+    log.emit("summary", phases=phase_stats(), metrics=reg.snapshot(),
+             programs=prof_registry().snapshot())
     prom = getattr(log, "prom_path", None)
     if prom:
         with open(prom, "w") as f:

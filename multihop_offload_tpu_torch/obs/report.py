@@ -9,8 +9,9 @@ parsing, so the CLI runs anywhere.
 Port of `multihop_offload_tpu/obs/report.py`, over the port's
 `obs.events.read_events`: the same log renders to the same text.  The
 sections of JAX's compile counters, the prof layer's program table and
-memory watermarks render what the log holds (the port's logs carry no such
-events, so the compile section reads zeros and the others are omitted).
+memory watermarks render what the log holds: the port's logs carry the
+program table (`obs.prof`), the watermarks of a card (`obs.memwatch`) and
+no compile events, so the compile section reads zeros.
 """
 
 from __future__ import annotations

@@ -102,8 +102,8 @@ def default_serving_slos(
     """The serving SLO set: p99 tick latency, delivered ratio, drop rate,
     queue depth, the zero-unexpected-retrace invariant (no writer in the
     port) and the non-finite sentinel.  `mfu_floor` > 0 adds `serve_mfu`
-    over `mho_program_mfu` gauges, which only the JAX package's `obs/prof`
-    sets today (off by default, as in JAX)."""
+    over the `mho_program_mfu` gauges `obs.prof` sets (off by default, as
+    in JAX)."""
     specs = [
         SLOSpec(
             "serve_p99", "histogram_le", "mho_serve_latency_seconds",

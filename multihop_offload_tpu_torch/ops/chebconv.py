@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -64,6 +65,7 @@ from multihop_offload_tpu_torch.layouts.sparse import (
     gather_rows,
     propagate_edges,
 )
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.ops import _build
 
 chebconv_propagate_plain = propagate_edges
@@ -186,23 +188,85 @@ def chebconv_walk_plain(ptr, order, index, vals, diag, x) -> torch.Tensor:
                            torch.where(inside, torch.gather(vals, 1, ent), 0), diag, x)
 
 
+# ---- cost facts (JAX `ops/chebconv.py:88-113`, `:257-292`, copied) ---------
+
+_LANE = 128        # the TPU kernel's lane tile
+_EDGE_BLOCK = 512  # edges the TPU kernel walks a grid step
+
+
+def _pad_to(v: int, m: int) -> int:
+    return max(m, math.ceil(v / m) * m)
+
+
+def chebconv_cost_facts(n: int, nnz: int, feat: int,
+                        dtype_bytes: int = 4) -> dict:
+    """JAX's analytic cost facts of one instance's propagate: two (N, nnz)
+    x (nnz, F)-class matmuls and the diagonal seed; the list, the diagonal,
+    x in and the output once."""
+    flops = 4.0 * n * nnz * feat + 2.0 * n * feat   # 2 matmuls + diag seed
+    bytes_accessed = (
+        2 * nnz * 4                   # rows + cols (int32)
+        + nnz * dtype_bytes           # vals
+        + n * dtype_bytes             # diag
+        + 2 * n * feat * dtype_bytes  # x in + one out write per node tile
+    )
+    return {"flops": flops, "bytes_accessed": float(bytes_accessed),
+            "argument_bytes": float(bytes_accessed - n * feat * dtype_bytes)}
+
+
+def chebconv_ragged_cost_facts(n: int, nnz_live: int, nnz_cap: int,
+                               feat: int, dtype_bytes: int = 4,
+                               edge_block: int = _EDGE_BLOCK) -> dict:
+    """JAX's executed cost of one ragged call: `ceil(live / Eb)` edge
+    blocks of the TPU kernel run, so the facts scale with occupancy."""
+    eb = min(edge_block, _pad_to(max(nnz_cap, 1), _LANE))
+    blocks = math.ceil(max(int(nnz_live), 1) / eb)
+    nnz_run = blocks * eb
+    flops = 4.0 * n * nnz_run * feat + 2.0 * n * feat
+    bytes_accessed = (
+        2 * nnz_run * 4
+        + nnz_run * dtype_bytes
+        + n * dtype_bytes
+        + 2 * n * feat * dtype_bytes
+    )
+    return {"flops": flops, "bytes_accessed": float(bytes_accessed),
+            "argument_bytes": float(bytes_accessed - n * feat * dtype_bytes)}
+
+
+def _walk_facts(support: SparseSupport, x: torch.Tensor, transpose: bool) -> tuple:
+    """(flops, bytes) of one K4 walk in a counted program: B times
+    `chebconv_cost_facts` (the transposed walk does the same work).  The
+    forward registers the `ops/chebconv` record of its shape."""
+    b, n, feat = x.shape
+    nnz = support.edges.rows.shape[-1]
+    facts = chebconv_cost_facts(n, nnz, feat, x.element_size())
+    if not transpose:
+        obs_prof.register_kernel_once("ops/chebconv", f"n{n}_nnz{nnz}_f{feat}", facts,
+                                      x.device.type)
+    return b * facts["flops"], b * facts["bytes_accessed"]
+
+
 def _run(support: SparseSupport, x: torch.Tensor, transpose: bool) -> torch.Tensor:
-    e = support.edges
-    if x.device.type == "cpu":
-        if transpose and x.dtype == torch.bfloat16:
-            return chebconv_transpose_bf16_plain(e.rows, e.cols, e.vals, support.diag, x)
-        rows, cols = (e.cols, e.rows) if transpose else (e.rows, e.cols)
-        return chebconv_propagate_plain(rows, cols, e.vals, support.diag, x)
-    if x.device.type == "cuda":
-        csr = support.csr
-        if csr is None:
-            raise ValueError("chebconv_propagate on CUDA reads the support's CSR "
-                             "index: build the instance with layout='sparse'")
-        if transpose:
-            return chebconv_propagate_cuda(csr.col_ptr, csr.col_order, e.rows, e.vals,
+    """K4 forward or transposed walk on the device of x; in a counted
+    program it adds `_walk_facts`."""
+    with obs_prof.kernel_scope("chebconv_t" if transpose else "chebconv",
+                               lambda: _walk_facts(support, x, transpose)):
+        e = support.edges
+        if x.device.type == "cpu":
+            if transpose and x.dtype == torch.bfloat16:
+                return chebconv_transpose_bf16_plain(e.rows, e.cols, e.vals, support.diag, x)
+            rows, cols = (e.cols, e.rows) if transpose else (e.rows, e.cols)
+            return chebconv_propagate_plain(rows, cols, e.vals, support.diag, x)
+        if x.device.type == "cuda":
+            csr = support.csr
+            if csr is None:
+                raise ValueError("chebconv_propagate on CUDA reads the support's CSR "
+                                 "index: build the instance with layout='sparse'")
+            if transpose:
+                return chebconv_propagate_cuda(csr.col_ptr, csr.col_order, e.rows, e.vals,
+                                               support.diag, x.contiguous())
+            return chebconv_propagate_cuda(csr.row_ptr, None, e.cols, e.vals,
                                            support.diag, x.contiguous())
-        return chebconv_propagate_cuda(csr.row_ptr, None, e.cols, e.vals,
-                                       support.diag, x.contiguous())
     raise ValueError(f"chebconv_propagate: unsupported device {x.device}")
 
 
@@ -336,32 +400,52 @@ def chebconv_propagate_ragged_cuda(rows, cols, vals, diag, x, nnz_live) -> torch
 class _RaggedPropagate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, cols, vals, diag, x, nnz_live):
+        cap = rows.shape[-1]
         ctx.save_for_backward(rows, cols, vals, diag, x, nnz_live)
         ctx.index = None
-        if x.device.type == "cpu":
-            return chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, nnz_live)
-        if x.device.type == "cuda":
-            # one sort serves the forward's row walk and the backward's column walk
-            ctx.index = ragged_index_cuda(rows, cols, nnz_live, x.shape[1])
-            return chebconv_propagate_cuda(ctx.index.row_ptr, ctx.index.row_order, cols,
-                                           vals, diag, x.contiguous())
+        with obs_prof.kernel_scope("chebconv_ragged",
+                                   lambda: _ragged_facts(x, cap, nnz_live, register=True)):
+            if x.device.type == "cpu":
+                return chebconv_propagate_ragged_plain(rows, cols, vals, diag, x, nnz_live)
+            if x.device.type == "cuda":
+                # one sort serves the forward's row walk and the backward's column walk
+                ctx.index = ragged_index_cuda(rows, cols, nnz_live, x.shape[1])
+                return chebconv_propagate_cuda(ctx.index.row_ptr, ctx.index.row_order, cols,
+                                               vals, diag, x.contiguous())
         raise ValueError(f"chebconv_propagate_ragged: unsupported device {x.device}")
 
     @staticmethod
     def backward(ctx, g):
         rows, cols, vals, diag, x, nnz_live = ctx.saved_tensors
         need_vals, need_diag, need_x = ctx.needs_input_grad[2:5]
-        # d x: the propagate over the swapped list, with the same live count
-        dx = None
-        if need_x and ctx.index is not None:
-            dx = chebconv_propagate_cuda(ctx.index.col_ptr, ctx.index.col_order, rows, vals,
-                                         diag, g.contiguous())
-        elif need_x:
-            dx = chebconv_propagate_ragged_plain(cols, rows, vals, diag, g, nnz_live)
-        # d vals, d diag: the VJP of `_xla_propagate` over the full capacity
-        dvals = (gather_rows(g, rows) * gather_rows(x, cols)).sum(-1) if need_vals else None
-        ddiag = (g * x).sum(-1) if need_diag else None
+        with obs_prof.kernel_scope("chebconv_ragged_t",
+                                   lambda: _ragged_facts(x, rows.shape[-1], nnz_live)):
+            # d x: the propagate over the swapped list, with the same live count
+            dx = None
+            if need_x and ctx.index is not None:
+                dx = chebconv_propagate_cuda(ctx.index.col_ptr, ctx.index.col_order, rows,
+                                             vals, diag, g.contiguous())
+            elif need_x:
+                dx = chebconv_propagate_ragged_plain(cols, rows, vals, diag, g, nnz_live)
+            # d vals, d diag: the VJP of `_xla_propagate` over the full capacity
+            dvals = (gather_rows(g, rows) * gather_rows(x, cols)).sum(-1) if need_vals else None
+            ddiag = (g * x).sum(-1) if need_diag else None
         return None, None, dvals, ddiag, dx, None
+
+
+def _ragged_facts(x, cap: int, nnz_live, register: bool = False) -> tuple:
+    """(flops, bytes) of one K5 call in a counted program:
+    `chebconv_ragged_cost_facts` at each slot's live count (read from the
+    device).  The forward (`register`) registers the `ops/chebconv_ragged`
+    record of its shape at capacity."""
+    b, n, feat = x.shape
+    if register:
+        obs_prof.register_kernel_once(
+            "ops/chebconv_ragged", f"n{n}_cap{cap}_f{feat}",
+            chebconv_cost_facts(n, cap, feat, x.element_size()), x.device.type)
+    facts = [chebconv_ragged_cost_facts(n, int(live), cap, feat, x.element_size())
+             for live in nnz_live.reshape(-1).tolist()]
+    return sum(f["flops"] for f in facts), sum(f["bytes_accessed"] for f in facts)
 
 
 def chebconv_propagate_ragged(rows, cols, vals, diag, x, nnz_live) -> torch.Tensor:

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.ops import _build
 
 # shared memory a block may use on the card (227 KB)
@@ -95,6 +96,23 @@ def fixed_point_cuda(adj, rates, cf, lam, num_iters: int = 10):
 fixed_point_cuda.launches = 0
 
 
+def fixed_point_cost_facts(b: int, l: int, num_iters: int = 10,
+                           backward: bool = False) -> tuple:
+    """(flops, bytes) of one K1 call on (B, L): the prof layer's fixed-point
+    term, `num_iters` passes of 2·B·L² (`obs.prof.fixed_point_flops`), A
+    read once and the (B, L) vectors in and out.  The backward (the plain
+    scan recomputed, and its transposed passes) counts twice the passes
+    and two more vectors."""
+    flops = obs_prof.fixed_point_flops(b, l, num_iters)
+    vectors = 6 if backward else 4
+    return (2 * flops if backward else flops), 4.0 * (b * l * l + vectors * b * l)
+
+
+def _facts(adj, rates, cf, lam, num_iters=10):
+    return fixed_point_cost_facts(adj.shape[0], adj.shape[-1], num_iters)
+
+
+@obs_prof.counted("fixed_point", _facts)
 def _forward(adj, rates, cf, lam, num_iters):
     if adj.device.type == "cpu":
         return fixed_point_plain(adj, rates, cf, lam, num_iters)
@@ -115,13 +133,19 @@ class _FixedPoint(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_mu):
-        need = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            mu = fixed_point_plain(*ins, ctx.num_iters)
-            wrt = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(mu, wrt, grad_mu))
-        return (*(next(got) if n else None for n in need), None)
+        return (*_backward(*ctx.saved_tensors, grad_mu, ctx.num_iters,
+                           ctx.needs_input_grad[:4]), None)
+
+
+@obs_prof.counted("fixed_point_bwd", lambda adj, *a: fixed_point_cost_facts(
+    adj.shape[0], adj.shape[-1], a[-2], backward=True))
+def _backward(adj, rates, cf, lam, grad_mu, num_iters, need):
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip((adj, rates, cf, lam), need)]
+        mu = fixed_point_plain(*ins, num_iters)
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(mu, wrt, grad_mu))
+    return tuple(next(got) if n else None for n in need)
 
 
 def fixed_point_path(l: int) -> str:

@@ -100,6 +100,7 @@ import math
 import torch
 
 from multihop_offload_tpu_torch.layouts.sparse import weight_matrix_from_edges
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.ops import _build
 
 
@@ -276,6 +277,19 @@ def tile_plan(b: int, n: int, dtype: torch.dtype = torch.float32) -> dict:
 _BROADCAST_ELEMS = 1 << 27
 
 
+def minplus_cost_facts(b: int, n: int, iters: int, dtype_bytes: int = 4) -> tuple:
+    """(flops, bytes) of K2's closure of (B, N, N) by `iters` squarings:
+    the prof layer's APSP term, 2·B·N³ a squaring of the full schedule
+    (`obs.prof.apsp_flops`; where the early stop ended does not change
+    it), one read of the input and one write of the result."""
+    return obs_prof.apsp_flops(b, n, iters), 2.0 * b * n * n * dtype_bytes
+
+
+def _closure_facts(d, iters, owned=False):
+    return minplus_cost_facts(d.shape[0], d.shape[-1], iters, d.element_size())
+
+
+@obs_prof.counted("minplus", _closure_facts)
 def minplus_closure(d: torch.Tensor, iters: int, owned: bool = False) -> torch.Tensor:
     """APSP by squaring: plain version on the CPU (k-blocked where the
     broadcast temp would pass `_BROADCAST_ELEMS`), K2 on CUDA.  `d` is
@@ -468,9 +482,47 @@ class _MinplusClosure(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         stack, step_elems, lead, iters = ctx.saved
-        return minplus_closure_bwd_cuda(stack, step_elems, lead, g, iters), None
+        with obs_prof.kernel_scope("minplus_bwd", lambda: minplus_bwd_cost_facts(
+                g.shape[0], g.shape[-1], iters)):
+            return minplus_closure_bwd_cuda(stack, step_elems, lead, g, iters), None
 
 
+def minplus_bwd_cost_facts(b: int, n: int, iters: int) -> tuple:
+    """(flops, bytes) of K2's backward over `iters` squarings of (B, N, N)
+    float32: 6·N³ a squaring and matrix (the candidates rebuilt for the tie
+    data, compared, and gathered twice: PERF.md's bound), every saved
+    slice read once, the cotangent in and out."""
+    return 6.0 * b * n**3 * iters, 4.0 * b * n * n * (iters + 3)
+
+
+class _PlainClosureDiff(torch.autograd.Function):
+    """`minplus_closure_diff_plain` on the CPU: the plain squarings on a
+    tape of their own, whose gradient this node takes as a kernel's
+    (`kernel_scope`), as `_MinplusClosure` takes K2's backward on the
+    card."""
+
+    @staticmethod
+    def forward(ctx, d, iters):
+        with torch.enable_grad():
+            d0 = d.detach().requires_grad_(True)
+            out = minplus_closure_diff_plain(d0, iters)
+        ctx.graph = (d0, out, iters)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        d0, out, iters = ctx.graph
+        b, n, _ = d0.shape
+        with obs_prof.kernel_scope("minplus_bwd", lambda: minplus_bwd_cost_facts(b, n, iters)):
+            (gd,) = torch.autograd.grad(out, d0, g)
+        return gd, None
+
+
+def _diff_facts(d, iters):
+    return minplus_cost_facts(d.shape[0], d.shape[-1], iters, d.element_size())
+
+
+@obs_prof.counted("minplus", _diff_facts)
 def minplus_closure_diff(d: torch.Tensor, iters: int) -> torch.Tensor:
     """`iters` squarings of (B, N, N) `d` (zero diagonal, +inf for
     non-edges) that reverse mode differentiates: the plain version on the
@@ -478,6 +530,8 @@ def minplus_closure_diff(d: torch.Tensor, iters: int) -> torch.Tensor:
     early stop, the same result as the full schedule) and K2's backward
     (`minplus_closure_bwd_cuda`), which takes every squaring's VJP."""
     if d.device.type == "cpu":
+        if torch.is_grad_enabled() and d.requires_grad:
+            return _PlainClosureDiff.apply(d, iters)
         return minplus_closure_diff_plain(d, iters)
     if d.device.type == "cuda":
         if d.dtype != torch.float32:
@@ -616,6 +670,12 @@ blocked_fw_cuda.launches = 0
 blocked_fw_cuda.launches_bf16 = 0
 
 
+def _fw_facts(d):
+    n = d.shape[-1]
+    return minplus_cost_facts(d.shape[0], n, squaring_count(n), d.element_size())
+
+
+@obs_prof.counted("blocked_fw", _fw_facts)
 def blocked_fw(d: torch.Tensor) -> torch.Tensor:
     """Blocked FW of (B, N, N) `d`, N a multiple of 128: plain version on
     the CPU, K3 on CUDA (float32 or bfloat16)."""
@@ -787,11 +847,37 @@ apsp_coo_cuda.launches = 0
 apsp_coo_cuda.launches_bf16 = 0
 
 
+def coo_apsp_cost_facts(n: int, l: int, iters: int,
+                        dtype_bytes: int = 4) -> dict:
+    """JAX's analytic cost facts of one instance's COO-fed APSP
+    (`ops/minplus.py:443-476`, copied): the edge walk ~5 (N, N) ops a
+    link, the squaring ~2.25·N³ an iteration."""
+    flops = 5.0 * l * n * n + iters * 2.25 * n ** 3
+    bytes_accessed = float(2 * l * 4 + l * dtype_bytes
+                           + n * n * dtype_bytes)
+    return {"flops": flops, "bytes_accessed": bytes_accessed,
+            "argument_bytes": float(2 * l * 4 + l * dtype_bytes)}
+
+
+def _coo_facts(link_ends, link_mask, link_delays, num_nodes, path=None):
+    """B times `coo_apsp_cost_facts`; registers the `ops/coo_apsp` record
+    of the shape."""
+    b, l = link_mask.shape
+    iters, dtype_bytes = squaring_count(num_nodes), link_delays.element_size()
+    f = coo_apsp_cost_facts(num_nodes, l, iters, dtype_bytes)
+    obs_prof.register_kernel_once("ops/coo_apsp", f"n{num_nodes}_l{l}", f,
+                                  link_delays.device.type)
+    return b * f["flops"], b * f["bytes_accessed"]
+
+
+@obs_prof.counted("coo_apsp", _coo_facts)
 def apsp_minplus_coo(link_ends, link_mask, link_delays, num_nodes: int,
                      path: str | None = None) -> torch.Tensor:
     """(B, N, N) shortest-path distances from the padded link list on
     `path` (None: `apsp_path(num_nodes)`, the `'pallas'` route, as the JAX
-    `apsp_minplus_coo` dispatches): plain chain on the CPU, K6 on CUDA."""
+    `apsp_minplus_coo` dispatches): plain chain on the CPU, K6 on CUDA.
+    In a counted program it registers the `ops/coo_apsp` record of its
+    shape and adds B times its facts."""
     if link_delays.device.type == "cpu":
         return apsp_coo_plain(link_ends, link_mask, link_delays, num_nodes, path)
     if link_delays.device.type == "cuda":

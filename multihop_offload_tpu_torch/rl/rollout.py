@@ -34,6 +34,10 @@ Both layouts: under the sparse layout W comes from the link list
 (`weight_matrix_from_edges`) and is squared like the dense one (JAX
 `:137-145`, not the COO-fed kernel), the node diagonal from the actor's
 per-node delays, and next hops from the edge list.
+
+Inside the counted first call of the `rl/train_step` program the slots
+are `obs.prof.RepeatedUnits`: the first slot's work is counted and added
+for each later one, as `sim/scan` counts its slots.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from multihop_offload_tpu_torch.layouts.sparse import (
     next_hop_from_edges,
     weight_matrix_from_edges,
 )
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.sim.state import SimRoutes, SimState, liveness_masks
 from multihop_offload_tpu_torch.sim.step import sim_slot_step
 
@@ -209,6 +214,7 @@ def rollout(
     dev = dm.init((fleet,), device=state0.t.device) if dm is not None else None
     st, prev_gen = state0, state0.generated
     logps, ents, rewards, deltas, routes_r = [], [], [], [], []
+    units = obs_prof.RepeatedUnits()   # a counted step counts one slot
     for r in range(rounds):
         gens, (tie, link, srv, arr) = draws.round(r, slots_per_round)
         node_up, link_up = liveness_masks(inst, sim_params, st.t)
@@ -235,11 +241,13 @@ def rollout(
         with torch.no_grad():
             for k in range(slots_per_round):
                 step_draws = (tie[k], link[k], srv[k], arr[k])
-                if dm is None:
-                    st, _ = sim_slot_step(inst, spec, sim_params, routes, jobs, st, step_draws)
-                else:
-                    st, _, dev = sim_slot_step(inst, spec, sim_params, routes, jobs, st,
-                                               step_draws, dm=dm, dev=dev)
+                with units.unit("slot"):
+                    if dm is None:
+                        st, _ = sim_slot_step(inst, spec, sim_params, routes, jobs, st,
+                                              step_draws)
+                    else:
+                        st, _, dev = sim_slot_step(inst, spec, sim_params, routes, jobs, st,
+                                                   step_draws, dm=dm, dev=dev)
             i32 = torch.int32
             d = RoundDeltas(
                 generated=(st.generated - start.generated).sum(1, dtype=i32),

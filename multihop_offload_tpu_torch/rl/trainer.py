@@ -25,9 +25,9 @@ read on the host, the step's one sync besides the flushes.
 Telemetry: the simulator's devmetrics window of the step is flushed with
 `phase="rl"`, and an RL window (episodes, reward moments, the per-episode
 gradient-norm decade histogram, the non-finite sentinel, skipped updates)
-likewise, with the `mho_rl_*` registry counters.  JAX registers the step
-with `obs.prof` (`rl/train_step`); `obs/prof` is not ported yet (ROADMAP.md
-Queue 1 item 9), and the step is a `rl/train_step` span instead.
+likewise, with the `mho_rl_*` registry counters.  The step is the
+prof-layer program `rl/train_step` (JAX `:266`), inside the span of the
+same name and accounted once the span's sync has completed (JAX `:299`).
 
 `mesh` (a `parallel.make_mesh` mesh) splits the fleet in equal blocks over
 its data devices, with a replica of the model on each; the gradient is the
@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Any, Optional
 
 import torch
@@ -48,6 +49,7 @@ import torch
 from multihop_offload_tpu_torch._records import cat_records, slice_records
 from multihop_offload_tpu_torch.agent.replay import apply_max_norm_constraint, make_optimizer
 from multihop_offload_tpu_torch.agent.train_step import episode_grad_norms
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs.devmetrics import DevMetrics
 from multihop_offload_tpu_torch.obs.registry import registry
 from multihop_offload_tpu_torch.obs.spans import span
@@ -162,6 +164,7 @@ class RLTrainer:
         for d in self.devices:
             if device_key(d) not in self._replicas:
                 self._replicas[device_key(d)] = copy.deepcopy(model).to(d)
+        self._program = obs_prof.wrap("rl/train_step", self._step_body)
 
     # ---- host-side driving ------------------------------------------------
 
@@ -203,7 +206,6 @@ class RLTrainer:
         `InjectedDraws` with `gumbel` (F, R, J, S+1) beside it.  `states`
         (default: empty queues) and `init_rates` (default: zeros) start
         every lane."""
-        home = self.device
         fleet = insts.adj.shape[0]
         if states is None:
             states = self.init_states(fleet, insts.adj.device)
@@ -213,49 +215,10 @@ class RLTrainer:
         shards = len(self.devices)
         if fleet % shards:
             raise ValueError(f"fleet {fleet} does not split over {shards} devices")
-        per = fleet // shards
         with span("rl/train_step", block=True, fleet=fleet):
-            baseline = buffer_baseline(self.buf)
-            results = [self._lanes(d, i * per, (i + 1) * per, baseline, insts, jobss,
-                                   paramss, states, init_rates, draws, gumbel)
-                       for i, d in enumerate(self.devices)]
-            norms = torch.cat([copy_to(episode_grad_norms(g), home) for g, _, _ in results])
-            lane_grads = {k: torch.cat([copy_to(r[0][k], home) for r in results])
-                          for k in self.params}
-            g = {k: mean_to([r[0][k].mean(0) for r in results], home) for k in self.params}
-            losses = torch.cat([copy_to(r[1], home) for r in results])
-            outs = [r[2].to(home) for r in results]
-            out = outs[0] if shards == 1 else dataclasses.replace(
-                cat_records(outs), dev=None if self.dm_sim is None
-                else _cat_tree([o.dev for o in outs], home))
-            # non-finite containment (`agent.replay.replay_apply`'s contract):
-            # a poisoned rollout must not corrupt the Adam state
-            finite = torch.stack([torch.isfinite(v).all() for v in g.values()]).all()
-            ok = bool(finite)
-            if ok:
-                safe = {k: torch.where(torch.isfinite(v), v, 0.0) for k, v in g.items()}
-                params, self.opt_state = self.optimizer.update(safe, self.opt_state,
-                                                               self.params)
-                self.params = apply_max_norm_constraint(params, float(self.cfg.max_norm))
-            skipped = 0 if ok else 1
-            # reward statistics in float32
-            self.buf = buffer_push(self.buf, out.rewards.to(torch.float32).mean(0))
-            dev_rl = None
-            if self.dm_rl is not None:
-                dm = self.dm_rl
-                d = dm.init(device=home)
-                d = dm.inc(d, DM_RL_EPISODES, fleet)
-                d = dm.inc(d, DM_RL_ROUNDS, fleet * self.rounds)
-                d = dm.inc(d, DM_RL_REWARD_SUM, out.rewards)
-                d = dm.inc(d, DM_RL_REWARD_SQ, out.rewards * out.rewards)
-                d = dm.observe(d, DM_RL_GRAD_NORM, norms)
-                d = dm.inc(d, DM_RL_NONFINITE, not ok)
-                d = dm.inc(d, DM_RL_SKIPPED, skipped)
-                dev_rl = d
-            step = RLStepOut(loss=losses.mean(), rewards=out.rewards, logps=out.logps,
-                             deltas=out.deltas, dsts=out.dsts, routes=out.routes,
-                             state=out.state, grad_norms=norms, skipped=skipped,
-                             dev_sim=out.dev, dev_rl=dev_rl, losses=losses, grads=lane_grads)
+            t0 = time.perf_counter()
+            step = self._program(insts, jobss, paramss, draws, states, init_rates, gumbel)
+        self._program.account(time.perf_counter() - t0)
         self.steps += 1
         reg = registry()
         reg.counter("mho_rl_steps_total", "RL train steps executed").inc()
@@ -267,8 +230,57 @@ class RLTrainer:
                 if not isinstance(v, dict):
                     self.sim_totals[k] = self.sim_totals.get(k, 0.0) + v
         if self.dm_rl is not None:
-            self.last_rl_metrics = self.dm_rl.flush(dev_rl, reg=reg)
+            self.last_rl_metrics = self.dm_rl.flush(step.dev_rl, reg=reg)
         return step
+
+    def _step_body(self, insts, jobss, paramss, draws, states, init_rates, gumbel):
+        """The step's rollout, gradients, update and buffer push: the
+        `rl/train_step` program."""
+        home = self.device
+        fleet = insts.adj.shape[0]
+        shards = len(self.devices)
+        per = fleet // shards
+        baseline = buffer_baseline(self.buf)
+        results = [self._lanes(d, i * per, (i + 1) * per, baseline, insts, jobss,
+                               paramss, states, init_rates, draws, gumbel)
+                   for i, d in enumerate(self.devices)]
+        norms = torch.cat([copy_to(episode_grad_norms(g), home) for g, _, _ in results])
+        lane_grads = {k: torch.cat([copy_to(r[0][k], home) for r in results])
+                      for k in self.params}
+        g = {k: mean_to([r[0][k].mean(0) for r in results], home) for k in self.params}
+        losses = torch.cat([copy_to(r[1], home) for r in results])
+        outs = [r[2].to(home) for r in results]
+        out = outs[0] if shards == 1 else dataclasses.replace(
+            cat_records(outs), dev=None if self.dm_sim is None
+            else _cat_tree([o.dev for o in outs], home))
+        # non-finite containment (`agent.replay.replay_apply`'s contract):
+        # a poisoned rollout must not corrupt the Adam state
+        finite = torch.stack([torch.isfinite(v).all() for v in g.values()]).all()
+        ok = bool(finite)
+        if ok:
+            safe = {k: torch.where(torch.isfinite(v), v, 0.0) for k, v in g.items()}
+            params, self.opt_state = self.optimizer.update(safe, self.opt_state,
+                                                           self.params)
+            self.params = apply_max_norm_constraint(params, float(self.cfg.max_norm))
+        skipped = 0 if ok else 1
+        # reward statistics in float32
+        self.buf = buffer_push(self.buf, out.rewards.to(torch.float32).mean(0))
+        dev_rl = None
+        if self.dm_rl is not None:
+            dm = self.dm_rl
+            d = dm.init(device=home)
+            d = dm.inc(d, DM_RL_EPISODES, fleet)
+            d = dm.inc(d, DM_RL_ROUNDS, fleet * self.rounds)
+            d = dm.inc(d, DM_RL_REWARD_SUM, out.rewards)
+            d = dm.inc(d, DM_RL_REWARD_SQ, out.rewards * out.rewards)
+            d = dm.observe(d, DM_RL_GRAD_NORM, norms)
+            d = dm.inc(d, DM_RL_NONFINITE, not ok)
+            d = dm.inc(d, DM_RL_SKIPPED, skipped)
+            dev_rl = d
+        return RLStepOut(loss=losses.mean(), rewards=out.rewards, logps=out.logps,
+                         deltas=out.deltas, dsts=out.dsts, routes=out.routes,
+                         state=out.state, grad_norms=norms, skipped=skipped,
+                         dev_sim=out.dev, dev_rl=dev_rl, losses=losses, grads=lane_grads)
 
     # ---- checkpoint interop ----------------------------------------------
 

@@ -33,6 +33,13 @@ step is remembered and not retried.
 `prob=True` samples each request's decision from its own generator
 (`dispatch(gens=)`: one per batch row, `env.offloading._uniform`), so a
 request's answer does not depend on the rows beside it.
+
+Programs (JAX `executor.py:205-213`): each (bucket, width) has a gnn and a
+baseline program in the prof layer, `serve/bucket{b}/gnn` and
+`serve/bucket{b}/baseline`, with `/w{width}` where a ladder width runs
+below `slots`.  A program counts its work on its first dispatch
+(`obs.prof.wrap`) and is accounted in `fetch`, the sync boundary: the wall
+time from its dispatch to the copy's completion.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from multihop_offload_tpu_torch.agent.policy import forward_env
 from multihop_offload_tpu_torch.env.policies import baseline_policy
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.obs import events as obs_events
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
 from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl
@@ -108,13 +116,16 @@ class DispatchHandle:
     event: Optional[torch.cuda.Event]
     device_buf: torch.Tensor  # kept alive until the copy completes
     out_dtype: torch.dtype
+    program: Optional[obs_prof.ProfiledProgram] = None
+    t0: float = 0.0
 
 
 class BucketExecutor:
     """Batched decision passes of one model, plus its weight state."""
 
     def __init__(self, model, layout=None, device=None, precision=None,
-                 apsp_impl: str = "xla", prob: bool = False):
+                 apsp_impl: str = "xla", prob: bool = False,
+                 slots: Optional[int] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.layout = resolve_layout(layout)
@@ -136,6 +147,24 @@ class BucketExecutor:
         self.last_devmetrics: Optional[dict] = None
         # host seconds spent inside dispatch (enqueue) and fetch (wait)
         self.host_s = {"dispatch": 0.0, "fetch": 0.0}
+        # the full width (None: unknown, every width is the full one), and
+        # the prof-layer programs by (bucket, width, degraded)
+        self.slots = None if slots is None else int(slots)
+        self._programs: Dict[tuple, obs_prof.ProfiledProgram] = {}
+
+    def program(self, bucket: int, width: Optional[int], degraded: bool):
+        """The prof-layer program of one (bucket, width) pass, JAX's name."""
+        full = width is None or self.slots is None or int(width) == self.slots
+        key = (bucket, None if full else int(width), bool(degraded))
+        prog = self._programs.get(key)
+        if prog is None:
+            kind = "baseline" if degraded else "gnn"
+            suffix = "" if full else f"/w{int(width)}"
+            fn = ((lambda binst, bjobs, gens: self.baseline_step(binst, bjobs)) if degraded
+                  else (lambda binst, bjobs, gens: self.gnn_step(binst, bjobs, gens)))
+            prog = self._programs[key] = obs_prof.wrap(f"serve/bucket{bucket}/{kind}{suffix}",
+                                                       fn)
+        return prog
 
     def gnn_step(self, binst, bjobs, gens=None, model=None, device=None):
         """The GNN decision pass; `model` and `device` default to the
@@ -164,8 +193,8 @@ class BucketExecutor:
         decision (`prob=True`)."""
         t0 = time.perf_counter()
         w = int(bjobs.mask.shape[0]) if width is None else int(width)
-        out = (self.baseline_step(binst, bjobs) if degraded
-               else self.gnn_step(binst, bjobs, gens))
+        prog = self.program(bucket, w, degraded)
+        out = prog(binst, bjobs, gens)
         counts = observe_decisions(out, bjobs.mask)
         buf = torch.cat([pack_outputs(out), counts.double()])
         if buf.device.type == "cuda":
@@ -187,7 +216,7 @@ class BucketExecutor:
             )
         self.host_s["dispatch"] += time.perf_counter() - t0
         return DispatchHandle(bucket=bucket, width=w, host=host, event=event,
-                              device_buf=buf, out_dtype=out[2].dtype)
+                              device_buf=buf, out_dtype=out[2].dtype, program=prog, t0=t0)
 
     def fetch(self, handle: DispatchHandle):
         """Resolve one dispatch: host numpy (dst, is_local, delay_est,
@@ -198,6 +227,8 @@ class BucketExecutor:
         flat = handle.host.numpy()
         out = unpack_outputs(flat[:-len(_DM_KEYS)], handle.width, handle.out_dtype)
         self.record_decisions(flat[-len(_DM_KEYS):], bucket=str(handle.bucket))
+        if handle.program is not None:
+            handle.program.account(time.perf_counter() - handle.t0)
         self.host_s["fetch"] += time.perf_counter() - t0
         return out
 

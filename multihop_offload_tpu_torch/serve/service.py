@@ -162,7 +162,7 @@ class OffloadService:
         else:
             self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
                                            precision=self.precision, apsp_impl=apsp_impl,
-                                           prob=prob)
+                                           prob=prob, slots=slots)
         self.replan_every = max(1, int(replan_every))
         # per-bucket admitted arrivals in the current planning window (the
         # planner's rate signal) and per-device stuck-until deadlines

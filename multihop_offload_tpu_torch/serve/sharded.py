@@ -30,10 +30,14 @@ decision counters (`observe_decisions`), job-total sum and delay-estimate
 max go through `parallel.collectives.gather` to the first device of the
 placement and are reduced there; decisions never cross devices.
 
-Host time is kept per (bucket, fleet indices) in `placement_host_s`.  Not
-ported: JAX's per-placement compile cache and `expected_rebuild` (the port
-runs eagerly, nothing compiles) and the `obs_prof.wrap` program labels
-(`obs/prof.py` is not ported yet).
+Programs (JAX `:172-190`): one gnn and one baseline program a (bucket,
+placement), under the one-device names `serve/bucket{b}/gnn` and
+`serve/bucket{b}/baseline` with the labels `shard` (devices in the
+placement) and `devices` (their fleet indices); the program is the shard
+loop and the gather, counted on its first call and accounted once the
+outputs are on the host (JAX `:255`).  Host time is kept per (bucket,
+fleet indices) in `placement_host_s`.  Not ported: JAX's `expected_rebuild`
+(the port runs eagerly, nothing compiles).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 
 from multihop_offload_tpu_torch._device import resolve_device
 from multihop_offload_tpu_torch._records import slice_records
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.parallel.collectives import gather
 from multihop_offload_tpu_torch.parallel.mesh import canonical_device
@@ -101,6 +106,7 @@ class ShardedBucketExecutor(BucketExecutor):
         # host seconds per (bucket, fleet indices)
         self.placement_host_s: Dict[Tuple[int, Tuple[int, ...]], float] = {}
         self._replicas: Dict[torch.device, tuple] = {}
+        self._sharded_programs: Dict[tuple, obs_prof.ProfiledProgram] = {}
 
     # ---- placement ---------------------------------------------------------
 
@@ -156,19 +162,25 @@ class ShardedBucketExecutor(BucketExecutor):
 
     # ---- dispatch ----------------------------------------------------------
 
-    @torch.no_grad()
-    def run(self, bucket: int, binst, bjobs, degraded: bool = False,
-            request_ids=None, gens: Optional[List[torch.Generator]] = None):
-        """One sharded decision pass over the packed batch (`slots` rows);
-        returns host numpy (dst, is_local, delay_est, job_total), each
-        (slots, pad.j), in slot order.  `gens`: one generator per slot, on
-        the device of the slot's shard."""
-        t0 = time.perf_counter()
-        devs = self.plan.assignments[bucket]
-        width = int(bjobs.mask.shape[0])
-        if width % len(devs):
-            raise ValueError(f"{width} slots do not split over {len(devs)} devices")
-        per = width // len(devs)
+    def sharded_program(self, bucket: int, devs: Tuple[int, ...], degraded: bool):
+        """The prof-layer program of one (bucket, placement) pass: the
+        shards' passes and the one cross-shard reduction."""
+        key = (bucket, tuple(devs), bool(degraded))
+        prog = self._sharded_programs.get(key)
+        if prog is None:
+            label = {"shard": str(len(devs)), "devices": _devices_label(devs)}
+            name = f"serve/bucket{bucket}/{'baseline' if degraded else 'gnn'}"
+            prog = self._sharded_programs[key] = obs_prof.wrap(
+                name, lambda binst, bjobs, gens: self._shards(devs, binst, bjobs, degraded,
+                                                              gens),
+                labels=label)
+        return prog
+
+    def _shards(self, devs, binst, bjobs, degraded: bool, gens):
+        """Each shard's pass on its device and replica; returns (packed
+        outputs a shard, the fleet metrics reduced on the placement's first
+        device, the outputs' dtype)."""
+        per = int(bjobs.mask.shape[0]) // len(devs)
         bufs, metrics, out_dtype = [], [], None
         for i, idx in enumerate(devs):
             dev = self.fleet[idx]
@@ -188,8 +200,26 @@ class ShardedBucketExecutor(BucketExecutor):
         # the one cross-shard reduction, on the placement's first device
         fleet_m = gather(metrics, self.fleet[devs[0]])
         reduced = torch.cat([fleet_m[:, :4].sum(0), fleet_m[:, 4:].max(0).values])
+        return bufs, reduced, out_dtype
+
+    @torch.no_grad()
+    def run(self, bucket: int, binst, bjobs, degraded: bool = False,
+            request_ids=None, gens: Optional[List[torch.Generator]] = None):
+        """One sharded decision pass over the packed batch (`slots` rows);
+        returns host numpy (dst, is_local, delay_est, job_total), each
+        (slots, pad.j), in slot order.  `gens`: one generator per slot, on
+        the device of the slot's shard."""
+        t0 = time.perf_counter()
+        devs = self.plan.assignments[bucket]
+        width = int(bjobs.mask.shape[0])
+        if width % len(devs):
+            raise ValueError(f"{width} slots do not split over {len(devs)} devices")
+        per = width // len(devs)
+        prog = self.sharded_program(bucket, devs, degraded)
+        bufs, reduced, out_dtype = prog(binst, bjobs, gens)
         hosts = [buf.cpu().numpy() for buf in bufs]
         reduced = reduced.cpu().tolist()
+        prog.account(time.perf_counter() - t0)
         self.dispatch_count += 1
         self.last_devices_used = len(set(devs[:len(hosts)]))
         label = _devices_label(devs)

@@ -23,16 +23,25 @@ the JAX key tree).
 Mobility re-wiring is host work, so a run is segmented: `FleetSim.run`
 again from the state `sim.state.migrate_sim_state` carried across the new
 topology, with the same padded shapes.
+
+Each `FleetSim` wraps its run as the prof-layer program `sim/scan` (JAX
+`:179`): counted on the first segment, accounted once the span's sync
+has completed each segment (JAX `:215`).  The count takes one policy call
+and one slot step and adds their facts for the rest of the schedule
+(`obs.prof.RepeatedUnits`), so a 25,000-slot sweep costs its count no
+more than a short run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from multihop_offload_tpu_torch._records import TensorRecord
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry
 from multihop_offload_tpu_torch.obs.spans import span
@@ -117,6 +126,7 @@ def simulate(
     dev = dm.init((fleet,), device=state.t.device)
     ests, scheds = [], []
     st, routes, prev_gen = state, None, state.generated
+    units = obs_prof.RepeatedUnits()   # a counted run counts one policy call, one slot
     with torch.no_grad():
         for r in range(rounds):
             gen, (tie, link, srv, arr) = draws.round(r, slots_per_round)
@@ -130,12 +140,14 @@ def simulate(
                 est = window / denom
             ests.append(est)
             jobs_est = dataclasses.replace(jobs, rate=est.to(jobs.rate.dtype))
-            routes = policy_fn(inst, jobs_est, node_up, link_up, gen)
+            with units.unit("policy"):
+                routes = policy_fn(inst, jobs_est, node_up, link_up, gen)
             prev_gen = st.generated
             for k in range(slots_per_round):
-                st, sched, dev = sim_slot_step(inst, spec, params, routes, jobs, st,
-                                               (tie[k], link[k], srv[k], arr[k]),
-                                               dm=dm, dev=dev)
+                with units.unit("slot"):
+                    st, sched, dev = sim_slot_step(inst, spec, params, routes, jobs, st,
+                                                   (tie[k], link[k], srv[k], arr[k]),
+                                                   dm=dm, dev=dev)
                 if collect_schedule:
                     scheds.append(sched)
     sched = None
@@ -171,6 +183,7 @@ class FleetSim:
             self.dtype = dtype
             self.devmetrics = sim_devmetrics(spec)
             self.last_devmetrics: dict | None = None
+            self._fn = obs_prof.wrap("sim/scan", simulate)
 
     def init_states(self, fleet: int, device="cpu") -> SimState:
         return init_state(self.spec, fleet, self.dtype, device)
@@ -201,10 +214,12 @@ class FleetSim:
                                      device=device)
         prev = [int(states.generated.sum()), int(states.delivered.sum()),
                 int(states.dropped.sum())]
+        t0 = time.perf_counter()
         with span("sim/scan", block=True, fleet=fleet):
-            out = simulate(insts, jobss, self.spec, paramss, self.policy_fn, states,
+            out = self._fn(insts, jobss, self.spec, paramss, self.policy_fn, states,
                            init_rates, draws, self.rounds, self.slots_per_round,
                            self.devmetrics, self.collect_schedule)
+        self._fn.account(time.perf_counter() - t0)
         st = out.state
         reg = registry()
         reg.counter("mho_sim_slots_total", "simulated slots across the fleet").inc(

@@ -93,6 +93,7 @@ from multihop_offload_tpu_torch.models.chebconv import (
 from multihop_offload_tpu_torch.models.tf_import import load_reference_checkpoint
 from multihop_offload_tpu_torch.multihost.runtime import local_devices, process_index
 from multihop_offload_tpu_torch.ops.minplus import resolve_apsp
+from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs.spans import span
 from multihop_offload_tpu_torch.parallel.data_parallel import (
     make_file_dp_train_step,
@@ -328,6 +329,13 @@ class _Harness:
         loaded = _load_reference_params(self.model, self.model_dir, self.dtype)
         if not loaded and len(self.data):
             ensure_alive_output_multi(self.model, self._probes())
+        # the one-device programs in the prof layer (JAX `:305-316`); the
+        # data-parallel steps stay unwrapped, as in JAX
+        self._step_program = obs_prof.wrap("train/step",
+                                           lambda *a: self._train_step(*a))
+        self._eval_program = obs_prof.wrap("train/eval",
+                                           lambda *a: self._eval_methods(*a))
+        self._replay_program = obs_prof.wrap("train/replay", lambda: self._replay())
         self.model.to(self.device)
         params = self.params()
         self.state = TrainState(opt=adam_init(params), mem=None if memory_size == 0 else
@@ -701,13 +709,19 @@ class Trainer(_Harness):
                             x[:b] for x in (gnn_train, loss_c, loss_m, bl, loc, gnn_test))
                         grads = replay_last(self.state.mem, min(b, cfg.memory_size))
                     else:
-                        outs = self._train_step(inst_b, jobs, explore)
+                        td0 = time.perf_counter()
+                        outs = self._step_program(inst_b, jobs, explore)
                         grads, loss_c, loss_m = outs.grads, outs.loss_critic, outs.loss_mse
                         gnn_train = outs.delays.job_total
-                        bl, loc, gnn_test = self._eval_methods(inst_b, jobs, self.gen)
+                        bl, loc, gnn_test = self._eval_program(inst_b, jobs, self.gen)
                     stats = _step_stats(grads, loss_c, loss_m) if runlog is not None else None
                     next_build_s = pf.prefetch_next()
                     synchronize(self.device)
+                    if self.n_dp <= 1:
+                        # the train and eval window up to the sync goes to
+                        # train/step; eval gets its call only (JAX `:699-707`)
+                        self._step_program.account(time.perf_counter() - td0)
+                        self._eval_program.account(0.0)
                 wall = time.perf_counter() - t0
                 runtime = max(wall - next_build_s, 0.0) / (4 * b)
 
@@ -732,7 +746,10 @@ class Trainer(_Harness):
                 loss = float("nan")
                 if self.state.mem.count >= cfg.batch:
                     with span("train/replay", block=True):
-                        loss, nskip = self._replay()
+                        tr0 = time.perf_counter()
+                        loss, nskip = self._replay_program()
+                        # the host pull of the loss is the sync boundary
+                        self._replay_program.account(time.perf_counter() - tr0)
                     if nskip:
                         obs.registry().counter(
                             "mho_refit_skipped_updates_total",
@@ -839,7 +856,7 @@ class Evaluator(_Harness):
                 t0 = time.perf_counter()
                 with span("eval/step"):
                     inst_b, jobs = self._on_device([build])
-                    bl, loc, gnn = self._eval_methods(inst_b, jobs, self._file_gen(fid))
+                    bl, loc, gnn = self._eval_program(inst_b, jobs, self._file_gen(fid))
                     next_build_s = pf.prefetch_next()
                     synchronize(self.device)
                 wall = time.perf_counter() - t0

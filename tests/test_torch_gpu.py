@@ -1550,3 +1550,70 @@ def test_gpu_energy_matrix_leg_matches_cpu(cuda):
         assert counts[key] == plain[key] > 0, (key, counts, plain)
     for kind, row in card["sim"].items():
         assert row["per_lane"] == cpu["sim"][kind]["per_lane"], kind
+
+
+# ---- the prof layer's count: the kernel and its plain version alike ---------
+
+
+def _counted(fn, *args):
+    from multihop_offload_tpu_torch.obs import prof
+
+    out, facts = prof.extract_cost(fn, *args)
+    torch.cuda.synchronize()
+    return out, {k: facts[k] for k in ("flops", "bytes_accessed", "kernels")}
+
+
+def test_counted_kernel_facts_equal_the_plain_versions(cuda):
+    """Inside a counted program K1, K2, K6 and K4 (forward and transposed)
+    add the same facts on the card as their plain versions on the CPU for
+    the same shapes, and counting launches each kernel as often as an
+    uncounted call."""
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.ops import chebconv as tcc
+
+    g = torch.Generator().manual_seed(0)
+    w = _weights(np.random.default_rng(5), 4, 37, 0.2)
+    d = torch.where(torch.eye(37, dtype=torch.bool), 0.0, w)
+    adj = (torch.rand(3, 40, 40, generator=g) < 0.2).float()
+    r = torch.rand(3, 40, generator=g) + 0.5
+    ends = torch.tensor([[[0, 1], [1, 2], [2, 3], [3, 4]]] * 2, dtype=torch.int32)
+    mask = torch.ones(2, 4, dtype=torch.bool)
+    delays = torch.rand(2, 4, generator=g)
+    cases = [
+        ("minplus", lambda x: tmp.minplus_closure(x, 6), (d,)),
+        ("fixed_point", tfp.fixed_point, (adj, r, r * 0.1, r * 0.2)),
+        ("coo_apsp", lambda e, m, y: tmp.apsp_minplus_coo(e, m, y, 5), (ends, mask, delays)),
+    ]
+    for name, fn, args in cases:
+        _, cpu = _counted(fn, *args)
+        card_args = tuple(a.to(cuda) for a in args)
+        reset_kernel_counts()
+        fn(*card_args)
+        bare = kernel_counts()
+        reset_kernel_counts()
+        _, card = _counted(fn, *card_args)
+        assert card == cpu and card["kernels"] == {name: 1}, (name, card, cpu)
+        assert kernel_counts() == bare, name
+    # K4: a sparse ChebConv layer's propagate, forward and transposed walk
+    from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
+
+    from multihop_offload_tpu_torch.layouts.sparse import sparse_chebyshev_support
+
+    inst, _, _ = request_batch(load_cases("paper")[:2], 1, seed=0, layout="sparse",
+                               device="cpu")
+
+    def support(i):
+        return sparse_chebyshev_support(i.sparse.ext, mask=i.ext_mask, csr=i.sparse.ext_csr)
+
+    sup = support(inst)
+    x = torch.rand((2, sup.diag.shape[-1], 8), generator=g)
+
+    def prop(support, x):
+        x = x.detach().requires_grad_(True)
+        y = tcc.chebconv_propagate(support, x)
+        (gx,) = torch.autograd.grad(y.sum(), x)
+        return gx
+
+    _, cpu = _counted(prop, sup, x)
+    _, card = _counted(prop, support(inst.to(cuda)), x.to(cuda))
+    assert card == cpu and card["kernels"] == {"chebconv": 1, "chebconv_t": 1}, (card, cpu)

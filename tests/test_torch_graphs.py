@@ -214,7 +214,9 @@ def test_port_imports_no_jax_side():
                    "loadgen/arrivals.py", "loadgen/driver.py", "loadgen/search.py",
                    "cli/mesh.py", "chaos/__init__.py", "chaos/faults.py", "obs/drift.py",
                    "loop/__init__.py", "loop/experience.py", "loop/refit.py",
-                   "loop/validate.py", "loop/canary.py", "loop/promote.py", "cli/loop.py"):
+                   "loop/validate.py", "loop/canary.py", "loop/promote.py", "cli/loop.py",
+                   "obs/prof.py", "obs/memwatch.py", "cli/prof.py", "chaos/drills.py",
+                   "chaos/fuzz.py", "cli/chaos.py", "cli/fuzz.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):

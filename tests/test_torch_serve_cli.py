@@ -60,9 +60,11 @@ SIZES = [10, 16]
 # quarantine_step`, `cli/serve.py:177`)
 JAX_PLAIN_EVENTS = {"manifest", "trace", "tick", "program", "summary"}
 JAX_SERVE_EVENTS = JAX_PLAIN_EVENTS | {"hot_reload", "ckpt_quarantine", "shutdown"}
-# emitted only by the JAX modules the port leaves out (`obs/prof.py`,
-# `obs/memwatch.py`; `obs/jaxhooks.py` emits none)
-JAX_ONLY_EVENTS = {"program", "prof_capture", "watermark"}
+# what the port's serve CLI does not emit on the CPU: `prof_capture` (only
+# on an SLO breach with a capture attached) and `watermark` (the CPU has no
+# allocator stats, as JAX's CPU backend); `program` it emits since the prof
+# layer was ported
+JAX_ONLY_EVENTS = {"prof_capture", "watermark"}
 
 
 # ---- GracefulDrain ----------------------------------------------------------
