@@ -205,6 +205,17 @@ calls, at full width, over the paper-scale batch: 16 committed BA networks
   within 1e-3 of its norm, Adam's update within 0.05 of its norm; then
   the same steps at the default temperature 0.5 (launches equal to the
   same count; the dense step's wall ms and the card's busy share).
+- Closed-loop RL under bf16, `rl_bf16_phase`: the same two
+  full-width steps under `precision=bf16` (the fleet, the simulator and
+  W float32, the ChebConv on bf16 operands) card against CPU at
+  temperature 1000: launches equal to the plain count (K1, K2 float32,
+  K2's backward; on the sparse K = 2 step K4's bf16 forward and
+  transposed walk), K2 bf16 never, `dst` identical in >= 99%, on agreeing
+  lanes the loss within 1e-2 and the lane's gradient within 2e-2 of its
+  norm, the update within 0.05; each step's next step timed; `mho-rl
+  --smoke --precision bf16` (the smoke's gates) and one saved `mho-rl
+  --dtype bfloat16` step (bf16 parameters and Adam moments read back)
+  in processes of their own.
 - Slice 26, the scenario matrix (`scenarios/`, `cli/scenarios.py`) and the
   health drill (`cli/health.py`): `scenario_phase` runs `run_matrix` (the
   smoke's checks) over JAX's five smoke presets plus `grid_energy` (the
@@ -329,6 +340,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -4538,7 +4550,9 @@ def rl_step_run(setup: dict, model_name: str, where, plain: bool = False) -> dic
     from multihop_offload_tpu_torch.sim.runner import InjectedDraws
 
     cfg = setup["cfg"]
-    tr = RLTrainer(cfg, load_model(model_name, device=where, layout=cfg.layout), setup["spec"])
+    model = load_model(model_name, device=where, layout=cfg.layout,
+                       policy=cfg.precision_policy(where))
+    tr = RLTrainer(cfg, model, setup["spec"])
     before = {k: v.clone() for k, v in tr.params.items()}
     args = tuple(x.to(where) for x in setup["fleet"])
     draws = InjectedDraws(*[x.to(where) for x in setup["draws"]])
@@ -4557,14 +4571,15 @@ def rl_step_run(setup: dict, model_name: str, where, plain: bool = False) -> dic
     return run | {"tr": tr, "out": out, "counts": counts, "update": update, "args": args}
 
 
-def rl_compare(tag: str, model_name: str, setup: dict, card_run: dict, cpu_run: dict) -> dict:
+def rl_compare(tag: str, model_name: str, setup: dict, card_run: dict, cpu_run: dict,
+               loss_rtol: float = RL_LOSS_RTOL, grad_rtol: float = RL_GRAD_RTOL) -> dict:
     """The card's step against the CPU's: launches equal to the plain
     versions' count of the CPU step (K1, K2 and K2's backward; under the
     sparse layout K4 forward and transposed too); the CPU step must offload
     and every lane's gradient be nonzero; `dst` identical in >= 99% of
     (lane, round, job), on lanes whose choices all agree the packet
-    counters equal, the loss within `RL_LOSS_RTOL` and the lane's gradient
-    within `RL_GRAD_RTOL` of its norm; the update Adam makes of the mean
+    counters equal, the loss within `loss_rtol` and the lane's gradient
+    within `grad_rtol` of its norm; the update Adam makes of the mean
     gradient within `RL_DELTA_TOL` of its norm."""
     from multihop_offload_tpu_torch.cli.sim import fields_that_differ
     from multihop_offload_tpu_torch._records import slice_records
@@ -4603,10 +4618,10 @@ def rl_compare(tag: str, model_name: str, setup: dict, card_run: dict, cpu_run: 
                   for k, g in cpu.grads.items())
         den = sum(float(g[i].pow(2).sum()) for g in cpu.grads.values())
         grad_rel.append(math.sqrt(num / den))
-    if agree < 0.99 or not lanes.any() or not max(loss_rel) <= RL_LOSS_RTOL:
+    if agree < 0.99 or not lanes.any() or not max(loss_rel) <= loss_rtol:
         raise AssertionError(f"rl {tag}: dst agreement {agree}, agreeing lanes "
                              f"{lanes.tolist()}, loss rel err {loss_rel}")
-    if not max(grad_rel) <= RL_GRAD_RTOL:
+    if not max(grad_rel) <= grad_rtol:
         raise AssertionError(f"rl {tag}: a lane's gradient differs from the CPU's by "
                              f"{grad_rel} of its norm")
     upd, cpu_upd = card_run["update"], cpu_run["update"]
@@ -4630,8 +4645,8 @@ def rl_compare(tag: str, model_name: str, setup: dict, card_run: dict, cpu_run: 
         f"offload share {offload:.4f} (CPU {cpu_offload:.4f}), lane gradient norms (CPU) "
         f"{[f'{x:.3e}' for x in cpu.grad_norms.tolist()]}; dst agreement {agree:.4f} (bar "
         f"0.99); {int(lanes.sum())} lanes agree: loss rel err {max(loss_rel):.3e} (bar "
-        f"{RL_LOSS_RTOL}), gradient rel err {[f'{x:.3e}' for x in grad_rel]} (bar "
-        f"{RL_GRAD_RTOL}), fields that differ {differ}; update {delta_rel:.3e} of its norm "
+        f"{loss_rtol}), gradient rel err {[f'{x:.3e}' for x in grad_rel]} (bar "
+        f"{grad_rtol}), fields that differ {differ}; update {delta_rel:.3e} of its norm "
         f"{math.sqrt(den):.3e} (bar {RL_DELTA_TOL})")
     return res
 
@@ -4858,6 +4873,119 @@ def rl_phase(dev, card) -> dict:
            "counts": {f"rl_train_step_{k}": c for k, c in counts.items()},
            "seconds": time.perf_counter() - t0}
     log(f"rl phase {out['seconds']:.1f} s")
+    return out
+
+
+# ---- closed-loop RL under bf16 --------------------------------------------------
+
+RL_BF16_LOSS_RTOL = 1e-2  # a lane's loss under bf16, card against CPU, where its choices agree
+RL_BF16_GRAD_RTOL = 2e-2  # a lane's gradient under bf16, of its norm, likewise
+# mho-rl's one `--dtype bfloat16` step: the smoke preset's sizes, saved
+RL_ONE_STEP = ("--sim_nodes", "8", "--sim_jobs", "3", "--sim_cap", "64", "--rl_fleet", "4",
+               "--rl_rounds", "2", "--rl_slots", "100", "--rl_steps", "1")
+
+
+def rl_bf16_phase(dev, card, fp32_steps: dict) -> dict:
+    """The RL path under bf16.  `mho-rl --smoke --precision bf16`
+    and one `mho-rl --dtype bfloat16` train step (saved) on the card, each
+    in its own process, while the full-width steps of `RL_STEPS` under
+    `precision=bf16` run on the CPU under `count_plain`; then the same
+    steps on the card held to the CPU's (`rl_compare` at the bf16 bars:
+    K1, K2 float32 and K2's backward, K4 bf16 forward and transposed on
+    the sparse K = 2 step, each launched as the plain count says, K2 bf16
+    never), and each step's next step timed beside the fp32 phase's."""
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
+
+    t0 = time.perf_counter()
+    os.makedirs(RL_DIR, exist_ok=True)
+    smoke_file = os.path.join(RL_DIR, "smoke_bf16.json")
+    step_file = os.path.join(RL_DIR, "step_bfloat16.json")
+    model_root = os.path.join(RL_DIR, "model_bfloat16")
+    shutil.rmtree(model_root, ignore_errors=True)  # a step is saved once
+    rl_module = [sys.executable, "-m", "multihop_offload_tpu_torch.cli.rl"]
+    procs = {"mho-rl --smoke --precision bf16": rl_module + [
+                 "--smoke", "--precision", "bf16", "--rl_out", smoke_file],
+             "mho-rl --dtype bfloat16 (one step)": rl_module + [
+                 "--dtype", "bfloat16", *RL_ONE_STEP, "--model_root", model_root,
+                 "--rl_out", step_file]}
+    procs = {k: subprocess.Popen(v, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, v in procs.items()}
+    try:
+        setups, cpus = {}, {}
+        for tag, model_name, kw in RL_STEPS:
+            setups[tag] = rl_step_setup(dataclasses.replace(
+                Config(seed=0, precision="bf16"), **RL_FULL, **kw, rl_temp=RL_CMP_TEMP))
+            cpus[tag] = rl_step_run(setups[tag], model_name, "cpu", plain=True)
+        texts = {k: p.communicate(timeout=300)[0] for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    procs_s = time.perf_counter() - t0
+    for k, p in procs.items():
+        for line in texts[k].splitlines():
+            if not line.startswith((" ", "{", "}")) and "ptxas" not in line:
+                log(f"[{k}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{k} exited {p.returncode}")
+    with open(smoke_file) as f:
+        smoke = json.load(f)
+    per_step = smoke["launches_per_step"]
+    if not (smoke["conservation"]["exact"] and smoke["skipped_updates"] == 0
+            and smoke["steady_launches"] and smoke["platform"] == "cuda"
+            and all(per_step.get(k, 0) > 0 for k in ("fixed_point", "minplus", "minplus_bwd"))
+            and per_step.get("minplus_bf16", 0) == 0):
+        raise AssertionError(f"mho-rl --smoke --precision bf16 on the card: a gate failed: "
+                             f"{smoke}")
+    with open(step_file) as f:
+        one = json.load(f)
+    saved = ckpt_lib.restore_checkpoint_raw(one["checkpoint"]["dir"], one["checkpoint"]["step"])
+    saved_dtypes = {str(v.dtype) for tree in (saved["params"], saved["opt_state"]["mu"],
+                                               saved["opt_state"]["nu"]) for v in tree.values()}
+    if not (one["platform"] == "cuda" and one["steps"] == 1 and one["skipped_updates"] == 0
+            and one["conservation"]["exact"] and saved_dtypes == {"torch.bfloat16"}):
+        raise AssertionError(f"mho-rl --dtype bfloat16 on the card: {one}, saved dtypes "
+                             f"{saved_dtypes}")
+    log(f"mho-rl --smoke --precision bf16 and one --dtype bfloat16 step on the card: "
+        f"{procs_s:.1f} s (beside the CPU's steps); smoke: conservation exact "
+        f"{smoke['conservation']['device']}, skipped 0, the same launches every step after "
+        f"the first {per_step}; loss {smoke['loss_first']:.4f} -> {smoke['loss_last']:.4f}; "
+        f"{smoke['episodes_per_s']:.2f} episodes/s; the bfloat16 step: loss "
+        f"{one['loss_first']:.4f}, saved parameters and Adam moments {saved_dtypes}")
+    steps, counts = {}, {}
+    for tag, model_name, _ in RL_STEPS:
+        run = rl_step_run(setups[tag], model_name, dev)
+        steps[tag] = rl_compare(f"bf16 {tag}", model_name, setups[tag], run, cpus[tag],
+                                loss_rtol=RL_BF16_LOSS_RTOL, grad_rtol=RL_BF16_GRAD_RTOL)
+        c = run["counts"]
+        want = ("fixed_point", "minplus", "minplus_bwd") + (
+            ("chebconv_bf16", "chebconv_bf16_t") if tag == "sparse" else ())
+        if not (all(c.get(k, 0) > 0 for k in want) and c.get("minplus_bf16", 0) == 0
+                and c.get("coo_apsp_bf16", 0) == 0):
+            raise AssertionError(f"rl bf16 {tag}: launches {c}: want {want} launched, K2 bf16 "
+                                 f"never")
+        counts[tag] = c
+        cfg = setups[tag]["cfg"]
+        step = lambda: run["tr"].train_step(*run["args"], rl_cli.train_seeds(cfg, 1))
+        steps[tag].update(first_ms=run["first_ms"], step_ms=wall_ms(step, 1, warmup=0))
+        fp32 = fp32_steps.get(tag, {})
+        log(f"rl bf16 {tag} train step ({model_name}, precision bf16) on {card['smi']}: "
+            f"{run['first_ms']:.2f} ms (the first step), {steps[tag]['step_ms']:.2f} ms (the "
+            f"next, temperature {cfg.rl_temp}); fp32 at temperature 0.5 in the rl phase: "
+            f"{fp32.get('first_ms')} ms first, {fp32.get('step_ms')} ms next")
+    out = {"steps": {k: {f: v for f, v in r.items() if f != "counts"} for k, r in steps.items()},
+           "smoke": {k: smoke[k] for k in ("loss_first", "loss_last", "episodes_per_s",
+                                           "launches_per_step", "conservation",
+                                           "delivered_ratio_init", "delivered_ratio_trained",
+                                           "improved", "grad_norm_last")},
+           "one_step_bfloat16": {"loss": one["loss_first"], "saved_dtypes": sorted(saved_dtypes),
+                                 "launches": one["launches_per_step"]},
+           "counts": {f"rl_bf16_train_step_{k}": c for k, c in counts.items()},
+           "seconds": time.perf_counter() - t0}
+    log(f"rl bf16 phase {out['seconds']:.1f} s")
     return out
 
 
@@ -5813,6 +5941,7 @@ def main() -> int:
     loopr = loop_phase(dev, card)
 
     rl = rl_phase(dev, card)
+    rlb = rl_bf16_phase(dev, card, rl["steps"])
 
     # ---- slice 26: the scenario matrix and the health drill -------------------
     scen = scenario_phase(dev, card)
@@ -5836,7 +5965,7 @@ def main() -> int:
                "tf_eval_file": tfck.pop("eval_counts_file0"),
                "route_demo": tfck.pop("route_counts"), **par.pop("counts"),
                **shard.pop("counts"), **mproc.pop("counts"), **loopr.pop("counts"),
-               **rl.pop("counts"), **scen.pop("counts"), **hlth.pop("counts"),
+               **rl.pop("counts"), **rlb.pop("counts"), **scen.pop("counts"), **hlth.pop("counts"),
                **profr.pop("counts"), **chaos.pop("counts"), **fuzzr.pop("counts")}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
@@ -5853,6 +5982,7 @@ def main() -> int:
     print(json.dumps({"multiprocess": mproc}), flush=True)
     print(json.dumps({"loop": loopr}, default=str), flush=True)
     print(json.dumps({"rl": rl}, default=str), flush=True)
+    print(json.dumps({"rl_bf16": rlb}, default=str), flush=True)
     print(json.dumps({"scenarios": scen}, default=str), flush=True)
     print(json.dumps({"health": hlth}, default=str), flush=True)
     print(json.dumps({"prof": profr}, default=str), flush=True)

@@ -38,10 +38,11 @@ def phase(name: str):
                 yield
                 return
             _sync()
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # nondet-ok(phase timing is a measurement)
             yield
             _sync()
-            _times[full] = _times.get(full, 0.0) + (time.perf_counter() - t0) * 1e3
+            dt = time.perf_counter() - t0  # nondet-ok(same measurement)
+            _times[full] = _times.get(full, 0.0) + dt * 1e3
     finally:
         _stack.pop()
 

@@ -98,7 +98,7 @@ def lambdas_to_delay_matrix(inst, lam: torch.Tensor) -> ActorOutput:
     # padded links all write 0 to (0, 0), which the diagonal write replaces
     # (out-of-place scatters: autograd pulls back through each)
     inf = torch.full((), float("inf"), dtype=lam.dtype, device=dev)
-    diag = (torch.arange(n, device=dev) * (n + 1)).expand(b, n)
+    diag = (torch.arange(n, device=dev, dtype=torch.long) * (n + 1)).expand(b, n)
     dmtx = torch.zeros((b, n * n), dtype=lam.dtype, device=dev) \
         .scatter(1, u * n + v, masked) \
         .scatter(1, v * n + u, masked) \
@@ -115,7 +115,7 @@ def compat_cycled_diagonal(inst, node_delay: torch.Tensor) -> torch.Tensor:
     comp_idx = torch.argsort((~inst.comp_mask).to(torch.int8), dim=1, stable=True)
     ncomp = inst.comp_mask.sum(dim=1, keepdim=True).clamp_min(1)
     cyc = torch.gather(comp_idx, 1,
-                       torch.arange(n, device=node_delay.device) % ncomp)
+                       torch.arange(n, device=node_delay.device, dtype=torch.long) % ncomp)
     return torch.gather(node_delay, 1, cyc)
 
 

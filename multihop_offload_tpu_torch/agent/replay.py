@@ -53,8 +53,8 @@ def replay_init(params: dict, capacity: int) -> GradReplay:
     return GradReplay(
         grads={k: torch.zeros((capacity,) + p.shape, dtype=p.dtype, device=dev)
                for k, p in params.items()},
-        loss_critic=torch.zeros((capacity,), dtype=torch.float32, device=dev),
-        loss_mse=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        loss_critic=torch.zeros((capacity,), dtype=torch.float32, device=dev),  # fp32-island(loss statistics)
+        loss_mse=torch.zeros((capacity,), dtype=torch.float32, device=dev),  # fp32-island(loss statistics)
         count=0, ptr=0)
 
 
@@ -69,11 +69,11 @@ def replay_remember(mem: GradReplay, grads: dict, loss_critic: torch.Tensor,
     keep = min(b, capacity)        # only the last `capacity` appends survive
     first = b - keep
     dev = mem.loss_critic.device
-    slots = (mem.ptr + first + torch.arange(keep, device=dev)) % capacity
+    slots = (mem.ptr + first + torch.arange(keep, device=dev, dtype=torch.long)) % capacity
     for k, buf in mem.grads.items():
         buf.index_copy_(0, slots, grads[k][first:].to(buf.dtype))
-    mem.loss_critic.index_copy_(0, slots, loss_critic[first:].to(torch.float32))
-    mem.loss_mse.index_copy_(0, slots, loss_mse[first:].to(torch.float32))
+    mem.loss_critic.index_copy_(0, slots, loss_critic[first:].to(mem.loss_critic.dtype))
+    mem.loss_mse.index_copy_(0, slots, loss_mse[first:].to(mem.loss_mse.dtype))
     mem.count = min(mem.count + b, capacity)
     mem.ptr = (mem.ptr + b) % capacity
     return mem
@@ -82,7 +82,7 @@ def replay_remember(mem: GradReplay, grads: dict, loss_critic: torch.Tensor,
 def replay_last(mem: GradReplay, n: int) -> dict:
     """The last `n` remembered gradients (n <= capacity), oldest first."""
     capacity = mem.loss_critic.shape[0]
-    slots = (mem.ptr - n + torch.arange(n, device=mem.loss_critic.device)) % capacity
+    slots = (mem.ptr - n + torch.arange(n, device=mem.loss_critic.device, dtype=torch.long)) % capacity
     return {k: g.index_select(0, slots) for k, g in mem.grads.items()}
 
 
@@ -98,7 +98,7 @@ def decayed_lr(count: int, lr: float, decay: float) -> float:
     count."""
     if decay == 1.0:
         return lr
-    f32 = torch.float32
+    f32 = torch.float32  # fp32-island(optax's decayed rate is float32 from its int32 count)
     rate = torch.tensor(lr, dtype=f32) * torch.pow(
         torch.tensor(decay, dtype=f32), torch.tensor(count, dtype=f32) / 100.0)
     return rate.item()
@@ -178,7 +178,8 @@ def sample_indices(mem: GradReplay, batch: int, gen: torch.Generator | None = No
     dev = mem.loss_critic.device
     scores = torch.rand((capacity,), generator=gen,
                         device=gen.device if gen is not None else "cpu").to(dev)
-    scores = torch.where(torch.arange(capacity, device=dev) < mem.count, scores, -torch.inf)
+    filled = torch.arange(capacity, device=dev, dtype=torch.long) < mem.count
+    scores = torch.where(filled, scores, -torch.inf)
     return torch.topk(scores, batch).indices
 
 

@@ -42,6 +42,7 @@ from multihop_offload_tpu_torch.env.queueing import (
 )
 from multihop_offload_tpu_torch.env.routing import RouteSet, trace_routes
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
+from multihop_offload_tpu_torch.precision import island_dtype
 
 
 @dataclasses.dataclass
@@ -61,18 +62,10 @@ def episode_grad_norms(grads: dict) -> torch.Tensor:
     dtype, as JAX `agent/train_step.py:108` takes it."""
     sq = None
     for g in grads.values():
-        g = g.to(torch.float32)
+        g = g.to(torch.float32)  # fp32-island(norm accumulation is precision-critical)
         s = (g * g).flatten(1).sum(dim=1)
         sq = s if sq is None else sq + s
     return torch.sqrt(sq)
-
-
-def _wide(*dtypes) -> torch.dtype:
-    """The smallest dtype >= float32 covering `dtypes` (the fp32 island)."""
-    dt = torch.float32
-    for d in dtypes:
-        dt = torch.promote_types(dt, d)
-    return dt
 
 
 def _unit_delays(inst, link_lambda, link_mu, node_lambda):
@@ -95,7 +88,7 @@ def _critic_loss(inst, jobs, routes_inc: torch.Tensor):
     """Analytic congestion-model delay (B,) of fixed routes given as the
     (B, E, J) incidence."""
     num_links = inst.num_pad_links
-    dt = _wide(routes_inc.dtype, jobs.rate.dtype)
+    dt = island_dtype(routes_inc.dtype, jobs.rate.dtype)
     routes_inc = routes_inc.to(dt)
     w = torch.where(jobs.mask, jobs.rate.to(dt) * jobs.ul.to(dt), 0.0)
     load = torch.matmul(routes_inc, w.unsqueeze(-1)).squeeze(-1)      # (B, E)
@@ -121,7 +114,7 @@ def _critic_loss_steps(inst, jobs, r_steps: torch.Tensor, seq_slot: torch.Tensor
     gradient gathered along the routes; the incidence never exists."""
     num_links = inst.num_pad_links
     b, n = inst.proc_bws.shape
-    dt = _wide(r_steps.dtype, jobs.rate.dtype)
+    dt = island_dtype(r_steps.dtype, jobs.rate.dtype)
     r_steps = r_steps.to(dt)
     steps, occ_d = r_steps[:, :-1], r_steps[:, -1]                   # (B,H,J), (B,J)
     w = torch.where(jobs.mask, jobs.rate.to(dt) * jobs.ul.to(dt), 0.0)
@@ -154,7 +147,7 @@ def _suffix_bias_grad(inst, jobs, routes: RouteSet, grad_routes: torch.Tensor) -
     are masked to 0 before both."""
     b, num_slots, num_jobs = grad_routes.shape
     flat = grad_routes.reshape(b, num_slots * num_jobs)
-    cols = torch.arange(num_jobs, device=flat.device)
+    cols = torch.arange(num_jobs, device=flat.device, dtype=torch.long)
     a = routes.seq_active.to(flat.dtype)                              # (B, H, J)
     idx = (routes.seq_slot.long() * num_jobs + cols).reshape(b, -1)
     picked = torch.gather(flat, 1, idx).view(a.shape) * a
@@ -195,7 +188,7 @@ def _grad_edge_to_distance(inst, grad_edge: torch.Tensor) -> torch.Tensor:
     v = inst.link_ends[..., 1].long()
     g_link = torch.where(inst.link_mask, grad_edge[:, :num_links], 0.0)
     diag = torch.where(inst.comp_mask, grad_edge[:, num_links:], 0.0)
-    iota = (torch.arange(n, device=grad_edge.device) * (n + 1)).expand(b, n)
+    iota = (torch.arange(n, device=grad_edge.device, dtype=torch.long) * (n + 1)).expand(b, n)
     g = torch.zeros((b, n * n), dtype=grad_edge.dtype, device=grad_edge.device)
     g = g.scatter(1, u * n + v, g_link).scatter(1, v * n + u, g_link).scatter(1, iota, diag)
     return g.view(b, n, n)
@@ -267,12 +260,12 @@ def forward_backward(
     # --- 3. critic gradient w.r.t. the routes, 4. suffix bias ------------
     with torch.enable_grad(), phase("critic"):
         if lay.sparse:
-            wdt = _wide(inst.link_rates.dtype)
+            wdt = island_dtype(inst.link_rates.dtype)
             r = torch.cat([routes.seq_active.to(wdt), jobs.mask.to(wdt).unsqueeze(1)],
                           dim=1).requires_grad_()
             loss_critic = _critic_loss_steps(inst, jobs, r, routes.seq_slot, dec.dst)
         else:
-            r = routes.inc_ext.to(_wide(routes.inc_ext.dtype)).requires_grad_()
+            r = routes.inc_ext.to(island_dtype(routes.inc_ext.dtype)).requires_grad_()
             loss_critic = _critic_loss(inst, jobs, r)
         (grad_r,) = torch.autograd.grad(loss_critic.sum(), r)
     with phase("suffix_bias_mse"):

@@ -124,7 +124,7 @@ def truncate_file(path: str, keep_fraction: float = 0.5) -> int:
 def bit_flip_file(path: str, seed: int, flips: int = 8) -> list:
     """Flip `flips` seeded-random bits in `path` (bit-rot).  Returns the
     byte offsets touched."""
-    rng = random.Random(seed)
+    rng = random.Random(seed)  # nondet-ok(seeded stdlib RNG: deterministic corruption pattern)
     with open(path, "r+b") as f:
         data = bytearray(f.read())
         if not data:

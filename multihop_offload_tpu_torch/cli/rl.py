@@ -48,6 +48,9 @@ from multihop_offload_tpu_torch.config import Config, build_parser
 SMOKE = dict(sim_nodes=8, sim_jobs=3, sim_cap=64, rl_fleet=4, rl_rounds=2, rl_slots=100,
              rl_steps=20)
 RL_SUBDIR = "torch_rl"
+# the fleet, the simulator's state and the initial rates at any `cfg.dtype`
+# (JAX: `make_case`'s default, `RLTrainer(sim_dtype=jnp.float32)`, `rates0`)
+FLEET_DTYPE = torch.float32
 
 
 def build_fleet(cfg: Config, device=None):
@@ -55,7 +58,10 @@ def build_fleet(cfg: Config, device=None):
     `device` (default CUDA): `(insts, jobss, paramss, spec, pad)` with the
     fleet axis leading.  The scenario generator of `cli.sim.
     build_scenarios` (`sim_nodes`, `sim_jobs`, `sim_cap`, `sim_margin`,
-    sparse nnz pads sized from the data), without failure injection."""
+    sparse nnz pads sized from the data), without failure injection.  The
+    fleet is float32 whatever `cfg.dtype` is, as JAX's (`make_case`'s
+    default dtype): the simulator and the actor's inputs run on it, and
+    only the model takes `cfg.dtype` and the precision policy."""
     import numpy as np
 
     from multihop_offload_tpu_torch._device import resolve_device
@@ -81,8 +87,8 @@ def build_fleet(cfg: Config, device=None):
             pad, enn=PadSpec.round_up(max(ext_nnz_count(t, np.ones(t.n, bool))
                                           for t in topos), 128),
             cnn=PadSpec.round_up(max(cf_nnz_count(t) for t in topos), 128))
-    cases = [make_case(cfg.seed + 100 * i, topos[i], pad, cfg.sim_jobs,
-                       dtype=cfg.torch_dtype, layout=lay, device=dev) for i in range(fleet)]
+    cases = [make_case(cfg.seed + 100 * i, topos[i], pad, cfg.sim_jobs, dtype=FLEET_DTYPE,
+                       layout=lay, device=dev) for i in range(fleet)]
     insts = stack_instances([c[0] for c in cases])
     jobss, _ = scale_to_util(insts, stack_instances([c[1] for c in cases]), None, cfg.rl_util,
                              policy_fn=lambda i, j, g: baseline_policy(i, j, g, layout=lay))
@@ -106,8 +112,11 @@ def eval_seeds(cfg: Config, batch: int) -> list:
 
 
 def make_rl_model(cfg: Config, insts, jobss):
-    """A fresh `ChebNet` for `cfg` (layout, K, width) at `cfg.dtype` on the
-    fleet's device: glorot weights from a generator seeded `cfg.seed`, the
+    """A fresh `ChebNet` for `cfg` (layout, K, width) under its precision
+    policy on the fleet's device (`cfg.precision_policy`, as JAX's
+    `make_model(cfg)`: parameters at the policy's `param_dtype`, under the
+    mixed policy bf16 operands with float32 accumulation): glorot weights
+    from a generator seeded `cfg.seed`, the
     output layer's sign flipped where the draw is dead at birth on the
     fleet (`ensure_alive_output_multi`, one probe a lane, as the Trainer
     guards its fresh init: a dead relu output has exactly zero gradients).
@@ -117,9 +126,9 @@ def make_rl_model(cfg: Config, insts, jobss):
     from multihop_offload_tpu_torch.agent.actor import build_ext_features, default_support
     from multihop_offload_tpu_torch.models.chebconv import ensure_alive_output_multi, make_model
 
-    model = make_model(cfg, dtype=cfg.torch_dtype, layout=cfg.layout,
-                       generator=torch.Generator().manual_seed(cfg.seed))
-    model = model.to(insts.adj.device)
+    dev = insts.adj.device
+    model = make_model(cfg, layout=cfg.layout, policy=cfg.precision_policy(dev),
+                       generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
     probes = []
     for i in range(insts.adj.shape[0]):
         inst, jobs = slice_records(insts, i, i + 1), slice_records(jobss, i, i + 1)
@@ -144,7 +153,6 @@ def run_train(cfg: Config, smoke: bool = False, device=None) -> dict:
     )
 
     dev = resolve_device(device)
-    cfg.check_rl(dev)
     fleet = cfg.rl_fleet
     insts, jobss, paramss, spec, _ = build_fleet(cfg, dev)
     mesh = None
@@ -155,10 +163,10 @@ def run_train(cfg: Config, smoke: bool = False, device=None) -> dict:
 
     model = make_rl_model(cfg, insts, jobss)
     init_params = {k: p.detach().clone() for k, p in model.named_parameters()}
-    trainer = RLTrainer(cfg, model, spec, mesh=mesh, sim_dtype=cfg.torch_dtype)
+    trainer = RLTrainer(cfg, model, spec, mesh=mesh, sim_dtype=FLEET_DTYPE)
     ev = make_eval(cfg, model, spec)
     states0 = trainer.init_states(fleet, dev)
-    rates0 = torch.zeros((fleet, spec.num_jobs), dtype=cfg.torch_dtype, device=dev)
+    rates0 = torch.zeros((fleet, spec.num_jobs), dtype=FLEET_DTYPE, device=dev)
 
     def eval_ratio(params, batches: int = 4) -> float:
         """Mean delivered ratio of the sampling policy over `batches`

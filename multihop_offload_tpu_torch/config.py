@@ -22,8 +22,7 @@ defaults and help; `loop_capture_sample` also sets the service's capture
 (`cli/serve.py`).  The `rl_*` settings of the closed-loop RL trainer
 (`cli/rl.py`, `rl/`) keep JAX's names and defaults, except that `rl_out`
 "" writes no record in any mode (JAX's smoke default is a file of the JAX
-package's benchmark folder); `check_rl` refuses what the port's RL path
-does not run.  The `scenario_*` settings (`cli/scenarios.py`,
+package's benchmark folder).  The `scenario_*` settings (`cli/scenarios.py`,
 `scenarios/`) and `health_short_s` / `health_long_s` keep JAX's names and
 defaults; `scenario_out`, `health_out`, `chaos_out` and `prof_out` (for
 `--smoke`) "" write no record (JAX's defaults are files of its benchmark
@@ -285,17 +284,6 @@ class Config:
         point running on `device` (`auto`: bf16 on CUDA, fp32 on the CPU).
         Every entry point that takes a Config resolves its policy here."""
         return resolve_precision(self.precision, self.torch_dtype, device)
-
-    def check_rl(self, device) -> None:
-        """Refuse what JAX's RL path runs and the port's does not (ROADMAP.md
-        Queue 1 item 9): a mixed precision policy on `device` (JAX's
-        `make_model(cfg)` takes `cfg.precision`, `auto` included) and bf16
-        storage; the port's rollout and K2's backward run float32 or
-        float64."""
-        if self.precision_policy(device).mixed or self.dtype == "bfloat16":
-            raise NotImplementedError(
-                f"precision={self.precision!r}, dtype={self.dtype!r}: the port's RL path "
-                "runs fp32 (or float64) only; bf16 RL waits in ROADMAP.md Queue 1 item 9")
 
     def model_dir(self, root: Optional[str] = None) -> str:
         """Checkpoint directory; naming mirrors `AdHoc_train.py:59`."""

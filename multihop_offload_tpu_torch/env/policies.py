@@ -142,7 +142,7 @@ def local_policy(inst, jobs, layout=None) -> PolicyOutcome:
                           dtype=node_d.dtype, device=dev),
     )
     # no links traversed: an identity "route" of zero hops
-    cols = torch.arange(num_jobs, device=dev)
+    cols = torch.arange(num_jobs, device=dev, dtype=torch.long)
     inc = torch.zeros((b, (num_links + n) * num_jobs), dtype=node_d.dtype,
                       device=dev)
     inc.scatter_add_(1, (num_links + srcl) * num_jobs + cols,

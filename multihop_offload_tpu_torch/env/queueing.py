@@ -68,7 +68,7 @@ def interference_fixed_point(inst, link_lambda: torch.Tensor) -> torch.Tensor:
 
 def _highest_writer(written: torch.Tensor) -> torch.Tensor:
     """Index of the last True along the last axis, -1 where none."""
-    idx = torch.arange(written.shape[-1], device=written.device)
+    idx = torch.arange(written.shape[-1], device=written.device, dtype=torch.long)
     return torch.where(written, idx, -1).amax(dim=-1)
 
 
@@ -149,7 +149,7 @@ def run_empirical(inst, jobs, routes, layout=None) -> EmpiricalDelays:
     total = job_link + job_server
 
     # ---- empirical unit-delay matrix, last-write-wins over job order -------
-    jidx = torch.arange(num_jobs, device=dev).expand(b, num_jobs)
+    jidx = torch.arange(num_jobs, device=dev, dtype=torch.long).expand(b, num_jobs)
     if sparse:
         # the winner's unit delay recomputed from the per-link scalars
         # (identical to the dense table's entry at that column)
@@ -179,7 +179,7 @@ def run_empirical(inst, jobs, routes, layout=None) -> EmpiricalDelays:
     unit_matrix = torch.zeros((b, n * n), dtype=dt, device=dev)
     unit_matrix.scatter_(1, u * n + v, vals)
     unit_matrix.scatter_(1, v * n + u, torch.maximum(zero, vals))
-    diag = torch.arange(n, device=dev) * (n + 1)
+    diag = torch.arange(n, device=dev, dtype=torch.long) * (n + 1)
     unit_matrix[:, diag] = torch.where(node_written, u_node, zero)
     unit_mask = torch.zeros((b, n * n), dtype=torch.bool, device=dev)
     unit_mask.scatter_(1, u * n + v, link_written)

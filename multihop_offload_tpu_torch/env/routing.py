@@ -62,7 +62,7 @@ def trace_routes(inst, next_hop: torch.Tensor, jobs, dst: torch.Tensor,
     inc = None
     if with_inc:
         e = num_links + n
-        cols = torch.arange(num_jobs, device=next_hop.device)
+        cols = torch.arange(num_jobs, device=next_hop.device, dtype=torch.long)
         inc = torch.zeros((b, e * num_jobs), dtype=fdt, device=next_hop.device)
         inc.scatter_add_(1, (seq_slot * num_jobs + cols).reshape(b, -1),
                          seq_active.reshape(b, -1).to(fdt))

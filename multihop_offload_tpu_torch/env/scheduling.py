@@ -33,7 +33,7 @@ def local_greedy_mwis(
     b, n = wts.shape
     remain = (torch.ones((b, n), dtype=torch.bool, device=wts.device)
               if mask is None else mask.to(torch.bool))
-    idx = torch.arange(n, device=wts.device)
+    idx = torch.arange(n, device=wts.device, dtype=torch.long)
     adj_b = adj > 0
     in_set = torch.zeros((b, n), dtype=torch.bool, device=wts.device)
     neg_inf = torch.full((), float("-inf"), dtype=wts.dtype, device=wts.device)

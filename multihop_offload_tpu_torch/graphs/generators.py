@@ -113,7 +113,7 @@ def barabasi_albert(n: int, m: int = 2, seed: int = 0) -> Tuple[np.ndarray, None
     if m < 1 or m >= n:
         raise ValueError(f"Barabási–Albert network must have m >= 1 and m < n, "
                          f"m = {m}, n = {n}")
-    rng = random.Random(seed)
+    rng = random.Random(seed)  # nondet-ok(seeded stdlib RNG: per-seed draws)
     adj = np.zeros((n, n), dtype=np.uint8)
     adj[0, 1:m + 1] = 1
     adj[1:m + 1, 0] = 1
@@ -178,7 +178,7 @@ def gaussian_random_partition(
 
     def draw(attempt):
         grow = _RETRY_GROWTH ** attempt
-        rng = random.Random(seed + 7919 * attempt)
+        rng = random.Random(seed + 7919 * attempt)  # nondet-ok(seeded stdlib RNG: per-seed draws)
         if s > n:
             raise ValueError("s must be <= n")
         assigned = 0
@@ -232,7 +232,7 @@ def _watts_strogatz_draw(n: int, k: int, p: float, rng: random.Random) -> np.nda
 def watts_strogatz(n: int, k: int = 6, p: float = 0.2, seed: int = 0) -> Tuple[np.ndarray, None]:
     """Connected WS(k=6, p=0.2) (reference `offloading_v3.py:43-44`): up to
     100 draws on one generator until one connects."""
-    rng = random.Random(seed)
+    rng = random.Random(seed)  # nondet-ok(seeded stdlib RNG: per-seed draws)
     for _ in range(100):
         adj = _watts_strogatz_draw(n, k, p, rng)
         if _is_connected(adj):
@@ -268,7 +268,8 @@ def erdos_renyi(
 
     def draw(attempt):
         p = min(degree * (_RETRY_GROWTH ** attempt) / float(n), 1.0)
-        return _edges_to_adj(_gnp_edges(n, p, random.Random(seed + 7919 * attempt)), n), None
+        rng = random.Random(seed + 7919 * attempt)  # nondet-ok(seeded stdlib RNG: per-seed draws)
+        return _edges_to_adj(_gnp_edges(n, p, rng), n), None
 
     return _retry_connected(draw, "erdos_renyi", n)
 

@@ -138,7 +138,7 @@ def segment_sum(data: torch.Tensor, index: torch.Tensor,
     for (B, K, ...) data and (B, K) index.  On the CPU the entries add in
     index order (`index_add` is sequential there)."""
     b, k = index.shape
-    offsets = torch.arange(b, device=index.device).unsqueeze(1) * num_segments
+    offsets = torch.arange(b, device=index.device, dtype=torch.long).unsqueeze(1) * num_segments
     flat = (index.long() + offsets).reshape(-1)
     rest = tuple(data.shape[2:])
     out = torch.zeros((b * num_segments,) + rest, dtype=data.dtype, device=data.device)

@@ -124,7 +124,7 @@ def rate_profile(
     Deterministic per (model, duration, segments, seed)."""
     if duration_s <= 0 or segments < 1:
         raise ValueError("need duration_s > 0 and segments >= 1")
-    rng = random.Random(int(seed))
+    rng = random.Random(int(seed))  # nondet-ok(explicitly seeded, same contract as arrival_times)
     path = _mmpp_state_path(model, duration_s, rng)
     seg_len = duration_s / segments
     mults = []
@@ -148,7 +148,7 @@ def arrival_times(
     (model, duration, seed) — Lewis thinning against `envelope_rate`."""
     if duration_s <= 0:
         return []
-    rng = random.Random(int(seed))
+    rng = random.Random(int(seed))  # nondet-ok(explicitly seeded; stdlib Random keeps loadgen import-light)
     path = _mmpp_state_path(model, duration_s, rng)
     lam_max = model.envelope_rate()
     out: List[float] = []

@@ -136,7 +136,7 @@ def refit(
         for s in range(steps):
             faults.crashpoint("refit:mid")
             binst, bjobs = batches[s % len(batches)]
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # nondet-ok(refit step wall time is a measurement)
             p_new, opt_new, read = step_fn(params, opt_state, binst, bjobs,
                                            step_generator(seed, s, dev))
             # the step's one host read: both losses and the skip flag
@@ -145,7 +145,7 @@ def refit(
                 params, opt_state = p_new, opt_new
             else:
                 skipped += 1  # params and optimizer state pass through
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms.append((time.perf_counter() - t0) * 1e3)  # nondet-ok(same measurement)
             step_fn.account(step_ms[-1] / 1e3)
             losses.append((lc_f, lm_f))
     obs_registry().counter(

@@ -22,6 +22,11 @@ transpose of its `preferred_element_type` product gives it: the fp32
 product rounded to the bf16 operand, then widened to the fp32 parameter;
 the sparse propagate's backward is K4's bf16 transposed walk.
 
+Without a compute dtype the feature products take the promoted dtype of
+their operands, as `jnp.matmul` does: bf16 parameters (the identity
+policy at `dtype=bfloat16`) against float32 features (the RL fleet's)
+compute in float32, and the kernel's gradient is rounded back to bf16.
+
 Parameters may carry a leading batch axis, one copy per episode (kernel
 (B, k, in, out), bias (B, out)): `torch.matmul` broadcasts
 (B, E, F) @ (B, F, C), so one backward over a batch of independent
@@ -52,7 +57,7 @@ class ChebConv(nn.Module):
     """One Chebyshev graph-convolution layer: sum_k T_k(A~) X W_k + b."""
 
     def __init__(self, in_features: int, channels: int, k: int = 1,
-                 bias_init: float = 0.0, dtype=torch.float32,
+                 bias_init: float = 0.0, dtype=torch.float32,  # fp32-island(params: bf16 loses small updates)
                  generator: torch.Generator | None = None, propagate=None,
                  compute_dtype=None, accum_dtype=None):
         super().__init__()
@@ -74,7 +79,6 @@ class ChebConv(nn.Module):
         prop = self.propagate or torch.matmul
         # kernel (k, in, out) or per episode (B, k, in, out)
         kernel = self.kernel
-        feat_mm = torch.matmul
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
             support = cast_support(support, self.compute_dtype)
@@ -85,6 +89,13 @@ class ChebConv(nn.Module):
                 # narrow operands, wide accumulation: bf16 x bf16 products
                 # are exact in fp32, summed in fp32, never rounded to bf16
                 return torch.matmul(t.to(acc), w.to(acc))
+        else:
+            def feat_mm(t, w):
+                # `jnp.matmul` promotes mixed operands (bf16 parameters under
+                # `dtype=bfloat16` against float32 features: f32), torch
+                # refuses them; no-op casts where the dtypes agree
+                wide = torch.promote_types(t.dtype, w.dtype)
+                return torch.matmul(t.to(wide), w.to(wide))
         w = [kernel.select(-3, i) for i in range(self.k)]
         t_prev2 = x
         out = feat_mm(t_prev2, w[0])
@@ -116,7 +127,7 @@ class ChebNet(nn.Module):
     bias leaves a relu output dead at birth for about half of all seeds)."""
 
     def __init__(self, num_layer: int = 5, hidden: int = 32, k: int = 1,
-                 leaky_alpha: float = 0.2, dtype=torch.float32,
+                 leaky_alpha: float = 0.2, dtype=torch.float32,  # fp32-island(params: bf16 loses small updates)
                  generator: torch.Generator | None = None, propagate=None,
                  compute_dtype=None, accum_dtype=None):
         super().__init__()
@@ -229,7 +240,7 @@ def _policy_dtypes(policy, dtype) -> dict:
     return out
 
 
-def make_model(cfg: Config, dtype=torch.float32,
+def make_model(cfg: Config, dtype=torch.float32,  # fp32-island(params: bf16 loses small updates)
                generator: torch.Generator | None = None, layout=None,
                policy=None) -> ChebNet:
     """The actor stack for `cfg`, with glorot weights from `generator`, for
@@ -279,7 +290,7 @@ def load_weights(name: str, path: str = WEIGHTS_PATH) -> dict:
     return {"params": params}
 
 
-def load_model(name: str, dtype=torch.float32, device=None, layout=None,
+def load_model(name: str, dtype=torch.float32, device=None, layout=None,  # fp32-island(params: bf16 loses small updates)
                policy=None) -> ChebNet:
     """A `ChebNet` shaped like the committed model `name`, with its weights,
     on `device` (default CUDA), for `layout` (default dense), under the

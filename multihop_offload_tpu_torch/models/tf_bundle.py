@@ -63,7 +63,7 @@ OBJECT_GRAPH_KEY = "_CHECKPOINTABLE_OBJECT_GRAPH"
 DT_FLOAT, DT_DOUBLE, DT_INT32, DT_STRING, DT_INT64 = 1, 2, 3, 7, 9
 _NUMERIC = {DT_FLOAT: np.dtype("<f4"), DT_DOUBLE: np.dtype("<f8"),
             DT_INT32: np.dtype("<i4"), DT_INT64: np.dtype("<i8")}
-_ENUM_OF = {np.dtype(np.float32): DT_FLOAT, np.dtype(np.float64): DT_DOUBLE,
+_ENUM_OF = {np.dtype(np.float32): DT_FLOAT, np.dtype(np.float64): DT_DOUBLE,  # fp32-island(the format's dtype enum, not a compute dtype)
             np.dtype(np.int32): DT_INT32, np.dtype(np.int64): DT_INT64}
 
 

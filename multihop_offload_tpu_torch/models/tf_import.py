@@ -45,7 +45,7 @@ def _checkpoint_prefix(path: str) -> str:
     return path
 
 
-def load_reference_checkpoint(path: str, dtype=np.float32) -> Dict[str, Any]:
+def load_reference_checkpoint(path: str, dtype=np.float32) -> Dict[str, Any]:  # fp32-island(imported params stay wide)
     """Load reference weights into a ``{"params": {"cheb_i": {"kernel",
     "bias"}}}`` numpy tree (`chebconv.params_from_jax` carries it into a
     model), layer by layer until `layer_with_weights-{i}/kernel` is missing."""

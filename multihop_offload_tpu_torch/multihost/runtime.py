@@ -219,17 +219,17 @@ def bootstrap(
         "mho_mesh_bootstrap_retries_total",
         "failed torch.distributed bring-up attempts before success",
     )
-    deadline = time.monotonic() + float(timeout_s)
+    deadline = time.monotonic() + float(timeout_s)  # nondet-ok(bring-up deadline: the peers are other processes)
     delay = float(backoff_s)
     attempt = 0
     while True:
         attempt += 1
-        remaining = deadline - time.monotonic()
+        remaining = deadline - time.monotonic()  # nondet-ok(same wall-clock deadline)
         try:
             _init_group(coordinator_address, num_processes, process_id, remaining)
             break
         except (RuntimeError, ValueError, OSError) as exc:  # DistNetworkError is a RuntimeError
-            if time.monotonic() + delay >= deadline:
+            if time.monotonic() + delay >= deadline:  # nondet-ok(same wall-clock deadline)
                 raise RuntimeError(
                     f"mesh bootstrap: coordinator {coordinator_address} "
                     f"unreachable after {attempt} attempt(s) over "

@@ -634,9 +634,9 @@ class ProfiledProgram:
         with self._lock:
             if self._built:
                 return self._fn(*args, **kwargs)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # nondet-ok(device-time accounting is a measurement)
             out, facts = extract_cost(self._fn, *args, **kwargs)
-            dt = time.perf_counter() - t0
+            dt = time.perf_counter() - t0  # nondet-ok(same measurement)
             self._pending_compile_s = dt
             self.facts = facts
             self._prof.register(self.name, facts, compile_s=dt,

@@ -61,14 +61,14 @@ def span(name: str, block: bool = False, emit: bool = False,
         "trace_id": stack[-1]["trace_id"] if stack else f"{sid:08x}",
     }
     stack.append(rec)
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # nondet-ok(span duration is wall time by definition)
     try:
         with torch.profiler.record_function(name):
             yield rec
     finally:
         if block and torch.cuda.is_initialized():
             torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0  # nondet-ok(span duration is wall time by definition)
         stack.pop()
         _registry().histogram(
             PHASE_METRIC, "host span / phase wall seconds"

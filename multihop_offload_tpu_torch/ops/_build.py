@@ -92,7 +92,7 @@ def build_all() -> dict:
     Returns {name: path}.  Raises with nvcc's output if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, procs = {}, {}
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # nondet-ok(kernel build wall time is a measurement)
     for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
         name = os.path.splitext(os.path.basename(src))[0]
         out = _target(src)
@@ -113,7 +113,7 @@ def build_all() -> dict:
             failed.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-        build_log[name] = {"seconds": time.perf_counter() - t0,
+        build_log[name] = {"seconds": time.perf_counter() - t0,  # nondet-ok(same measurement)
                            "ptxas": log, "cached": False}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

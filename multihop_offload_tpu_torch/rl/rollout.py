@@ -30,6 +30,13 @@ source (`sim.runner.LaneDraws`, one generator per lane, or
 tests rebuild JAX's from its key tree) or drawn from the lanes'
 generators after the round's slot uniforms.
 
+Precision: the fleet is float32 (`cli.rl.build_fleet`), and under the
+mixed policy the ChebConv accumulates in float32 (`models.chebconv`), so
+the actor's rates, the link delays and W are float32 whatever the policy:
+the APSP on the tape is K2 float32 with K2's backward, as JAX squares a
+float32 W there (no `wrap_apsp`); the policy narrows only the ChebConv's
+operands (K4 bf16 both ways under the sparse layout at K >= 2).
+
 Both layouts: under the sparse layout W comes from the link list
 (`weight_matrix_from_edges`) and is squared like the dense one (JAX
 `:137-145`, not the COO-fed kernel), the node diagonal from the actor's

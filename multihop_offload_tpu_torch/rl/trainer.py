@@ -22,6 +22,14 @@ not finite leaves the parameters and the Adam moments untouched and is
 counted (`mho_refit_skipped_updates_total{phase=rl}`); the finiteness is
 read on the host, the step's one sync besides the flushes.
 
+Precision: the trainer takes the model as `cli.rl.make_rl_model` builds
+it under the precision policy, so the parameters, their gradients and
+Adam's moments sit at the policy's `param_dtype` (fp32 under the mixed
+policy, bf16 under `dtype=bfloat16` with `precision=fp32`), as JAX's
+`model.init` and optax's moments do; the simulator (`sim_dtype`) and the
+reward moments stay float32, JAX's islands (`rl/trainer.py:87-89`,
+`:137`, `:240`).
+
 Telemetry: the simulator's devmetrics window of the step is flushed with
 `phase="rl"`, and an RL window (episodes, reward moments, the per-episode
 gradient-norm decade histogram, the non-finite sentinel, skipped updates)
@@ -141,7 +149,6 @@ class RLTrainer:
     def __init__(self, cfg, model, spec: SimSpec, mesh=None, devmetrics: bool = True,
                  sim_dtype=torch.float32):
         self.device = next(model.parameters()).device
-        cfg.check_rl(self.device)
         self.cfg = cfg
         self.model = model
         self.spec = spec
@@ -216,9 +223,9 @@ class RLTrainer:
         if fleet % shards:
             raise ValueError(f"fleet {fleet} does not split over {shards} devices")
         with span("rl/train_step", block=True, fleet=fleet):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # nondet-ok(device-time accounting is a measurement)
             step = self._program(insts, jobss, paramss, draws, states, init_rates, gumbel)
-        self._program.account(time.perf_counter() - t0)
+        self._program.account(time.perf_counter() - t0)  # nondet-ok(same measurement)
         self.steps += 1
         reg = registry()
         reg.counter("mho_rl_steps_total", "RL train steps executed").inc()

@@ -203,7 +203,7 @@ def _run_leg(spec, cfg: Config, pad, spec_sim, programs: _Programs, bp_pin,
     from multihop_offload_tpu_torch.sim.fidelity import scale_to_util
     from multihop_offload_tpu_torch.sim.state import build_sim_params, migrate_sim_state
 
-    t_leg = time.perf_counter()
+    t_leg = time.perf_counter()  # nondet-ok(leg wall time is a measurement)
     lay = cfg.layout
     dev = programs.device
     fleet = cfg.scenario_fleet
@@ -257,7 +257,7 @@ def _run_leg(spec, cfg: Config, pad, spec_sim, programs: _Programs, bp_pin,
         migrated_drops = 0
         dsts = []
         synchronize(dev)
-        t_sim = time.perf_counter()
+        t_sim = time.perf_counter()  # nondet-ok(sim wall time is a measurement)
         for seg in range(segments):
             paramss = stack_instances([
                 dataclasses.replace(p, arr_p=torch.clamp(p.arr_p * mults[i][seg], 0.0, 1.0))
@@ -291,7 +291,7 @@ def _run_leg(spec, cfg: Config, pad, spec_sim, programs: _Programs, bp_pin,
                     migrated_drops += int(st_m.dropped.sum()) - before
                     new_states.append(st_m)
                 states = stack_instances(new_states)
-        sim_wall_s = time.perf_counter() - t_sim
+        sim_wall_s = time.perf_counter() - t_sim  # nondet-ok(same measurement)
 
         st = {f.name: getattr(states, f.name).cpu().numpy()
               for f in dataclasses.fields(states)}
@@ -358,7 +358,7 @@ def _run_leg(spec, cfg: Config, pad, spec_sim, programs: _Programs, bp_pin,
         "deltas": deltas,
         "conservation_ok": all(sim_rows[k]["conservation_ok"]
                                for k in POLICY_KINDS),
-        "wall_s": time.perf_counter() - t_leg,
+        "wall_s": time.perf_counter() - t_leg,  # nondet-ok(same measurement)
     }
 
 
@@ -443,7 +443,7 @@ def run_matrix(cfg: Config, smoke: bool, device=None, names=None, shapes=None,
 
     rows = []
     for s in specs:
-        print(f"[scenario-matrix] leg {s.name} ...", file=sys.stderr)
+        print(f"[scenario-matrix] leg {s.name} ...", file=sys.stderr)  # print-ok(operator progress line on stderr)
         # one host span (and profiler range) a leg: `scenarios/<name>`
         with span(f"scenarios/{s.name}"):
             rows.append(_run_leg(s, cfg, pad, spec_sim, programs, bp_pin, draws=draws))

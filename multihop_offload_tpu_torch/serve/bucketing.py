@@ -136,7 +136,7 @@ def pack_bucket(
     reqs: Sequence[OffloadRequest],
     pad: PadSpec,
     slots: int,
-    dtype=torch.float32,
+    dtype=torch.float32,  # fp32-island(storage default; the service passes its policy's storage dtype)
     hop_cache: Optional[Dict] = None,
     layout=None,
     device="cpu",

@@ -93,7 +93,7 @@ def unpack_outputs(flat: np.ndarray, width: int, out_dtype: torch.dtype) -> tupl
     the pass ran in float32, else float64."""
     j = flat.shape[0] // (4 * width)
     parts = flat.reshape(4, width, j)
-    ftype = np.float32 if out_dtype == torch.float32 else np.float64
+    ftype = np.float32 if out_dtype == torch.float32 else np.float64  # fp32-island(host decoding: float32 passes stay float32)
     return (parts[0].astype(np.int32), parts[1].astype(bool),
             parts[2].astype(ftype), parts[3].astype(ftype))
 
@@ -191,7 +191,7 @@ class BucketExecutor:
         the executor's device) and return without waiting for the card.
         `gens`: one generator per batch row, read by the GNN's sampled
         decision (`prob=True`)."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # nondet-ok(host-time accounting is a measurement)
         w = int(bjobs.mask.shape[0]) if width is None else int(width)
         prog = self.program(bucket, w, degraded)
         out = prog(binst, bjobs, gens)
@@ -214,22 +214,22 @@ class BucketExecutor:
                 program="baseline" if degraded else "gnn",
                 step=self.loaded_step,
             )
-        self.host_s["dispatch"] += time.perf_counter() - t0
+        self.host_s["dispatch"] += time.perf_counter() - t0  # nondet-ok(same measurement)
         return DispatchHandle(bucket=bucket, width=w, host=host, event=event,
                               device_buf=buf, out_dtype=out[2].dtype, program=prog, t0=t0)
 
     def fetch(self, handle: DispatchHandle):
         """Resolve one dispatch: host numpy (dst, is_local, delay_est,
         job_total), each (width, pad.j)."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # nondet-ok(host-time accounting is a measurement)
         if handle.event is not None:
             handle.event.synchronize()
         flat = handle.host.numpy()
         out = unpack_outputs(flat[:-len(_DM_KEYS)], handle.width, handle.out_dtype)
         self.record_decisions(flat[-len(_DM_KEYS):], bucket=str(handle.bucket))
         if handle.program is not None:
-            handle.program.account(time.perf_counter() - handle.t0)
-        self.host_s["fetch"] += time.perf_counter() - t0
+            handle.program.account(time.perf_counter() - handle.t0)  # nondet-ok(same measurement)
+        self.host_s["fetch"] += time.perf_counter() - t0  # nondet-ok(same measurement)
         return out
 
     def record_decisions(self, counts, **labels) -> None:

@@ -121,7 +121,7 @@ class OffloadService:
         deadline_s: float = 0.5,
         seed: int = 0,
         prob: bool = False,
-        dtype=torch.float32,
+        dtype=None,
         precision: Optional[str] = "fp32",
         layout=None,
         apsp_impl: str = "xla",

@@ -209,7 +209,7 @@ class ShardedBucketExecutor(BucketExecutor):
         returns host numpy (dst, is_local, delay_est, job_total), each
         (slots, pad.j), in slot order.  `gens`: one generator per slot, on
         the device of the slot's shard."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # nondet-ok(device-time accounting is a measurement)
         devs = self.plan.assignments[bucket]
         width = int(bjobs.mask.shape[0])
         if width % len(devs):
@@ -219,7 +219,7 @@ class ShardedBucketExecutor(BucketExecutor):
         bufs, reduced, out_dtype = prog(binst, bjobs, gens)
         hosts = [buf.cpu().numpy() for buf in bufs]
         reduced = reduced.cpu().tolist()
-        prog.account(time.perf_counter() - t0)
+        prog.account(time.perf_counter() - t0)  # nondet-ok(same measurement)
         self.dispatch_count += 1
         self.last_devices_used = len(set(devs[:len(hosts)]))
         label = _devices_label(devs)
@@ -238,5 +238,5 @@ class ShardedBucketExecutor(BucketExecutor):
                               devices=label)
         key = (bucket, tuple(devs))
         self.placement_host_s[key] = (self.placement_host_s.get(key, 0.0)
-                                      + time.perf_counter() - t0)
+                                      + time.perf_counter() - t0)  # nondet-ok(same measurement)
         return out

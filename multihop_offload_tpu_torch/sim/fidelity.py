@@ -62,7 +62,7 @@ def _np(x) -> np.ndarray:
 
 
 def make_case(seed: int, topo, pad: PadSpec, num_jobs: int, num_servers: int = 2,
-              dtype=torch.float32, layout=None, device=None):
+              dtype=torch.float32, layout=None, device=None):  # fp32-island(storage default; callers pass the policy dtype)
     """One (unbatched) BA case with a mid-load workload on `device`: the
     `num_servers` highest-degree nodes serve (bandwidth 100, mobiles 8),
     link rates around 50, jobs on distinct mobiles at rates U(0.5, 1)

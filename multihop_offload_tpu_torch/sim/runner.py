@@ -76,7 +76,7 @@ class LaneDraws:
     A round draws each lane's (K, L + L + N + 2J) uniforms in one call;
     the policy takes the same generators (one per lane)."""
 
-    def __init__(self, seeds: Sequence[int], spec: SimSpec, dtype=torch.float32,
+    def __init__(self, seeds: Sequence[int], spec: SimSpec, dtype=torch.float32,  # fp32-island(draws at the sim's float32 accumulators)
                  device="cpu"):
         self.gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
         self.spec, self.dtype, self.device = spec, dtype, device
@@ -172,7 +172,7 @@ class FleetSim:
         rounds: int,
         slots_per_round: int,
         collect_schedule: bool = False,
-        dtype=torch.float32,
+        dtype=torch.float32,  # fp32-island(sim accumulators; precision only narrows the policy APSP)
     ):
         with span("sim/build", rounds=rounds, slots=slots_per_round):
             self.spec = spec
@@ -214,12 +214,12 @@ class FleetSim:
                                      device=device)
         prev = [int(states.generated.sum()), int(states.delivered.sum()),
                 int(states.dropped.sum())]
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # nondet-ok(device-time accounting is a measurement)
         with span("sim/scan", block=True, fleet=fleet):
             out = self._fn(insts, jobss, self.spec, paramss, self.policy_fn, states,
                            init_rates, draws, self.rounds, self.slots_per_round,
                            self.devmetrics, self.collect_schedule)
-        self._fn.account(time.perf_counter() - t0)
+        self._fn.account(time.perf_counter() - t0)  # nondet-ok(same measurement)
         st = out.state
         reg = registry()
         reg.counter("mho_sim_slots_total", "simulated slots across the fleet").inc(

@@ -96,7 +96,7 @@ class SimState(TensorRecord):
     t: torch.Tensor           # (B,) int32 current slot
 
 
-def init_state(spec: SimSpec, fleet: int = 1, dtype=torch.float32,
+def init_state(spec: SimSpec, fleet: int = 1, dtype=torch.float32,  # fp32-island(delay accumulators: bf16 drops +1 past 256)
                device="cpu") -> SimState:
     """Empty queues and zero counters for `fleet` lanes.  Stream ids are
     stored in the narrowest index dtype for [0, 2J) (int16 in practice);
@@ -210,7 +210,7 @@ def migrate_sim_state(state: SimState, link_map: np.ndarray, spec: SimSpec) -> S
         if j >= 0:
             perm[i] = j
             perm[num_links + i] = num_links + j
-    perm[2 * num_links:2 * num_links + n] = np.arange(2 * num_links, 2 * num_links + n)
+    perm[2 * num_links:2 * num_links + n] = np.arange(2 * num_links, 2 * num_links + n, dtype=np.int64)
     keep = perm >= 0
     src = np.where(keep, perm, 0)
     host = {f.name: getattr(state, f.name).cpu().numpy() for f in dataclasses.fields(state)}

@@ -125,7 +125,7 @@ def sim_slot_step(
     node_up, link_up = liveness_masks(inst, params, state.t)
     u_end = inst.link_ends[..., 0].long()
     v_end = inst.link_ends[..., 1].long()
-    lidx = torch.arange(num_links, device=device)
+    lidx = torch.arange(num_links, device=device, dtype=torch.long)
 
     q_busy = state.q_busy + (state.count > 0).to(i32)
 
@@ -166,7 +166,7 @@ def sim_slot_step(
     frac = params.srv_rate - base.to(params.srv_rate.dtype)
     ndraw = base + (u_srv < frac).to(i32)
     nserve = torch.where(node_up, torch.minimum(scnt, ndraw), 0)
-    arange_c = torch.arange(c, device=device)
+    arange_c = torch.arange(c, device=device, dtype=torch.long)
     posm = (state.head[:, s0:s1].long().unsqueeze(2) + arange_c) % c        # (B, N, C)
     smask = arange_c < nserve.unsqueeze(2)
     s_srv = state.buf_stream[:, s0:s1].gather(2, posm)
@@ -251,7 +251,7 @@ def sim_slot_step(
     strm = torch.cat([s_l, torch.arange(2 * j, dtype=state.buf_stream.dtype,
                                         device=device).expand(b, -1)], dim=1)
     births = torch.cat([birth_l, t.expand(b, 2 * j)], dim=1)
-    onehot = put.unsqueeze(2) & (tgt.unsqueeze(2) == torch.arange(q, device=device))
+    onehot = put.unsqueeze(2) & (tgt.unsqueeze(2) == torch.arange(q, device=device, dtype=torch.long))
     rank = torch.cumsum(onehot.to(i32), dim=1).gather(2, tgt_i.unsqueeze(2)).squeeze(2) - 1
     count_t = _take(count, tgt_i)
     space_ok = count_t + rank < c

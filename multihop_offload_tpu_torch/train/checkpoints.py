@@ -72,9 +72,20 @@ def _flatten(tree: Any, prefix: str = "") -> list:
 
 
 def _host(x: Any) -> np.ndarray:
+    """A leaf as a numpy array.  numpy has no bfloat16: a bf16 tensor (a
+    state saved at a bf16 base) comes as its 16-bit words."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
+
+
+def _dtype_name(x: Any) -> str:
+    """A leaf's dtype as numpy names it; bf16 under the name JAX's arrays
+    carry (ml_dtypes' `bfloat16`)."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(_host(x).dtype)
 
 
 def tree_checksum(tree: Any) -> str:
@@ -84,7 +95,7 @@ def tree_checksum(tree: Any) -> str:
     for path, x in sorted(_flatten(tree), key=lambda kv: kv[0]):
         a = np.ascontiguousarray(_host(x))
         h.update(path.encode())
-        h.update(str(a.dtype).encode())
+        h.update(_dtype_name(x).encode())
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
     return h.hexdigest()
@@ -154,7 +165,7 @@ def make_lineage(source: str, parent_step: Optional[int] = None,
 
     lin = {
         "source": source,
-        "ts": time.time(),
+        "ts": time.time(),  # nondet-ok(lineage stamp: when the checkpoint was written)
         "git_sha": obs_events._git_sha(),
         "config_hash": obs_events.config_hash(cfg) if cfg is not None else None,
         "parent_step": parent_step,
@@ -231,8 +242,7 @@ def leaf_shapes(tree: Any) -> list:
 
 
 def _signature(tree: Any) -> list:
-    return sorted((p, tuple(np.shape(_host(x))), str(_host(x).dtype))
-                  for p, x in _flatten(tree))
+    return sorted((p, tuple(np.shape(_host(x))), _dtype_name(x)) for p, x in _flatten(tree))
 
 
 def restore_checkpoint(directory: str, template: Any, step: Optional[int] = None):

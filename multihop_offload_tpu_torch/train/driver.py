@@ -279,9 +279,9 @@ def _load_reference_params(model, model_dir: str, dtype) -> bool:
         return False
     try:
         tree = load_reference_checkpoint(model_dir, dtype=np.float64)
-        print(f"loaded reference-format weights from {model_dir}")
+        print(f"loaded reference-format weights from {model_dir}")  # print-ok(operator feedback at startup)
     except Exception as e:
-        print(f"unable to load {model_dir}: {e}")
+        print(f"unable to load {model_dir}: {e}")  # print-ok(operator feedback at startup)
         return False
     model.load_state_dict({k: v.to(dtype) for k, v in params_from_jax(tree).items()})
     return True
@@ -516,7 +516,7 @@ class _Harness:
             if not isinstance(saved, dict) or (ckpt_lib.leaf_shapes(saved)
                                                != ckpt_lib.leaf_shapes(self.params())):
                 raise
-            print("checkpoint optimizer state does not match current config; "
+            print("checkpoint optimizer state does not match current config; "  # print-ok(operator feedback on restore)
                   "restored params only (fresh optimizer state)")
             self._load_params(saved)
         else:
@@ -649,7 +649,7 @@ class Trainer(_Harness):
         """Host-side file prep; consumes `self.rng` in the sequential
         loop's order."""
         cfg = self.cfg
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
         with span("train/build"):
             rec = self.data.records[fid]
             inst = self.data.instance(fid, self.rng)
@@ -657,7 +657,7 @@ class Trainer(_Harness):
                 rec, self.data.pad_of(fid), cfg.num_instances, self.rng,
                 cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.store,
                 index_dtype=self.layout.index_dtype)
-        return (rec, inst, jobsets, counts), time.perf_counter() - t0
+        return (rec, inst, jobsets, counts), time.perf_counter() - t0  # nondet-ok(same measurement)
 
     def run(self, epochs: Optional[int] = None, files_limit: Optional[int] = None,
             out_dir: Optional[str] = None, verbose: bool = True) -> str:
@@ -692,14 +692,14 @@ class Trainer(_Harness):
             pf = _Prefetcher(order, self._build_file, cfg.prefetch)
             for fid in order:
                 rec, inst, jobsets, counts = pf.current()
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
                 with span("train/step"):
                     inst_b, jobs = self._on_device([(rec, inst, jobsets, counts)])
                     if self.n_dp > 1:
                         # pad the episode batch to a mesh-divisible width; the
                         # valid mask keeps pad episodes out of the replay
                         inst_p, jobs_p = _pad_leading(inst_b, bp), _pad_leading(jobs, bp)
-                        valid = torch.arange(bp, device=self.device) < b
+                        valid = torch.arange(bp, device=self.device, dtype=torch.long) < b
                         _, gnn_train, loss_c, loss_m = self._train_step_dp(
                             self.model, self.state.mem, inst_p, jobs_p, self._next_seeds(),
                             valid, explore)
@@ -709,7 +709,7 @@ class Trainer(_Harness):
                             x[:b] for x in (gnn_train, loss_c, loss_m, bl, loc, gnn_test))
                         grads = replay_last(self.state.mem, min(b, cfg.memory_size))
                     else:
-                        td0 = time.perf_counter()
+                        td0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
                         outs = self._step_program(inst_b, jobs, explore)
                         grads, loss_c, loss_m = outs.grads, outs.loss_critic, outs.loss_mse
                         gnn_train = outs.delays.job_total
@@ -720,9 +720,9 @@ class Trainer(_Harness):
                     if self.n_dp <= 1:
                         # the train and eval window up to the sync goes to
                         # train/step; eval gets its call only (JAX `:699-707`)
-                        self._step_program.account(time.perf_counter() - td0)
+                        self._step_program.account(time.perf_counter() - td0)  # nondet-ok(same measurement)
                         self._eval_program.account(0.0)
-                wall = time.perf_counter() - t0
+                wall = time.perf_counter() - t0  # nondet-ok(same measurement)
                 runtime = max(wall - next_build_s, 0.0) / (4 * b)
 
                 with span("train/metrics"):
@@ -746,10 +746,10 @@ class Trainer(_Harness):
                 loss = float("nan")
                 if self.state.mem.count >= cfg.batch:
                     with span("train/replay", block=True):
-                        tr0 = time.perf_counter()
+                        tr0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
                         loss, nskip = self._replay_program()
                         # the host pull of the loss is the sync boundary
-                        self._replay_program.account(time.perf_counter() - tr0)
+                        self._replay_program.account(time.perf_counter() - tr0)  # nondet-ok(same measurement)
                     if nskip:
                         obs.registry().counter(
                             "mho_refit_skipped_updates_total",
@@ -764,7 +764,7 @@ class Trainer(_Harness):
                         runlog.emit("checkpoint", step=gidx, kind="latest", source="offline")
                     explore = float(np.clip(explore * cfg.explore_decay, 0.0, 1.0))
                     if verbose:
-                        print(f"{gidx} Loss: {np.nanmean(losses):.2f}, "
+                        print(f"{gidx} Loss: {np.nanmean(losses):.2f}, "  # print-ok(verbose console)
                               f"explore: {explore:.4f}")
                     losses = []
                 if runlog is not None:
@@ -810,7 +810,7 @@ class Evaluator(_Harness):
         """Host-side prep of file `fid`, shared by both loops, so that
         `file_batch > 1` and `== 1` draw the same workloads."""
         cfg = self.cfg
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
         with span("eval/build"):
             rec = self.data.records[fid]
             frng = self._file_rng(fid)
@@ -819,7 +819,7 @@ class Evaluator(_Harness):
                 rec, self.data.pad_of(fid), cfg.num_instances, frng,
                 cfg.arrival_scale, ul=cfg.ul_data, dl=cfg.dl_data, dtype=self.store,
                 index_dtype=self.layout.index_dtype)
-        return (rec, inst, jobsets, counts), time.perf_counter() - t0
+        return (rec, inst, jobsets, counts), time.perf_counter() - t0  # nondet-ok(same measurement)
 
     def run(self, files_limit: Optional[int] = None, out_dir: Optional[str] = None,
             verbose: bool = True, file_ids=None) -> str:
@@ -853,20 +853,20 @@ class Evaluator(_Harness):
             for i, fid in enumerate(fids):
                 build = pf.current()
                 rec, _, jobsets, counts = build
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
                 with span("eval/step"):
                     inst_b, jobs = self._on_device([build])
                     bl, loc, gnn = self._eval_program(inst_b, jobs, self._file_gen(fid))
                     next_build_s = pf.prefetch_next()
                     synchronize(self.device)
-                wall = time.perf_counter() - t0
+                wall = time.perf_counter() - t0  # nondet-ok(same measurement)
                 runtime = max(wall - next_build_s, 0.0) / (3 * b)
                 metrics = _method_metrics({"baseline": bl, "local": loc, "GNN": gnn},
                                           bl, jobs.mask, float(cfg.T))
                 rows += _rows(rec, counts, metrics, runtime, fid, algo_col="Algo",
                               fid_col=False)
                 if verbose and i % 50 == 0:
-                    print(f"[{i + 1}/{len(fids)}] {rec.filename} "
+                    print(f"[{i + 1}/{len(fids)}] {rec.filename} "  # print-ok(verbose console)
                           f"({wall:.3f}s for {3 * b} evals)")
                 if runlog is not None:
                     runlog.emit("step", fid=fid, wall_s=round(wall, 6),
@@ -895,23 +895,23 @@ class Evaluator(_Harness):
                   for c0 in range(0, len(fids), chunk_size)]
 
         def build_chunk(bucket_chunk):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
             builds = [self._build_file(fid)[0] for fid in bucket_chunk[1]]
-            return builds, time.perf_counter() - t0
+            return builds, time.perf_counter() - t0  # nondet-ok(same measurement)
 
         rows_by_fid = {}
         done = 0
         pf = _Prefetcher(chunks, build_chunk, cfg.prefetch)
         for bucket, chunk in chunks:
             builds = pf.current()
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # nondet-ok(input-wait and step wall time is a measurement)
             with span("eval/step"):
                 bl, loc, gnn = self._eval_files_dp(
                     self.model, [bd[1] for bd in builds], [bd[2] for bd in builds],
                     [self._file_seed(f) for f in chunk])
                 next_build_s = pf.prefetch_next()
                 synchronize(self.device)
-            wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0  # nondet-ok(same measurement)
             runtime = max(wall - next_build_s, 0.0) / (3 * b * len(chunk))
             for d, fid in enumerate(chunk):
                 s = slice(d * b, (d + 1) * b)
@@ -922,7 +922,7 @@ class Evaluator(_Harness):
                                          algo_col="Algo", fid_col=False)
             done += len(chunk)
             if verbose:
-                print(f"[{done}/{n_files}] bucket {bucket} chunk of {len(chunk)} "
+                print(f"[{done}/{n_files}] bucket {bucket} chunk of {len(chunk)} "  # print-ok(verbose console)
                       f"({wall:.3f}s, chunk {chunk_size} on {self.n_dp} devices)")
             if runlog is not None:
                 runlog.emit("step", bucket=bucket, files=len(chunk), done=done,

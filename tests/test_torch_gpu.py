@@ -1518,6 +1518,66 @@ def test_gpu_rl_train_step_launches_k2_backward(cuda):
     assert any(not torch.equal(before[k], v) for k, v in tr.params.items())
 
 
+@pytest.mark.parametrize("kw", [dict(precision="bf16", layout="sparse", cheb_k=2),
+                                dict(dtype="bfloat16")], ids=["bf16_sparse", "bfloat16"])
+def test_gpu_rl_train_step_under_bf16(cuda, kw):
+    """One `RLTrainer` step under the bf16 settings on the card and on the
+    CPU under the same injected draws (the smoke's fleet, 2 lanes, 20
+    slots, temperature 1000): K1, K2 float32 and K2's backward launch, and
+    on the sparse K = 2 step K4's bf16 forward (5 an actor forward) and
+    transposed walk (4 a backward); K2 bf16 never; each lane whose choices
+    all agree has the CPU's gradient within 2e-2 of its norm."""
+    import copy
+    import dataclasses
+
+    from multihop_offload_tpu_torch.cli import rl as rl_cli
+    from multihop_offload_tpu_torch.cli.sim import uniform_draws
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.large_scale import kernel_counts, reset_kernel_counts
+    from multihop_offload_tpu_torch.rl import RLTrainer
+    from multihop_offload_tpu_torch.rl.rollout import gumbel_noise
+    from multihop_offload_tpu_torch.sim.runner import InjectedDraws
+
+    cfg = dataclasses.replace(Config(**kw), **{**rl_cli.SMOKE, "rl_fleet": 2, "rl_slots": 20,
+                                               "rl_temp": 1000.0})
+    fleet = rl_cli.build_fleet(cfg, "cpu")
+    insts, jobss, paramss, spec, _ = fleet
+    model = rl_cli.make_rl_model(cfg, insts, jobss)
+    draws = uniform_draws(spec, cfg.rl_fleet, cfg.rl_rounds, cfg.rl_slots, seed=5)
+    gumbel = gumbel_noise([torch.Generator().manual_seed(6)],
+                          (cfg.rl_fleet, cfg.rl_rounds, spec.num_jobs,
+                           insts.servers.shape[1] + 1), torch.float32, "cpu")
+
+    def step(where):
+        tr = RLTrainer(cfg, copy.deepcopy(model).to(where), spec, devmetrics=False)
+        reset_kernel_counts()
+        out = tr.train_step(*(x.to(where) for x in fleet[:3]),
+                            InjectedDraws(*[x.to(where) for x in draws]),
+                            gumbel=gumbel.to(where))
+        return tr, out, kernel_counts()
+
+    _, ref, _ = step("cpu")
+    tr, out, counts = step(cuda)
+    sparse = kw.get("layout") == "sparse"
+    assert counts["fixed_point"] == cfg.rl_rounds
+    assert counts["minplus"] == cfg.rl_rounds * tmp.squaring_count(spec.num_nodes)
+    assert counts["minplus_bwd"] == cfg.rl_rounds * tmp.bwd_launches(
+        tmp.squaring_count(spec.num_nodes))
+    assert counts["minplus_bf16"] == 0
+    assert counts["chebconv_bf16"] == (5 * cfg.rl_rounds if sparse else 0)
+    assert counts["chebconv_bf16_t"] == (4 * cfg.rl_rounds if sparse else 0)
+    assert float(ref.grad_norms.min()) > 0
+    agree = (out.dsts.cpu() == ref.dsts).flatten(1).all(dim=1)
+    assert agree.any()
+    for i in torch.nonzero(agree).flatten().tolist():
+        diff = sum(float((out.grads[k][i].cpu().double() - g[i].double()).pow(2).sum())
+                   for k, g in ref.grads.items())
+        norm = sum(float(g[i].double().pow(2).sum()) for g in ref.grads.values())
+        assert diff ** 0.5 <= 2e-2 * norm ** 0.5
+    assert out.skipped == 0 and all(torch.isfinite(v).all() for v in tr.params.values())
+    assert {v.dtype for v in tr.params.values()} == {cfg.precision_policy(cuda).param_dtype}
+
+
 # ---- the scenario matrix (scenarios/) ----------------------------------------
 
 

@@ -18,6 +18,10 @@ import torch
 
 from multihop_offload_tpu.env import apsp as japsp
 from multihop_offload_tpu_torch.ops import minplus as mp
+# the module runs `jax.grad` of the JAX APSP eagerly; run before
+# `tests/test_obs.py` in one process it left JAX's caches so that the retrace
+# counter there saw a trace after steady state
+from tests.test_torch_ops import clear_jax_caches_after_module  # noqa: F401
 
 TOL = 1e-12
 

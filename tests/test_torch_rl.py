@@ -64,11 +64,11 @@ def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _fleet(layout):
-    """The JAX `cli.rl.build_fleet` of `TINY` in float64 (its body, at the
+def _fleet(layout, dtype="float64", fleet=TINY["rl_fleet"]):
+    """The JAX `cli.rl.build_fleet` of `TINY` in `dtype` (its body, at the
     port's data-sized sparse pads), and the port's instances of the same
     cases carrying the JAX run's scaled rates and sim parameters."""
-    n_nodes, num_jobs, fleet = TINY["sim_nodes"], TINY["sim_jobs"], TINY["rl_fleet"]
+    n_nodes, num_jobs = TINY["sim_nodes"], TINY["sim_jobs"]
     sparse = layout == "sparse"
     jtopos = [jtopo.build_topology(jgen.barabasi_albert(n_nodes, seed=100 * i)[0])
               for i in range(fleet)]
@@ -85,11 +85,11 @@ def _fleet(layout):
     bp = jax.jit(lambda i, j, k: j_baseline(i, j, k, layout=lay))
     jcases, tcases, jparams, tparams = [], [], [], []
     for i in range(fleet):
-        ji, jj = jfid.make_case(100 * i, jtopos[i], jpad, num_jobs, dtype=np.float64,
+        ji, jj = jfid.make_case(100 * i, jtopos[i], jpad, num_jobs, dtype=np.dtype(dtype),
                                 layout=lay)
         jj, _ = jfid.scale_to_util(ji, jj, keys[i], 0.7, policy_fn=bp)
-        ti, tj = tfid.make_case(100 * i, ttopos[i], tpad, num_jobs, dtype=F64, layout=lay,
-                                device="cpu")
+        ti, tj = tfid.make_case(100 * i, ttopos[i], tpad, num_jobs,
+                                dtype=getattr(torch, dtype), layout=lay, device="cpu")
         tj = dataclasses.replace(tj, rate=torch.from_numpy(np.array(jj.rate)))
         jcases.append((ji, jj))
         tcases.append((ti, tj))
@@ -138,26 +138,26 @@ def _models(fl, k=1):
     return jmodel, variables, tmodel
 
 
-def _draws(keys, spec, rounds, slots, options):
-    """The JAX rollout's draws for lane keys (B, 2): slot uniforms
-    (`InjectedDraws`, (B, R, K, width)) and the decision Gumbel noise
-    (B, R, J, S+1)."""
+def _draws(keys, spec, rounds, slots, options, dtype=jnp.float64):
+    """The JAX rollout's draws for lane keys (B, 2) in `dtype`: slot
+    uniforms (`InjectedDraws`, (B, R, K, width)) and the decision Gumbel
+    noise (B, R, J, S+1)."""
     def lane(key):
         def rnd(kr):
             k_dec, k_slots = jax.random.split(kr)
             k_act, _ = jax.random.split(k_dec)
             return (jax.random.split(k_slots, slots),
-                    jax.random.gumbel(k_act, (spec.num_jobs, options), jnp.float64))
+                    jax.random.gumbel(k_act, (spec.num_jobs, options), dtype))
         return jax.vmap(rnd)(jax.random.split(key, rounds))
 
     slot_keys, gumbel = jax.jit(jax.vmap(lane))(keys)
 
     def one(kk):
         a, b, c, d = jax.random.split(kk, 4)
-        return (jax.random.uniform(a, (spec.num_links,), jnp.float64),
-                jax.random.uniform(b, (spec.num_links,), jnp.float64),
-                jax.random.uniform(c, (spec.num_nodes,), jnp.float64),
-                jax.random.uniform(d, (spec.num_streams,), jnp.float64))
+        return (jax.random.uniform(a, (spec.num_links,), dtype),
+                jax.random.uniform(b, (spec.num_links,), dtype),
+                jax.random.uniform(c, (spec.num_nodes,), dtype),
+                jax.random.uniform(d, (spec.num_streams,), dtype))
 
     u = jax.jit(jax.vmap(jax.vmap(jax.vmap(one))))(slot_keys)
     return (InjectedDraws(*[torch.from_numpy(np.array(x)) for x in u]),
@@ -191,17 +191,22 @@ def _trainers(fl, **tkw):
 
 
 def test_fleet_matches_jax_build_fleet():
-    """`cli.rl.build_fleet` (float64) builds JAX's cases, rates and sim
-    parameters."""
+    """`cli.rl.build_fleet` builds JAX's cases, rates and sim parameters
+    (`TINY` at `dtype=float64`: both fleets float32, so the rates agree to
+    float32 rounding, the rest bit for bit)."""
+    from multihop_offload_tpu.cli.rl import build_fleet as j_build_fleet
+
     fl = _fleet("dense")
     cfg = dataclasses.replace(Config(), **TINY)
     insts, jobss, paramss, spec, _ = rl_cli.build_fleet(cfg, "cpu")
-    jinsts, jjobs, jparams = fl["j"]
-    assert spec == fl["tspec"]
+    jinsts, jjobs, jparams, jspec, _ = j_build_fleet(dataclasses.replace(JConfig(), **TINY))
+    assert spec == fl["tspec"] == tstate.SimSpec(*dataclasses.astuple(jspec))
     np.testing.assert_array_equal(_np(insts.adj), np.asarray(jinsts.adj))
     np.testing.assert_array_equal(_np(jobss.src), np.asarray(jjobs.src))
-    np.testing.assert_allclose(_np(jobss.rate), np.asarray(jjobs.rate), rtol=1e-12)
-    np.testing.assert_allclose(_np(paramss.arr_p), np.asarray(jparams.arr_p), rtol=1e-12)
+    assert jobss.rate.dtype == torch.float32 and jjobs.rate.dtype == np.float32
+    np.testing.assert_allclose(_np(jobss.rate), np.asarray(jjobs.rate), rtol=4 * 2.0 ** -23)
+    np.testing.assert_allclose(_np(paramss.arr_p), np.asarray(jparams.arr_p),
+                               rtol=4 * 2.0 ** -23)
     np.testing.assert_array_equal(_np(paramss.dt), np.asarray(jparams.dt))
 
 
