@@ -304,7 +304,16 @@ It
    (`dst` agreement >= 0.99 in every round, on 10-node networks where the
    CPU run offloads in every round as well as at n = 110, where both
    models keep every job local); the fidelity sweep's acceptance (max
-   link relative error <= 0.10 at utilization <= 0.5);
+   link relative error <= 0.10 at utilization <= 0.5); slice 29's: the
+   large path's segment-sum fixed point (the sparse layout with no core)
+   the same bits on two calls and within 1e-5 of the dense scan, its
+   sparse `forward_env` (no K1, no scan) and the `--sparse` COO support's
+   decisions >= 0.99 with the dense path's; one Trainer file at
+   `dropout=0.1`, `tb_logdir` and `fp_impl='pallas'` (K1 7, the masks
+   drawn, `last_devmetrics` and the event file's tags) and one sparse
+   Evaluator file at `fp_impl='xla'` (K1 0, rows against the CPU's); the
+   mobility rollout (n = 30, 2 steps x 400 slots) against the CPU under
+   the same injected uniforms;
 6. times each kernel on the card's own clock (`device_us`: the kernels'
    durations in `torch.profiler`'s CUDA trace), as a call (CUDA events
    around a loop of calls, host enqueue included) and on the host
@@ -320,7 +329,8 @@ It
    replay file; the simulator's ms a slot and a policy round, MWIS
    sweeps a slot, its busy share and device records a slot over one
    segment, and K1 and K2 at its own operands;
-7. prints the serving line, the drivers line, the sim line, the precision
+7. prints the serving line, the drivers line, the sim line, the mobility
+   and large-sparse lines, the precision
    line, the bf16 training line, the route, datagen, serve CLI, TF
    checkpoint, parallel, sharded serving, multiprocess, loop, rl,
    scenarios, health, prof, chaos and fuzz lines, the kernels line (with the bf16 rows
@@ -1028,7 +1038,9 @@ def large_phase(dev, card) -> dict:
         f"request, forward_backward {fb_ms:.2f} ms per episode; peak memory "
         f"{peak / 2**20:.1f} MiB (max_memory_allocated, eval_methods + forward_backward)")
     bf16 = large_bf16(dev, card, case, d, small["2x384"], results["eval_methods"])
+    sparse = large_sparse(dev, card, case, inst, jobs, results["forward_env"])
     return {"counts": counts, "shape": [b, n], "launches_per_call": 3 * nb, "bf16": bf16,
+            "sparse": sparse,
             "ms": k3_ms, "device_ms": k3["device_ms"], "plain_ms": k3_plain_ms,
             "squaring_ms": k2_ms, "phase_device_us": phases,
             "pivot_ns_per_step": ns_per_step,
@@ -1036,6 +1048,109 @@ def large_phase(dev, card) -> dict:
             "bound_by": "operations" if k3_ops_ms >= k3_bytes_ms else "bytes",
             "forward_env_ms": env_ms, "eval_methods_ms": eval_ms,
             "forward_backward_ms": fb_ms, "peak_mib": peak / 2**20}
+
+
+LARGE_MU_RTOL = 1e-5      # the segment-sum fixed point against the dense scan
+LARGE_DST_AGREE = 0.99    # decisions of the sparse layout / COO support vs dense
+
+
+def large_sparse(dev, card, case, inst, jobs, dense_env) -> dict:
+    """Slice 29 on the large path (N = 1,024, L = 7,696): the sparse layout's
+    fixed point, the segment-sum over the conflict list, on the path's own
+    arrival rates (the dense actor's), the same bits on two calls and
+    within `LARGE_MU_RTOL` of the dense scan; `forward_env` on the sparse
+    layout (its counts: no K1 and no scan; K4, K6 and K3), decisions
+    against the dense path's; then one `--sparse` step: the dense layout
+    with the COO support (`large_scale.coo_support`, `ops.sparse.
+    dense_to_coo`, `coo_propagate`)."""
+    from multihop_offload_tpu_torch.agent.policy import forward_env
+    from multihop_offload_tpu_torch.env.queueing import interference_fixed_point
+    from multihop_offload_tpu_torch.graphs.cases import large_request
+    from multihop_offload_tpu_torch.large_scale import LARGE_APSP, MODEL, coo_support
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+
+    t_phase = time.perf_counter()
+    route = {"apsp_impl": LARGE_APSP}
+    d_out, d_actor = dense_env
+    m = jobs.mask
+    t0 = time.perf_counter()
+    sp_cpu, _, sp_pad = large_request(case, device="cpu", layout="sparse")
+    sp_inst = sp_cpu.to(dev)
+    build_s = time.perf_counter() - t0
+    lam = (d_actor.lam[:, :sp_pad.l]).contiguous()
+    reset_counts()
+    mu = interference_fixed_point(sp_inst, lam, layout="sparse")
+    again = interference_fixed_point(sp_inst, lam, layout="sparse")
+    dense_mu = interference_fixed_point(inst, lam)
+    torch.cuda.synchronize()
+    fp_counts = read_counts()
+    live = sp_inst.link_mask
+    rel = float(((mu - dense_mu).abs() / dense_mu.abs().clamp_min(1e-30))[live].max())
+    same_bits = bool(torch.equal(mu, again))
+    seg_ms = cuda_ms(lambda: interference_fixed_point(sp_inst, lam, layout="sparse"), 5)
+    scan_ms = cuda_ms(lambda: interference_fixed_point(inst, lam), 5)
+    log(f"large segment-sum fixed point (L={sp_pad.l}, conflict nnz pad "
+        f"{sp_cpu.sparse.cf.rows.shape[1]}): same bits on two calls {same_bits}; max rel "
+        f"err vs the dense scan {rel:.3e} (bar {LARGE_MU_RTOL}); {seg_ms:.3f} ms a call "
+        f"(the scan {scan_ms:.3f}) on {card['smi']}; launches {fp_counts}")
+    if not same_bits or not rel <= LARGE_MU_RTOL:
+        raise AssertionError(f"large segment-sum fixed point: same bits {same_bits}, "
+                             f"rel err {rel}")
+    if fp_counts["fixed_point"] != 0 or fp_counts["fixed_point_scan"] != 1:
+        raise AssertionError(f"large fixed points: {fp_counts}, want the scan once and no K1")
+
+    sp_model = load_model(MODEL, device=dev, layout="sparse")
+    forward_env(sp_model, sp_inst, jobs, layout="sparse", **route)  # loads the paths
+    reset_counts()
+    sp_out, _ = forward_env(sp_model, sp_inst, jobs, layout="sparse", **route)
+    torch.cuda.synchronize()
+    env_counts = read_counts()
+    agree = float(((sp_out.decision.dst == d_out.decision.dst) | ~m).double().mean())
+    agree = 1.0 - (1.0 - agree) * m.numel() / float(m.sum())
+    log(f"large forward_env, sparse layout: launches {env_counts}; dst agreement with "
+        f"the dense path {agree:.4f} (bar {LARGE_DST_AGREE})")
+    if env_counts["fixed_point"] or env_counts["fixed_point_scan"] or not (
+            env_counts["chebconv"] and env_counts["coo_apsp"] and env_counts["blocked_fw"]):
+        raise AssertionError(f"large sparse forward_env: launches {env_counts}")
+    if agree < LARGE_DST_AGREE:
+        raise AssertionError(f"large sparse forward_env: dst agreement {agree}")
+    sp_env_ms = wall_ms(lambda: forward_env(sp_model, sp_inst, jobs, layout="sparse",
+                                            **route), 3)
+
+    # ---- one `--sparse` step: the COO support on the dense layout ---------
+    coo_model = load_model(MODEL, device=dev)
+    t0 = time.perf_counter()
+    support = coo_support(coo_model, inst)
+    torch.cuda.synchronize()
+    coo_s = time.perf_counter() - t0
+    reset_counts()
+    coo_out, _ = forward_env(coo_model, inst, jobs, support=support, **route)
+    torch.cuda.synchronize()
+    coo_counts = read_counts()
+    coo_agree = float(((coo_out.decision.dst == d_out.decision.dst) | ~m).double().mean())
+    coo_agree = 1.0 - (1.0 - coo_agree) * m.numel() / float(m.sum())
+    same = ~(((coo_out.decision.dst != d_out.decision.dst) & m).any(dim=1))
+    tot_rel = float(((coo_out.job_total - d_out.job_total).abs()
+                     / d_out.job_total.abs().clamp_min(1e-30))[same.unsqueeze(1) & m].max())
+    coo_ms = wall_ms(lambda: forward_env(coo_model, inst, jobs, support=support, **route), 3)
+    log(f"large --sparse step (COO support, nnz pad {support.rows.shape[1]}, built in "
+        f"{coo_s:.2f} s): launches {coo_counts}; dst agreement with the dense support "
+        f"{coo_agree:.4f}, job totals within {tot_rel:.3e}; forward_env {coo_ms:.2f} ms "
+        f"(sparse layout {sp_env_ms:.2f} ms) on {card['smi']}")
+    if coo_agree < LARGE_DST_AGREE or not tot_rel <= 1e-4 or coo_counts["chebconv"] or not (
+            coo_counts["fixed_point_scan"] and coo_counts["blocked_fw"]):
+        raise AssertionError(f"large --sparse step: agreement {coo_agree}, totals "
+                             f"{tot_rel}, launches {coo_counts}")
+    out = {"build_s": build_s, "mu_max_rel_err": rel, "same_bits": same_bits,
+           "segment_sum_ms": seg_ms, "scan_ms": scan_ms, "dst_agreement": agree,
+           "forward_env_ms": sp_env_ms, "coo_dst_agreement": coo_agree,
+           "coo_job_total_rel_err": tot_rel, "coo_support_s": coo_s,
+           "coo_forward_env_ms": coo_ms, "phase_s": time.perf_counter() - t_phase,
+           "counts": {"large_sparse_fixed_points": fp_counts,
+                      "large_sparse_forward_env": env_counts,
+                      "large_coo_forward_env": coo_counts}}
+    log(f"large sparse checks {out['phase_s']:.1f} s")
+    return out
 
 
 def large_bf16(dev, card, case, d, d384, fp32_totals) -> dict:
@@ -1890,9 +2005,118 @@ def driver_phase(dev, card) -> dict:
             f" of {out['train_replay_busy']['wall_ms']:.2f} ms); host ms per visit "
             f"in the spans: Evaluator {out['eval_span_ms_per_file']}, Trainer (counted "
             f"run; train/replay per replay) {out['train_span_ms_per_file']}")
+        out["knobs"] = driver_knobs(dev, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def tb_scalars(logdir: str) -> list:
+    """(tag, step) of every scalar event the port's `ScalarLogger` wrote
+    in `logdir`, each record's CRCs checked (`models/tf_bundle.py`'s wire
+    decoder; no TensorFlow)."""
+    import glob
+    import struct
+
+    from multihop_offload_tpu_torch.models import tf_bundle
+
+    def fields(buf):
+        return {f: v for f, _, v in tf_bundle.proto_fields(buf)}
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(logdir, "events.out.tfevents.*"))):
+        data, pos = open(path, "rb").read(), 0
+        while pos < len(data):
+            (n,) = struct.unpack("<Q", data[pos:pos + 8])
+            payload = data[pos + 12:pos + 12 + n]
+            (crc,) = struct.unpack("<I", data[pos + 12 + n:pos + 16 + n])
+            if tf_bundle.mask_crc(tf_bundle.crc32c(payload)) != crc:
+                raise AssertionError(f"{path}: a record's CRC does not match")
+            ev = fields(payload)
+            if 5 in ev:
+                out.append((fields(fields(ev[5])[1])[1].decode(), ev.get(2, 0)))
+            pos += 16 + n
+    return out
+
+
+def driver_knobs(dev, card, tmp: str) -> dict:
+    """Slice 29 in the drivers: one Trainer file (sparse, K = 2) at
+    `dropout=0.1`, `tb_logdir` set and `fp_impl='pallas'`: K1's counter
+    moves (the plain count's 3 + 4), the dropout masks are drawn, the
+    `DM_*` device metrics are flushed into `last_devmetrics` and the event
+    file holds JAX's tags; one Evaluator file on the sparse layout at
+    `fp_impl='xla'`: the segment-sum fixed point, K1 still, its rows
+    against the same file on the CPU."""
+    from multihop_offload_tpu_torch.agent import train_step as ts
+    from multihop_offload_tpu_torch.config import Config
+    from multihop_offload_tpu_torch.graphs.matio import PAPER_DATASET
+    from multihop_offload_tpu_torch.models import chebconv as cheb
+    from multihop_offload_tpu_torch.models.chebconv import load_weights, params_from_jax
+    from multihop_offload_tpu_torch.train import driver as drv
+
+    t_phase = time.perf_counter()
+    common = dict(datapath=PAPER_DATASET, arrival_scale=0.15, T=1000, num_instances=10,
+                  layout="sparse", cheb_k=2)
+    tb_dir = os.path.join(tmp, "knobs_tb")
+    tcfg = Config(**common, out=os.path.join(tmp, "knobs_train"),
+                  model_root=os.path.join(tmp, "knobs_model"), dropout=0.1,
+                  tb_logdir=tb_dir, fp_impl="pallas", batch=10, memory_size=100)
+    tr = drv.Trainer(tcfg, device=dev)
+    drawn = []
+    orig = cheb.ChebNet.dropout_masks
+
+    def masks(self, *a, **k):
+        drawn.append(1)
+        return orig(self, *a, **k)
+
+    cheb.ChebNet.dropout_masks = masks
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = read_csv_rows(tr.run(epochs=1, files_limit=1, verbose=False))
+        train_s = time.perf_counter() - t0
+        tcounts = read_counts()
+    finally:
+        cheb.ChebNet.dropout_masks = orig
+    dm = tr.last_devmetrics or {}
+    names = (ts.DM_GRAD_NORM, ts.DM_LOSS_CRITIC_SUM, ts.DM_LOSS_CRITIC_SQ,
+             ts.DM_LOSS_MSE_SUM, ts.DM_EPISODES, ts.DM_NONFINITE)
+    tags = tb_scalars(tb_dir)
+    log(f"driver knobs: Trainer file at dropout 0.1, fp_impl 'pallas' (path "
+        f"{tr.fp_path}), tb_logdir: launches {tcounts}; masks drawn {len(drawn)}; "
+        f"last_devmetrics episodes {dm.get(ts.DM_EPISODES)}, nonfinite "
+        f"{dm.get(ts.DM_NONFINITE)}, grad norms {dm.get(ts.DM_GRAD_NORM, {}).get('counts')}; "
+        f"TensorBoard scalars {tags}; replay losses {tr.replay_losses}; {train_s:.2f} s")
+    if not (tr.fp_path == "pallas" and tcounts["fixed_point"] == 7 and len(drawn) == 1
+            and set(dm) == set(names) and dm[ts.DM_EPISODES] == 10
+            and dm[ts.DM_NONFINITE] == 0 and dm[ts.DM_GRAD_NORM]["count"] == 10
+            and [t for t, _ in tags] == ["replay_loss", "explore", "mse_loss"]
+            and len(rows) == 4 * 10 and all(math.isfinite(float(r["tau"])) for r in rows)):
+        raise AssertionError(f"driver knobs Trainer: counts {tcounts}, masks {len(drawn)}, "
+                             f"devmetrics {dm}, scalars {tags}")
+
+    ecfg = Config(**common, out=os.path.join(tmp, "knobs_eval"),
+                  model_root=os.path.join(tmp, "knobs_model_e"), fp_impl="xla")
+    erows, ecounts = {}, None
+    for where in (dev, "cpu"):
+        ev = drv.Evaluator(dataclasses.replace(ecfg, out=os.path.join(tmp, f"knobs_{where}")),
+                           device=where)
+        ev.model.load_state_dict(params_from_jax(load_weights(MODEL_K2)))
+        reset_counts()
+        erows[str(where)] = read_csv_rows(ev.run(files_limit=1, verbose=False))
+        if where == dev:
+            torch.cuda.synchronize()
+            ecounts = read_counts()
+    log(f"driver knobs: Evaluator file, sparse, fp_impl 'xla' (path {ev.fp_path}): "
+        f"launches {ecounts}")
+    if ev.fp_path != "xla" or ecounts["fixed_point"] != 0 or not (
+            ecounts["chebconv"] and ecounts["coo_apsp"]):
+        raise AssertionError(f"driver knobs Evaluator: launches {ecounts}")
+    cmp = compare_eval_rows("Evaluator at fp_impl 'xla' (sparse), card vs CPU",
+                            erows[str(dev)], erows["cpu"])
+    return {"train_counts": tcounts, "train_s": train_s, "devmetrics": dm,
+            "tb_scalars": tags, "eval_counts": ecounts, "eval_card_vs_cpu": cmp,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 # ---- slice 13: the closed-loop packet simulator ------------------------------
@@ -2104,7 +2328,7 @@ def sim_phase(dev, card) -> dict:
     orig = {"fp": env_queueing.fixed_point, "mp": mp.minplus_closure}
 
     def capture_fp(*a, **k):
-        captured.setdefault("fp", [x.clone() for x in a])
+        captured.setdefault("fp", [x.clone() if torch.is_tensor(x) else x for x in a])
         return orig["fp"](*a, **k)
 
     def capture_mp(d, iters, owned=False):
@@ -2157,8 +2381,11 @@ def sim_phase(dev, card) -> dict:
             raise AssertionError(f"sim {name}: conservation or devmetrics failed: {summary}")
         if rec["launches"] != want or counts["coo_apsp"] or counts["blocked_fw"]:
             raise AssertionError(f"sim {name}: launches {counts}, want {want}")
+        # the sparse gnn's actor takes the segment-sum fixed point (no
+        # core given, as JAX's sim): no K1 there, as the plain count says
         if cfg.sim_policy != "local" and not (counts["minplus"] and (
-                cfg.sim_policy == "baseline" or counts["fixed_point"])):
+                cfg.sim_policy == "baseline" or cfg.layout == "sparse"
+                or counts["fixed_point"])):
             raise AssertionError(f"sim {name}: a kernel of the policy did not launch")
         if cfg.layout == "sparse" and not counts["chebconv"]:
             raise AssertionError(f"sim {name}: K4 did not launch")
@@ -2221,6 +2448,80 @@ def sim_phase(dev, card) -> dict:
     out["counts"] = counts_by_run
     log(f"sim phase {out['phase_s']:.1f} s")
     return out
+
+
+MOBILITY = dict(steps=2, slots=200)   # `mobility_rollout`'s defaults otherwise (n = 30)
+MOBILITY_SEED = 31                    # the injected uniforms of both runs
+MOBILITY_RTOL = 1e-4                  # taus, card against CPU
+
+
+def mobility_phase(dev, card) -> dict:
+    """Slice 29: `python -m multihop_offload_tpu_torch.mobility_rollout
+    --steps 2 --slots 200` through its function entry on the card, with
+    its launches counted, against the same rollout on the CPU under the
+    same injected uniforms (made on the CPU from a seed): topologies and
+    new links equal, each policy's decisions agreeing, the baseline's and
+    local's simulator states identical and the GNN's where its decisions
+    all agree, analytic and simulated taus within `MOBILITY_RTOL`,
+    conservation on both."""
+    from multihop_offload_tpu_torch import mobility_rollout as mr
+    from multihop_offload_tpu_torch.cli.sim import fields_that_differ, uniform_draws
+    from multihop_offload_tpu_torch.graphs.instance import stack_instances
+    from multihop_offload_tpu_torch.sim.runner import InjectedDraws
+
+    t_phase = time.perf_counter()
+
+    def draws_on(where):
+        def draws(step, pi, sim):
+            u = uniform_draws(sim.spec, 1, sim.rounds, sim.slots_per_round,
+                              seed=MOBILITY_SEED + 8 * step + pi)
+            return InjectedDraws(*[x.to(where) for x in u])
+        return draws
+
+    mr.rollout(dict(MOBILITY, steps=1, slots=20), draws=draws_on(dev), device=dev,
+               verbose=False)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = mr.rollout(MOBILITY, draws=draws_on(dev), device=dev, verbose=False)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    want, plain = count_plain(lambda: mr.rollout(MOBILITY, draws=draws_on("cpu"),
+                                                 device="cpu", verbose=False))
+    cpu_s = time.perf_counter() - t0
+    check_launches("mobility rollout", counts, plain)
+    if counts["fixed_point"] == 0 or counts["minplus"] == 0:
+        raise AssertionError(f"mobility rollout: K1 and K2 must launch: {counts}")
+    worst, agree = 0.0, {}
+    for row, ref in zip(got["per_step"], want["per_step"]):
+        if (row["links"], row["new_links"]) != (ref["links"], ref["new_links"]):
+            raise AssertionError(f"mobility: topologies differ at step {row['step']}")
+        for name in mr.POLICIES:
+            for key in (name, f"{name}_analytic"):
+                worst = max(worst, abs(row[key] - ref[key]) / abs(ref[key]))
+    for name in mr.POLICIES:
+        a = torch.cat(got["dst"][name]) == torch.cat(want["dst"][name])
+        agree[name] = float(a.double().mean())
+        differ = fields_that_differ(stack_instances([got["states"][name].to("cpu")]),
+                                    stack_instances([want["states"][name]]))
+        if differ and (name != "GNN" or agree[name] == 1.0):
+            raise AssertionError(f"mobility {name}: simulator states differ in {differ}")
+    summary = got["summary"]
+    log(f"mobility rollout (n {got['config']['n']}, {MOBILITY['steps']} steps x "
+        f"{got['config']['rounds'] * MOBILITY['slots']} slots) on {card['smi']}: "
+        f"{card_s:.2f} s (CPU {cpu_s:.2f} s); launches {counts}; mean tau "
+        f"{summary['mean_tau']}, analytic {summary['mean_tau_analytic']}, delivered "
+        f"{summary['delivered_ratio']}; card vs CPU: taus within {worst:.3e}, decisions "
+        f"agree {agree}")
+    if not (summary["conservation_ok"] and want["summary"]["conservation_ok"]
+            and worst <= MOBILITY_RTOL and min(agree.values()) >= 0.99):
+        raise AssertionError(f"mobility rollout: conservation {summary['conservation_ok']}, "
+                             f"taus {worst}, agreement {agree}")
+    return {"card_s": card_s, "cpu_s": cpu_s, "taus_max_rel_err": worst,
+            "dst_agreement": agree, "summary": summary,
+            "phase_s": time.perf_counter() - t_phase, "counts": {"mobility_rollout": counts}}
 
 
 # ---- slice 14: the bf16 precision policy --------------------------------------
@@ -3869,7 +4170,7 @@ def plain_shard_counts(model_name: str, cfg, svc, reqs) -> dict:
     from multihop_offload_tpu_torch.serve.executor import BucketExecutor
 
     ex = BucketExecutor(load_model(model_name, device="cpu", layout=cfg.layout),
-                        layout=cfg.layout, device="cpu")
+                        layout=cfg.layout, device="cpu", fp_impl=cfg.fp_impl)
     want: dict = {}
     for b, stats in svc.stats.buckets.items():
         if not stats.dispatches:
@@ -4309,7 +4610,8 @@ def loop_phase(dev, card) -> dict:
     promoted_vs_cpu = compare_decisions("loop: promoted weights, card vs CPU service", got,
                                         want, SHARD_RTOL)
 
-    # one sparse-layout refit: K1, K4 (both walks) and K6
+    # one sparse-layout refit: K4 (both walks) and K6; its fixed point is the
+    # segment-sum (the refit takes no core, as JAX's), so no K1
     sp_cfg = dataclasses.replace(cfg, layout="sparse", cheb_k=2)
     sp_state = load_model(MODEL_K2, device="cpu", layout="sparse").state_dict()
     reset_counts()
@@ -4321,9 +4623,11 @@ def loop_phase(dev, card) -> dict:
         sp_cfg, seed=cfg.seed, device="cpu"))
     check_launches(f"loop sparse refit ({len(train)} train outcomes)",
                    counts["loop_refit_sparse"], want_sparse)
-    for key in ("chebconv", "coo_apsp", "fixed_point"):
+    for key in ("chebconv", "coo_apsp"):
         if counts["loop_refit_sparse"][key] == 0:
             raise AssertionError(f"sparse refit: {key} never launched")
+    if counts["loop_refit_sparse"]["fixed_point"]:
+        raise AssertionError("sparse refit: K1 launched beside the segment-sum fixed point")
 
     # ---- a kill at promote:post_save, then a restart -------------------------
     kcfg = config("kill")
@@ -4589,9 +4893,13 @@ def rl_compare(tag: str, model_name: str, setup: dict, card_run: dict, cpu_run: 
     got, cpu = card_run["out"], cpu_run["out"]
     counts = card_run["counts"]
     check_launches(f"rl {tag} train step", counts, cpu_run["counts"])
-    for k in ("fixed_point", "minplus", "minplus_bwd"):
+    # the sparse rollout's fixed point is the segment-sum (no K1), as JAX's
+    sparse = cfg.layout == "sparse"
+    for k in ("minplus", "minplus_bwd") + (() if sparse else ("fixed_point",)):
         if counts[k] == 0:
             raise AssertionError(f"rl {tag}: kernel {k} did not launch: {counts}")
+    if sparse and counts["fixed_point"]:
+        raise AssertionError(f"rl {tag}: K1 launched on the sparse layout: {counts}")
     mask = jobss.mask.unsqueeze(1).expand(-1, cfg.rl_rounds, -1)
 
     def offload_share(dsts):
@@ -4961,8 +5269,8 @@ def rl_bf16_phase(dev, card, fp32_steps: dict) -> dict:
         steps[tag] = rl_compare(f"bf16 {tag}", model_name, setups[tag], run, cpus[tag],
                                 loss_rtol=RL_BF16_LOSS_RTOL, grad_rtol=RL_BF16_GRAD_RTOL)
         c = run["counts"]
-        want = ("fixed_point", "minplus", "minplus_bwd") + (
-            ("chebconv_bf16", "chebconv_bf16_t") if tag == "sparse" else ())
+        want = ("minplus", "minplus_bwd") + (
+            ("chebconv_bf16", "chebconv_bf16_t") if tag == "sparse" else ("fixed_point",))
         if not (all(c.get(k, 0) > 0 for k in want) and c.get("minplus_bf16", 0) == 0
                 and c.get("coo_apsp_bf16", 0) == 0):
             raise AssertionError(f"rl bf16 {tag}: launches {c}: want {want} launched, K2 bf16 "
@@ -5623,6 +5931,7 @@ def main() -> int:
     from multihop_offload_tpu_torch.graphs.cases import load_cases, request_batch
     from multihop_offload_tpu_torch.models.chebconv import load_model
     from multihop_offload_tpu_torch.ops import fixed_point as fp
+    from multihop_offload_tpu_torch.ops.fixed_point import resolve_fixed_point
     from multihop_offload_tpu_torch.ops import minplus as mp
     from multihop_offload_tpu_torch.agent.train_step import forward_backward
     from multihop_offload_tpu_torch.train.driver import eval_methods, train_init, train_step
@@ -5692,12 +6001,14 @@ def main() -> int:
 
     # ---- slice 2 main path: the sparse training step ------------------------
     tcfg = Config(arrival_scale=0.15, layout="sparse", cheb_k=2)
+    # the Trainer's fixed-point core: `fp_impl` 'auto', K1 at L <= 928
+    sp_fp = resolve_fixed_point(tcfg.fp_impl, sp_pad.l)[0]
     sp_model = load_model(MODEL_K2, device=dev, layout="sparse")
     state = train_init(sp_model, tcfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     before = [p.detach().clone() for p in sp_model.parameters()]
     reset_counts()
-    reports = [train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen)
+    reports = [train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen, fp_fn=sp_fp)
                for _ in range(3)]
     train_counts = read_counts()
     log(f"main path train_step x3 (sparse, {MODEL_K2}, B={sp_inst.adj.shape[0]}, "
@@ -5867,12 +6178,13 @@ def main() -> int:
     # the paths on the host clock
     fb_ms = wall_ms(lambda: forward_backward(sp_model_k2, sp_inst, sp_jobs,
                                              layout="sparse"), 5)
-    ts_ms = wall_ms(lambda: train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen), 5)
+    ts_ms = wall_ms(lambda: train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen,
+                                       fp_fn=sp_fp), 5)
     rung_fb_ms = wall_ms(lambda: forward_backward(sp_model_k2, sp_rung, sp_rung_jobs,
                                                   layout="sparse"), 3)
     dense_fb_ms = wall_ms(lambda: forward_backward(model, inst, jobs), 5)
     torch.cuda.reset_peak_memory_stats()
-    train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen)
+    train_step(sp_model, state, sp_inst, sp_jobs, tcfg, gen=gen, fp_fn=sp_fp)
     torch.cuda.synchronize()
     train_peak = torch.cuda.max_memory_allocated()
     for f, t in k4.items():
@@ -5913,6 +6225,8 @@ def main() -> int:
 
     # ---- slice 13: the closed-loop packet simulator ---------------------------
     sim = sim_phase(dev, card)
+    # ---- slice 29: the mobility rollout ---------------------------------------
+    mob = mobility_phase(dev, card)
 
     # ---- slice 14: the bf16 precision policy on the decision paths ----------
     prec = precision_phase(dev, card, paper, cfg, {
@@ -5959,7 +6273,8 @@ def main() -> int:
                **serving.pop("counts"),
                "driver_eval_file": drivers.pop("eval_counts_file0"),
                "driver_train_file": drivers.pop("train_counts_file0"),
-               **sim.pop("counts"), **prec.pop("counts"), **train16.pop("counts"),
+               **sim.pop("counts"), **mob.pop("counts"), **large["sparse"].pop("counts"),
+               **prec.pop("counts"), **train16.pop("counts"),
                "large_bf16_eval_methods": large["bf16"].pop("counts"),
                **route.pop("counts"), **dgen.pop("counts"), **scli.pop("counts"),
                "tf_eval_file": tfck.pop("eval_counts_file0"),
@@ -5970,6 +6285,8 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"sim": sim}), flush=True)
+    print(json.dumps({"mobility": mob}), flush=True)
+    print(json.dumps({"large_sparse": large["sparse"]}), flush=True)
     pk = prec.pop("kernels")
     print(json.dumps({"precision": prec}), flush=True)
     print(json.dumps({"bf16_training": train16}), flush=True)

@@ -67,8 +67,9 @@ def build_ext_features(inst, jobs) -> torch.Tensor:
                         inst.ext_as_server], dim=-1)
 
 
-def lambdas_to_delay_matrix(inst, lam: torch.Tensor) -> ActorOutput:
-    """lambda (B, E) -> delay matrix and per-link / per-node unit delays."""
+def lambdas_to_delay_matrix(inst, lam: torch.Tensor, fp_fn=None, layout=None) -> ActorOutput:
+    """lambda (B, E) -> delay matrix and per-link / per-node unit delays;
+    the fixed point takes `fp_fn` and `layout` (JAX `:100-116`)."""
     num_links = inst.num_pad_links
     b, n = inst.proc_bws.shape
     dev = lam.device
@@ -78,7 +79,7 @@ def lambdas_to_delay_matrix(inst, lam: torch.Tensor) -> ActorOutput:
     link_lambda = lam[:, :num_links]
     node_lambda = torch.where(inst.comp_mask, lam[:, num_links:], zero)
 
-    link_mu = interference_fixed_point(inst, link_lambda)
+    link_mu = interference_fixed_point(inst, link_lambda, fp_fn=fp_fn, layout=layout)
     # congested (lambda - mu > 0, strict) replaced by T*lambda/(101*mu)
     T = inst.T.unsqueeze(1)
     l_slack = link_mu - link_lambda
@@ -119,13 +120,17 @@ def compat_cycled_diagonal(inst, node_delay: torch.Tensor) -> torch.Tensor:
     return torch.gather(node_delay, 1, cyc)
 
 
-def actor_delay_matrix(model, inst, jobs, support, params: dict | None = None) -> ActorOutput:
+def actor_delay_matrix(model, inst, jobs, support, params: dict | None = None,
+                       fp_fn=None, layout=None, masks=None) -> ActorOutput:
     """The actor on a batch; `params` (name -> tensor, as
     `model.named_parameters()` names them) replace the module's own, e.g.
-    per-episode copies with a leading batch axis."""
+    per-episode copies with a leading batch axis.  `masks`, the model's
+    dropout keep masks (`ChebNet.dropout_masks`), train it with dropout
+    (JAX `deterministic=False`, `:176-192`); `fp_fn` and `layout` go to
+    the fixed point."""
     feats = build_ext_features(inst, jobs)
     if params is None:
-        lam = model(feats, support)[..., 0]
+        lam = model(feats, support, masks)[..., 0]
     else:
-        lam = torch.func.functional_call(model, params, (feats, support))[..., 0]
-    return lambdas_to_delay_matrix(inst, lam)
+        lam = torch.func.functional_call(model, params, (feats, support, masks))[..., 0]
+    return lambdas_to_delay_matrix(inst, lam, fp_fn=fp_fn, layout=layout)

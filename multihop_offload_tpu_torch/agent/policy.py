@@ -42,6 +42,8 @@ def forward_env(
     precision=None,
     apsp_impl: str = "xla",
     apsp_fn=None,
+    fp_fn=None,
+    support=None,
 ) -> tuple[PolicyOutcome, ActorOutput]:
     """Run the GNN policy on a batch on `device` (default CUDA; the model,
     instance and jobs are moved there).  `compat_diagonal_bug=True` feeds
@@ -51,13 +53,17 @@ def forward_env(
     of `apsp_impl` (`ops.minplus.resolve_apsp`; `'xla'`: the squarings at
     every N, as JAX's `apsp_fn=None`).  `apsp_fn`, a callable of the
     (B, N, N) weight matrix, replaces that route when given (JAX
-    `policy.py:33`; `env.policies.shortest_paths`)."""
+    `policy.py:33`; `env.policies.shortest_paths`).  `fp_fn` is the
+    fixed-point core (`ops.fixed_point.resolve_fixed_point`; None: the
+    layout's own) and `support` replaces the model's default support (JAX
+    `:28-58`; the large path's `--sparse` COO support)."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
     inst, jobs = inst.to(dev), jobs.to(dev)
     with phase("actor"):
-        actor = actor_delay_matrix(model, inst, jobs, default_support(model, inst, lay))
+        sup = default_support(model, inst, lay) if support is None else support
+        actor = actor_delay_matrix(model, inst, jobs, sup, fp_fn=fp_fn, layout=lay)
     if compat_diagonal_bug:
         unit_diag = compat_cycled_diagonal(inst, actor.node_delay)
     elif lay.sparse:
@@ -68,5 +74,5 @@ def forward_env(
     outcome = evaluate_spmatrix_policy(inst, jobs, actor.link_delay, unit_diag,
                                        gen, explore=explore, prob=prob, layout=lay,
                                        precision=precision, apsp_impl=apsp_impl,
-                                       apsp_fn=apsp_fn)
+                                       apsp_fn=apsp_fn, fp_fn=fp_fn)
     return outcome, actor

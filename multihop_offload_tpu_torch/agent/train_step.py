@@ -56,6 +56,52 @@ class TrainStepOutput:
     dst: torch.Tensor          # (B, J)
 
 
+# ---- device metrics of the training step (JAX `:79-110`) ------------------
+# One window per Trainer step: the loss moments and the per-episode
+# gradient-norm histogram accumulate on the device and flush at the sync the
+# step already pays for (`train.driver.Trainer`).
+
+DM_GRAD_NORM = "mho_dev_train_grad_norm"
+DM_LOSS_CRITIC_SUM = "mho_dev_train_loss_critic_sum"
+DM_LOSS_CRITIC_SQ = "mho_dev_train_loss_critic_sq_sum"
+DM_LOSS_MSE_SUM = "mho_dev_train_loss_mse_sum"
+DM_EPISODES = "mho_dev_train_episodes_total"
+DM_NONFINITE = "mho_dev_train_nonfinite_total"
+
+
+def train_devmetrics():
+    """The training step's device metrics, JAX's names, buckets and help
+    texts, declared and frozen."""
+    from multihop_offload_tpu_torch.obs.devmetrics import DevMetrics
+
+    dm = DevMetrics()
+    dm.histogram(DM_GRAD_NORM, tuple(10.0 ** e for e in range(-6, 4)),
+                 "per-episode global gradient norm (decade buckets)")
+    dm.counter(DM_LOSS_CRITIC_SUM, "critic-loss first moment accumulator",
+               dtype=torch.float32)  # fp32-island(loss moments accumulate wide by design)
+    dm.counter(DM_LOSS_CRITIC_SQ, "critic-loss second moment accumulator",
+               dtype=torch.float32)  # fp32-island(second moment squares overflow bf16 fast)
+    dm.counter(DM_LOSS_MSE_SUM, "MSE-loss first moment accumulator",
+               dtype=torch.float32)  # fp32-island(same wide-accumulator contract)
+    dm.counter(DM_EPISODES, "episodes accumulated into the moments")
+    dm.counter(DM_NONFINITE,
+               "episodes with non-finite losses, counted in-program")
+    return dm.freeze()
+
+
+def step_devmetrics(dm, grads: dict, loss_critic, loss_mse, device) -> dict:
+    """One step's window of `train_devmetrics`, on `device` (JAX
+    `gnn_train_step`, `train/driver.py:262-272`)."""
+    dev = dm.init(device=device)
+    dev = dm.observe(dev, DM_GRAD_NORM, episode_grad_norms(grads))
+    dev = dm.inc(dev, DM_LOSS_CRITIC_SUM, loss_critic)
+    sq = torch.square(loss_critic.to(torch.float32))  # fp32-island(second moment squares overflow bf16 fast)
+    dev = dm.inc(dev, DM_LOSS_CRITIC_SQ, sq)
+    dev = dm.inc(dev, DM_LOSS_MSE_SUM, loss_mse)
+    dev = dm.inc(dev, DM_EPISODES, loss_critic.shape[0])
+    return dm.inc(dev, DM_NONFINITE, ~torch.isfinite(loss_critic) | ~torch.isfinite(loss_mse))
+
+
 def episode_grad_norms(grads: dict) -> torch.Tensor:
     """(B,) global gradient norm per episode of per-episode gradients
     (leaves (B, *shape)), accumulated in float32 whatever the parameters'
@@ -66,6 +112,16 @@ def episode_grad_norms(grads: dict) -> torch.Tensor:
         s = (g * g).flatten(1).sum(dim=1)
         sq = s if sq is None else sq + s
     return torch.sqrt(sq)
+
+
+def episode_dropout_masks(model, b: int, e: int, gen, device) -> list:
+    """The model's dropout keep masks for B episodes, episode i's drawn
+    from a generator seeded by the i-th of B seeds drawn from `gen`."""
+    if gen is None:
+        raise ValueError("dropout draws its masks from the step's generator: pass gen")
+    seeds = torch.randint(0, 2 ** 62, (b,), generator=gen, device=gen.device).tolist()
+    gens = [torch.Generator(device=device).manual_seed(s) for s in seeds]
+    return model.dropout_masks(b, e, gens, device=device)
 
 
 def _unit_delays(inst, link_lambda, link_mu, node_lambda):
@@ -84,7 +140,7 @@ def _unit_delays(inst, link_lambda, link_mu, node_lambda):
     return link_delay, node_delay
 
 
-def _critic_loss(inst, jobs, routes_inc: torch.Tensor):
+def _critic_loss(inst, jobs, routes_inc: torch.Tensor, fp_fn=None, layout=None):
     """Analytic congestion-model delay (B,) of fixed routes given as the
     (B, E, J) incidence."""
     num_links = inst.num_pad_links
@@ -94,7 +150,7 @@ def _critic_loss(inst, jobs, routes_inc: torch.Tensor):
     load = torch.matmul(routes_inc, w.unsqueeze(-1)).squeeze(-1)      # (B, E)
     link_lambda = load[:, :num_links]
     node_lambda = torch.where(inst.comp_mask, load[:, num_links:], 0.0)
-    link_mu = interference_fixed_point(inst, link_lambda)
+    link_mu = interference_fixed_point(inst, link_lambda, fp_fn=fp_fn, layout=layout)
     link_delay, node_delay = _unit_delays(inst, link_lambda, link_mu, node_lambda)
     unit_edge = torch.cat([link_delay, node_delay], dim=1)            # (B, E)
     # delay per (slot, job): max(data * unit * r, r), zero where r == 0
@@ -105,7 +161,7 @@ def _critic_loss(inst, jobs, routes_inc: torch.Tensor):
 
 
 def _critic_loss_steps(inst, jobs, r_steps: torch.Tensor, seq_slot: torch.Tensor,
-                       dst: torch.Tensor):
+                       dst: torch.Tensor, fp_fn=None, layout=None):
     """Step-indexed twin of `_critic_loss` for the sparse layout, as a
     function of `r_steps` (B, H + 1, J): rows [0, H) the route-step
     occupancies, row H the destination pseudo-link occupancy.  The (E, J)
@@ -126,7 +182,7 @@ def _critic_loss_steps(inst, jobs, r_steps: torch.Tensor, seq_slot: torch.Tensor
         inst.comp_mask,
         torch.zeros((b, n), dtype=dt, device=w.device).scatter_add(1, dstl, occ_d * w),
         0.0)
-    link_mu = interference_fixed_point(inst, link_lambda)
+    link_mu = interference_fixed_point(inst, link_lambda, fp_fn=fp_fn, layout=layout)
     link_delay, node_delay = _unit_delays(inst, link_lambda, link_mu, node_lambda)
     # per-(step, job) delay terms; inactive steps (occupancy 0) give max(0, 0)
     data = jobs.ul.to(dt) + jobs.dl.to(dt)                            # (B, J)
@@ -210,6 +266,10 @@ def forward_backward(
     precision=None,
     apsp_impl: str = "xla",
     apsp_fn=None,
+    fp_fn=None,
+    dropout: bool = False,
+    dropout_masks=None,
+    support=None,
 ) -> TrainStepOutput:
     """One training step's gradients for a batch of B episodes on `device`
     (default CUDA).  Under `layout="sparse"` the instance must be built
@@ -224,19 +284,33 @@ def forward_backward(
     >= fp32 (the islands).  `apsp_fn`, a callable of the (B, N, N) weight
     matrix, replaces the route of `apsp_impl` when given (JAX `:319`; the
     ring APSP that `parallel.data_parallel` passes when the mesh's `graph`
-    axis is larger than 1)."""
+    axis is larger than 1).  `fp_fn` is the fixed-point core of the actor,
+    the scoring and the critic (`ops.fixed_point.resolve_fixed_point`;
+    None: the layout's own).  `support` replaces the model's default
+    support (JAX `:313`; the large path's `--sparse` COO support).
+
+    Dropout (JAX `dropout_rng`, `:321-338`): with `dropout` and a model of
+    nonzero rate the actor trains on keep masks, each episode's drawn from
+    its own generator, seeded from `gen` (the counterpart of JAX's
+    `fold_in(k, 1)`, a stream apart from the decision's draws);
+    `dropout_masks` (`ChebNet.dropout_masks`' layout) injects them."""
     dev = resolve_device(device)
     lay = resolve_layout(layout)
     model = model.to(dev)
     inst, jobs = inst.to(dev), jobs.to(dev)
-    support = default_support(model, inst, lay)
+    if support is None:
+        support = default_support(model, inst, lay)
     b = jobs.src.shape[0]
+    masks = dropout_masks
+    if masks is None and dropout and model.dropout > 0.0:
+        masks = episode_dropout_masks(model, b, inst.ext_mask.shape[1], gen, dev)
 
     # --- 1. actor forward with per-episode parameter copies --------------
     params = {name: p.detach().unsqueeze(0).expand((b,) + p.shape).clone().requires_grad_()
               for name, p in model.named_parameters()}
     with torch.enable_grad(), phase("actor_forward"):
-        actor = actor_delay_matrix(model, inst, jobs, support, params)
+        actor = actor_delay_matrix(model, inst, jobs, support, params, fp_fn=fp_fn,
+                                   layout=lay, masks=masks)
     dmtx = actor.delay_matrix
 
     # --- 2. decision path on detached values -----------------------------
@@ -255,7 +329,7 @@ def forward_backward(
         with phase("trace_routes"):
             routes = trace_routes(inst, nh, jobs, dec.dst, with_inc=not lay.sparse)
         with phase("run_empirical"):
-            delays = run_empirical(inst, jobs, routes, lay)
+            delays = run_empirical(inst, jobs, routes, lay, fp_fn=fp_fn)
 
     # --- 3. critic gradient w.r.t. the routes, 4. suffix bias ------------
     with torch.enable_grad(), phase("critic"):
@@ -263,10 +337,11 @@ def forward_backward(
             wdt = island_dtype(inst.link_rates.dtype)
             r = torch.cat([routes.seq_active.to(wdt), jobs.mask.to(wdt).unsqueeze(1)],
                           dim=1).requires_grad_()
-            loss_critic = _critic_loss_steps(inst, jobs, r, routes.seq_slot, dec.dst)
+            loss_critic = _critic_loss_steps(inst, jobs, r, routes.seq_slot, dec.dst,
+                                             fp_fn=fp_fn, layout=lay)
         else:
             r = routes.inc_ext.to(island_dtype(routes.inc_ext.dtype)).requires_grad_()
-            loss_critic = _critic_loss(inst, jobs, r)
+            loss_critic = _critic_loss(inst, jobs, r, fp_fn=fp_fn, layout=lay)
         (grad_r,) = torch.autograd.grad(loss_critic.sum(), r)
     with phase("suffix_bias_mse"):
         if lay.sparse:

@@ -27,8 +27,10 @@ demo stops ticking once the queue is empty, which under `--serve_overlap`
 leaves the last dispatched batch unanswered; here `drain()` settles it.
 `--precision bf16` (or `auto` on the card) serves under the bf16 policy;
 `--prob true` samples each request's decision from its own generator,
-seeded from (`--seed`, request id).  `--tb_logdir` is refused (no
-TensorBoard on the card's machine).
+seeded from (`--seed`, request id).  `--tb_logdir DIR` writes the
+service's scalars after every tick as TensorBoard events
+(`ServingStats.log_tb`, `train.tb_logging.ScalarLogger`: no TensorFlow
+needed), as JAX's demo does.
 
 Sharded serving (`resolve_serve_devices`): `--serve_devices 0,2` serves on
 those CUDA devices, `--serve_mesh N` on the first N (it raises when fewer
@@ -129,6 +131,7 @@ def build_service(cfg: Config, pool=None, clock=None, model=None, device=None,
         slots=cfg.serve_slots, queue_cap=cfg.serve_queue_cap,
         deadline_s=cfg.serve_deadline_s, seed=cfg.seed, prob=cfg.prob,
         dtype=dtype, precision=policy, layout=cfg.layout, apsp_impl=cfg.apsp_impl,
+        fp_impl=cfg.fp_impl,
         capture_sample=cfg.loop_capture_sample,
         trace=cfg.obs_trace,
         ragged=cfg.serve_ragged, overlap=cfg.serve_overlap,
@@ -161,15 +164,13 @@ def main(argv=None):
     from multihop_offload_tpu_torch import obs
     from multihop_offload_tpu_torch.obs import events as obs_events
     from multihop_offload_tpu_torch.serve.workload import request_stream
+    from multihop_offload_tpu_torch.train.tb_logging import ScalarLogger
     from multihop_offload_tpu_torch.utils.signals import GracefulDrain
 
     cfg, device = from_cli(argv, __doc__)
-    if cfg.tb_logdir:
-        raise NotImplementedError(
-            "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 item 3); "
-            "use obs_log for the JSONL run log")
     runlog = obs.start_run(cfg, role="serve")
     service, pool = build_service(cfg, device=device)
+    tb = ScalarLogger(cfg.tb_logdir or None)
     drain = GracefulDrain().install()
 
     t0 = time.monotonic()
@@ -196,6 +197,7 @@ def main(argv=None):
         service.tick()
         # newly trained weights are picked up between ticks, not mid-batch
         service.hot_reload(cfg.model_dir())
+        service.stats.log_tb(tb, service.stats.ticks, service.queue_depth)
     # everything already admitted is answered, the in-flight overlap
     # batches included
     service.drain()
@@ -203,6 +205,7 @@ def main(argv=None):
         obs_events.emit("shutdown", reason="signal", signum=drain.signum,
                         unserved=len(pending))
     drain.uninstall()
+    tb.close()
     summary = service.stats.summary(wall_s=time.monotonic() - t0)
     obs.finish_run(runlog, terminal=drain.requested)
     print(json.dumps(summary, indent=2))

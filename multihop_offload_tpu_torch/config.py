@@ -12,8 +12,10 @@ keep the JAX names and defaults.  `apsp_impl` takes JAX's values
 `pallas` and `auto` take the blocked Floyd-Warshall above a padded N of
 256; anything else raises the JAX message.  Whichever route, the device
 picks the code: the kernel for CUDA tensors, its plain version for CPU
-tensors.  `fp_impl` takes only `auto` (`ops/fixed_point.py:
-fixed_point_path`); any other value raises.  `mesh_data` shards the
+tensors.  `fp_impl` takes JAX's values, xla | pallas | auto
+(`ops/fixed_point.py:resolve_fixed_point`; anything else raises JAX's
+message): `pallas` is K1, `xla` the layout's own fixed point (the
+segment-sum on the sparse layout), `auto` K1 up to L = 928.  `mesh_data` shards the
 drivers' episodes (Trainer) or files (Evaluator) over that many of their
 devices (`train/driver.py`, `parallel/`), and `mesh_graph > 1` is refused
 by the drivers, as in JAX.  The `loop_*` settings of the
@@ -55,7 +57,7 @@ class Config:
     best_window: int = 20          # rolling window (file visits) of GNN-test
     #                                tau for best-checkpoint tracking; 0 = off
     explore_decay: float = 0.99
-    dropout: float = 0.0           # refused above 0 (not ported)
+    dropout: float = 0.0           # the Trainer's dropout rate before every layer
     prefetch: bool = True          # build file fid+1 on the host while the
     #                                card runs fid
     file_batch: int = 1            # files per Evaluator call (stacked)
@@ -78,8 +80,8 @@ class Config:
     apsp_impl: str = "xla"         # APSP route: xla (the squarings at every N)
     #                                | pallas | auto (the blocked FW above a
     #                                padded 256); ops.minplus.resolve_apsp
-    fp_impl: str = "auto"          # fixed-point route; only auto: the device picks
-    tb_logdir: str = ""            # refused when set (no TensorBoard)
+    fp_impl: str = "auto"          # fixed-point core: xla | pallas | auto
+    tb_logdir: str = ""            # TensorBoard scalars' directory ("" none)
     obs_log: str = ""              # JSONL run log of the drivers and the
     #                                service ("" = off)
     obs_prom: str = ""             # write the final metric-registry snapshot
@@ -253,14 +255,11 @@ class Config:
     #                                survives a process restart; 0 = off)
 
     def __post_init__(self):
+        from multihop_offload_tpu_torch.ops.fixed_point import resolve_fixed_point
         from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl
 
         check_apsp_impl(self.apsp_impl)
-        if self.fp_impl != "auto":
-            raise NotImplementedError(
-                f"fp_impl='{self.fp_impl}': the port picks the route by device (the "
-                "CUDA kernel on the card, its plain version on the CPU); only 'auto' "
-                "is accepted")
+        resolve_fixed_point(self.fp_impl, 1)  # raises JAX's message for another value
         if self.sim_policy not in ("gnn", "baseline", "local"):
             raise ValueError(f"sim_policy must be one of gnn, baseline, local; "
                              f"got '{self.sim_policy}'")

@@ -94,13 +94,14 @@ def evaluate_spmatrix_policy(
     inst, jobs, link_delays: torch.Tensor, unit_diag: torch.Tensor,
     gen: torch.Generator | None = None, explore: float = 0.0, prob: bool = False,
     layout=None, precision=None, apsp_impl: str = "xla", apsp_fn=None,
-    objective=None,
+    objective=None, fp_fn=None,
 ) -> PolicyOutcome:
     """Offload + route + run given per-link unit delays (B, L) and a node
     diagonal (B, N), the APSP on the route of `apsp_impl` (or `apsp_fn`,
     see `shortest_paths`) under the `precision` policy (None: fp32).
     `objective` (`env.offloading.ObjectiveWeights` | None) biases the
-    decision only; the scoring stays physical."""
+    decision only; the scoring stays physical.  `fp_fn` is the scoring's
+    fixed-point core (JAX `:54,104`; None: the layout's own)."""
     with phase("apsp"):
         sp = shortest_paths(inst, link_delays, layout, precision, apsp_impl, apsp_fn)
     with phase("offload_decide"):
@@ -112,21 +113,22 @@ def evaluate_spmatrix_policy(
     with phase("trace_routes"):
         routes = trace_routes(inst, nh, jobs, dec.dst)
     with phase("run_empirical"):
-        delays = run_empirical(inst, jobs, routes, layout)
+        delays = run_empirical(inst, jobs, routes, layout, fp_fn=fp_fn)
     return PolicyOutcome(decision=dec, routes=routes, delays=delays)
 
 
 def baseline_policy(inst, jobs, gen: torch.Generator | None = None,
                     explore: float = 0.0, prob: bool = False,
                     layout=None, precision=None, apsp_impl: str = "xla",
-                    objective=None) -> PolicyOutcome:
+                    objective=None, fp_fn=None) -> PolicyOutcome:
     """Congestion-agnostic greedy offloading (under `objective`'s weights)."""
     link_d, node_d = baseline_unit_delays(inst)
     return evaluate_spmatrix_policy(inst, jobs, link_d, node_d, gen, explore, prob,
-                                    layout, precision, apsp_impl, objective=objective)
+                                    layout, precision, apsp_impl, objective=objective,
+                                    fp_fn=fp_fn)
 
 
-def local_policy(inst, jobs, layout=None) -> PolicyOutcome:
+def local_policy(inst, jobs, layout=None, fp_fn=None) -> PolicyOutcome:
     """Everything computes at its source."""
     _, node_d = baseline_unit_delays(inst)
     b, num_jobs = jobs.src.shape
@@ -155,4 +157,4 @@ def local_policy(inst, jobs, layout=None) -> PolicyOutcome:
         inc_ext=inc.view(b, num_links + n, num_jobs),
     )
     return PolicyOutcome(decision=dec, routes=routes,
-                         delays=run_empirical(inst, jobs, routes, layout))
+                         delays=run_empirical(inst, jobs, routes, layout, fp_fn=fp_fn))

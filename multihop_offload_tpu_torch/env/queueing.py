@@ -9,15 +9,16 @@ Under `layout="sparse"` the (L, J) incidence is never read: link arrival
 rates scatter-add over the route steps (`seq_slot`/`seq_active`), the
 per-job link delays gather the per-link quantities at each step
 (`:150-161`, `:178-191`), and the last writer of each link is a segment-max
-of job ids over the steps (`:223-243`).  The fixed point stays on the
-dense conflict matrix in both layouts, as the JAX step runs it with the
-Pallas core (`fp_fn`) given: K1, or above L=928, where K1's shared memory
-ends, the plain scan (`ops.fixed_point.fixed_point_path`), as the JAX
-package runs its XLA scan (`:51-73`) above padded L=256.  The JAX sparse
-layout's own segment-sum fixed
-point (`:104-120`, used there when no `fp_fn` is given) is not ported: it
-computes the same update with another summation order, and the parity
-tests hold K1's plain version against it.
+of job ids over the steps (`:223-243`).
+
+The fixed point (`:76-125`) takes JAX's `fp_fn` (the `fp_impl` knob,
+`ops.fixed_point.resolve_fixed_point`).  Under the sparse layout with no
+`fp_fn` it runs as JAX's does there: ten rounds of a segment-sum over the
+conflict list `inst.sparse.cf` (`ops.sparse.coo_matmul`: each row's run
+of the list summed in list order, the same bits on every call on the
+card), never reading `adj_conflict`.  Otherwise it is `fp_fn` or, given
+none on the dense layout, `ops.fixed_point.fixed_point` (K1, or the
+scan above L=928), which computes the function of JAX's XLA scan.
 
 Last write wins: the JAX dense path scans the jobs in order; here the
 winner of each link (node) is the highest job index among its writers, and
@@ -37,6 +38,7 @@ import torch
 
 from multihop_offload_tpu_torch.layouts.policy import resolve_layout
 from multihop_offload_tpu_torch.ops.fixed_point import fixed_point
+from multihop_offload_tpu_torch.ops.sparse import COO, RowRuns, coo_matmul
 from multihop_offload_tpu_torch.precision import island_dtype
 
 
@@ -53,17 +55,30 @@ class EmpiricalDelays:
     unit_mask: torch.Tensor    # (B, N, N) bool: entry written by some flow
 
 
-def interference_fixed_point(inst, link_lambda: torch.Tensor) -> torch.Tensor:
+def interference_fixed_point(inst, link_lambda: torch.Tensor, num_iters: int = 10,
+                             fp_fn=None, layout=None) -> torch.Tensor:
     """Converged per-link service rates mu (B, L) under conflict coupling:
     mu_0 = rate/(cf+1); 10x busy = clip(lambda/mu, 0, 1),
-    mu = rate/(1 + A_conflict @ busy)."""
-    # the fixed_point island: K1 (and the scan above L=928) take >= fp32
+    mu = rate/(1 + A_conflict @ busy).  `fp_fn` replaces the dense core
+    (`resolve_fixed_point`); under the sparse layout with none, A @ busy
+    is the segment-sum over `inst.sparse.cf`."""
+    # the fixed_point island: every operand >= fp32
     dt = island_dtype(link_lambda.dtype, inst.link_rates.dtype)
-    return fixed_point(
+    if fp_fn is None and resolve_layout(layout).sparse and inst.sparse is not None:
+        cf = inst.sparse.cf
+        runs = RowRuns(cf)
+        rates = inst.link_rates.to(dt)
+        lam = link_lambda.to(dt)
+        cf_dt = COO(rows=cf.rows, cols=cf.cols, vals=cf.vals.to(dt), shape=cf.shape)
+        mu = rates / (inst.cf_degs.to(dt) + 1.0)
+        for _ in range(num_iters):
+            busy = torch.clamp(lam / mu, 0.0, 1.0)
+            neighbor = coo_matmul(cf_dt, busy.unsqueeze(-1), runs).squeeze(-1)
+            mu = rates / (1.0 + neighbor)
+        return mu
+    return (fp_fn or fixed_point)(
         inst.adj_conflict.to(dt).contiguous(), inst.link_rates.to(dt).contiguous(),
-        inst.cf_degs.to(dt).contiguous(), link_lambda.to(dt).contiguous(),
-    )
-
+        inst.cf_degs.to(dt).contiguous(), link_lambda.to(dt).contiguous(), num_iters)
 
 
 def _highest_writer(written: torch.Tensor) -> torch.Tensor:
@@ -72,7 +87,7 @@ def _highest_writer(written: torch.Tensor) -> torch.Tensor:
     return torch.where(written, idx, -1).amax(dim=-1)
 
 
-def run_empirical(inst, jobs, routes, layout=None) -> EmpiricalDelays:
+def run_empirical(inst, jobs, routes, layout=None, fp_fn=None) -> EmpiricalDelays:
     sparse = resolve_layout(layout).sparse
     num_links = inst.num_pad_links
     b, n, _ = inst.adj.shape
@@ -105,7 +120,7 @@ def run_empirical(inst, jobs, routes, layout=None) -> EmpiricalDelays:
     server_load = torch.zeros((b, n), dtype=dt, device=dev).scatter_add_(
         1, dst, torch.where(jmask, ul_rate, zero))
 
-    link_mu = interference_fixed_point(inst, link_lambda)
+    link_mu = interference_fixed_point(inst, link_lambda, fp_fn=fp_fn, layout=layout)
 
     # per-(link, job) unit delay with per-job congestion fallback
     slack = link_mu - link_lambda

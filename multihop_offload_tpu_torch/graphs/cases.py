@@ -119,15 +119,17 @@ def load_large_case(path: str = CASES_PATH) -> LargeCase:
                          T=float(z["large/T"]), gtype=str(z["large/gtype"]))
 
 
-def large_request(case: LargeCase | None = None, dtype=torch.float32, device=None):
+def large_request(case: LargeCase | None = None, dtype=torch.float32, device=None,
+                  layout=None):
     """The large case as a batch of one request, with the demo's pads
-    (every count rounded up to 8, `:100-104`), dense layout, on `device`
-    (default CUDA).  Returns ``(inst, jobs, pad)``."""
+    (every count rounded up to 8, `:100-104`), under `layout` (default
+    dense; sparse: nnz pads as `pad_for`), on `device` (default CUDA).
+    Returns ``(inst, jobs, pad)``."""
     case = case or load_large_case()
     rec = case.rec
-    pad = pad_for([rec])
+    pad = pad_for([rec], layout)
     inst = build_instance(rec.topo, rec.roles, rec.proc_bws, rec.link_rates, case.T,
-                          pad, dtype, device="cpu")
+                          pad, dtype, device="cpu", layout=layout)
     jobs = build_jobset(case.job_src, case.job_rate, pad_jobs=pad.j, dtype=dtype,
                         device="cpu")
     dev = resolve_device(device)

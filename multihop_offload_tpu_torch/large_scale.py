@@ -5,32 +5,39 @@
 
 It loads the committed 1,024-node Erdős–Rényi network and its job set
 (`graphs.cases.load_large_case`: 7,694 links, 451 jobs; the demo's pads
-N=1,024, L=7,696, E=8,720; dense layout), or, given `--n`, `--gtype` or
-`--seed`, draws one as the demo's `build_case` and job draw do
-(`build_case` here: `graphs.generators.generate`, then roles, capacities,
-link rates and jobs from `np.random.default_rng(seed)`; at the demo's
-defaults, `--n 1024 --gtype er --seed 42`, that is the committed case bit
-for bit) and the demo's random K=3 initial
-parameters (`LARGE_K3_init` in `data/weights.npz`), then runs, as the demo
-does, `agent.policy.forward_env` and, under `--backward`,
-`agent.train_step.forward_backward`; besides them it runs
-`train.driver.eval_methods` (baseline, local, GNN) on the same request.
-Every call takes the demo's default APSP route, `apsp_impl='pallas'`
-(`LARGE_APSP`): at this size the blocked-FW path (K3); the fixed point
-takes the scan (L > 928, where K1's shared memory ends); the report names
-the paths and counts each kernel's launches per call.
+N=1,024, L=7,696, E=8,720; dense layout), or, given `--n`, `--gtype`,
+`--seed`, `--load` or `--T`, draws one as the demo's `build_case` and job
+draw do (`build_case` here: `graphs.generators.generate`, then roles,
+capacities, link rates and jobs from `np.random.default_rng(seed)`; at the
+demo's defaults, `--n 1024 --gtype er --seed 42 --load 0.15 --T 1000`,
+that is the committed case bit for bit), and at the demo's `--k 3` its
+random initial parameters (`LARGE_K3_init` in `data/weights.npz`, JAX's
+`PRNGKey(0)` draw; another `--k` gets the port's own glorot draw from
+seed 0), then runs, as the demo does, `agent.policy.forward_env` and,
+under `--backward`, `agent.train_step.forward_backward`; besides them it
+runs `train.driver.eval_methods` (baseline, local, GNN) on the same
+request.  Every call takes the APSP route of `--apsp` (the demo's
+default, `'pallas'`: at this size the blocked FW, K3; `'xla'` the
+squarings, K2); the fixed point takes the scan (L > 928, where K1's
+shared memory ends); the report names the paths and counts each kernel's
+launches per call.  `--sparse` swaps the dense (E, E) support (304 MB in
+float32 at E = 8,720) for its COO list (`ops.sparse.dense_to_coo`) and
+the ChebConv's propagate for `ops.sparse.coo_propagate` (a gather and a
+segment-sum), on the dense layout otherwise, as the demo does.
 
     python -m multihop_offload_tpu_torch.large_scale [--device cpu] [--steps 3]
         [--backward] [--out FILE] [--n 1024] [--gtype er|ba|ws|poisson] [--seed 42]
+        [--load 0.15] [--T 1000] [--k 3] [--apsp pallas|xla|auto] [--sparse]
 
 It runs on CUDA unless `--device cpu` is given, and prints one JSON line
 with the demo's keys, unrounded: `compile_s` is the first `forward_env`
 call (on the card it builds the kernels), `step_s` the mean of `--steps`
-more; `apsp_pallas_ms` times the APSP of the demo's unit-weight matrix on
-the path taken (K3 on the card) and `apsp_xla_ms` the squarings on the
-same matrix (K2 on the card), as the demo times its kernel path against
-the XLA squaring (the `'xla'` route).  Added keys: the fixed-point path, `eval_methods` time
-and per-method tau, launches per call, peak device memory.
+more; unless `--apsp xla`, `apsp_pallas_ms` times the APSP of
+the demo's unit-weight matrix on the path taken (K3 on the card) and
+`apsp_xla_ms` the squarings on the same matrix (K2 on the card), as the
+demo times its kernel path against the XLA squaring.  Added keys: the
+fixed-point path, `sparse`, `eval_methods` time and per-method tau,
+launches per call, peak device memory.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from multihop_offload_tpu_torch._device import resolve_device, synchronize
+from multihop_offload_tpu_torch.agent.actor import default_support
 from multihop_offload_tpu_torch.agent.policy import forward_env
 from multihop_offload_tpu_torch.agent.train_step import forward_backward
 from multihop_offload_tpu_torch.graphs import generators
@@ -53,11 +61,13 @@ from multihop_offload_tpu_torch.graphs.cases import (
     large_request,
     load_large_case,
 )
+from multihop_offload_tpu_torch.config import Config
 from multihop_offload_tpu_torch.graphs.topology import build_topology, sample_link_rates
-from multihop_offload_tpu_torch.models.chebconv import load_model
+from multihop_offload_tpu_torch.models.chebconv import load_model, make_model
 from multihop_offload_tpu_torch.ops import chebconv as cc
 from multihop_offload_tpu_torch.ops import fixed_point as fp
 from multihop_offload_tpu_torch.ops import minplus as mp
+from multihop_offload_tpu_torch.ops.sparse import coo_propagate, dense_to_coo
 from multihop_offload_tpu_torch.train.driver import eval_methods
 
 MODEL = "LARGE_K3_init"
@@ -163,22 +173,46 @@ def _mean_s(dev, fn, steps: int) -> float:
     return sum(_timed(dev, fn)[1] for _ in range(steps)) / steps
 
 
+def large_model(k: int = 3, device=None):
+    """The demo's model at Chebyshev order `k`: JAX's initial draw at
+    k = 3 (`LARGE_K3_init`), the port's glorot draw from seed 0 at any
+    other order."""
+    if k == 3:
+        return load_model(MODEL, device=device)
+    return make_model(Config(cheb_k=k), generator=torch.Generator().manual_seed(0)).to(
+        resolve_device(device))
+
+
+def coo_support(model, inst):
+    """`--sparse`: the model's dense default support as a COO list on the
+    instance's device, and the model's propagate swapped for
+    `coo_propagate` (the demo's `model.clone(propagate=coo_propagate)`)."""
+    support = dense_to_coo(default_support(model, inst)).to(inst.adj.device)
+    for layer in [model] + list(model.layers):
+        layer.propagate = coo_propagate
+    return support
+
+
 def run(device=None, steps: int = 3, backward: bool = False,
-        case: LargeCase | None = None) -> dict:
+        case: LargeCase | None = None, k: int = 3, apsp: str = LARGE_APSP,
+        sparse: bool = False) -> dict:
     """Drive the large-graph path once cold and `steps` times warm on
-    `device` (default CUDA); returns the report."""
+    `device` (default CUDA) at Chebyshev order `k` on the APSP route
+    `apsp`, with the COO support under `sparse`; returns the report."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()  # nondet-ok(the report's wall time is a measurement)
     case = case or load_large_case()
     inst, jobs, pad = large_request(case, device=dev)
-    model = load_model(MODEL, device=dev)
+    model = large_model(k, dev)
+    support = coo_support(model, inst) if sparse else None
     synchronize(dev)
     build_s = time.perf_counter() - t0  # nondet-ok(same measurement)
     counts: dict = {}
+    apsp_path = mp.resolve_apsp(apsp, pad.n)[1]
 
-    route = {"device": dev, "apsp_impl": LARGE_APSP}
+    route = {"device": dev, "apsp_impl": apsp, "support": support}
     (outcome, _), compile_s = _timed(dev, lambda: forward_env(model, inst, jobs, **route),
                                      counts, "forward_env")
     step_s = _mean_s(dev, lambda: forward_env(model, inst, jobs, **route), steps)
@@ -193,8 +227,8 @@ def run(device=None, steps: int = 3, backward: bool = False,
         "metric": "large_scale_forward_env",
         "n": case.rec.topo.n, "links": case.rec.topo.num_links, "ext_slots": pad.e,
         "jobs": nj, "gtype": case.gtype, "cheb_k": model.k,
-        "apsp": mp.resolve_apsp(LARGE_APSP, pad.n)[1],
-        "fixed_point": fp.fixed_point_path(pad.l),
+        "apsp": apsp_path,
+        "fixed_point": fp.fixed_point_path(pad.l), "sparse": sparse,
         "pad": [pad.n, pad.l, pad.s, pad.j],
         "build_s": build_s, "compile_s": compile_s, "step_s": step_s,
         "tau": totals.mean().item(),
@@ -205,19 +239,21 @@ def run(device=None, steps: int = 3, backward: bool = False,
                         for k, v in (("baseline", bl), ("local", loc), ("gnn", gnn))},
     }
 
-    # the demo's standalone APSP: unit weights on the graph's edges
-    inf = torch.full((), float("inf"), dtype=inst.adj.dtype, device=dev)
-    wmat = torch.where(inst.adj > 0, 1.0 / inst.adj.clamp_min(1e-9), inf)
-    eye = torch.eye(pad.n, dtype=torch.bool, device=dev)
-    d0 = torch.where(eye, torch.zeros_like(inf), wmat).contiguous()
-    reps = max(steps, 3)
-    iters = mp.squaring_count(pad.n)
-    # one call each first: the squarings are off the path, so their first
-    # call here loads K2
-    mp.apsp_minplus_pallas(wmat)
-    mp.minplus_closure(d0, iters)
-    report["apsp_pallas_ms"] = 1e3 * _mean_s(dev, lambda: mp.apsp_minplus_pallas(wmat), reps)
-    report["apsp_xla_ms"] = 1e3 * _mean_s(dev, lambda: mp.minplus_closure(d0, iters), reps)
+    if apsp != "xla":
+        # the demo's standalone APSP: unit weights on the graph's edges
+        inf = torch.full((), float("inf"), dtype=inst.adj.dtype, device=dev)
+        wmat = torch.where(inst.adj > 0, 1.0 / inst.adj.clamp_min(1e-9), inf)
+        eye = torch.eye(pad.n, dtype=torch.bool, device=dev)
+        d0 = torch.where(eye, torch.zeros_like(inf), wmat).contiguous()
+        reps = max(steps, 3)
+        iters = mp.squaring_count(pad.n)
+        # one call each first: the squarings are off the path, so their
+        # first call here loads K2
+        mp.apsp_minplus_pallas(wmat)
+        mp.minplus_closure(d0, iters)
+        report["apsp_pallas_ms"] = 1e3 * _mean_s(dev, lambda: mp.apsp_minplus_pallas(wmat),
+                                                 reps)
+        report["apsp_xla_ms"] = 1e3 * _mean_s(dev, lambda: mp.minplus_closure(d0, iters), reps)
 
     if backward:
         outs, report["bwd_compile_s"] = _timed(
@@ -249,12 +285,25 @@ def main(argv=None) -> int:
                    help="graph family of the drawn network (default er)")
     p.add_argument("--seed", type=int, default=None,
                    help="seed of the drawn network and jobs (default 42)")
+    p.add_argument("--load", type=float, default=None,
+                   help="arrival load of the drawn jobs (default 0.15)")
+    p.add_argument("--T", type=float, default=None,
+                   help="congestion-penalty scale t_max (default 1000)")
+    p.add_argument("--k", type=int, default=3, help="Chebyshev order")
+    p.add_argument("--apsp", default=LARGE_APSP, choices=["pallas", "xla", "auto"])
+    p.add_argument("--sparse", action="store_true",
+                   help="COO segment-sum GNN propagation instead of the dense "
+                        "(E, E) support")
     args = p.parse_args(argv)
     case = None
-    if args.n is not None or args.gtype is not None or args.seed is not None:
+    drawn = (args.n, args.gtype, args.seed, args.load, args.T)
+    if any(v is not None for v in drawn):
         case = build_case(1024 if args.n is None else args.n, args.gtype or "er",
-                          42 if args.seed is None else args.seed)
-    report = run(args.device, args.steps, args.backward, case=case)
+                          42 if args.seed is None else args.seed,
+                          0.15 if args.load is None else args.load,
+                          1000.0 if args.T is None else args.T)
+    report = run(args.device, args.steps, args.backward, case=case, k=args.k,
+                 apsp=args.apsp, sparse=args.sparse)
     line = json.dumps(report)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:

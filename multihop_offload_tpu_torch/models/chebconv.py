@@ -1,6 +1,6 @@
 """Chebyshev-polynomial spectral graph convolutions as `nn.Module`s.
 
-Port of `multihop_offload_tpu/models/chebconv.py` (no dropout).  The kernel keeps the flax layout (k, in, out), so
+Port of `multihop_offload_tpu/models/chebconv.py`.  The kernel keeps the flax layout (k, in, out), so
 `params_from_jax` copies a flax parameter tree as it is.  The feature
 product ``x @ W_k`` stays `torch.matmul` (cuBLAS on the card), as the JAX
 package leaves it to XLA.
@@ -32,6 +32,15 @@ Parameters may carry a leading batch axis, one copy per episode (kernel
 (B, E, F) @ (B, F, C), so one backward over a batch of independent
 episodes gives each episode's own gradient (`agent.train_step` swaps them
 in with `torch.func.functional_call`).
+
+Dropout (JAX `:101,125`: an `nn.Dropout` before every layer): the model
+carries the rate; `forward(x, support, masks)` takes one keep mask a
+layer, each shaped like that layer's input, and computes
+`torch.where(mask, x / keep, 0)` as flax's `lax.select(mask, x /
+keep_prob, 0)` does (a rate of 0 leaves x as it is, 1 zeroes it).
+`dropout_masks(b, e, gens)` draws them, `rand < keep` as flax's
+`bernoulli(key, keep_prob)`, each episode's from its own generator, layer
+by layer; a test feeds JAX's masks in through `masks`.
 """
 
 from __future__ import annotations
@@ -117,6 +126,9 @@ def cast_support(support, dtype):
         return SparseSupport(
             edges=COO(rows=e.rows, cols=e.cols, vals=e.vals.to(dtype), shape=e.shape),
             diag=support.diag.to(dtype), csr=support.csr)
+    if isinstance(support, COO):
+        return COO(rows=support.rows, cols=support.cols, vals=support.vals.to(dtype),
+                   shape=support.shape)
     return support.to(dtype)
 
 
@@ -124,18 +136,21 @@ class ChebNet(nn.Module):
     """The actor stack: ChebConv(hidden, leaky_relu) x (num_layer - 1) ->
     ChebConv(1, relu).  Input (..., E, 4) features, (..., E, E) support.
     The output layer's bias starts at 0.1, as the JAX model's does (a zero
-    bias leaves a relu output dead at birth for about half of all seeds)."""
+    bias leaves a relu output dead at birth for about half of all seeds).
+    `dropout` is the rate of the masks `forward` takes."""
 
     def __init__(self, num_layer: int = 5, hidden: int = 32, k: int = 1,
                  leaky_alpha: float = 0.2, dtype=torch.float32,  # fp32-island(params: bf16 loses small updates)
                  generator: torch.Generator | None = None, propagate=None,
-                 compute_dtype=None, accum_dtype=None):
+                 compute_dtype=None, accum_dtype=None, dropout: float = 0.0):
         super().__init__()
         self.k = k
         self.num_layer = num_layer
+        self.dropout = float(dropout)
+        self.widths = [4] + [hidden] * (num_layer - 1) + [1]
         self.leaky_alpha = leaky_alpha
         self.propagate = propagate
-        widths = [4] + [hidden] * (num_layer - 1) + [1]
+        widths = self.widths
         self.layers = nn.ModuleList(
             ChebConv(widths[i], widths[i + 1], k,
                      bias_init=0.1 if i == num_layer - 1 else 0.0,
@@ -144,8 +159,20 @@ class ChebNet(nn.Module):
             for i in range(num_layer)
         )
 
-    def forward(self, x: torch.Tensor, support) -> torch.Tensor:
+    def dropout_masks(self, b: int, e: int, gens, device=None) -> list:
+        """Keep masks (B, E, in_i) for every layer, episode b's drawn from
+        `gens[b]` (`rand < keep`, layer after layer)."""
+        keep = 1.0 - self.dropout
+        per_ep = [[torch.rand((e, w), generator=g, device=device) < keep
+                   for w in self.widths[:-1]] for g in gens[:b]]
+        return [torch.stack([m[i] for m in per_ep]) for i in range(self.num_layer)]
+
+    def forward(self, x: torch.Tensor, support, masks=None) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
+            if masks is not None and self.dropout > 0.0:
+                keep = 1.0 - self.dropout
+                zero = torch.zeros((), dtype=x.dtype, device=x.device)
+                x = zero.expand_as(x) if keep == 0.0 else torch.where(masks[i], x / keep, zero)
             x = layer(x, support)
             x = (F.relu(x) if i == self.num_layer - 1
                  else F.leaky_relu(x, self.leaky_alpha))
@@ -251,7 +278,7 @@ def make_model(cfg: Config, dtype=torch.float32,  # fp32-island(params: bf16 los
     return ChebNet(num_layer=cfg.num_layer, hidden=cfg.hidden, k=cfg.cheb_k,
                    leaky_alpha=cfg.leaky_relu_alpha, generator=generator,
                    propagate=layout_propagate(layout or cfg.layout),
-                   **_policy_dtypes(policy, dtype))
+                   dropout=cfg.dropout, **_policy_dtypes(policy, dtype))
 
 
 def params_from_jax(tree) -> dict:

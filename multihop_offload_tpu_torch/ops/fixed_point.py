@@ -24,6 +24,14 @@ counterpart of the XLA scan `env/queueing.py:interference_fixed_point_raw`
 that the JAX package runs above padded L=256 outside any Pallas kernel;
 native autograd differentiates it.  `fixed_point_scan.runs` counts its
 calls.  `fixed_point_cuda` itself keeps raising above its cap.
+
+`fp_impl` (JAX `:100-131`): `resolve_fixed_point(impl, l)` gives the
+drop-in core the callers take as `fp_fn` and the path word JAX reports.
+`'pallas'` is `fixed_point` (K1; above L=928 the scan, reported
+`'xla-fallback'` as JAX reports its kernel's fallback); `'xla'` is None,
+with which the callers run the sparse layout's segment-sum fixed point
+(`env.queueing.interference_fixed_point`) and, on the dense layout,
+`fixed_point` all the same; `'auto'` is K1 where it fits and None above.
 """
 
 from __future__ import annotations
@@ -172,3 +180,27 @@ def fixed_point(adj, rates, cf, lam, num_iters: int = 10):
     if fixed_point_path(adj.shape[-1]) == "scan":
         return fixed_point_scan(adj, rates, cf, lam, num_iters)
     return _FixedPoint.apply(adj, rates, cf, lam, num_iters)
+
+
+def auto_fp_path(l: int) -> str:
+    """The path `fp_impl='auto'` takes for L links: 'pallas' (K1) where
+    K1's shared memory holds A, 'xla' above.  JAX's `auto_fp_path` stops at
+    a padded L of 256, its kernel's measured win on the TPU, and takes
+    'xla' everywhere off the TPU; the port's K1 runs up to 928."""
+    return "pallas" if fixed_point_path(l) == "k1" else "xla"
+
+
+def resolve_fixed_point(impl: str, l: int):
+    """`Config.fp_impl` resolved for L links: (fp_fn, path), JAX's values
+    and path words (`ops/fixed_point.py:108-131`).  `fp_fn` is None for
+    'xla' (and 'auto' above K1's cap), else `fixed_point`; `path` is
+    'xla' | 'pallas' | 'xla-fallback' (the scan under 'pallas' above
+    L=928)."""
+    if impl not in ("xla", "pallas", "auto"):
+        raise ValueError(f"fp_impl must be xla|pallas|auto, got '{impl}'")
+    if impl == "xla":
+        return None, "xla"
+    if impl == "auto":
+        path = auto_fp_path(l)
+        return (fixed_point if path == "pallas" else None), path
+    return fixed_point, ("pallas" if fixed_point_path(l) == "k1" else "xla-fallback")

@@ -44,8 +44,10 @@ steps, the file step) refuse such a mesh.
 The JAX steps take per-episode PRNG keys.  The port's take `seeds`: one
 int per data shard (per file for `make_files_eval_step`), from which the
 shard makes its generator on its device; None draws from the device's
-default generator.  `dropout` is refused, as by the drivers (ROADMAP.md
-Queue 1 item 3).
+default generator.  `dropout` (JAX `:64-82,146-161`) trains each shard's
+episodes on dropout masks drawn from the shard's generator, one stream an
+episode (`agent.train_step.forward_backward`'s `dropout`); it needs
+`seeds`.
 """
 
 from __future__ import annotations
@@ -104,11 +106,6 @@ def _reduce_processes(mesh: Mesh, means: dict, totals: torch.Tensor) -> tuple:
         out[m] = (flat[at:at + size] / n).reshape(means[m].shape).to(means[m].dtype)
         at += size
     return out, flat[at:].reshape(glob.shape).to(totals.dtype)
-
-
-def _refuse_dropout(dropout: bool) -> None:
-    if dropout:
-        raise NotImplementedError("dropout is not ported (ROADMAP.md Queue 1 item 3)")
 
 
 class _Replicas:
@@ -207,9 +204,8 @@ def make_file_dp_train_step(model, mesh: Mesh, dropout: bool = False, **fb_kwarg
     Signature: step(model, mem, inst, jobs, seeds, valid, explore)
     -> (mem, job_totals, loss_critic, loss_mse), all at full batch width.
     """
-    _refuse_dropout(dropout)
     _local_only(mesh, "the file step")
-    per_device = _per_device(mesh, _Replicas(mesh, model), fb_kwargs)
+    per_device = _per_device(mesh, _Replicas(mesh, model), dict(fb_kwargs, dropout=dropout))
 
     def step(model, mem, inst, jobs, seeds, valid, explore):
         return _gather_and_remember(per_device(model, inst, jobs, seeds, explore), mem, valid)
@@ -287,9 +283,8 @@ def make_dp_train_step(model, optimizer, mesh: Mesh, mode: str = "mean",
 
     The batch axis length must be divisible by the data-axis size.
     `fb_kwargs` forward to `forward_backward`."""
-    _refuse_dropout(dropout)
     replicas = _Replicas(mesh, model)
-    per_device = _per_device(mesh, replicas, fb_kwargs)
+    per_device = _per_device(mesh, replicas, dict(fb_kwargs, dropout=dropout))
 
     if mode == "mean":
 

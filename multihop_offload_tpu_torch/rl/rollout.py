@@ -119,15 +119,17 @@ def gumbel_noise(gens, shape, dtype, device) -> torch.Tensor:
 
 
 def sample_offloads(model, params, inst, jobs_est, support, node_up, link_up, gumbel,
-                    temperature: float, layout=None):
+                    temperature: float, layout=None, fp_fn=None):
     """One differentiable policy decision for the batch: (routes, logp (B,),
     entropy (B,), choice (B, J) int32).  `params` (name -> (B, *shape)
     per-lane copies, or None for the model's own) go through the actor;
     `gumbel` is the noise (B, J, S+1) or the lanes' generators to draw it
     from.  The actor, the APSP and the cost table stay on the tape; the
-    forwarding table and the destinations are built on detached values."""
+    forwarding table and the destinations are built on detached values.
+    `fp_fn` is the actor's fixed-point core (JAX `:117-130`)."""
     lay = resolve_layout(layout)
-    actor = actor_delay_matrix(model, inst, jobs_est, support, params)
+    actor = actor_delay_matrix(model, inst, jobs_est, support, params, fp_fn=fp_fn,
+                               layout=lay)
     inf = torch.full((), float("inf"), dtype=actor.link_delay.dtype,
                      device=actor.link_delay.device)
     if lay.sparse:
@@ -203,6 +205,7 @@ def rollout(
     dm=None,
     layout=None,
     gumbel: torch.Tensor | None = None,
+    fp_fn=None,
 ):
     """One episode per lane.  Returns (loss (B,), RolloutOut): `loss` is
     each lane's REINFORCE surrogate against `baseline` (a scalar, the
@@ -242,7 +245,7 @@ def rollout(
             noise = gens
         routes, logp, ent, _ = sample_offloads(model, params, inst, jobs_est, support,
                                                node_up, link_up, noise, temperature,
-                                               layout=lay)
+                                               layout=lay, fp_fn=fp_fn)
         prev_gen = st.generated
         start = st
         with torch.no_grad():

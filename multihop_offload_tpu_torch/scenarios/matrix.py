@@ -112,7 +112,8 @@ class _Programs:
         def gnn_eval(inst, jobs, gen=None):
             # mirrors sim.policies' gnn_fn: same actor matrix, same layout
             actor = actor_delay_matrix(model, inst, jobs,
-                                       default_support(model, inst, layout=lay))
+                                       default_support(model, inst, layout=lay),
+                                       layout=lay)
             if resolve_layout(lay).sparse:
                 inf = torch.full((), float("inf"), dtype=actor.node_delay.dtype,
                                  device=actor.node_delay.device)

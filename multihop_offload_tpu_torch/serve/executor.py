@@ -60,6 +60,7 @@ from multihop_offload_tpu_torch.obs import events as obs_events
 from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs import trace as obs_trace
 from multihop_offload_tpu_torch.obs.registry import registry as obs_registry
+from multihop_offload_tpu_torch.ops.fixed_point import resolve_fixed_point
 from multihop_offload_tpu_torch.ops.minplus import check_apsp_impl
 from multihop_offload_tpu_torch.precision import resolve_precision
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
@@ -125,7 +126,7 @@ class BucketExecutor:
 
     def __init__(self, model, layout=None, device=None, precision=None,
                  apsp_impl: str = "xla", prob: bool = False,
-                 slots: Optional[int] = None):
+                 slots: Optional[int] = None, fp_impl: str = "xla"):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.layout = resolve_layout(layout)
@@ -135,6 +136,11 @@ class BucketExecutor:
         self.precision = resolve_precision(precision)
         check_apsp_impl(apsp_impl)
         self.apsp_impl = apsp_impl
+        # the fixed-point core of `fp_impl` (JAX `executor.py:240`), resolved
+        # at each batch's link pad: with 'xla' (JAX's default) the sparse
+        # layout takes its segment-sum fixed point
+        resolve_fixed_point(fp_impl, 1)
+        self.fp_impl = fp_impl
         self.prob = bool(prob)
         self.dispatch_count = 0
         self.dispatches_by_width: Dict[Tuple[int, int], int] = {}
@@ -173,13 +179,16 @@ class BucketExecutor:
                                  gens, prob=self.prob,
                                  device=self.device if device is None else device,
                                  layout=self.layout, precision=self.precision,
-                                 apsp_impl=self.apsp_impl)
+                                 apsp_impl=self.apsp_impl, fp_fn=self._fp_fn(binst))
         d = outcome.decision
         return d.dst, d.is_local, d.delay_est, outcome.job_total
 
+    def _fp_fn(self, binst):
+        return resolve_fixed_point(self.fp_impl, binst.num_pad_links)[0]
+
     def baseline_step(self, binst, bjobs):
         o = baseline_policy(binst, bjobs, layout=self.layout, precision=self.precision,
-                            apsp_impl=self.apsp_impl)
+                            apsp_impl=self.apsp_impl, fp_fn=self._fp_fn(binst))
         d = o.decision
         return d.dst, d.is_local, d.delay_est, o.job_total
 

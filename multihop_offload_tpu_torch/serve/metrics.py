@@ -5,8 +5,8 @@ an `OffloadService` accumulates, reduced by `summary()` to the operator's
 numbers (requests/s, p50/p99 latency, per-bucket occupancy, padding waste,
 dispatches per request, and under the sharded executor the per-shard
 `shards` block).  Every mutation also mirrors into the process-wide
-`obs.registry` under `mho_serve_*`.  Not ported: `log_tb` (TensorBoard is
-not installed beside the card).
+`obs.registry` under `mho_serve_*`.  `log_tb` writes a snapshot of them
+as TensorBoard scalars (`train.tb_logging.ScalarLogger`, JAX `:234-252`).
 """
 
 from __future__ import annotations
@@ -157,6 +157,24 @@ class ServingStats:
     @property
     def dispatches(self) -> int:
         return sum(s.dispatches for s in self.buckets.values())
+
+    def log_tb(self, tb, step: int, queue_depth: int = 0) -> None:
+        """Scalar snapshot onto a TensorBoard event file (no-op when the
+        logger is inactive), JAX's tags."""
+        if not tb.active:
+            return
+        lat = summarize_latencies(self.latencies_s)
+        tb.log_scalar("serve/queue_depth", queue_depth, step)
+        tb.log_scalar("serve/served", self.served, step)
+        tb.log_scalar("serve/degraded", self.degraded, step)
+        tb.log_scalar("serve/dispatches", self.dispatches, step)
+        if lat["count"]:
+            tb.log_scalar("serve/latency_p50_ms", lat["p50_ms"], step)
+            tb.log_scalar("serve/latency_p99_ms", lat["p99_ms"], step)
+        for b, s in self.buckets.items():
+            if s.dispatches:
+                tb.log_scalar(f"serve/bucket{b}_occupancy",
+                              s.occupancy_sum / s.dispatches, step)
 
     def summary(self, wall_s: float = 0.0) -> dict:
         """The serving record, with the JAX package's keys."""

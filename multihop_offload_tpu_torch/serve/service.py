@@ -45,7 +45,11 @@ as bf16 bytes, and each dispatch squares in bf16 (K2 or K6 in bf16); the
 model must carry the policy's dtypes (`cli/serve.py:build_service` builds
 it so).  Each dispatch's APSP takes the route of `apsp_impl` (JAX `:90`,
 `ops.minplus.resolve_apsp`): `'xla'`, the default, squares at every N;
-`'pallas'` and `'auto'` take K3 above a padded N of 256.
+`'pallas'` and `'auto'` take K3 above a padded N of 256.  Its fixed point
+takes the core of `fp_impl` (JAX `:91`, default `'xla'`:
+`ops.fixed_point.resolve_fixed_point`), so a directly built sparse
+service runs the segment-sum fixed point and `mho-serve`, at the
+config's `'auto'`, K1.
 """
 
 from __future__ import annotations
@@ -125,6 +129,7 @@ class OffloadService:
         precision: Optional[str] = "fp32",
         layout=None,
         apsp_impl: str = "xla",
+        fp_impl: str = "xla",
         clock: Callable[[], float] = time.monotonic,
         capture_sample: float = 0.0,
         trace: bool = True,
@@ -154,7 +159,7 @@ class OffloadService:
 
             self.executor = ShardedBucketExecutor(
                 model, buckets, devices=mesh_devices, slots=slots, layout=self.layout,
-                precision=self.precision, apsp_impl=apsp_impl, prob=prob)
+                precision=self.precision, apsp_impl=apsp_impl, prob=prob, fp_impl=fp_impl)
             self.planner = PlacementPlanner(
                 len(buckets.pads), range(len(self.executor.fleet)), slots,
                 hysteresis=placement_hysteresis)
@@ -162,7 +167,7 @@ class OffloadService:
         else:
             self.executor = BucketExecutor(model, layout=self.layout, device=self.device,
                                            precision=self.precision, apsp_impl=apsp_impl,
-                                           prob=prob, slots=slots)
+                                           prob=prob, slots=slots, fp_impl=fp_impl)
         self.replan_every = max(1, int(replan_every))
         # per-bucket admitted arrivals in the current planning window (the
         # planner's rate signal) and per-device stuck-until deadlines

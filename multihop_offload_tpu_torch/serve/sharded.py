@@ -85,12 +85,12 @@ class ShardedBucketExecutor(BucketExecutor):
 
     def __init__(self, model, buckets, *, devices: Sequence, slots: int,
                  layout=None, precision=None, apsp_impl: str = "xla",
-                 prob: bool = False):
+                 prob: bool = False, fp_impl: str = "xla"):
         fleet = [canonical_device(resolve_device(d)) for d in devices]
         if not fleet:
             raise ValueError("sharded executor needs at least one device")
         super().__init__(model, layout=layout, device=fleet[0], precision=precision,
-                         apsp_impl=apsp_impl, prob=prob)
+                         apsp_impl=apsp_impl, prob=prob, fp_impl=fp_impl)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.buckets = buckets

@@ -88,6 +88,7 @@ def make_policy(
     precision=None,
     layout=None,
     objective=None,
+    fp_fn=None,
 ):
     """The per-round policy function of `sim.runner.simulate`.
 
@@ -97,7 +98,8 @@ def make_policy(
     compute dtype (JAX `:105-125`: W is squared in bf16, K2 on the card);
     the decision read-back stays an fp32 island.  The instances fed to the
     returned function must be built with `layout`.  `objective` weights
-    the `gnn` and `baseline` decisions (`decide_routes`)."""
+    the `gnn` and `baseline` decisions (`decide_routes`).  `fp_fn` is the
+    actor's fixed-point core (JAX `:104,164`; None: the layout's own)."""
     if kind not in POLICY_KINDS:
         raise ValueError(f"unknown sim policy '{kind}'; one of {POLICY_KINDS}")
     apsp_fn = resolve_precision(precision).wrap_apsp(None)
@@ -136,7 +138,8 @@ def make_policy(
         )
 
         actor = actor_delay_matrix(model, inst, jobs_est,
-                                   default_support(model, inst, layout=lay))
+                                   default_support(model, inst, layout=lay),
+                                   fp_fn=fp_fn, layout=lay)
         if lay.sparse:
             inf = torch.full((), float("inf"), dtype=actor.node_delay.dtype,
                              device=actor.node_delay.device)

@@ -47,8 +47,17 @@ as in JAX.  Process 0 (`multihost.runtime.process_index`) writes the CSVs,
 run logs and checkpoints; with `csv_write_all_hosts` every Evaluator
 process writes its own CSV.
 
-Refused, each with the ROADMAP item it waits on: `dropout > 0` and
-`tb_logdir`.
+The rest of JAX's knobs: `cfg.fp_impl` picks the fixed-point core of
+every method and of the training step (JAX `:222-227`,
+`ops.fixed_point.resolve_fixed_point`; `self.fp_path` reports it); the
+Trainer trains with `cfg.dropout` (JAX `:209,248`: each episode's masks
+from its own stream, on one device and on the data mesh; evaluation stays
+deterministic); its one-device step accumulates JAX's `DM_*` device
+metrics (`agent.train_step.train_devmetrics`) and flushes them into
+`last_devmetrics` at the step's sync (JAX `:230-271,706-710`; on the data
+mesh they stay host-observed, as there); and `cfg.tb_logdir` gets the
+replay loss, exploration and MSE loss as TensorBoard scalars from process
+0 (`train.tb_logging.ScalarLogger`, JAX `:627,779-782`).
 """
 
 from __future__ import annotations
@@ -79,7 +88,12 @@ from multihop_offload_tpu_torch.agent.replay import (
     replay_last,
     replay_remember,
 )
-from multihop_offload_tpu_torch.agent.train_step import episode_grad_norms, forward_backward
+from multihop_offload_tpu_torch.agent.train_step import (
+    episode_grad_norms,
+    forward_backward,
+    step_devmetrics,
+    train_devmetrics,
+)
 from multihop_offload_tpu_torch.config import Config
 from multihop_offload_tpu_torch.env.policies import baseline_policy, local_policy
 from multihop_offload_tpu_torch.graphs.instance import stack_instances
@@ -92,6 +106,7 @@ from multihop_offload_tpu_torch.models.chebconv import (
 )
 from multihop_offload_tpu_torch.models.tf_import import load_reference_checkpoint
 from multihop_offload_tpu_torch.multihost.runtime import local_devices, process_index
+from multihop_offload_tpu_torch.ops.fixed_point import resolve_fixed_point
 from multihop_offload_tpu_torch.ops.minplus import resolve_apsp
 from multihop_offload_tpu_torch.obs import prof as obs_prof
 from multihop_offload_tpu_torch.obs.spans import span
@@ -104,6 +119,7 @@ from multihop_offload_tpu_torch.parallel.mesh import canonical_device, make_mesh
 from multihop_offload_tpu_torch.train import checkpoints as ckpt_lib
 from multihop_offload_tpu_torch.train.data import DatasetCache, sample_jobsets
 from multihop_offload_tpu_torch.train.metrics import instance_metrics
+from multihop_offload_tpu_torch.train.tb_logging import ScalarLogger
 from multihop_offload_tpu_torch.utils.durable import atomic_write_json, load_json
 
 TRAIN_COLUMNS = [
@@ -121,7 +137,7 @@ TEST_COLUMNS = [
 @torch.no_grad()
 def eval_methods(model, inst, jobs, gen=None, device=None, layout=None,
                  prob: bool = False, compat_diagonal_bug: bool = False,
-                 precision=None, apsp_impl: str = "xla"):
+                 precision=None, apsp_impl: str = "xla", fp_fn=None, support=None):
     """Per-job delays (B, J) of the baseline, local and GNN methods on a
     batch of requests, on `device` (default CUDA), under `layout` (default
     dense) and the `precision` policy's APSP (None: fp32) on the route of
@@ -129,19 +145,21 @@ def eval_methods(model, inst, jobs, gen=None, device=None, layout=None,
     and local methods are greedy; the GNN samples its decision when `prob`
     (draws from `gen`: a generator, or a list of them over equal shares of
     the batch) and reads the reference's cycled diagonal under
-    `compat_diagonal_bug` (JAX `train/driver.py:283-303`)."""
+    `compat_diagonal_bug` (JAX `train/driver.py:283-303`).  `fp_fn` is
+    every method's fixed-point core (`ops.fixed_point.resolve_fixed_point`;
+    None: the layout's own); `support` replaces the GNN's default support."""
     dev = resolve_device(device)
     inst, jobs = inst.to(dev), jobs.to(dev)
     with phase("baseline"):
-        bl = baseline_policy(inst, jobs, gen, layout=layout,
-                             precision=precision, apsp_impl=apsp_impl).job_total
+        bl = baseline_policy(inst, jobs, gen, layout=layout, precision=precision,
+                             apsp_impl=apsp_impl, fp_fn=fp_fn).job_total
     with phase("local"):
-        loc = local_policy(inst, jobs, layout=layout).job_total
+        loc = local_policy(inst, jobs, layout=layout, fp_fn=fp_fn).job_total
     with phase("gnn"):
         gnn = forward_env(model, inst, jobs, gen, prob=prob,
                           compat_diagonal_bug=compat_diagonal_bug, device=dev,
                           layout=layout, precision=precision,
-                          apsp_impl=apsp_impl)[0].job_total
+                          apsp_impl=apsp_impl, fp_fn=fp_fn, support=support)[0].job_total
     return bl, loc, gnn
 
 
@@ -172,18 +190,19 @@ def train_init(model, cfg: Config, device=None) -> TrainState:
 
 def train_forward(model, state: TrainState, inst, jobs, cfg: Config,
                   gen: torch.Generator | None = None, explore: float | None = None,
-                  device=None, precision=None):
+                  device=None, precision=None, fp_fn=None):
     """Batched `forward_backward` under `cfg.layout`, `cfg.apsp_impl` and the
-    `precision` policy's APSP (None: fp32), every episode's gradient remembered in
-    `state.mem` (JAX `gnn_train_step`, `:243-279`).  Returns the step's
-    `TrainStepOutput`."""
+    `precision` policy's APSP (None: fp32), with the fixed-point core
+    `fp_fn` and, where `cfg.dropout > 0`, dropout masks drawn from `gen`,
+    every episode's gradient remembered in `state.mem` (JAX
+    `gnn_train_step`, `:243-279`).  Returns the step's `TrainStepOutput`."""
     dev = resolve_device(device)
     outs = forward_backward(
         model.to(dev), inst, jobs, gen,
         explore=cfg.explore if explore is None else explore, prob=cfg.prob,
         mse_weight=cfg.mse_weight, critic_weight=cfg.critic_weight, layout=cfg.layout,
         device=dev, compat_diagonal_bug=cfg.compat_diagonal_bug, precision=precision,
-        apsp_impl=cfg.apsp_impl)
+        apsp_impl=cfg.apsp_impl, fp_fn=fp_fn, dropout=cfg.dropout > 0)
     replay_remember(state.mem, outs.grads, outs.loss_critic, outs.loss_mse)
     return outs
 
@@ -207,14 +226,14 @@ def train_replay(model, state: TrainState, cfg: Config,
 
 def train_step(model, state: TrainState, inst, jobs, cfg: Config,
                gen: torch.Generator | None = None, explore: float | None = None,
-               device=None, precision=None) -> TrainReport:
+               device=None, precision=None, fp_fn=None) -> TrainReport:
     """One training step on a batch of B episodes, on `device` (default
     CUDA), under the `precision` policy (None: fp32; the model carries its
     own dtypes): `train_forward`, then, once `cfg.batch` gradients are
     stored, `train_replay`.  `explore` defaults to `cfg.explore`; `gen`
     feeds the exploration draws and the replay's sampling."""
     dev = resolve_device(device)
-    outs = train_forward(model, state, inst, jobs, cfg, gen, explore, dev, precision)
+    outs = train_forward(model, state, inst, jobs, cfg, gen, explore, dev, precision, fp_fn)
     replay_loss = torch.full((), float("nan"), device=dev)
     skipped = 0
     replayed = state.mem.count >= cfg.batch
@@ -245,19 +264,6 @@ def _step_fields(stats: dict) -> dict:
 
 
 # ---- the file loops -------------------------------------------------------
-
-
-def _refuse_unported(cfg: Config) -> None:
-    """Raise for a setting whose code is not ported, naming what it waits
-    on, rather than run something else quietly."""
-    if cfg.dropout > 0:
-        raise NotImplementedError(
-            f"dropout={cfg.dropout} is not ported (ROADMAP.md Queue 1 item 3); "
-            "the configurations of record use 0")
-    if cfg.tb_logdir:
-        raise NotImplementedError(
-            "tb_logdir: TensorBoard scalars are not ported (ROADMAP.md Queue 1 "
-            "item 3); use obs_log for the JSONL run log")
 
 
 def _pad_leading(tree, size: int):
@@ -317,13 +323,16 @@ class _Harness:
         if device is None and devices is not None:
             device = devices[0]
         self.precision = cfg.precision_policy("cuda" if device is None else device)
-        _refuse_unported(cfg)
         self.device = resolve_device(device)
         self.dtype = self.precision.param_dtype       # parameters
         self.store = self.precision.storage_dtype     # instances and job sets
         self.layout = resolve_layout(cfg.layout)
         self.data = DatasetCache.load(cfg, datapath, storage_dtype=self.store)
         _, self.apsp_path = resolve_apsp(cfg.apsp_impl, self.data.pad.n)
+        self.fp_fn, self.fp_path = resolve_fixed_point(cfg.fp_impl, self.data.pad.l)
+        # the one-device step's device metrics, flushed at its sync
+        self.devmetrics = train_devmetrics()
+        self.last_devmetrics: Optional[dict] = None
         self.model = make_model(cfg, layout=self.layout, policy=self.precision,
                                 generator=torch.Generator().manual_seed(cfg.seed))
         loaded = _load_reference_params(self.model, self.model_dir, self.dtype)
@@ -381,15 +390,18 @@ class _Harness:
         triple sharded by episodes and by whole files."""
         cfg = self.cfg
         self._train_step_dp = make_file_dp_train_step(
-            self.model, self.mesh, prob=cfg.prob, critic_weight=cfg.critic_weight,
-            mse_weight=cfg.mse_weight, layout=cfg.layout, precision=self.precision,
-            compat_diagonal_bug=cfg.compat_diagonal_bug, apsp_impl=cfg.apsp_impl)
+            self.model, self.mesh, dropout=cfg.dropout > 0, prob=cfg.prob,
+            critic_weight=cfg.critic_weight, mse_weight=cfg.mse_weight,
+            layout=cfg.layout, precision=self.precision,
+            compat_diagonal_bug=cfg.compat_diagonal_bug, apsp_impl=cfg.apsp_impl,
+            fp_fn=self.fp_fn)
 
         def methods(model, inst, jobs, gen):
             return eval_methods(model, inst, jobs, gen, device=jobs.src.device,
                                 layout=self.layout, prob=cfg.prob,
                                 compat_diagonal_bug=cfg.compat_diagonal_bug,
-                                precision=self.precision, apsp_impl=cfg.apsp_impl)
+                                precision=self.precision, apsp_impl=cfg.apsp_impl,
+                                fp_fn=self.fp_fn)
 
         self._eval_methods_dp = make_sharded_eval_step(methods, self.mesh)
         self._eval_files_dp = make_files_eval_step(methods, self.mesh)
@@ -444,14 +456,15 @@ class _Harness:
         """`train_forward` under the harness's policy: the step's
         `TrainStepOutput`."""
         return train_forward(self.model, self.state, inst, jobs, self.cfg, self.gen,
-                             explore, self.device, self.precision)
+                             explore, self.device, self.precision, self.fp_fn)
 
     def _eval_methods(self, inst, jobs, gen):
         cfg = self.cfg
         return eval_methods(self.model, inst, jobs, gen, device=self.device,
                             layout=self.layout, prob=cfg.prob,
                             compat_diagonal_bug=cfg.compat_diagonal_bug,
-                            precision=self.precision, apsp_impl=cfg.apsp_impl)
+                            precision=self.precision, apsp_impl=cfg.apsp_impl,
+                            fp_fn=self.fp_fn)
 
     def _replay(self):
         """`train_replay`: (mean sampled critic loss, skipped) as host values."""
@@ -681,6 +694,7 @@ class Trainer(_Harness):
         if best is not None:
             self.best_tau = float(best["rolling_gnn_test_tau"])
         gidx = self._resume_step
+        tb = ScalarLogger(cfg.tb_logdir if self.is_host0 else None)
         runlog = obs.start_run(cfg, role="train") if self.is_host0 else None
         b = cfg.num_instances
         bp = -(-b // self.n_dp) * self.n_dp  # the episode batch the mesh divides
@@ -713,6 +727,8 @@ class Trainer(_Harness):
                         outs = self._step_program(inst_b, jobs, explore)
                         grads, loss_c, loss_m = outs.grads, outs.loss_critic, outs.loss_mse
                         gnn_train = outs.delays.job_total
+                        dev_m = step_devmetrics(self.devmetrics, grads, loss_c, loss_m,
+                                                self.device)
                         bl, loc, gnn_test = self._eval_program(inst_b, jobs, self.gen)
                     stats = _step_stats(grads, loss_c, loss_m) if runlog is not None else None
                     next_build_s = pf.prefetch_next()
@@ -722,6 +738,9 @@ class Trainer(_Harness):
                         # train/step; eval gets its call only (JAX `:699-707`)
                         self._step_program.account(time.perf_counter() - td0)  # nondet-ok(same measurement)
                         self._eval_program.account(0.0)
+                        # the step's device accumulators, fetched at the sync
+                        # just paid for
+                        self.last_devmetrics = self.devmetrics.flush(dev_m)
                 wall = time.perf_counter() - t0  # nondet-ok(same measurement)
                 runtime = max(wall - next_build_s, 0.0) / (4 * b)
 
@@ -766,6 +785,10 @@ class Trainer(_Harness):
                     if verbose:
                         print(f"{gidx} Loss: {np.nanmean(losses):.2f}, "  # print-ok(verbose console)
                               f"explore: {explore:.4f}")
+                    if tb.active:
+                        tb.log_scalar("replay_loss", loss, gidx)
+                        tb.log_scalar("explore", explore, gidx)
+                        tb.log_scalar("mse_loss", float(torch.nanmean(loss_m)), gidx)
                     losses = []
                 if runlog is not None:
                     runlog.emit("step", epoch=epoch, gidx=gidx, fid=int(fid),
@@ -780,6 +803,7 @@ class Trainer(_Harness):
                 runlog.emit("epoch", epoch=epoch, files=len(order), gidx=gidx)
         # a later run() continues the visit counter, never reusing a step
         self._resume_step = gidx
+        tb.close()
         obs.finish_run(runlog)
         return csv_path
 

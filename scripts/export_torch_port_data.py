@@ -25,7 +25,9 @@ two committed `.npz` files instead:
   random K=3 initial parameters the demo runs with
   (`make_model(Config(cheb_k=3)).init(PRNGKey(0), ...)`, `:112-115`; their
   shapes, and so their values, do not depend on E, so they are drawn at a
-  small E).
+  small E); and ``MOBILITY_K1_init``, those of `scripts/mobility_rollout.py`
+  at its default K=1 (`make_model(Config(cheb_k=1)).init(PRNGKey(1), ...)`,
+  `:110-113`), drawn the same way.
 * `multihop_offload_tpu_torch/data/tf_ckpt/model_ChebConv_SCRATCH800_a5_c5_ACO_agent/`
   (``--tf``, with TensorFlow installed): the ``SCRATCH800_decay0.99``
   params of `weights.npz` as the reference ships its trained models, a
@@ -138,6 +140,22 @@ def large_init_params(cheb_k: int = 3, e: int = 16) -> dict:
     return jax.device_get(variables["params"])
 
 
+def mobility_init_params(cheb_k: int = 1, e: int = 16) -> dict:
+    """The mobility rollout's initial parameters (`make_model(Config(
+    cheb_k=k)).init(PRNGKey(1), zeros((E, 4)), zeros((E, E)))`,
+    `scripts/mobility_rollout.py:110-113`); their shapes do not depend on
+    E."""
+    import jax
+    import jax.numpy as jnp
+
+    from multihop_offload_tpu.config import Config
+    from multihop_offload_tpu.models import make_model
+
+    model = make_model(Config(cheb_k=cheb_k))
+    variables = model.init(jax.random.PRNGKey(1), jnp.zeros((e, 4)), jnp.zeros((e, e)))
+    return jax.device_get(variables["params"])
+
+
 def weight_arrays() -> dict:
     """The ``params`` leaves of the committed checkpoints and of the large
     demo's initial parameters, as numpy."""
@@ -146,6 +164,7 @@ def weight_arrays() -> dict:
     trees = {model: restore_checkpoint_raw(os.path.join(ROOT, path))["params"]
              for model, path in CHECKPOINTS.items()}
     trees["LARGE_K3_init"] = large_init_params()
+    trees["MOBILITY_K1_init"] = mobility_init_params()
     out = {}
     for model, params in trees.items():
         for layer, leaves in params.items():

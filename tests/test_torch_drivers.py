@@ -261,6 +261,8 @@ def test_instance_metrics_match_jax():
 ])
 def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
     kw = common(tiny, tmp_path)
+    if "tb_logdir" in setting:
+        setting = {"tb_logdir": str(tmp_path / setting["tb_logdir"])}
     # a TF-format checkpoint in the model directory waited on item 4, which
     # is done: both drivers load it (its weights, no alive-flip)
     if setting.pop("tf_checkpoint", False):
@@ -307,9 +309,22 @@ def test_unported_settings_are_refused(tiny, tmp_path, setting, waits):
             with pytest.raises(ValueError, match=waits):
                 cls(Config(**kw, **setting), device="cpu")
         return
-    for cls in (td.Evaluator, td.Trainer):
-        with pytest.raises(NotImplementedError, match=waits):
-            cls(Config(**kw, **setting), device="cpu")
+    # item 3's exceptions are done: fp_impl takes JAX's values and reports
+    # JAX's path, the Trainer trains with dropout and writes TensorBoard
+    # scalars
+    if "fp_impl" in setting:
+        for cls in (td.Evaluator, td.Trainer):
+            assert cls(Config(**kw, **setting), device="cpu").fp_path == "pallas"
+        return
+    tr = td.Trainer(Config(**kw, **setting, batch=2), device="cpu")
+    rows = read_rows(tr.run(epochs=1, files_limit=1, verbose=False))
+    assert len(rows) == 4 * 4 and all(np.isfinite(float(r["tau"])) for r in rows)
+    assert np.isfinite(tr.replay_losses).all() and len(tr.replay_losses) == 1
+    if "tb_logdir" in setting:
+        assert any(f.startswith("events.out.tfevents.")
+                   for f in os.listdir(setting["tb_logdir"]))
+    else:
+        assert tr.model.dropout == setting["dropout"]
 
 
 def test_cli_test_runs_on_the_cpu_and_refuses_a_missing_card(tiny, tmp_path, capsys):
@@ -321,10 +336,14 @@ def test_cli_test_runs_on_the_cpu_and_refuses_a_missing_card(tiny, tmp_path, cap
     assert len(rows) == 4 * 2 * 3 and list(rows[0]) == td.TEST_COLUMNS
     assert "test results written to" in capsys.readouterr().out
     for flag, err in ((["--apsp_impl", "bogus"], ValueError),
-                      (["--fp_impl", "pallas"], NotImplementedError),
+                      (["--fp_impl", "bogus"], ValueError),
                       (["--mesh_graph", "2"], ValueError)):
         with pytest.raises(err):
             cli_test.main(args + ["--device", "cpu"] + flag)
+    # fp_impl takes JAX's values; on the dense layout every core computes
+    # the one fixed point, K1's plain version here
+    assert_rows_equal(read_rows(cli_test.main(args + ["--device", "cpu", "--fp_impl",
+                                                      "pallas"])), rows)
     again = cli_test.main(args + ["--device", "cpu", "--csv_write_all_hosts", "true"])
     assert_rows_equal(read_rows(again), rows)
     if not torch.cuda.is_available():

@@ -512,12 +512,19 @@ def test_sparse_train_step_launches_k1_k4_k6(cuda):
     counts = (tfp.fixed_point_cuda.launches, tcc.chebconv_propagate_cuda.launches,
               tmp.apsp_coo_cuda.launches)
     rep = train_step(model, state, inst, jobs, cfg,
-                     gen=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+                     gen=torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                     fp_fn=tfp.resolve_fixed_point("pallas", inst.num_pad_links)[0])
     torch.cuda.synchronize()
     after = (tfp.fixed_point_cuda.launches, tcc.chebconv_propagate_cuda.launches,
              tmp.apsp_coo_cuda.launches)
-    # K1: actor, empirical evaluator, critic; K4: 5 forward + 4 backward; K6: 1
+    # K1 (fp_impl 'pallas'): actor, empirical evaluator, critic; K4: 5
+    # forward + 4 backward; K6: 1
     assert [a - b for a, b in zip(after, counts)] == [3, 9, 1]
+    # with no core the sparse layout's segment-sum runs: no K1
+    train_step(model, state, inst, jobs, cfg, gen=torch.Generator(device=cuda).manual_seed(0),
+               device=cuda)
+    torch.cuda.synchronize()
+    assert tfp.fixed_point_cuda.launches == after[0]
     assert rep.replayed and torch.isfinite(rep.loss_critic).all()
     assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
 
@@ -1067,7 +1074,7 @@ def test_apsp_takes_blocked_fw_bf16_above_256(cuda):
 
 def test_bf16_sparse_train_step_launches_the_bf16_kernels(cuda):
     """`train_step` under the bf16 policy on the sparse layout (SPECTRAL_K2,
-    8 episodes): K1 3 (on fp32: actor, empirical evaluator, critic), K4's
+    8 episodes, fp_impl 'pallas'): K1 3 (on fp32: actor, empirical evaluator, critic), K4's
     bf16 forward 5 (one a layer), its transposed walk 4 (layer 0 needs no
     d x), K6 in bf16 1 with its squarings; no float32 K4, K6 or K2; finite
     losses, the parameters changed and still fp32."""
@@ -1088,7 +1095,7 @@ def test_bf16_sparse_train_step_launches_the_bf16_kernels(cuda):
     reset_kernel_counts()
     rep = train_step(model, state, inst, jobs, cfg,
                      gen=torch.Generator(device=cuda).manual_seed(0), device=cuda,
-                     precision=pol)
+                     precision=pol, fp_fn=tfp.fixed_point)
     torch.cuda.synchronize()
     c = kernel_counts()
     assert (c["fixed_point"], c["chebconv_bf16"], c["chebconv_bf16_t"], c["coo_apsp_bf16"],
@@ -1121,7 +1128,8 @@ def test_bf16_eval_methods_card_matches_cpu(cuda, layout, model):
         m = load_model(model, device=dev, layout=layout, policy=pol)
         reset_kernel_counts()
         outs[str(dev)] = [t.cpu() for t in eval_methods(m, inst, jobs, device=dev,
-                                                         layout=layout, precision=pol)]
+                                                         layout=layout, precision=pol,
+                                                         fp_fn=tfp.fixed_point)]
         torch.cuda.synchronize()
         counts = kernel_counts()
     assert counts["fixed_point"] > 0 and counts["minplus"] == 0
@@ -1523,7 +1531,8 @@ def test_gpu_rl_train_step_launches_k2_backward(cuda):
 def test_gpu_rl_train_step_under_bf16(cuda, kw):
     """One `RLTrainer` step under the bf16 settings on the card and on the
     CPU under the same injected draws (the smoke's fleet, 2 lanes, 20
-    slots, temperature 1000): K1, K2 float32 and K2's backward launch, and
+    slots, temperature 1000): K1 (dense only: the sparse rollout takes the
+    segment-sum fixed point), K2 float32 and K2's backward launch, and
     on the sparse K = 2 step K4's bf16 forward (5 an actor forward) and
     transposed walk (4 a backward); K2 bf16 never; each lane whose choices
     all agree has the CPU's gradient within 2e-2 of its norm."""
@@ -1559,7 +1568,9 @@ def test_gpu_rl_train_step_under_bf16(cuda, kw):
     _, ref, _ = step("cpu")
     tr, out, counts = step(cuda)
     sparse = kw.get("layout") == "sparse"
-    assert counts["fixed_point"] == cfg.rl_rounds
+    # the rollout takes no fixed-point core, as JAX's: the sparse layout's
+    # segment-sum, K1 on the dense layout
+    assert counts["fixed_point"] == (0 if sparse else cfg.rl_rounds)
     assert counts["minplus"] == cfg.rl_rounds * tmp.squaring_count(spec.num_nodes)
     assert counts["minplus_bwd"] == cfg.rl_rounds * tmp.bwd_launches(
         tmp.squaring_count(spec.num_nodes))
@@ -1677,3 +1688,97 @@ def test_counted_kernel_facts_equal_the_plain_versions(cuda):
     _, cpu = _counted(prop, sup, x)
     _, card = _counted(prop, support(inst.to(cuda)), x.to(cuda))
     assert card == cpu and card["kernels"] == {"chebconv": 1, "chebconv_t": 1}, (card, cpu)
+
+
+# ---- the segment-sum fixed point, COO products, fp_impl, dropout ------------
+
+
+def test_segment_sum_fixed_point_has_the_same_bits_on_every_call(cuda):
+    """The sparse layout's fixed point with no core (the segment-sum over
+    the conflict list): the same bits on two calls, within 1e-5 of the
+    CPU's and of K1 on the same batch, and no K1 launch."""
+    from multihop_offload_tpu_torch.env.queueing import interference_fixed_point
+
+    inst, _, _ = _sparse_batch("paper", 2, slice(0, 16))
+    g = torch.Generator().manual_seed(3)
+    lam = torch.rand(inst.link_rates.shape, generator=g) * 30.0 * inst.link_mask
+    cpu = interference_fixed_point(inst, lam, layout="sparse")
+    card_inst, card_lam = inst.to(cuda), lam.to(cuda)
+    before = tfp.fixed_point_cuda.launches
+    first = interference_fixed_point(card_inst, card_lam, layout="sparse")
+    second = interference_fixed_point(card_inst, card_lam, layout="sparse")
+    torch.cuda.synchronize()
+    assert tfp.fixed_point_cuda.launches == before
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.cpu(), cpu, rtol=1e-5, atol=0)
+    k1 = interference_fixed_point(card_inst, card_lam, fp_fn=tfp.fixed_point, layout="sparse")
+    assert tfp.fixed_point_cuda.launches == before + 1
+    torch.testing.assert_close(first, k1, rtol=1e-5, atol=0)
+
+
+def test_coo_matmul_has_the_same_bits_and_gradient_on_every_call(cuda):
+    from multihop_offload_tpu_torch.ops import sparse as tsp
+
+    rng = np.random.default_rng(2)
+    mats = (rng.uniform(size=(4, 328, 328)) * (rng.uniform(size=(4, 328, 328)) < 0.05))
+    coo = tsp.dense_to_coo(mats.astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(4, 328, 32)).astype(np.float32)).to(cuda)
+    x.requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(4, 328, 32)).astype(np.float32)).to(cuda)
+    outs = []
+    for _ in range(2):
+        y = tsp.coo_matmul(coo, x)
+        outs.append((y.detach(), torch.autograd.grad(y, x, g)[0]))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    dense = torch.from_numpy(mats).to(cuda)
+    torch.testing.assert_close(outs[0][0].double(), dense @ x.detach().double(),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[0][1].double(), dense.transpose(1, 2) @ g.double(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl,k1", [("pallas", 2), ("auto", 2), ("xla", 0)])
+def test_fp_impl_picks_the_fixed_point_on_the_card(cuda, impl, k1):
+    """`forward_env` on the sparse layout: K1 launches twice (the actor,
+    the scoring) under 'pallas' and 'auto' (L <= 928), never under 'xla'
+    (the segment-sum); the decisions agree with the CPU's."""
+    from multihop_offload_tpu_torch.agent.policy import forward_env
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+
+    inst, jobs, _ = _sparse_batch("paper", 2, slice(0, 8))
+    model = load_model("SPECTRAL_K2", device=cuda, layout="sparse")
+    fn, path = tfp.resolve_fixed_point(impl, inst.num_pad_links)
+    assert path == ("xla" if impl == "xla" else "pallas")
+    before = tfp.fixed_point_cuda.launches
+    out, _ = forward_env(model, inst, jobs, device=cuda, layout="sparse", fp_fn=fn)
+    torch.cuda.synchronize()
+    assert tfp.fixed_point_cuda.launches - before == k1
+    ref, _ = forward_env(load_model("SPECTRAL_K2", device="cpu", layout="sparse"), inst, jobs,
+                         device="cpu", layout="sparse", fp_fn=fn)
+    agree = (out.decision.dst.cpu() == ref.decision.dst)[jobs.mask].double().mean()
+    assert agree >= 0.99
+
+
+def test_dropout_train_step_on_the_card_matches_cpu_under_its_masks(cuda):
+    """`forward_backward` with dropout on the card: masks drawn from the
+    step's generator, one stream an episode, the same masks fed to the CPU
+    step give its losses within 1e-4."""
+    from multihop_offload_tpu_torch.agent.train_step import (
+        episode_dropout_masks,
+        forward_backward,
+    )
+    from multihop_offload_tpu_torch.models.chebconv import load_model
+
+    inst, jobs, _ = _sparse_batch("paper", 2, slice(2, 6))
+    model = load_model("SPECTRAL_K2", device=cuda, layout="sparse")
+    model.dropout = 0.1
+    masks = episode_dropout_masks(model, jobs.src.shape[0], inst.ext_mask.shape[1],
+                                  torch.Generator(device=cuda).manual_seed(4), cuda)
+    card = forward_backward(model, inst, jobs, layout="sparse", device=cuda,
+                            dropout_masks=masks)
+    cpu_model = load_model("SPECTRAL_K2", device="cpu", layout="sparse")
+    cpu_model.dropout = 0.1
+    cpu = forward_backward(cpu_model, inst, jobs, layout="sparse", device="cpu",
+                           dropout_masks=[m.cpu() for m in masks])
+    torch.testing.assert_close(card.loss_critic.cpu(), cpu.loss_critic, rtol=1e-4, atol=0)
+    assert all(torch.isfinite(v).all() for v in card.grads.values())

@@ -216,7 +216,8 @@ def test_port_imports_no_jax_side():
                    "loop/__init__.py", "loop/experience.py", "loop/refit.py",
                    "loop/validate.py", "loop/canary.py", "loop/promote.py", "cli/loop.py",
                    "obs/prof.py", "obs/memwatch.py", "cli/prof.py", "chaos/drills.py",
-                   "chaos/fuzz.py", "cli/chaos.py", "cli/fuzz.py"):
+                   "chaos/fuzz.py", "cli/chaos.py", "cli/fuzz.py", "train/tb_logging.py",
+                   "mobility_rollout.py", "ops/fixed_point.py", "env/queueing.py"):
         assert module in rel, module
     for path in files:
         for mod in _imports(path):

@@ -73,3 +73,140 @@ def test_random_walk_degenerate_inputs_match_jax():
         with pytest.raises(RuntimeError, match="no connected perturbation"):
             mod.random_walk(far, n_moving=1, step_std=0.01, max_tries=3,
                             rng=np.random.default_rng(0))
+
+
+# ---- the mobility rollout (`scripts/mobility_rollout.py`) ----------------------
+
+
+ROLLOUT = dict(n=12, steps=2, rounds=2, slots=150)
+
+
+@pytest.fixture(scope="module")
+def rollouts():
+    """The JAX script and the port's `mobility_rollout.rollout` at n = 12,
+    2 steps, both float64 (the JAX run's Config and FleetSim widened by
+    patching their dtype defaults), the port under the JAX run's own
+    simulator uniforms (rebuilt from its keys `fold_in(PRNGKey(2), 1000 +
+    8 step + policy)`) and its initial parameters.  Each run's topology
+    updates, and the JAX run's analytic totals and composed taus, are
+    recorded as they are made."""
+    import contextlib
+    import functools
+    import importlib.util
+    import io
+    import json
+    import os
+    import sys
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import multihop_offload_tpu.config as jconfig
+    import multihop_offload_tpu.sim as jsim
+    from multihop_offload_tpu.models import make_model as j_make_model
+    from multihop_offload_tpu.sim import fidelity as jfid
+    from multihop_offload_tpu_torch import mobility_rollout as tmr
+    from multihop_offload_tpu_torch.models.chebconv import params_from_jax
+    from multihop_offload_tpu_torch.sim.runner import InjectedDraws
+    from tests.test_torch_scenarios import _draw_fn
+
+    from multihop_offload_tpu.obs.registry import registry as j_registry
+    from multihop_offload_tpu_torch.obs.registry import registry
+
+    # a process keeps one queue-depth histogram cap: this module's
+    # simulators must neither meet an earlier test's cap nor leave theirs
+    # to a later test
+    registry().reset()
+    j_registry().reset()
+    seen = {"j_topo": [], "t_topo": [], "j_ana": [], "j_tau": []}
+
+    def recorder(fn, into):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen[into].append((out[0].adj.copy(), np.asarray(out[1]).copy()))
+            return out
+        return call
+
+    def ana(inst, outcome):
+        seen["j_ana"].append(np.asarray(outcome.job_total))
+        return jfid_ana(inst, outcome)
+
+    def tau(*a):
+        out = jfid_tau(*a)
+        seen["j_tau"].append(np.asarray(out))
+        return out
+
+    jfid_ana, jfid_tau = jfid.analytic_link_delay, jfid.composed_job_tau
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts",
+                        "mobility_rollout.py")
+    spec = importlib.util.spec_from_file_location("jax_mobility_rollout", path)
+    script = importlib.util.module_from_spec(spec)
+    argv = ["mobility_rollout.py"] + [f"--{k}={v}" for k, v in ROLLOUT.items()]
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jconfig, "Config", functools.partial(jconfig.Config, dtype="float64"))
+        mp.setattr(jsim, "FleetSim", functools.partial(jsim.FleetSim, dtype=jnp.float64))
+        mp.setattr(jmob, "topology_update", recorder(jmob.topology_update, "j_topo"))
+        mp.setattr(jfid, "analytic_link_delay", ana)
+        mp.setattr(jfid, "composed_job_tau", tau)
+        mp.setattr(sys, "argv", argv)
+        spec.loader.exec_module(script)
+        with contextlib.redirect_stdout(out):
+            assert script.main() == 0
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+
+    # the JAX run's initial parameters, drawn as the script draws them
+    e = 8 * 2 + 8 * 8  # any E: the parameters' shapes do not depend on it
+    variables = j_make_model(jconfig.Config(cheb_k=1, dtype="float64")).init(
+        jax.random.PRNGKey(1), jnp.zeros((e, 4)), jnp.zeros((e, e)))
+
+    def draws(step, pi, sim):
+        keys = jax.random.fold_in(jax.random.PRNGKey(2), 1000 + 8 * step + pi)[None]
+        sp = sim.spec
+        widths = (sp.num_links, sp.num_links, sp.num_nodes, sp.num_streams)
+        u = _draw_fn(widths, sim.rounds, sim.slots_per_round)(keys)
+        return InjectedDraws(*[torch.from_numpy(np.array(x)) for x in u])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmob, "topology_update", recorder(tmob.topology_update, "t_topo"))
+        got = tmr.rollout(ROLLOUT, variables=params_from_jax(jax.device_get(variables)),
+                          draws=draws, device="cpu", dtype=torch.float64, verbose=False)
+    yield got, lines, seen
+    registry().reset()
+    j_registry().reset()
+
+
+def test_rollout_topologies_and_link_maps_match_jax(rollouts):
+    got, lines, seen = rollouts
+    assert len(seen["t_topo"]) == len(seen["j_topo"]) == ROLLOUT["steps"]
+    for (ta, tm), (ja, jm) in zip(seen["t_topo"], seen["j_topo"]):
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tm, jm)
+    for row, want in zip(got["per_step"], lines):
+        assert (row["step"], row["links"], row["new_links"]) == (
+            want["step"], want["links"], want["new_links"])
+
+
+def test_rollout_taus_and_delivery_match_jax(rollouts):
+    """Analytic taus within 1e-9 of the JAX run's (its recorded job
+    totals); simulated taus within 1e-9 of its composed taus; delivered
+    ratios and the summary's conservation as the JAX run prints them."""
+    from multihop_offload_tpu_torch.mobility_rollout import POLICIES
+
+    got, lines, seen = rollouts
+    rows, summary = lines[:-1], lines[-1]
+    i = 0
+    for row, want in zip(got["per_step"], rows):
+        for name in POLICIES:
+            total, tau_j = seen["j_ana"][i], seen["j_tau"][i]
+            mask = total != 0
+            assert row[f"{name}_analytic"] == pytest.approx(total[mask].mean(), rel=1e-9)
+            assert row[name] == pytest.approx(np.nanmean(np.where(mask, tau_j, np.nan)),
+                                              rel=1e-9)
+            assert round(row[f"{name}_delivered"], 3) == want[f"{name}_delivered"]
+            assert round(row[name], 2) == want[name]
+            i += 1
+    assert got["summary"]["conservation_ok"] == summary["conservation_ok"] is True
+    assert set(got["summary"]) == set(summary)
+    assert got["summary"]["link_churn_per_step"] == summary["link_churn_per_step"]

@@ -534,18 +534,12 @@ def test_sim_baseline_bf16_round_bit_for_bit():
 
 
 def test_bf16_refusals_name_their_roadmap_items(tiny, tmp_path):
-    """Under bf16 the drivers still refuse what waits on another ROADMAP
-    item, naming it; the Trainer (item 10), K3 (item 11), K4's backward in
-    bf16, a TF-format checkpoint (item 4) and the data mesh (item 7) now
-    run: both drivers build under bf16 on a 2-device mesh and load the
+    """Under bf16 the Trainer (item 10), K3 (item 11), K4's backward in
+    bf16, a TF-format checkpoint (item 4) and the data mesh (item 7) run: both drivers build under bf16 on a 2-device mesh and load the
     checkpoint into their fp32 parameters, `blocked_fw` and the APSP above
     a padded 256 return bf16, and d x of the bf16 propagate is the
     transposed walk's plain version."""
     kw = {**common(tiny, tmp_path), "dtype": "float32", "precision": "bf16"}
-    for setting, waits in (({"dropout": 0.1}, "item 3"), ({"tb_logdir": "tb"}, "item 3")):
-        for cls in (td.Evaluator, td.Trainer):
-            with pytest.raises(NotImplementedError, match=waits):
-                cls(Config(**kw, **setting), device="cpu")
     for cls in (td.Evaluator, td.Trainer):
         h = cls(Config(**kw, mesh_data=2), device="cpu", devices=[torch.device("cpu")] * 2)
         assert h.n_dp == 2 and h.precision == T16
